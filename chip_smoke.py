@@ -1,0 +1,479 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (mmlspark_tpu_torch) on one NVIDIA GPU.
+
+Run from the root of a checkout, with no arguments, on a machine with one
+H100:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from the checkout (`nvcc`, into
+build/mmlspark_tpu_torch/), holds every kernel against its plain PyTorch
+version on the card, drives the port's main path — GBDTClassifier fit on the
+Adult-Census shape (32,768 rows x 14 features, 31 leaves, 100 rounds), then
+transform and ComputeModelStatistics — and shows through the kernels' launch
+counters that the path ran on them. It prints one JSON line per phase:
+
+  env          torch/CUDA versions and the card (the nvidia-smi name and
+               power limit also stand alone on the next line)
+  build        nvcc seconds, and which libraries came from the cache
+  kernels      each kernel against its plain version at the main path's
+               shapes: errors, repeatability, median ms (CUDA events), the
+               plain version's and one PyTorch library call's ms, and the
+               bound (least time the card could take)
+  slice_adult  the main path: fit seconds, launches (must be 3,100),
+               train accuracy > 0.7, held-out AUC > 0.75, and the card's
+               scores equal to the host walk bit for bit
+  profile_adult a 10-round Adult fit under torch.profiler: device kernel
+               time by name against wall time
+  slice_parity the same data, 10 rounds, fitted on "cpu" and on "cuda":
+               equal trees, or trees that part only at a printed near-tie
+  slice_higgs  1,048,576 x 28, 63 leaves, uint8 bins, 5 rounds
+
+then the {"kernels": [...]} summary, and last
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Any failed check raises, so the script exits nonzero; it also exits nonzero,
+printing no result, without a CUDA device or outside a checkout.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
+H100_F32_OPS_PER_S = 67e12        # f32 outside the tensor cores
+HIST_BINS = 256
+
+
+def emit(doc: dict) -> None:
+    print(json.dumps(doc), flush=True)
+
+
+def make_dataset(n: int, f: int, seed: int = 7):
+    """Synthetic stand-in for Adult Census (copy of bench.py make_dataset):
+    mixed informative numeric features, binary label with label noise."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, f))
+    x[:, 3] = np.round(np.abs(x[:, 3]) * 5)          # discrete-ish columns
+    x[:, 7] = np.round(np.abs(x[:, 7]) * 3)
+    logits = (
+        x[:, 0] - 0.7 * x[:, 1] + 0.4 * x[:, 2] * x[:, 4] + 0.2 * x[:, 3]
+    )
+    y = (logits + rng.normal(scale=0.8, size=n) > 0).astype(np.float64)
+    return x, y
+
+
+def make_dataset_wide(n: int, f: int, seed: int = 9):
+    """The Higgs-shaped data set (copy of bench.py make_dataset_wide)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    logits = x[:, 0] - 0.6 * x[:, 1] + 0.3 * x[:, 2] * x[:, 3] + 0.2 * x[:, 4]
+    y = (logits + rng.normal(scale=0.9, size=n) > 0).astype(np.float64)
+    return x.astype(np.float64), y
+
+
+def median_ms(fn, reps: int = 30, warmup: int = 5, before=None) -> float:
+    """Median device time of fn() over `reps` calls, each between two CUDA
+    events; `before` runs outside the timed region. A sleep kernel holds
+    the stream while the calls are queued, so the card runs them back to
+    back and the events time the device work, not the host's launch gaps."""
+    for _ in range(warmup):
+        if before:
+            before()
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    torch.cuda._sleep(200_000_000)
+    for _ in range(reps):
+        if before:
+            before()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def host_us_per_call(fn, reps: int = 200) -> float:
+    """Host wall time of one call, launch overhead included (synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def phase_env() -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
+          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi})
+    print(smi, flush=True)
+    return {"nvidia_smi": smi}
+
+
+def phase_build() -> None:
+    from mmlspark_tpu_torch.core import kernels
+
+    report = kernels.build()
+    emit({"phase": "build", "nvcc_seconds": report["seconds"],
+          "built": report["built"], "from_cache": report["cached"]})
+
+
+def _hist_inputs(n: int, f: int, bin_dtype, mask_frac: float, seed: int,
+                 quantized: bool = True):
+    """Bins uniform over 256 values; binary-objective-like stats (grad in
+    [-1, 1], hess in [0, 0.25], count 1) on the kept rows, zeros elsewhere.
+    Quantized, grad and hess are multiples of 2**-10, so every partial sum
+    is exact in f32 and any correct summation order gives the same bits:
+    the check then isolates the kernel's indexing from rounding order."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bins = torch.randint(0, HIST_BINS, (n, f), generator=g, device="cuda").to(bin_dtype)
+    mask = (torch.rand(n, generator=g, device="cuda") < mask_frac).float()
+    grad = torch.rand(n, generator=g, device="cuda") * 2 - 1
+    hess = torch.rand(n, generator=g, device="cuda") * 0.25
+    if quantized:
+        grad, hess = torch.round(grad * 1024) / 1024, torch.round(hess * 1024) / 1024
+    stats = torch.stack([grad * mask, hess * mask, (mask > 0).float()], dim=-1).contiguous()
+    return bins, stats
+
+
+def _hist_f64(bins: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+    """The histogram summed in float64: the exact value to within far less
+    than f32 rounding, to grade f32 sums taken in different orders."""
+    n, f = bins.shape
+    ids = (bins.long() + torch.arange(f, device=bins.device) * HIST_BINS).reshape(-1)
+    out = torch.zeros((f * HIST_BINS, 3), dtype=torch.float64, device=bins.device)
+    out.index_add_(0, ids, stats.double()[:, None, :].expand(n, f, 3).reshape(-1, 3))
+    return out.view(f, HIST_BINS, 3)
+
+
+def phase_kernels() -> dict:
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram, histogram_torch
+
+    shapes = [
+        ("adult_int32", 32768, 14, torch.int32, 1.0),
+        ("adult_uint8", 32768, 14, torch.uint8, 1.0),
+        ("adult_int32_masked3pct", 32768, 14, torch.int32, 0.03),
+        ("ragged_int32", 10007, 14, torch.int32, 1.0),
+        ("higgs_uint8", 1 << 20, 28, torch.uint8, 1.0),
+    ]
+    rows = []
+    for i, (name, n, f, dt, frac) in enumerate(shapes):
+        bins, stats = _hist_inputs(n, f, dt, frac, seed=100 + i)
+        first = histogram(bins, stats, HIST_BINS)
+        again = histogram(bins, stats, HIST_BINS)
+        plain = histogram_torch(bins, stats, HIST_BINS)
+        torch.cuda.synchronize()
+        diff = (first - plain).abs()
+        max_abs = diff.max().item()
+        max_rel = (diff / plain.abs().clamp_min(1e-30)).max().item()
+        same_bits = torch.equal(first, again)
+        assert torch.allclose(first, plain, rtol=1e-5, atol=1e-5), (name, max_abs, max_rel)
+        assert same_bits, f"{name}: two launches gave different bits"
+        # unquantized stats: the kernel and the plain version (atomics in
+        # no fixed order) round differently. Both are graded against the
+        # float64 sum, relative to the bin's absolute mass sum(|stats|),
+        # which bounds the rounding of any summation order
+        _, fstats = _hist_inputs(n, f, dt, frac, seed=100 + i, quantized=False)
+        exact = _hist_f64(bins, fstats)
+        mass = _hist_f64(bins, fstats.abs())
+        fk, fp = histogram(bins, fstats, HIST_BINS), histogram_torch(bins, fstats, HIST_BINS)
+        float_err = (fk - fp).abs().max().item()
+        kernel_vs_mass = ((fk.double() - exact).abs() / mass.clamp_min(1e-30)).max().item()
+        plain_vs_mass = ((fp.double() - exact).abs() / mass.clamp_min(1e-30)).max().item()
+        assert kernel_vs_mass <= 1e-5, (name, kernel_vs_mass)
+        del exact, mass, fk, fp
+
+        kernel_ms = median_ms(lambda: histogram(bins, stats, HIST_BINS))
+        call_us = host_us_per_call(lambda: histogram(bins, stats, HIST_BINS))
+        plain_ms = median_ms(lambda: histogram_torch(bins, stats, HIST_BINS), reps=20)
+        ids = (bins.long() + torch.arange(f, device="cuda") * HIST_BINS).reshape(-1)
+        data = stats[:, None, :].expand(n, f, 3).reshape(-1, 3)
+        out = torch.zeros((f * HIST_BINS, 3), device="cuda")
+        library_ms = median_ms(lambda: out.index_add_(0, ids, data), reps=20,
+                               before=out.zero_)
+        # the least the function must move: every row's stats (to see which
+        # rows are kept), the bins of the kept rows, the output once
+        kept = int((stats != 0).any(dim=1).sum().item())
+        bytes_moved = (kept * f * bins.element_size() + stats.numel() * 4
+                       + f * HIST_BINS * 3 * 4)
+        ops = kept * f * 3
+        bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+        ops_ms = ops / H100_F32_OPS_PER_S * 1e3
+        rows.append({
+            "shape": name, "n": n, "features": f, "bins": HIST_BINS,
+            "bin_dtype": str(dt).replace("torch.", ""), "rows_kept": frac,
+            "rows_with_stats": kept,
+            "max_abs_err": max_abs, "max_rel_err": max_rel, "same_bits": same_bits,
+            "float_stats_max_abs_err": float_err,
+            "float_stats_kernel_err_over_mass": kernel_vs_mass,
+            "float_stats_plain_err_over_mass": plain_vs_mass,
+            "ms": kernel_ms, "host_us_per_call": call_us,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bytes": bytes_moved, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_us": max(bytes_ms, ops_ms) * 1e3,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        })
+        del bins, stats, first, again, plain, ids, data, out, fstats
+    emit({"phase": "kernels", "histogram": rows})
+    return {"histogram": rows}
+
+
+def _table(x, y):
+    from mmlspark_tpu_torch.core import Table
+
+    return Table({"features": x, "label": y})
+
+
+def _metrics(scored) -> dict:
+    from mmlspark_tpu_torch.automl import ComputeModelStatistics
+
+    row = ComputeModelStatistics(scored_labels_col="prediction").transform(scored)
+    return {"accuracy": float(row["accuracy"][0]), "auc": float(row["AUC"][0])}
+
+
+def _grow_one_tree_without_sync(x, y) -> None:
+    """One tree on the card under sync debug mode "error": the split loop
+    must not read anything back to the host."""
+    from mmlspark_tpu_torch.gbdt.binning import BinMapper
+    from mmlspark_tpu_torch.gbdt.engine import GrowConfig, make_grow_fn
+
+    mapper = BinMapper(max_bin=255).fit(x)
+    bins = torch.as_tensor(mapper.transform(x), device="cuda")
+    nb = max(int(mapper.num_bins.max()), 2)
+    grow = make_grow_fn(x.shape[1], nb, GrowConfig(num_leaves=31), mapper.num_bins,
+                        np.zeros(x.shape[1], bool), device="cuda")
+    yt = torch.as_tensor(y, dtype=torch.float32, device="cuda")
+    p = torch.full_like(yt, float(y.mean()))
+    ones = torch.ones_like(yt)
+    fmask = torch.ones(x.shape[1], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grow(bins, p - yt, p * (1 - p), ones, fmask)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def phase_slice_adult() -> dict:
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+
+    n, n_valid, f, rounds, leaves = 32768, 8192, 14, 100, 31
+    x_all, y_all = make_dataset(n + n_valid, f)
+    x, y, xv, yv = x_all[:n], y_all[:n], x_all[n:], y_all[n:]
+    _grow_one_tree_without_sync(x, y)
+    GBDTClassifier(num_iterations=2, num_leaves=leaves, device="cuda").fit(_table(x, y))
+
+    torch.cuda.synchronize()
+    histogram.launches = 0
+    t0 = time.perf_counter()
+    model = GBDTClassifier(num_iterations=rounds, num_leaves=leaves, device="cuda").fit(_table(x, y))
+    fit_s = time.perf_counter() - t0
+    launches = histogram.launches
+    t0 = time.perf_counter()
+    scored_valid = model.transform(_table(xv, yv))
+    transform_s = time.perf_counter() - t0
+    scored_train = model.transform(_table(x, y))
+    launches_after = histogram.launches
+
+    assert model.booster.device.startswith("cuda"), model.booster.device
+    assert launches == rounds * leaves, f"histogram launched {launches} times, want {rounds * leaves}"
+    assert launches_after == launches, "scoring must not build histograms"
+    train, valid = _metrics(scored_train), _metrics(scored_valid)
+    assert train["accuracy"] > 0.7, train
+    assert valid["auc"] > 0.75, valid
+    raw_card = model.booster.predict_raw(xv, device="device")
+    raw_host = model.booster.predict_raw(xv, device="host")
+    assert raw_card.shape == (n_valid,) and np.isfinite(raw_card).all()
+    assert np.array_equal(raw_card, raw_host), "card traversal differs from the host walk"
+    doc = {"phase": "slice_adult", "rows": n, "features": f, "rounds": rounds,
+           "num_leaves": leaves, "fit_seconds": fit_s, "train_rows_per_s": n / fit_s,
+           "row_rounds_per_s": n * rounds / fit_s, "histogram_launches": launches,
+           "transform_rows": n_valid, "transform_seconds": transform_s,
+           "train_accuracy": train["accuracy"], "valid_auc": valid["auc"],
+           "valid_accuracy": valid["accuracy"], "card_equals_host_walk": True}
+    emit(doc)
+    return doc
+
+
+def phase_profile_adult() -> dict:
+    """Where the Adult fit's time goes: a 10-round fit under torch.profiler,
+    the device time of every kernel summed by name against the fit's wall
+    time. The profiler slows the host, so the busy share it gives is a
+    lower bound of the unprofiled one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmlspark_tpu_torch.gbdt.booster import Booster, TrainOptions
+
+    x, y = make_dataset(32768, 14)
+    opts = TrainOptions(objective="binary", num_iterations=10, num_leaves=31, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        Booster.train(x, y, opts)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.key] = (by_name.get(e.key, (0.0, 0))[0] + e.self_device_time_total,
+                              by_name.get(e.key, (0.0, 0))[1] + e.count)
+    device_s = sum(us for us, _ in by_name.values()) / 1e6
+    hist_s = sum(us for k, (us, _) in by_name.items() if "hist_" in k) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    doc = {"phase": "profile_adult", "rounds": 10, "num_leaves": 31,
+           "wall_seconds_profiled": wall_s,
+           "device_kernel_seconds": device_s if by_name else None,
+           "device_busy_share": device_s / wall_s if by_name else None,
+           "histogram_kernel_seconds": hist_s if by_name else None,
+           "kernel_launches": sum(c for _, c in by_name.values()),
+           "top_kernels": [{"name": k[:80], "seconds": us / 1e6, "count": c}
+                           for k, (us, c) in top]}
+    emit(doc)
+    return doc
+
+
+def _first_difference(cpu, card):
+    for t in range(cpu.num_trees):
+        for name in ("feature", "threshold_bin", "left", "right"):
+            nodes = np.nonzero(getattr(cpu, name)[t] != getattr(card, name)[t])[0]
+            if len(nodes):
+                return t, int(nodes[0])
+    return None
+
+
+def phase_slice_parity() -> dict:
+    from mmlspark_tpu_torch.gbdt.booster import Booster, TrainOptions
+
+    x, y = make_dataset(32768, 14)
+    fits = {}
+    for device in ("cpu", "cuda"):
+        opts = TrainOptions(objective="binary", num_iterations=10, num_leaves=31,
+                            device=device)
+        t0 = time.perf_counter()
+        fits[device] = Booster.train(x, y, opts)
+        fits[device + "_seconds"] = time.perf_counter() - t0
+    cpu, card = fits["cpu"], fits["cuda"]
+    first = _first_difference(cpu, card)
+    near_tie = None
+    upto = cpu.num_trees
+    if first is not None:
+        t, node = first
+        g_cpu, g_card = float(cpu.gain[t, node]), float(card.gain[t, node])
+        rel = abs(g_cpu - g_card) / max(abs(g_cpu), abs(g_card), 1e-30)
+        near_tie = {"tree": t, "node": node, "cpu_gain": g_cpu, "cuda_gain": g_card,
+                    "relative_gap": rel}
+        assert rel <= 1e-5, f"trees part at tree {t} node {node} without a near-tie: {near_tie}"
+        upto = t
+    # Leaf values: rtol 1e-5, and an absolute floor of 1e-5 of the tree's
+    # largest leaf value. A right child's histogram is its parent's minus
+    # its sibling's, so a small leaf's gradient sum carries the f32
+    # rounding of sums far larger than itself: its absolute error scales
+    # with the tree's values, not with its own.
+    value_err, value_err_scaled = 0.0, 0.0
+    for t in range(upto):
+        scale = float(np.max(np.abs(cpu.value[t])))
+        err = np.abs(card.value[t].astype(np.float64) - cpu.value[t])
+        np.testing.assert_allclose(card.value[t], cpu.value[t], rtol=1e-5,
+                                   atol=1e-5 * scale, err_msg=f"tree {t}")
+        value_err = max(value_err, float(err.max()))
+        value_err_scaled = max(value_err_scaled, float(err.max()) / max(scale, 1e-30))
+    doc = {"phase": "slice_parity", "rounds": 10, "trees_equal": first is None,
+           "trees_compared": upto, "near_tie": near_tie, "max_value_abs_err": value_err,
+           "max_value_err_over_tree_max": value_err_scaled,
+           "cpu_fit_seconds": fits["cpu_seconds"], "cuda_fit_seconds": fits["cuda_seconds"]}
+    emit(doc)
+    return doc
+
+
+def phase_slice_higgs() -> dict:
+    from mmlspark_tpu_torch.gbdt.binning import BinMapper
+    from mmlspark_tpu_torch.gbdt.booster import Booster, TrainOptions
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+
+    n, f, rounds, leaves = 1 << 20, 28, 5, 63
+    x, y = make_dataset_wide(n, f)
+    opts = TrainOptions(objective="binary", num_iterations=rounds, num_leaves=leaves,
+                        bin_dtype="uint8", device="cuda")
+    # the fit's host binning, timed alone (the fit repeats it)
+    t0 = time.perf_counter()
+    BinMapper(max_bin=opts.max_bin,
+              bin_construct_sample_cnt=opts.bin_construct_sample_cnt).fit(x).transform(x)
+    binning_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    histogram.launches = 0
+    t0 = time.perf_counter()
+    booster = Booster.train(x, y, opts)
+    fit_s = time.perf_counter() - t0
+    launches = histogram.launches
+    assert launches == rounds * leaves, f"histogram launched {launches} times, want {rounds * leaves}"
+    raw = booster.predict_raw(x[:65536], device="device")
+    acc = float(((raw > 0) == (y[:65536] > 0.5)).mean())
+    assert np.isfinite(raw).all() and acc > 0.6, acc
+    doc = {"phase": "slice_higgs", "rows": n, "features": f, "rounds": rounds,
+           "num_leaves": leaves, "bin_dtype": "uint8", "fit_seconds": fit_s,
+           "host_binning_seconds": binning_s,
+           "histogram_launches": launches, "train_accuracy_first_65536": acc}
+    emit(doc)
+    return doc
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not (ROOT / "mmlspark_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no mmlspark_tpu_torch/ beside {Path(__file__).name}; "
+              "run it from the root of a checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import mmlspark_tpu_torch  # noqa: F401  (sets the TF32 switches off)
+
+    phase_env()
+    phase_build()
+    kern = phase_kernels()
+    adult = phase_slice_adult()
+    phase_profile_adult()
+    phase_slice_parity()
+    phase_slice_higgs()
+
+    main_shape = kern["histogram"][0]
+    emit({"kernels": [{
+        "name": "histogram",
+        "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/hist_kernel.cu",
+        "replaces": "mmlspark_tpu/gbdt/hist_kernel.py:227",
+        "launches": adult["histogram_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in kern["histogram"]),
+        "ms": main_shape["ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_ms"],
+        "shape": main_shape["shape"],
+        "shapes": kern["histogram"],
+    }]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,641 @@
+"""Booster: the trained GBDT model — array-of-trees SoA + batched predict.
+
+Counterpart of mmlspark_tpu/gbdt/booster.py. Reference:
+src/lightgbm/src/main/scala/LightGBMBooster.scala:15-181 (model string,
+predict) and TrainUtils.scala:74-121 (boosting loop).
+
+Training (`Booster.train`) bins on the host, moves the bin matrix to the
+fit's device once, and runs the boosting loop of fused.py there; the trees
+come back in one transfer at the end. A Booster remembers the torch device
+it was trained on (`Booster.device`) and scores there; `Booster.to(device)`
+moves it. Scoring is the batched gather-walk (`_traverse_fn`) on that device,
+or the host walk (`_predict_raw_host`, native C++ with a numpy path) for
+small batches; both add the trees' values in tree order in float32, so they
+agree bit for bit.
+
+This slice ports the plain `gbdt` fit of a binary objective on one device.
+Options outside it raise NotImplementedError naming the ROADMAP item that
+ports them. The JSON model format (`to_text`/`from_text`) is the JAX
+package's, field for field, so models move between the two packages; the
+torch device is not part of it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..core.kernels import resolve_device
+from .binning import BinMapper
+from .engine import GrowConfig
+from .objectives import get_objective, init_raw_score
+
+__all__ = ["Booster", "TrainOptions", "booster_from_arrays"]
+
+_FORMAT_VERSION = 2   # v2: many-vs-many categorical subset splits (cat_sets)
+
+_TREE_FIELDS = ("feature", "threshold_bin", "is_categorical", "left", "right",
+                "value", "gain", "cat_bitset")
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet; see ROADMAP.md Queue 1, {item!r}")
+
+
+@dataclass
+class TrainOptions:
+    """Training hyperparameters (reference: the 19 params of
+    src/lightgbm/src/main/scala/LightGBMParams.scala:11-149), the JAX
+    package's TrainOptions plus `device`."""
+
+    objective: str = "regression"
+    boosting_type: str = "gbdt"       # gbdt (rf | dart | goss not ported yet)
+    tree_learner: str = "data_parallel"
+    top_k: int = 20
+    num_iterations: int = 100
+    learning_rate: float = 0.1
+    num_leaves: int = 31
+    max_bin: int = 255
+    bin_construct_sample_cnt: int = 200_000
+    max_depth: int = -1
+    min_data_in_leaf: int = 20
+    min_sum_hessian_in_leaf: float = 1e-3
+    lambda_l1: float = 0.0
+    lambda_l2: float = 0.0
+    min_gain_to_split: float = 0.0
+    bagging_fraction: float = 1.0
+    bagging_freq: int = 0
+    bagging_seed: int = 3
+    feature_fraction: float = 1.0
+    feature_fraction_seed: int = 2
+    top_rate: float = 0.2
+    other_rate: float = 0.1
+    drop_rate: float = 0.1
+    drop_seed: int = 4
+    alpha: float = 0.9
+    tweedie_variance_power: float = 1.5
+    fair_c: float = 1.0
+    num_class: int = 1
+    boost_from_average: bool = True
+    is_unbalance: bool = False
+    early_stopping_round: int = 0
+    deterministic: bool = False       # one device: every fit is exact already
+    categorical_indexes: tuple[int, ...] = ()
+    cat_smooth: float = 10.0
+    cat_l2: float = 10.0
+    max_cat_threshold: int = 32
+    device_binning: bool = False
+    # device storage dtype of the binned matrix: "int32" or "uint8" (the
+    # histogram kernel reads it narrow: 4x fewer bytes per pass)
+    bin_dtype: str = "int32"
+    init_model: "Booster | None" = None
+    checkpoint_dir: "str | None" = None
+    checkpoint_every_n: int = 0
+    seed: int = 0
+    # torch device of the fit; "cuda" raises when no card is present
+    device: str = "cuda"
+
+
+def _check_supported(opts: TrainOptions, valid, mesh) -> None:
+    """Reject every option this slice does not port, before any work."""
+    tl = str(opts.tree_learner)
+    if tl not in ("serial", "data", "data_parallel", "voting", "voting_parallel"):
+        raise ValueError(
+            f"tree_learner={tl!r} is not supported; use data_parallel or "
+            "voting_parallel (LightGBMParams.scala:12-14)")
+    if opts.boosting_type not in ("gbdt", "rf", "dart", "goss"):
+        raise ValueError(
+            f"boosting_type={opts.boosting_type!r} is not supported; "
+            "use gbdt, rf, dart, or goss (LightGBMParams.scala:56-60)")
+    if opts.objective.lower() != "binary":
+        raise _not_ported(f"objective={opts.objective!r}",
+                          "other objectives and multiclass")
+    if opts.categorical_indexes:
+        raise _not_ported("categorical_indexes", "categorical splits")
+    if opts.bagging_fraction < 1.0 or opts.feature_fraction < 1.0:
+        raise _not_ported("bagging_fraction/feature_fraction < 1",
+                          "threefry-compatible random draws")
+    if opts.boosting_type != "gbdt":
+        raise _not_ported(f"boosting_type={opts.boosting_type!r}",
+                          "other boosting types")
+    if opts.early_stopping_round > 0 or valid is not None:
+        raise _not_ported("early stopping and validation data",
+                          "early stopping, leaf renewal, warm start, checkpoints")
+    if opts.init_model is not None or opts.checkpoint_dir:
+        raise _not_ported("init_model / checkpoint_dir",
+                          "early stopping, leaf renewal, warm start, checkpoints")
+    if mesh is not None or tl.startswith("voting"):
+        raise _not_ported("mesh and voting-parallel training", "distributed GBDT")
+    if opts.device_binning:
+        raise _not_ported("device_binning", "device binning and fused predict")
+    if opts.bin_dtype not in ("int32", "uint8"):
+        raise ValueError(f"bin_dtype must be 'int32' or 'uint8', got {opts.bin_dtype!r}")
+
+
+def _threshold_values(mapper: BinMapper, feature, thr_bin, is_cat) -> np.ndarray:
+    """Raw-space thresholds of the numeric splits — one vectorized
+    (feature, bin) lookup over all (tree, node) pairs; categorical nodes
+    have no single raw threshold (NaN), leaves 0."""
+    ub = np.asarray(mapper.upper_bounds, np.float64)        # (F, B)
+    split = feature >= 0
+    fidx = np.where(split, feature, 0)
+    bidx = np.minimum(thr_bin, ub.shape[1] - 1)
+    return np.where(split, np.where(is_cat, np.nan, ub[fidx, bidx]), 0.0)
+
+
+@dataclass
+class Booster:
+    """Immutable trained model. Trees are stacked SoA arrays (T, M) on the
+    host; `device` is where the batched traversal runs."""
+
+    feature: np.ndarray          # (T, M) int32
+    threshold_bin: np.ndarray    # (T, M) int32
+    threshold_value: np.ndarray  # (T, M) float64 — raw-space numeric threshold
+    is_categorical: np.ndarray   # (T, M) bool
+    left: np.ndarray             # (T, M) int32
+    right: np.ndarray            # (T, M) int32
+    value: np.ndarray            # (T, M) float32 (shrunk leaf values)
+    gain: np.ndarray             # (T, M) float32
+    tree_class: np.ndarray       # (T,) int32 — class id per tree (multiclass)
+    # (T, M, Bc) bool — bins routed LEFT at categorical nodes; Bc=1
+    # placeholder for models with no categorical splits
+    cat_bitset: np.ndarray
+    bin_mapper: BinMapper
+    objective: str = "regression"
+    num_class: int = 1
+    init_score: float = 0.0
+    best_iteration: int = -1
+    feature_names: list[str] = field(default_factory=list)
+    class_labels: list[float] | None = None   # original classifier label values
+    device: str = "cuda"
+    _predict_cache: dict = field(default_factory=dict, repr=False, compare=False)
+
+    # ------------------------------------------------------------------ #
+    # training                                                           #
+    # ------------------------------------------------------------------ #
+
+    @staticmethod
+    def train(
+        x: np.ndarray,
+        y: np.ndarray,
+        opts: TrainOptions,
+        weights: np.ndarray | None = None,
+        valid: tuple[np.ndarray, np.ndarray] | None = None,
+        mesh=None,
+        feature_names: list[str] | None = None,
+        log: Callable[[str], None] | None = None,
+    ) -> "Booster":
+        from .fused import FusedTrainSpec, make_fused_train_fn
+        from .sparse import as_features
+
+        _check_supported(opts, valid, mesh)
+        device = resolve_device(opts.device)
+        x = as_features(x)  # CSR stays sparse until binning (binned-dense path)
+        y = np.asarray(y, dtype=np.float64)
+        n, f = x.shape
+        mapper = BinMapper(
+            max_bin=opts.max_bin,
+            bin_construct_sample_cnt=opts.bin_construct_sample_cnt,
+        ).fit(x)
+        bins_np = mapper.transform(x)
+        num_bins = max(int(mapper.num_bins.max(initial=2)), 2)
+        if num_bins > 256:
+            raise NotImplementedError(
+                f"max_bin={opts.max_bin} gives {num_bins} bins; the histogram "
+                "kernel takes at most 256 (max_bin <= 255)")
+        bin_dtype = np.uint8 if opts.bin_dtype == "uint8" else np.int32
+        bins_dev = torch.as_tensor(bins_np.astype(bin_dtype), device=device)
+
+        w = np.ones(n, np.float64) if weights is None else np.asarray(weights, np.float64)
+        if opts.is_unbalance:
+            # reference is_unbalance: scale positive class by neg/pos ratio
+            npos = max(float((y == 1).sum()), 1.0)
+            nneg = max(float((y == 0).sum()), 1.0)
+            w = np.where(y == 1, w * nneg / npos, w)
+        base_mask = torch.as_tensor(w.astype(np.float32), device=device)
+
+        cfg = GrowConfig(
+            num_leaves=opts.num_leaves,
+            max_depth=opts.max_depth,
+            max_bin=opts.max_bin,
+            min_data_in_leaf=float(opts.min_data_in_leaf),
+            min_sum_hessian_in_leaf=opts.min_sum_hessian_in_leaf,
+            lambda_l1=opts.lambda_l1,
+            lambda_l2=opts.lambda_l2,
+            min_gain_to_split=opts.min_gain_to_split,
+            learning_rate=opts.learning_rate,
+            deterministic=opts.deterministic,
+        )
+        init = init_raw_score(opts.objective, y, w, opts.boost_from_average, opts.alpha)
+        trees: list[dict[str, np.ndarray]] = []
+        if opts.num_iterations > 0:
+            fused = make_fused_train_fn(
+                f, num_bins, cfg, mapper.num_bins, np.zeros(f, bool),
+                get_objective(opts.objective),
+                FusedTrainSpec(num_rounds=opts.num_iterations), device=device)
+            if log:
+                log(f"boosting: {opts.num_iterations} rounds on {device}")
+            t_stack, _ = fused(
+                bins_dev, torch.as_tensor(y, dtype=torch.float32, device=device),
+                base_mask, torch.full((n,), init, dtype=torch.float32, device=device))
+            t_host = {name: getattr(t_stack, name).cpu().numpy() for name in _TREE_FIELDS}
+            trees = [{name: t_host[name][r] for name in _TREE_FIELDS}
+                     for r in range(opts.num_iterations)]
+        return Booster._from_tree_dicts(
+            trees, [0] * len(trees), mapper, opts, init, feature_names or [],
+            device=str(device))
+
+    # ------------------------------------------------------------------ #
+    # construction helpers                                               #
+    # ------------------------------------------------------------------ #
+
+    def _tree_dict(self, t: int) -> dict[str, np.ndarray]:
+        return {name: getattr(self, name)[t] for name in _TREE_FIELDS}
+
+    @staticmethod
+    def _from_tree_dicts(
+        trees: list[dict[str, np.ndarray]],
+        tree_classes: list[int],
+        mapper: BinMapper,
+        opts: TrainOptions,
+        init: float,
+        feature_names: list[str],
+        device: str = "cuda",
+    ) -> "Booster":
+        num_class = opts.num_class if opts.objective == "multiclass" else 1
+        if not trees:
+            m = 2 * opts.num_leaves - 1
+            z = lambda dt, fill=0: np.full((0, m), fill, dt)  # noqa: E731
+            return Booster(
+                feature=z(np.int32, -1), threshold_bin=z(np.int32),
+                threshold_value=z(np.float64), is_categorical=z(bool),
+                left=z(np.int32, -1), right=z(np.int32, -1),
+                value=z(np.float32), gain=z(np.float32),
+                cat_bitset=np.zeros((0, m, 1), bool),
+                tree_class=np.zeros(0, np.int32), bin_mapper=mapper,
+                objective=opts.objective, num_class=num_class,
+                init_score=init, feature_names=feature_names, device=device,
+            )
+        stack = lambda key: np.stack([np.asarray(t[key]) for t in trees])  # noqa: E731
+        feature = stack("feature").astype(np.int32)
+        thr_bin = stack("threshold_bin").astype(np.int32)
+        is_cat = stack("is_categorical").astype(bool)
+        # per-node category bitsets, padded to the widest, collapsed to a
+        # width-1 placeholder when the model has no categorical splits
+        bitsets = [np.asarray(t["cat_bitset"], bool) for t in trees]
+        bc = max(b.shape[-1] for b in bitsets)
+        cat_bitset = np.stack([
+            np.pad(b, ((0, 0), (0, bc - b.shape[-1]))) for b in bitsets
+        ])
+        if not is_cat.any():
+            cat_bitset = cat_bitset[:, :, :1]
+        return Booster(
+            feature=feature,
+            threshold_bin=thr_bin,
+            threshold_value=_threshold_values(mapper, feature, thr_bin, is_cat),
+            is_categorical=is_cat,
+            cat_bitset=cat_bitset,
+            left=stack("left").astype(np.int32),
+            right=stack("right").astype(np.int32),
+            value=stack("value").astype(np.float32),
+            gain=stack("gain").astype(np.float32),
+            tree_class=np.asarray(tree_classes, np.int32),
+            bin_mapper=mapper,
+            objective=opts.objective,
+            num_class=num_class,
+            init_score=init,
+            feature_names=feature_names,
+            device=device,
+        )
+
+    def to(self, device: "str | torch.device") -> "Booster":
+        """The same model scoring on `device` (PyTorch's idiom). A "cuda"
+        device that is not present raises RuntimeError."""
+        return dataclasses.replace(
+            self, device=str(resolve_device(device)), _predict_cache={})
+
+    # ------------------------------------------------------------------ #
+    # prediction                                                         #
+    # ------------------------------------------------------------------ #
+
+    @property
+    def num_trees(self) -> int:
+        return int(self.feature.shape[0])
+
+    @property
+    def num_features(self) -> int:
+        return self.bin_mapper.num_features
+
+    def _traverse_fn(self):
+        """Batched traversal over binned inputs on `self.device`: trees in
+        blocks of up to 64 walk together (one gather per step for the whole
+        block), `max_steps` steps deep (fixed bound); the values are then
+        added in tree order."""
+        dev = resolve_device(self.device)
+        key = ("traverse", str(dev))
+        if key in self._predict_cache:
+            return self._predict_cache[key]
+        max_steps = int(self.feature.shape[1] // 2 + 1)  # deepest leaf-wise chain
+        k = self.num_class
+        t_total = self.num_trees
+        block = min(64, max(t_total, 1))
+        bc = int(self.cat_bitset.shape[-1])
+
+        def on_dev(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+        feature = on_dev(self.feature, torch.long)
+        thr = on_dev(self.threshold_bin, torch.long)
+        cat = on_dev(self.is_categorical, torch.bool)
+        bitset = on_dev(self.cat_bitset.reshape(t_total, -1), torch.bool)
+        left = on_dev(self.left, torch.long)
+        right = on_dev(self.right, torch.long)
+        value = on_dev(self.value, torch.float32)
+        classes = [int(c) for c in self.tree_class]
+        init = self.init_score
+
+        def run(bins: torch.Tensor) -> torch.Tensor:
+            n = bins.shape[0]
+            cols = bins.long().t()                               # (F, n)
+            out = (torch.zeros((n, k), dtype=torch.float32, device=dev) if k > 1
+                   else torch.full((n,), init, dtype=torch.float32, device=dev))
+            for s in range(0, t_total, block):
+                blk = slice(s, min(s + block, t_total))
+                node = torch.zeros((blk.stop - s, n), dtype=torch.long, device=dev)
+                for _ in range(max_steps):
+                    feat = feature[blk].gather(1, node)
+                    # explicit clamps: JAX clamps out-of-range gathers itself
+                    col = cols.gather(0, feat.clamp(min=0))
+                    go_left = torch.where(
+                        cat[blk].gather(1, node),
+                        bitset[blk].gather(1, node * bc + col.clamp(max=bc - 1)),
+                        col <= thr[blk].gather(1, node),
+                    )
+                    node = torch.where(feat < 0, node, torch.where(
+                        go_left, left[blk].gather(1, node), right[blk].gather(1, node)))
+                vals = value[blk].gather(1, node)                # (block, n)
+                # accumulate IN TREE ORDER with one f32 add per tree, so the
+                # sum matches the host walk bit for bit (a reduction kernel
+                # would fix no order)
+                for j in range(vals.shape[0]):
+                    if k > 1:
+                        out[:, classes[s + j]] += vals[j]
+                    else:
+                        out = out + vals[j]
+            return out
+
+        self._predict_cache[key] = run
+        return run
+
+    # Below this row count one walk on the host costs less than the device
+    # dispatches (the latency-path analogue of LightGBM's per-row CPU
+    # predict, LightGBMBooster.scala:21-113); both paths agree bit for bit.
+    HOST_PREDICT_MAX_ROWS = 512
+
+    def _predict_raw_host(self, bins: np.ndarray) -> np.ndarray:
+        n = bins.shape[0]
+        k = self.num_class
+        max_steps = int(self.feature.shape[1] // 2 + 1)
+        # native per-row scoring (mmlspark_tpu_torch/native), bit-identical
+        # to the numpy walk below; the prepared closure caches the immutable
+        # tree arrays' ctypes marshalling
+        fn = self._predict_cache.get("host_fn")
+        if fn is None:
+            from ..native import make_tree_predictor
+
+            fn = make_tree_predictor(
+                self.feature, self.threshold_bin, self.is_categorical,
+                self.left, self.right, self.value, self.tree_class,
+                k, max_steps, self.init_score, self.cat_bitset,
+            )
+            self._predict_cache["host_fn"] = fn or False
+        if fn:
+            return fn(np.asarray(bins, np.int32))
+        out = (np.zeros((n, k), np.float32) if k > 1
+               else np.full((n,), self.init_score, np.float32))
+        for t in range(self.num_trees):
+            node = self._walk_tree(t, bins, max_steps)
+            val = self.value[t][node].astype(np.float32)
+            if k > 1:
+                out[:, int(self.tree_class[t])] += val
+            else:
+                out = out + val
+        return out
+
+    def _walk_tree(self, t: int, bins: np.ndarray, max_steps: int) -> np.ndarray:
+        """Leaf node index of every row in tree t (numpy)."""
+        n = bins.shape[0]
+        rows = np.arange(n)
+        feature, thr = self.feature[t], self.threshold_bin[t]
+        cat, left, right = self.is_categorical[t], self.left[t], self.right[t]
+        bitset = self.cat_bitset[t]
+        bc = bitset.shape[-1]
+        node = np.zeros(n, np.int64)
+        for _ in range(max_steps):
+            f = np.maximum(feature[node], 0)
+            col = bins[rows, f]
+            go_left = np.where(cat[node],
+                               bitset[node, np.minimum(col, bc - 1)],
+                               col <= thr[node])
+            leaf = feature[node] < 0
+            node = np.where(leaf, node,
+                            np.where(go_left, left[node], right[node]))
+        return node
+
+    def predict_raw(self, x: np.ndarray, device: str | None = None) -> np.ndarray:
+        """Raw margin scores: (n,) or (n, K) for multiclass, as numpy.
+
+        `device` keeps the JAX package's meaning — the ROUTE, not the torch
+        device: None = auto (host walk for batches of HOST_PREDICT_MAX_ROWS
+        rows or fewer, batched traversal otherwise), "host" = the host walk,
+        "device" = the batched traversal. The traversal runs on the torch
+        device the booster holds (`Booster.device`, set at training or by
+        `Booster.to`)."""
+        from .sparse import as_features
+
+        x = as_features(x)
+        if self.num_trees == 0:
+            shape = (len(x), self.num_class) if self.num_class > 1 else (len(x),)
+            return np.full(shape, self.init_score, np.float32)
+        if device is None:
+            device = "host" if len(x) <= self.HOST_PREDICT_MAX_ROWS else "device"
+        if device not in ("host", "device"):
+            raise ValueError(f"device must be None, 'host' or 'device', got {device!r}")
+        binned = self.bin_mapper.transform(x).astype(np.int32)
+        if device == "host":
+            return self._predict_raw_host(binned)
+        run = self._traverse_fn()
+        return run(torch.as_tensor(binned, device=resolve_device(self.device))).cpu().numpy()
+
+    def transform_score(self, raw: np.ndarray) -> np.ndarray:
+        """Raw margins -> transformed prediction (sigmoid / softmax / exp
+        per objective — reference LightGBMBooster.score semantics), in
+        float64 on the host."""
+        raw = np.asarray(raw, np.float64)
+        if self.objective == "binary":
+            return 1.0 / (1.0 + np.exp(-raw))
+        if self.objective == "multiclass":
+            e = np.exp(raw - raw.max(axis=-1, keepdims=True))
+            return e / e.sum(axis=-1, keepdims=True)
+        if self.objective in ("poisson", "gamma", "tweedie"):
+            return np.exp(raw)
+        return raw
+
+    def predict(self, x: np.ndarray, device: str | None = None) -> np.ndarray:
+        """Probability / transformed prediction (reference
+        LightGBMBooster.score semantics)."""
+        return self.transform_score(self.predict_raw(x, device=device))
+
+    # ------------------------------------------------------------------ #
+    # persistence                                                        #
+    # ------------------------------------------------------------------ #
+
+    def to_text(self) -> str:
+        """Portable JSON model (reference saveNativeModel,
+        LightGBMBooster.scala:115-124), the JAX package's format field for
+        field. Categorical subset splits serialize sparsely: `cat_sets`
+        lists `[tree, node, [left bins...]]` for categorical nodes only."""
+        cat_sets = []
+        for t, m in zip(*np.nonzero(self.is_categorical & (self.feature >= 0))):
+            bins_left = np.nonzero(self.cat_bitset[t, m])[0]
+            cat_sets.append([int(t), int(m), [int(b) for b in bins_left]])
+        payload = {
+            "format": "mmlspark_tpu.gbdt",
+            "version": _FORMAT_VERSION,
+            "objective": self.objective,
+            "num_class": self.num_class,
+            "init_score": self.init_score,
+            "best_iteration": self.best_iteration,
+            "feature_names": self.feature_names,
+            "class_labels": self.class_labels,
+            "tree_class": self.tree_class.tolist(),
+            "trees": {
+                "feature": self.feature.tolist(),
+                "threshold_bin": self.threshold_bin.tolist(),
+                "threshold_value": self.threshold_value.tolist(),
+                "is_categorical": self.is_categorical.tolist(),
+                "left": self.left.tolist(),
+                "right": self.right.tolist(),
+                "value": self.value.tolist(),
+                "gain": self.gain.tolist(),
+                "cat_bitset_width": int(self.cat_bitset.shape[-1]),
+                "cat_sets": cat_sets,
+            },
+            "bin_mapper": self.bin_mapper.to_dict(),
+        }
+        return json.dumps(payload)
+
+    @staticmethod
+    def from_text(text: str, device: str = "cuda") -> "Booster":
+        """Parse `to_text` output (of either package). The model scores on
+        `device`; a loaded model defaults to the card."""
+        d = json.loads(text)
+        if d.get("format") != "mmlspark_tpu.gbdt":
+            raise ValueError("not a mmlspark_tpu gbdt model")
+        t = d["trees"]
+        arr = lambda key, dt: np.asarray(t[key], dtype=dt)  # noqa: E731
+        feature = arr("feature", np.int32)
+        thr_bin = arr("threshold_bin", np.int32)
+        is_cat = arr("is_categorical", bool)
+        n_t, m = feature.shape
+        mapper = BinMapper.from_dict(d["bin_mapper"])
+        # bitset width must cover EVERY bin any categorical column can
+        # produce (the traversal clamps col to bc-1), so take it from the
+        # mapper, not from the split bins
+        full_bc = int(max(np.asarray(mapper.num_bins).max(initial=1), 1))
+        if "cat_sets" in t:
+            bc = max(int(t.get("cat_bitset_width", 1)), full_bc if is_cat.any() else 1)
+            cat_bitset = np.zeros((n_t, m, bc), bool)
+            for tt, mm, bins_left in t["cat_sets"]:
+                cat_bitset[int(tt), int(mm), np.asarray(bins_left, int)] = True
+        else:
+            # version-1 files: one-vs-rest categorical splits on a single
+            # bin; the equivalent subset is the singleton bitset
+            bc = full_bc if is_cat.any() else 1
+            cat_bitset = np.zeros((n_t, m, bc), bool)
+            for tt, mm in zip(*np.nonzero(is_cat & (feature >= 0))):
+                cat_bitset[tt, mm, thr_bin[tt, mm]] = True
+        return Booster(
+            feature=feature,
+            threshold_bin=thr_bin,
+            threshold_value=arr("threshold_value", np.float64),
+            is_categorical=is_cat,
+            cat_bitset=cat_bitset,
+            left=arr("left", np.int32),
+            right=arr("right", np.int32),
+            value=arr("value", np.float32),
+            gain=arr("gain", np.float32),
+            tree_class=np.asarray(d["tree_class"], np.int32),
+            bin_mapper=mapper,
+            objective=d["objective"],
+            num_class=int(d["num_class"]),
+            init_score=float(d["init_score"]),
+            best_iteration=int(d.get("best_iteration", -1)),
+            feature_names=list(d.get("feature_names", [])),
+            class_labels=d.get("class_labels"),
+            device=device,
+        )
+
+    def save_native_model(self, path: str, format: str = "json") -> None:
+        """Write the model to disk in the JSON format. LightGBM's model.txt
+        (`format="lightgbm"`) is a later slice."""
+        if format == "lightgbm":
+            raise _not_ported("LightGBM text export", "LightGBM text import and export")
+        if format != "json":
+            raise ValueError(f"format must be 'json' or 'lightgbm', got {format!r}")
+        with open(path, "w") as fh:
+            fh.write(self.to_text())
+
+    @staticmethod
+    def load_native_model(path: str, device: str = "cuda") -> "Booster":
+        """Load a model saved in the JSON format. LightGBM model.txt files
+        are a later slice."""
+        with open(path) as fh:
+            text = fh.read()
+        if not text.lstrip().startswith("{"):
+            raise _not_ported("LightGBM text import", "LightGBM text import and export")
+        return Booster.from_text(text, device=device)
+
+
+def booster_from_arrays(trees: dict[str, np.ndarray], bin_mapper: dict,
+                        meta: dict[str, Any], device: str = "cuda") -> Booster:
+    """A Booster from another package's weights: a GBDT's weights are its
+    tree arrays and its bin boundaries.
+
+    trees: the (T, M) arrays `feature`, `threshold_bin`, `is_categorical`,
+           `left`, `right`, `value`, `gain`, the (T, M, Bc) `cat_bitset` and
+           the (T,) `tree_class`, as the JAX Booster holds them;
+    bin_mapper: `BinMapper.to_dict()`;
+    meta: `objective`, `num_class`, `init_score`, `class_labels` (and
+          optionally `feature_names`, `best_iteration`)."""
+    mapper = BinMapper.from_dict(bin_mapper)
+    feature = np.asarray(trees["feature"], np.int32)
+    thr_bin = np.asarray(trees["threshold_bin"], np.int32)
+    is_cat = np.asarray(trees["is_categorical"], bool)
+    labels = meta.get("class_labels")
+    return Booster(
+        feature=feature,
+        threshold_bin=thr_bin,
+        threshold_value=_threshold_values(mapper, feature, thr_bin, is_cat),
+        is_categorical=is_cat,
+        cat_bitset=np.asarray(trees["cat_bitset"], bool),
+        left=np.asarray(trees["left"], np.int32),
+        right=np.asarray(trees["right"], np.int32),
+        value=np.asarray(trees["value"], np.float32),
+        gain=np.asarray(trees["gain"], np.float32),
+        tree_class=np.asarray(trees["tree_class"], np.int32),
+        bin_mapper=mapper,
+        objective=str(meta["objective"]),
+        num_class=int(meta.get("num_class", 1)),
+        init_score=float(meta.get("init_score", 0.0)),
+        best_iteration=int(meta.get("best_iteration", -1)),
+        feature_names=list(meta.get("feature_names") or []),
+        class_labels=None if labels is None else [float(c) for c in labels],
+        device=device,
+    )

@@ -1,0 +1,84 @@
+"""Tests of the port that need an NVIDIA GPU: the CUDA kernels have no CPU
+mode. Each skips without a card. This file imports neither jax nor the JAX
+package, so it also runs on a machine with a card and no jax:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+
+(`--noconftest`: tests/conftest.py sets up jax for the rest of the suite.)
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from mmlspark_tpu_torch.gbdt import engine  # noqa: E402
+from mmlspark_tpu_torch.gbdt import hist_kernel as hk  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def test_cuda_kernel_matches_plain_version_and_repeats_its_bits(cuda):
+    rng = np.random.default_rng(4)
+    bins = rng.integers(0, 256, size=(32768, 14)).astype(np.int32)
+    stats = torch.from_numpy(rng.normal(size=(32768, 3)).astype(np.float32)).to(cuda)
+    for dtype in (np.int32, np.uint8):
+        tb = torch.from_numpy(bins.astype(dtype)).to(cuda)
+        before = hk.histogram.launches
+        a = hk.histogram(tb, stats, 256)
+        b = hk.histogram(tb, stats, 256)
+        assert hk.histogram.launches == before + 2
+        # rtol = atol = 1e-5 as between the JAX variants: the plain version
+        # adds with atomics in no fixed order
+        torch.testing.assert_close(a, hk.histogram_torch(tb, stats, 256),
+                                   rtol=1e-5, atol=1e-5)
+        assert torch.equal(a, b)
+
+
+def test_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda):
+    tb = torch.zeros((64, 4), dtype=torch.int32, device=cuda)
+    ts = torch.zeros((64, 3), dtype=torch.float32, device=cuda)
+    before = hk.histogram.launches
+    with pytest.raises(ValueError, match="num_bins"):
+        hk.histogram(tb, ts, 300)
+    with pytest.raises(ValueError, match="contiguous"):
+        hk.histogram(tb.t().contiguous().t(), ts, 16)
+    with pytest.raises(ValueError, match="bins on"):
+        hk.histogram(tb, ts.cpu(), 16)
+    assert hk.histogram.launches == before
+
+
+def test_one_tree_on_the_card_equals_the_cpu_tree_bit_for_bit(cuda):
+    # gradients and hessians on a 2**-10 grid: every histogram, cumulative
+    # and node sum is exact in f32, so the card's sums in another order
+    # give the CPU's bits and the two trees must be identical
+    n, f, b = 1500, 6, 32
+    rng = np.random.default_rng(7)
+    bins = rng.integers(0, b, size=(n, f)).astype(np.int32)
+    signal = (bins[:, 0] - b / 2) / b + 0.5 * (bins[:, 1] > b // 3)
+    grad = np.round(np.tanh(signal + 0.3 * rng.normal(size=n)) * 1024) / 1024
+    hess = np.round((0.05 + 0.2 * rng.random(n)) * 1024) / 1024
+    args = [bins, grad.astype(np.float32), hess.astype(np.float32),
+            np.ones(n, np.float32), np.ones(f, np.float32)]
+    cfg = engine.GrowConfig(num_leaves=15, min_data_in_leaf=10.0)
+    out = {}
+    for dev in ("cpu", cuda):
+        grow = engine.make_grow_fn(f, b, cfg, np.full(f, b), np.zeros(f, bool), device=dev)
+        before = hk.histogram.launches
+        tree, values, node = grow(*(torch.from_numpy(a).to(dev) for a in args))
+        launched = hk.histogram.launches - before
+        out[str(dev)] = (tree, values.cpu(), node.cpu(), launched)
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert cpu[3] == 0 and card[3] == cfg.num_leaves
+    for name in engine.TreeArrays._fields:
+        assert torch.equal(getattr(cpu[0], name), getattr(card[0], name).cpu()), name
+    assert torch.equal(cpu[1], card[1]) and torch.equal(cpu[2], card[2])
+    assert int(cpu[0].is_leaf.sum()) == cfg.num_leaves
