@@ -8,19 +8,24 @@ H100:
 
 It builds the port's CUDA kernels from the checkout (`nvcc`, into
 build/mmlspark_tpu_torch/), holds every kernel against its plain PyTorch
-version on the card, drives the port's main path — GBDTClassifier fit on the
-Adult-Census shape (32,768 rows x 14 features, 31 leaves, 100 rounds), then
-transform and ComputeModelStatistics — and shows through the kernels' launch
-counters that the path ran on them. It prints one JSON line per phase:
+version on the card, drives the port's two main paths through the stages
+a user calls — GBDTClassifier fit on the Adult-Census shape (32,768 rows x
+14 features, 31 leaves, 100 rounds), then transform and
+ComputeModelStatistics; and DeepModelTransformer serving 1,024 rows x 512
+token ids through bench.py's accelerator transformer (8 layers, d_model
+512, 8 heads, vocab 16,384) in bf16 with attention_impl="flash" — and
+shows through the kernels' launch counters that each path ran on its
+kernel. It prints one JSON line per phase:
 
   env          torch/CUDA versions and the card (the nvidia-smi name and
                power limit also stand alone on the next line)
   build        nvcc seconds, and which libraries came from the cache
-  kernels      each kernel against its plain version at the main path's
+  kernels      each kernel against its plain version at its path's
                shapes: errors, repeatability, median ms (CUDA events), the
                plain version's and one PyTorch library call's ms, and the
-               bound (least time the card could take)
-  slice_adult  the main path: fit seconds, launches (must be 3,100),
+               bound (least time the card could take); K1 "histogram",
+               K2 "flash_attention"
+  slice_adult  the GBDT path: fit seconds, launches (must be 3,100),
                train accuracy > 0.7, held-out AUC > 0.75, and the card's
                scores equal to the host walk bit for bit
   profile_adult a 10-round Adult fit under torch.profiler: device kernel
@@ -28,6 +33,15 @@ counters that the path ran on them. It prints one JSON line per phase:
   slice_parity the same data, 10 rounds, fitted on "cpu" and on "cuda":
                equal trees, or trees that part only at a printed near-tie
   slice_higgs  1,048,576 x 28, 63 leaves, uint8 bins, 5 rounds
+  slice_transformer  the DNN path: tokens/s, K2 launches (must be 128),
+               finite logits, probabilities summing to 1; f32 flash against
+               f32 dense on the card, card against CPU on 2 rows, bf16
+               against f32; 4 rows x 4,096 tokens (8 launches)
+  profile_transformer  4 minibatches under torch.profiler: K2's and the
+               GEMMs' share of device time, device busy share
+  stage_roundtrip  the serving stage saved and loaded through
+               core.serialize serves the same logits
+  slice_zoo    model_zoo/resnet20_digits.model on the card against the CPU
 
 then the {"kernels": [...]} summary, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -160,7 +174,7 @@ def _hist_f64(bins: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
     return out.view(f, HIST_BINS, 3)
 
 
-def phase_kernels() -> dict:
+def histogram_rows() -> list:
     from mmlspark_tpu_torch.gbdt.hist_kernel import histogram, histogram_torch
 
     shapes = [
@@ -228,8 +242,111 @@ def phase_kernels() -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         })
         del bins, stats, first, again, plain, ids, data, out, fstats
-    emit({"phase": "kernels", "histogram": rows})
-    return {"histogram": rows}
+    return rows
+
+
+# K2 against its plain version: (name, B, Tq, Tk, H, D, dtype, causal).
+# The slice shape is the serving transformer's attention (64 rows x 512
+# tokens, 8 heads of 64); "masked" is tests/test_attention.py:120-132's
+# construction; "no_keys" has Tk = 0, so every row has l == 0.
+FLASH_SHAPES = [
+    ("slice_bf16", 64, 512, 512, 8, 64, torch.bfloat16, False),
+    ("slice_f32", 64, 512, 512, 8, 64, torch.float32, False),
+    ("long_bf16", 4, 4096, 4096, 8, 64, torch.bfloat16, False),
+    ("ragged_causal_bf16", 2, 1000, 1000, 8, 64, torch.bfloat16, True),
+    ("cross_f32", 1, 24, 40, 2, 16, torch.float32, False),
+    ("masked_f32", 1, 4, 8, 1, 8, torch.float32, True),
+    ("no_keys_f32", 1, 4, 0, 1, 8, torch.float32, True),
+]
+# f32: the reference's own gate between attention tiers
+# (tests/test_attention.py:56). bf16: the output is rounded to bf16 once,
+# and p is rounded to bf16 before the PV product at a running max that
+# differs between the kernel's 64-key tiles and the plain version's
+# 128-key blocks, so the two may part by a bf16 ulp or two of the output:
+# rtol 2**-7 is two ulps at the top of a binade, atol 2e-3 covers outputs
+# near 0, whose ulp is smaller than that rounding noise. lse sums the
+# unrounded p in f32 in both, so it keeps the f32 gate.
+FLASH_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2e-3, 2.0 ** -7)}
+H100_BF16_OPS_PER_S = 989e12      # dense bf16 tensor cores
+
+
+def _flash_inputs(name, b, tq, tk, h, d, dtype, seed):
+    if name == "masked_f32":
+        rng = np.random.default_rng(5)       # test_attention.py's _qkv(seed=5)
+        qkv = [rng.normal(size=(b, t, h, d)) for t in (tq, tk, tk)]
+        return [torch.tensor(a, dtype=dtype, device="cuda") for a in qkv]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((b, t, h, d), generator=g, device="cuda").to(dtype)
+            for t in (tq, tk, tk)]
+
+
+def flash_rows() -> list:
+    """K2 against `flash_attention_torch` on the card at FLASH_SHAPES:
+    out and lse errors, the same bits on two launches, median ms beside
+    the plain version's, F.scaled_dot_product_attention's (on
+    pre-transposed (B, H, T, D), a yardstick the port never calls) and
+    the bound."""
+    import torch.nn.functional as F
+
+    from mmlspark_tpu_torch.nn.attention import _flash_fwd_lse, flash_attention_torch
+
+    rows = []
+    with torch.no_grad():
+        for i, (name, b, tq, tk, h, d, dt, causal) in enumerate(FLASH_SHAPES):
+            q, k, v = _flash_inputs(name, b, tq, tk, h, d, dt, seed=200 + i)
+            out, lse = _flash_fwd_lse(q, k, v, causal)
+            out2, lse2 = _flash_fwd_lse(q, k, v, causal)
+            p_out, p_lse = flash_attention_torch(q, k, v, causal)
+            torch.cuda.synchronize()
+            same_bits = torch.equal(out, out2) and torch.equal(lse, lse2)
+            err = (out.float() - p_out.float()).abs()
+            max_abs = err.max().item() if err.numel() else 0.0
+            max_rel = (err / p_out.float().abs().clamp_min(1e-30)).max().item() if err.numel() else 0.0
+            inf_match = torch.equal(torch.isinf(lse), torch.isinf(p_lse))
+            fin = torch.isfinite(p_lse)
+            lse_err = (lse[fin] - p_lse[fin]).abs().max().item() if fin.any() else 0.0
+            atol, rtol = FLASH_TOL[dt]
+            assert same_bits, f"{name}: two launches gave different bits"
+            assert inf_match, f"{name}: lse is +inf at other rows than the plain version's"
+            torch.testing.assert_close(out.float(), p_out.float(), atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{name} out: {m}")
+            torch.testing.assert_close(lse[fin], p_lse[fin], atol=2e-5, rtol=1e-5,
+                                       msg=lambda m: f"{name} lse: {m}")
+            kernel_ms = median_ms(lambda: _flash_fwd_lse(q, k, v, causal))
+            plain_ms = median_ms(lambda: flash_attention_torch(q, k, v, causal), reps=10,
+                                 warmup=2)
+            library_ms = None
+            if tk > 0:
+                qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+                library_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal))
+            # bytes: q, k, v read once, out and lse written once; operations:
+            # two products of 2 * D per visible (query, key) pair
+            bytes_moved = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size() \
+                + lse.numel() * 4
+            pairs = (sum(min(t + 1, tk) for t in range(tq)) if causal else tq * tk) * b * h
+            ops = 4 * pairs * d
+            rate = H100_BF16_OPS_PER_S if dt == torch.bfloat16 else H100_F32_OPS_PER_S
+            bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+            ops_ms = ops / rate * 1e3
+            rows.append({
+                "shape": name, "B": b, "Tq": tq, "Tk": tk, "H": h, "D": d,
+                "dtype": str(dt).replace("torch.", ""), "causal": causal,
+                "max_abs_err": max_abs, "max_rel_err": max_rel, "lse_max_abs_err": lse_err,
+                "atol": atol, "rtol": rtol, "same_bits": same_bits,
+                "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bytes": bytes_moved, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "achieved_tflops": ops / (kernel_ms * 1e-3) / 1e12 if kernel_ms > 0 else None,
+            })
+            del q, k, v, out, out2, lse, lse2, p_out, p_lse
+    return rows
+
+
+def phase_kernels() -> dict:
+    kern = {"histogram": histogram_rows(), "flash_attention": flash_rows()}
+    emit({"phase": "kernels", **kern})
+    return kern
 
 
 def _table(x, y):
@@ -434,6 +551,209 @@ def phase_slice_higgs() -> dict:
     return doc
 
 
+# The serving transformer at bench.py's accelerator width (bench.py:632-645)
+SLICE_TRANSFORMER = dict(num_layers=8, d_model=512, num_heads=8, d_ff=2048,
+                         vocab_size=16384, max_len=4096, num_outputs=8)
+SLICE_ROWS, SLICE_TOKENS, SLICE_BATCH = 1024, 512, 64
+
+
+def _serve(bundle, rows, device, batch, fetch=None):
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.nn import DeepModelTransformer
+
+    stage = DeepModelTransformer(input_col="tokens", mini_batch_size=batch, device=device,
+                                 fetch_dict=fetch or {"logits": "logits"}).set_model(bundle)
+    return stage, stage.transform(Table({"tokens": rows}))
+
+
+def _variant(bundle, **config):
+    """The same weights under another attention impl or dtype."""
+    from mmlspark_tpu_torch.nn import ModelBundle
+
+    return ModelBundle(architecture=bundle.architecture, config={**bundle.config, **config},
+                       variables=bundle.variables, input_shape=bundle.input_shape)
+
+
+def phase_slice_transformer() -> dict:
+    """The DNN slice's main path: 1,024 rows x 512 token ids through
+    DeepModelTransformer on the card, attention_impl="flash" in bf16, one
+    K2 launch per layer and minibatch; then the outputs checked three
+    ways, a 4 x 4096 long-sequence run, and a profiled run."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.nn import ModelBundle
+    from mmlspark_tpu_torch.nn.attention import flash_attention
+
+    t0 = time.perf_counter()
+    bundle = ModelBundle.init("transformer", (SLICE_TOKENS,), seed=0, attention_impl="flash",
+                              dtype="bfloat16", **SLICE_TRANSFORMER)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(11)
+    x = rng.integers(0, SLICE_TRANSFORMER["vocab_size"], size=(SLICE_ROWS, SLICE_TOKENS))
+    fetch = {"logits": "logits", "prob": "probability"}
+    # warm-up on one minibatch: weights to the card, cuBLAS handles
+    stage, _ = _serve(bundle, x[:SLICE_BATCH], "cuda", SLICE_BATCH, fetch)
+    torch.cuda.synchronize()
+
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = stage.transform(Table({"tokens": x}))
+    serve_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    want = SLICE_ROWS // SLICE_BATCH * SLICE_TRANSFORMER["num_layers"]
+    assert launches == want, f"K2 launched {launches} times, want {want}"
+    logits, prob = np.asarray(out["logits"]), np.asarray(out["prob"])
+    assert logits.shape == (SLICE_ROWS, 8) and prob.shape == (SLICE_ROWS, 8)
+    assert np.isfinite(logits).all() and np.isfinite(prob).all()
+    assert np.allclose(prob.sum(-1), 1.0, atol=1e-5)
+
+    # f32 flash against f32 dense on the card: the same weights and param
+    # tree, the dense path runs no K2. f32 throughout with TF32 off, so
+    # only the order of sums differs: 1e-4
+    before = flash_attention.launches
+    _, dense = _serve(_variant(bundle, attention_impl="dense", dtype="float32"),
+                      x[:SLICE_BATCH], "cuda", SLICE_BATCH)
+    assert flash_attention.launches == before, "the dense path launched K2"
+    _, flash32 = _serve(_variant(bundle, dtype="float32"), x[:SLICE_BATCH], "cuda",
+                        SLICE_BATCH)
+    dense, flash32 = np.asarray(dense["logits"]), np.asarray(flash32["logits"])
+    flash_vs_dense = float(np.abs(flash32 - dense).max())
+    np.testing.assert_allclose(flash32, dense, atol=1e-4, rtol=1e-4)
+    # card against CPU, 2 rows in f32 (the CPU runs K2's plain version)
+    f32 = _variant(bundle, dtype="float32")
+    _, card2 = _serve(f32, x[:2], "cuda", 2)
+    t0 = time.perf_counter()
+    _, cpu2 = _serve(f32, x[:2], "cpu", 2)
+    cpu2_s = time.perf_counter() - t0
+    card2, cpu2 = np.asarray(card2["logits"]), np.asarray(cpu2["logits"])
+    card_vs_cpu = float(np.abs(card2 - cpu2).max())
+    np.testing.assert_allclose(card2, cpu2, atol=1e-4, rtol=1e-4)
+    bf16_vs_f32 = float(np.abs(logits[:SLICE_BATCH] - flash32).max())
+
+    # long sequences: 4 rows x 4,096 tokens, one minibatch
+    xl = rng.integers(0, SLICE_TRANSFORMER["vocab_size"], size=(4, 4096))
+    stage.set(mini_batch_size=4)
+    stage.transform(Table({"tokens": xl}))          # warm-up at this shape
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    long_out = np.asarray(stage.transform(Table({"tokens": xl}))["logits"])
+    long_s = time.perf_counter() - t0
+    long_launches = flash_attention.launches
+    assert long_launches == SLICE_TRANSFORMER["num_layers"], long_launches
+    assert np.isfinite(long_out).all() and long_out.shape == (4, 8)
+    stage.set(mini_batch_size=SLICE_BATCH)
+
+    doc = {"phase": "slice_transformer", "config": SLICE_TRANSFORMER,
+           "attention_impl": "flash", "dtype": "bfloat16", "rows": SLICE_ROWS,
+           "tokens_per_row": SLICE_TOKENS, "mini_batch_size": SLICE_BATCH,
+           "init_seconds": init_s, "serve_seconds": serve_s,
+           "rows_per_s": SLICE_ROWS / serve_s, "tokens_per_s": SLICE_ROWS * SLICE_TOKENS / serve_s,
+           "flash_launches": launches,
+           "f32_flash_vs_dense_max_abs": flash_vs_dense,
+           "card_vs_cpu_max_abs_f32_2rows": card_vs_cpu, "cpu_2rows_seconds": cpu2_s,
+           "bf16_vs_f32_flash_max_abs": bf16_vs_f32,
+           "long_rows": 4, "long_tokens_per_row": 4096, "long_seconds": long_s,
+           "long_tokens_per_s": 4 * 4096 / long_s, "long_flash_launches": long_launches}
+    emit(doc)
+    return {**doc, "bundle": bundle, "stage": stage, "tokens": x}
+
+
+def phase_profile_transformer(stage, x) -> dict:
+    """Where the serving time goes: 4 minibatches under torch.profiler,
+    device kernel time by name against wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmlspark_tpu_torch.core import Table
+
+    rows = x[:4 * SLICE_BATCH]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stage.transform(Table({"tokens": rows}))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us, count = by_name.get(e.key, (0.0, 0))
+            by_name[e.key] = (us + e.self_device_time_total, count + e.count)
+    device_s = sum(us for us, _ in by_name.values()) / 1e6
+    flash_s = sum(us for k, (us, _) in by_name.items() if "flash_fwd" in k) / 1e6
+    gemm_s = sum(us for k, (us, _) in by_name.items()
+                 if any(tag in k.lower() for tag in ("gemm", "nvjet", "xmma", "cutlass"))) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    doc = {"phase": "profile_transformer", "rows": len(rows), "wall_seconds_profiled": wall_s,
+           "device_kernel_seconds": device_s if by_name else None,
+           "device_busy_share": device_s / wall_s if by_name else None,
+           "flash_kernel_seconds": flash_s if by_name else None,
+           "flash_share_of_device": flash_s / device_s if device_s else None,
+           "gemm_seconds": gemm_s if by_name else None,
+           "top_kernels": [{"name": k[:80], "seconds": us / 1e6, "count": c}
+                           for k, (us, c) in top]}
+    emit(doc)
+    return doc
+
+
+def phase_stage_roundtrip(stage, x) -> dict:
+    """The serving stage saved through core.serialize (the bundle as its
+    base64 blob) and loaded back serves the same bits."""
+    import shutil
+
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.core.serialize import load_stage, save_stage
+
+    path = ROOT / "build" / "chip_smoke" / "transformer_stage"
+    shutil.rmtree(path, ignore_errors=True)
+    rows = Table({"tokens": x[:SLICE_BATCH]})
+    t0 = time.perf_counter()
+    save_stage(stage, str(path))
+    loaded = load_stage(str(path))
+    roundtrip_s = time.perf_counter() - t0
+    stage_bytes = sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+    shutil.rmtree(path, ignore_errors=True)
+    want = np.asarray(stage.transform(rows)["logits"])
+    got = np.asarray(loaded.transform(rows)["logits"])
+    assert loaded.get("device") == "cuda" and np.array_equal(got, want), \
+        "the loaded stage serves other logits"
+    doc = {"phase": "stage_roundtrip", "stage_bytes": stage_bytes,
+           "save_load_seconds": roundtrip_s, "same_logits": True}
+    emit(doc)
+    return doc
+
+
+def phase_slice_zoo() -> dict:
+    """model_zoo/resnet20_digits.model through the port's ModelBundle.load,
+    the 1,797 digits images served on the card and on the CPU."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.nn import DeepModelTransformer, ModelBundle
+
+    bundle = ModelBundle.load(str(ROOT / "model_zoo" / "resnet20_digits.model"))
+    data = np.loadtxt(ROOT / "tests" / "benchmarks" / "data" / "digits.csv",
+                      delimiter=",", skiprows=1)
+    y = data[:, 0]
+    # utils/datagen.py digits_to_images: the bundle's input contract
+    img = (np.repeat(data[:, 1:].reshape(-1, 8, 8)[..., None], 3, axis=-1)
+           * (255.0 / 16.0)).astype(np.float32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        stage = DeepModelTransformer(input_col="image", mini_batch_size=256, device=device,
+                                     fetch_dict={"logits": "logits"}).set_model(bundle)
+        t0 = time.perf_counter()
+        out[device] = np.asarray(stage.transform(Table({"image": img}))["logits"])
+        out[device + "_seconds"] = time.perf_counter() - t0
+    gap = float(np.abs(out["cuda"] - out["cpu"]).max())
+    # f32 convolutions, TF32 off on the card: the order of sums differs only
+    np.testing.assert_allclose(out["cuda"], out["cpu"], atol=1e-4, rtol=1e-4)
+    acc = float((out["cuda"].argmax(1) == y).mean())
+    assert acc > 0.9, acc
+    doc = {"phase": "slice_zoo", "model": "resnet20_digits", "rows": len(img),
+           "card_vs_cpu_max_abs": gap, "accuracy_all_rows": acc,
+           "card_seconds_first_call": out["cuda_seconds"], "cpu_seconds": out["cpu_seconds"]}
+    emit(doc)
+    return doc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
@@ -453,8 +773,13 @@ def main() -> int:
     phase_profile_adult()
     phase_slice_parity()
     phase_slice_higgs()
+    dnn = phase_slice_transformer()
+    phase_profile_transformer(dnn["stage"], dnn["tokens"])
+    phase_stage_roundtrip(dnn["stage"], dnn["tokens"])
+    phase_slice_zoo()
 
     main_shape = kern["histogram"][0]
+    flash_main = kern["flash_attention"][0]
     emit({"kernels": [{
         "name": "histogram",
         "route": "cuda",
@@ -469,6 +794,20 @@ def main() -> int:
         "library_ms": main_shape["library_ms"],
         "shape": main_shape["shape"],
         "shapes": kern["histogram"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/flash_attn.cu",
+        "replaces": "mmlspark_tpu/nn/attention.py:192",
+        "launches": dnn["flash_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in kern["flash_attention"]),
+        "ms": flash_main["ms"],
+        "plain_ms": flash_main["plain_ms"],
+        "bound_ms": flash_main["bound_ms"],
+        "bound_by": flash_main["bound_by"],
+        "library_ms": flash_main["library_ms"],
+        "shape": flash_main["shape"],
+        "shapes": kern["flash_attention"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,9 +6,11 @@ Every kernel the JAX package wrote in Pallas for the TPU is a kernel written
 by hand for Hopper in `csrc/`. Entry points run on the card (`device="cuda"`)
 unless the caller asks for the CPU.
 
-Ported so far: binary GBDT fit and score (`gbdt`), the pipeline core
-(`core`), host native kernels (`native`) and classification metrics
-(`automl`). ROADMAP.md lists what is still to come.
+Ported so far: binary GBDT fit and score (`gbdt`), DNN serving through
+`DeepModelTransformer` with the flash-attention forward (`nn`), the
+pipeline core and async data plane (`core`), host native kernels
+(`native`) and classification metrics (`automl`). ROADMAP.md lists what
+is still to come.
 """
 
 import torch
@@ -20,7 +22,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("core", "gbdt", "automl", "native")
+_SUBPACKAGES = ("core", "gbdt", "automl", "native", "nn")
 
 
 def __getattr__(name):

@@ -13,8 +13,11 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from mmlspark_tpu_torch.core import Table  # noqa: E402
 from mmlspark_tpu_torch.gbdt import engine  # noqa: E402
 from mmlspark_tpu_torch.gbdt import hist_kernel as hk  # noqa: E402
+from mmlspark_tpu_torch.nn import DeepModelTransformer, ModelBundle  # noqa: E402
+from mmlspark_tpu_torch.nn import attention as att  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -82,3 +85,64 @@ def test_one_tree_on_the_card_equals_the_cpu_tree_bit_for_bit(cuda):
         assert torch.equal(getattr(cpu[0], name), getattr(card[0], name).cpu()), name
     assert torch.equal(cpu[1], card[1]) and torch.equal(cpu[2], card[2])
     assert int(cpu[0].is_leaf.sum()) == cfg.num_leaves
+
+
+# K2 against its plain version, with chip_smoke.py's gates: f32 the
+# reference's (tests/test_attention.py:56); bf16 two ulps of the output
+# (rtol 2**-7) plus 2e-3 for outputs near 0, since p is rounded to bf16 at
+# running maxima that differ between the kernel's and the plain version's
+# key blocks
+@pytest.mark.parametrize("dtype,causal,tol", [
+    (torch.float32, False, (2e-5, 1e-5)),
+    (torch.float32, True, (2e-5, 1e-5)),
+    (torch.bfloat16, True, (2e-3, 2.0 ** -7)),
+])
+def test_flash_kernel_matches_plain_version_and_repeats_its_bits(cuda, dtype, causal, tol):
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.tensor(rng.normal(size=(2, t, 4, 64)), dtype=dtype, device=cuda)
+               for t in (200, 137, 137))
+    with torch.no_grad():
+        before = att.flash_attention.launches
+        out, lse = att._flash_fwd_lse(q, k, v, causal)
+        again, lse2 = att._flash_fwd_lse(q, k, v, causal)
+        assert att.flash_attention.launches == before + 2
+        ref, ref_lse = att.flash_attention_torch(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol[0], rtol=tol[1])
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-5)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+
+
+def test_flash_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda):
+    q = torch.zeros((1, 8, 2, 12), device=cuda)
+    before = att.flash_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        att.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 16), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="trainer"):
+        att.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="devices"):
+        att.flash_attention(q.detach(), q.detach().cpu(), q.detach())
+    flat = torch.zeros(8 * 2 * 16 + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(1, 8, 2, 16)            # rows 2 bytes off 16-byte alignment
+    with pytest.raises(ValueError, match="aligned"):
+        att.flash_attention(shifted, shifted, shifted)
+    assert att.flash_attention.launches == before
+
+
+def test_transformer_serves_on_the_card_as_on_the_cpu(cuda):
+    kw = dict(num_layers=2, d_model=64, num_heads=4, d_ff=128, vocab_size=100,
+              num_outputs=3, max_len=64, attention_impl="flash")
+    bundle = ModelBundle.init("transformer", (40,), seed=1, **kw)
+    x = np.random.default_rng(9).integers(0, 100, size=(20, 40))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        before = att.flash_attention.launches
+        stage = DeepModelTransformer(input_col="x", mini_batch_size=8, device=dev,
+                                     fetch_dict={"l": "logits"}).set_model(bundle)
+        outs[dev] = np.asarray(stage.transform(Table({"x": x}))["l"])
+        outs[dev + "_launches"] = att.flash_attention.launches - before
+    assert outs["cpu_launches"] == 0 and outs["cuda_launches"] == 3 * 2
+    # f32 throughout, TF32 off: sums in another order only
+    np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-4, rtol=1e-4)

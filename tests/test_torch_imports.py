@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of mmlspark_tpu_torch pulls
-in neither jax nor any module of the JAX package (mmlspark_tpu)."""
+in neither jax, flax nor msgpack, nor any module of the JAX package
+(mmlspark_tpu)."""
 
 import json
 import os
@@ -20,8 +21,7 @@ names = ["mmlspark_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith("jax.")
-                or m == "mmlspark_tpu" or m.startswith("mmlspark_tpu."))
+                if m.split(".")[0] in ("jax", "flax", "msgpack", "mmlspark_tpu"))
 print(json.dumps({"modules": names, "leaked": leaked}))
 """
 
@@ -36,6 +36,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     for module in ("mmlspark_tpu_torch.gbdt.hist_kernel", "mmlspark_tpu_torch.gbdt.booster",
                    "mmlspark_tpu_torch.core.kernels", "mmlspark_tpu_torch.native",
-                   "mmlspark_tpu_torch.automl.metrics"):
+                   "mmlspark_tpu_torch.automl.metrics", "mmlspark_tpu_torch.nn.attention",
+                   "mmlspark_tpu_torch.nn.models", "mmlspark_tpu_torch.nn.runner",
+                   "mmlspark_tpu_torch.nn.carry", "mmlspark_tpu_torch.nn.flax_blob",
+                   "mmlspark_tpu_torch.nn.layers", "mmlspark_tpu_torch.core.dataplane"):
         assert module in out["modules"]
     assert out["leaked"] == [], f"the port pulled in: {out['leaked']}"
