@@ -24,7 +24,8 @@ kernel. It prints one JSON line per phase:
                shapes: errors, repeatability, median ms (CUDA events), the
                plain version's and one PyTorch library call's ms, and the
                bound (least time the card could take); K1 "histogram",
-               K2 "flash_attention"
+               K2 "flash_attention" with the kernel path each shape took
+               ("wgmma", "mma" or "ffma") and its achieved TFLOP/s
   slice_adult  the GBDT path: fit seconds, launches (must be 3,100),
                train accuracy > 0.7, held-out AUC > 0.75, and the card's
                scores equal to the host walk bit for bit
@@ -248,16 +249,27 @@ def histogram_rows() -> list:
 # K2 against its plain version: (name, B, Tq, Tk, H, D, dtype, causal).
 # The slice shape is the serving transformer's attention (64 rows x 512
 # tokens, 8 heads of 64); "masked" is tests/test_attention.py:120-132's
-# construction; "no_keys" has Tk = 0, so every row has l == 0.
+# construction; "no_keys" has Tk = 0, so every row has l == 0. d128 and
+# d32 hold the wgmma path's other head dim and the mma path.
 FLASH_SHAPES = [
     ("slice_bf16", 64, 512, 512, 8, 64, torch.bfloat16, False),
     ("slice_f32", 64, 512, 512, 8, 64, torch.float32, False),
     ("long_bf16", 4, 4096, 4096, 8, 64, torch.bfloat16, False),
     ("ragged_causal_bf16", 2, 1000, 1000, 8, 64, torch.bfloat16, True),
+    ("d128_bf16", 8, 1024, 1024, 4, 128, torch.bfloat16, True),
+    ("d32_bf16", 4, 300, 300, 4, 32, torch.bfloat16, False),
     ("cross_f32", 1, 24, 40, 2, 16, torch.float32, False),
     ("masked_f32", 1, 4, 8, 1, 8, torch.float32, True),
     ("no_keys_f32", 1, 4, 0, 1, 8, torch.float32, True),
 ]
+
+
+def flash_path(dtype, d: int) -> str:
+    """The K2 kernel a (dtype, head dim) must take: bf16 with D 64 or 128
+    on wgmma, other bf16 with D >= 16 on mma.sync, the rest on FFMA."""
+    if dtype == torch.bfloat16 and d in (64, 128):
+        return "wgmma"
+    return "mma" if dtype == torch.bfloat16 and d >= 16 else "ffma"
 # f32: the reference's own gate between attention tiers
 # (tests/test_attention.py:56). bf16: the output is rounded to bf16 once,
 # and p is rounded to bf16 before the PV product at a running max that
@@ -282,19 +294,22 @@ def _flash_inputs(name, b, tq, tk, h, d, dtype, seed):
 
 def flash_rows() -> list:
     """K2 against `flash_attention_torch` on the card at FLASH_SHAPES:
-    out and lse errors, the same bits on two launches, median ms beside
-    the plain version's, F.scaled_dot_product_attention's (on
-    pre-transposed (B, H, T, D), a yardstick the port never calls) and
-    the bound."""
+    the kernel path that ran (it must be `flash_path`'s), out and lse
+    errors, the same bits on two launches, median ms beside the plain
+    version's, F.scaled_dot_product_attention's (on pre-transposed
+    (B, H, T, D), a yardstick the port never calls) and the bound."""
     import torch.nn.functional as F
 
-    from mmlspark_tpu_torch.nn.attention import _flash_fwd_lse, flash_attention_torch
+    from mmlspark_tpu_torch.nn.attention import (_flash_fwd_lse, flash_attention,
+                                                 flash_attention_torch)
 
     rows = []
     with torch.no_grad():
         for i, (name, b, tq, tk, h, d, dt, causal) in enumerate(FLASH_SHAPES):
             q, k, v = _flash_inputs(name, b, tq, tk, h, d, dt, seed=200 + i)
             out, lse = _flash_fwd_lse(q, k, v, causal)
+            path = flash_attention.last_path
+            assert path == flash_path(dt, d), f"{name}: K2 ran {path}, want {flash_path(dt, d)}"
             out2, lse2 = _flash_fwd_lse(q, k, v, causal)
             p_out, p_lse = flash_attention_torch(q, k, v, causal)
             torch.cuda.synchronize()
@@ -331,7 +346,7 @@ def flash_rows() -> list:
             ops_ms = ops / rate * 1e3
             rows.append({
                 "shape": name, "B": b, "Tq": tq, "Tk": tk, "H": h, "D": d,
-                "dtype": str(dt).replace("torch.", ""), "causal": causal,
+                "dtype": str(dt).replace("torch.", ""), "causal": causal, "path": path,
                 "max_abs_err": max_abs, "max_rel_err": max_rel, "lse_max_abs_err": lse_err,
                 "atol": atol, "rtol": rtol, "same_bits": same_bits,
                 "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -599,8 +614,10 @@ def phase_slice_transformer() -> dict:
     out = stage.transform(Table({"tokens": x}))
     serve_s = time.perf_counter() - t0
     launches = flash_attention.launches
+    path = flash_attention.last_path
     want = SLICE_ROWS // SLICE_BATCH * SLICE_TRANSFORMER["num_layers"]
     assert launches == want, f"K2 launched {launches} times, want {want}"
+    assert path == "wgmma", f"the serving path ran K2's {path} kernel, want wgmma"
     logits, prob = np.asarray(out["logits"]), np.asarray(out["prob"])
     assert logits.shape == (SLICE_ROWS, 8) and prob.shape == (SLICE_ROWS, 8)
     assert np.isfinite(logits).all() and np.isfinite(prob).all()
@@ -648,7 +665,7 @@ def phase_slice_transformer() -> dict:
            "tokens_per_row": SLICE_TOKENS, "mini_batch_size": SLICE_BATCH,
            "init_seconds": init_s, "serve_seconds": serve_s,
            "rows_per_s": SLICE_ROWS / serve_s, "tokens_per_s": SLICE_ROWS * SLICE_TOKENS / serve_s,
-           "flash_launches": launches,
+           "flash_launches": launches, "flash_path": path,
            "f32_flash_vs_dense_max_abs": flash_vs_dense,
            "card_vs_cpu_max_abs_f32_2rows": card_vs_cpu, "cpu_2rows_seconds": cpu2_s,
            "bf16_vs_f32_flash_max_abs": bf16_vs_f32,
@@ -807,6 +824,7 @@ def main() -> int:
         "bound_by": flash_main["bound_by"],
         "library_ms": flash_main["library_ms"],
         "shape": flash_main["shape"],
+        "path": flash_main["path"],
         "shapes": kern["flash_attention"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

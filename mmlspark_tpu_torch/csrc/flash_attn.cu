@@ -3,11 +3,11 @@
 // Replaces mmlspark_tpu/nn/attention.py::_flash_fwd_lse, the Pallas TPU
 // kernel (body `_flash_kernel`) that kept a (block_q, block_k) score tile
 // and the online-softmax state in VMEM across a sequential key-block grid
-// axis. Here one block owns one (batch, head, 64-row query tile); a loop
+// axis. Here a block owns a (batch, head, query tile) at a time; a loop
 // inside the block walks the key tiles, staged through shared memory, and
 // the online-softmax state (running max m, denominator l, the f32
-// accumulator) lives in registers. Nothing carries between blocks, so the
-// blocks run in any order.
+// accumulator) lives in registers. Nothing carries between query tiles,
+// so they run in any order.
 //
 // What it computes, as the TPU kernel does (attention.py:139-189):
 //   s = (q . k) * d**-0.5 in f32 (inputs widened, never pre-scaled);
@@ -23,29 +23,38 @@
 // Bound: at short T (the serving shape B 64, T 512, H 8, D 64) the bytes
 // (q, k, v read once, out and lse written once) and the tensor-core
 // operations (4 * B * H * Tq * Tk * D) take about the same time; at long
-// T the operations bound it. What the design does about it:
-//   - bf16 with D >= 16 (the serving path) runs both products on the
-//     tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate), four
-//     warps of 16 query rows each; see flash_fwd_mma_kernel;
-//   - f32 keeps the reference's f32 products (TF32 would break its
+// T the operations bound it. What the design does about it, by path:
+//   - "wgmma": bf16 with D = 64 or 128 (the serving path) runs both
+//     products on Hopper's warpgroup tensor-core instruction, fed by TMA
+//     through a ring of key/value tiles in shared memory that a producer
+//     warpgroup keeps ahead of the math; see flash_fwd_wgmma_kernel;
+//   - "mma": bf16 with D = 16 or 32 runs both products with mma.sync
+//     m16n8k16 (bf16 in, f32 accumulate), four warps of 16 query rows
+//     each; see flash_fwd_mma_kernel;
+//   - "ffma": f32 keeps the reference's f32 products (TF32 would break its
 //     2e-5 gate), so it and bf16 with D = 8 take the FFMA kernel below:
 //     one thread per query row (two for D = 128, joined by a shuffle),
-//     keys 8 at a time as independent chains;
-//   - every key tile is read once per query tile and shared by its 64
-//     rows through shared memory; causal tiles wholly after the query
-//     tile are skipped (their p would be zero, so the outputs do not
-//     change) and the heaviest causal tiles launch first.
-// Not yet: wgmma, TMA-fed multi-stage tiles, overlap of loads and math.
+//     keys 8 at a time as independent chains.
+// On every path each key tile is read once per query tile and shared by
+// the tile's rows through shared memory; causal tiles wholly after the
+// query tile are skipped (their p would be zero, so the outputs do not
+// change) and the heaviest causal tiles launch first.
 //
-// The kernel allocates nothing: the caller passes out and lse. Built with
+// The kernels allocate nothing: the caller passes out and lse. Built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// and called through the C interface at the bottom (ctypes).
+// and called through the C interface at the bottom (ctypes). The wgmma
+// path's tensor maps are encoded with libcuda's cuTensorMapEncodeTiled,
+// found at run time through cudaGetDriverEntryPoint, so nothing links
+// libcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -198,7 +207,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// bf16 with D >= 16: both products on the tensor cores (mma.sync
+// bf16 with D = 16 or 32: both products on the tensor cores (mma.sync
 // m16n8k16, bf16 in, f32 accumulate). Four warps own 16 query rows each.
 // Fragment layouts (PTX ISA, "mma.m16n8k16"), with g = lane / 4 and
 // t = lane % 4: A (16x16, row-major) a0 = (g, 2t..2t+1), a1 = (g+8, 2t..),
@@ -218,7 +227,7 @@ constexpr int kPad = 8;
 
 template <int D>
 struct MmaTiling {
-    static constexpr int kBlockK = D > 64 ? 32 : 64;     // keys per tile
+    static constexpr int kBlockK = 64;                    // keys per tile
     static constexpr int kThreads = 128;                  // 4 warps x 16 rows
     static constexpr int kLd = D + kPad;                  // smem row pitch
     static constexpr int kChunks = D / 8;                 // 16-byte chunks a row
@@ -414,46 +423,752 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int64_t batch, int heads, int64_t tq,
-                   int64_t tk, int causal, float scale, const int64_t* st,
-                   cudaStream_t stream) {
-    const int64_t num_bh = batch * heads;
-    const int64_t num_q_tiles = (tq + kBlockQ - 1) / kBlockQ;
-    const int64_t blocks = num_bh * num_q_tiles;
-    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-    if constexpr (std::is_same<T, __nv_bfloat16>::value && D >= 16) {
-        flash_fwd_mma_kernel<D><<<static_cast<unsigned>(blocks), MmaTiling<D>::kThreads, 0,
-                                  stream>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), static_cast<T*>(out), lse, num_bh, heads,
-            tq, tk, num_q_tiles, causal, scale, st[0], st[1], st[2], st[3],
-            st[4], st[5], st[6], st[7], st[8]);
-    } else {
-        flash_fwd_kernel<T, D><<<static_cast<unsigned>(blocks), Tiling<T, D>::kThreads, 0,
-                                 stream>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), static_cast<T*>(out), lse, num_bh, heads,
-            tq, tk, num_q_tiles, causal, scale, st[0], st[1], st[2], st[3],
-            st[4], st[5], st[6], st[7], st[8]);
+// ---------------------------------------------------------------------
+// bf16 with D = 64 or 128: the Hopper path. A persistent grid of at most
+// one 384-thread block per SM walks the work items, each a (batch, head,
+// 128-row query tile): two consumer warpgroups of 64 query rows each, and
+// one producer warpgroup.
+//
+// - TMA in, no transposes: q, k and v keep the (B, T, H, D) layout. Each
+//   has a 4-D tensor map over dims (D, H, T, B) with the caller's strides,
+//   whose box (64, 1, rows, 1) copies `rows` rows of 64 columns (128 bytes)
+//   into shared memory with the 128-byte swizzle; D = 128 takes two boxes,
+//   one per 64-column half. TMA zero-fills rows past T, so the ragged edge
+//   needs no padding (the mask still decides which keys count).
+// - A ring of three key/value stages of 128 keys (64 at D = 128), each
+//   with a "full" mbarrier per operand (TMA completes it by bytes) and an
+//   "empty" one (every consumer thread arrives when it is done with the
+//   stage), and two q buffers with their own full/empty pair. One producer
+//   thread walks the block's items and their key tiles, waiting for a
+//   stage or q buffer to empty before it refills it, so loads run up to
+//   three tiles ahead of the math and the next item's q arrives while
+//   this one is computed. Without a mask the items of one head run side
+//   by side, so they share its keys and values in L2.
+// - Both products on wgmma (bf16 in, f32 accumulate). S = Q.K^T is
+//   m64nNk16 (N the key tile) with Q and K read from shared memory, both
+//   K-major (the head dim is contiguous, as stored). O += P.V is m64nDk16
+//   with P from registers and V from shared memory as an MN-major operand
+//   (the transpose bit): V tiles need no transposed copy. Tile j's PV
+//   product and tile j + 1's S product are issued together after tile j's
+//   softmax, so one wait covers both.
+// - The wgmma accumulator gives a thread rows g and g + 8 (g = lane / 4)
+//   of its warp's 16 rows and columns 2t, 2t + 1 of every 8-column group
+//   (t = lane % 4): the mma.sync C layout, so the online softmax runs in
+//   registers with quad shuffles for the row max, and two neighbouring
+//   8-key groups of S, rounded to bf16, are the register A fragment of the
+//   PV product. That rounding is the TPU kernel's cast of p to v's dtype;
+//   l sums the unrounded f32 p.
+// - The softmax works in base 2: s * log2(e) is folded into the scale,
+//   p = 2^(s - m) with the max m tracked in base 2, and lse = m ln 2 +
+//   ln l. Masked keys (past Tk, or after the query under causal) are left
+//   out of the max and their p is set to 0 from the mask flags, one bit a
+//   key. The two warpgroups take turns at the softmax (named barriers):
+//   left alone they fall into step and run their softmaxes, and then
+//   their products, at the same time, while in turns one's softmax runs
+//   beside the other's products.
+// - Shared memory is 128 KB (D = 64) or 160 KB (D = 128), so one block
+//   runs per SM. Its 12 warps start with 168 registers a thread; the
+//   producer warpgroup drops to 40 with setmaxnreg and the consumers rise
+//   to 232. Without it the compiler serializes the wgmma products.
+// - A barrier wait that has not completed after 10 s traps, so a fault
+//   (a copy that never lands) fails the launch instead of hanging the card.
+// ---------------------------------------------------------------------
+
+constexpr int kWgRows = 128;        // query rows per block: two warpgroups of 64
+constexpr int kWgConsumers = 256;   // threads of the two consumer warpgroups
+constexpr int kWgThreads = kWgConsumers + 128;  // and the producer warpgroup
+// registers a thread once the producer has given its own up: 384 threads
+// start with 168 each (the most 12 warps leave a thread), and 128 x 40 +
+// 256 x 232 is the same 384 x 168
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kSwizzleCols = 64;    // bf16 columns of one 128-byte swizzle row
+constexpr uint64_t kWaitLimitNs = 10000000000ull;
+
+// keys per ring tile: 128, or 64 for D = 128, where S (kKeys / 2), O
+// (D / 2) and P (kKeys / 4) registers a thread must fit beside each other
+// for the products to stay in flight
+template <int D>
+struct WgTiling {
+    static constexpr int kKeys = D == 64 ? 128 : 64;
+    static constexpr int kStages = 3;
+    static constexpr int kHalves = D / kSwizzleCols;                  // 64-column boxes a row
+    static constexpr int kQBytes = kWgRows * D * 2;
+    static constexpr int kTileBytes = kKeys * D * 2;                  // one K or V tile
+    static constexpr int kBarriers = 4 + 3 * kStages;
+    // two q buffers, the ring, the barriers, and 1024 bytes of slack to
+    // align the swizzled tiles to the 1024-byte period of the 128-byte
+    // swizzle
+    static constexpr int kSmemBytes =
+        2 * kQBytes + 2 * kStages * kTileBytes + 8 * kBarriers + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+    uint64_t t;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    return t;
+}
+
+// wait until the phase of parity `parity` of `bar` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    if (mbar_try_wait(bar, parity)) return;
+    const uint64_t t0 = global_ns();
+    while (!mbar_try_wait(bar, parity)) {
+        if (global_ns() - t0 > kWaitLimitNs) __trap();
     }
+}
+
+// one TMA box of a 4-D map at element coordinates (c0, c1, c2, c3) into
+// shared memory at `dst`, completing `bar` by its bytes
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// wgmma shared-memory matrix descriptor for a 128-byte-swizzled operand:
+// start address, leading and stride byte offsets (all in 16-byte units)
+// and the layout type 1 (128-byte swizzle) in bits 62-63
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+           static_cast<uint64_t>((lead & 0x3FFFF) >> 4) << 16 |
+           static_cast<uint64_t>((stride & 0x3FFFF) >> 4) << 32 | 1ull << 62;
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Named barriers 1 and 2 take the two consumer warpgroups' softmaxes in
+// turns: warpgroup w waits on barrier 1 + w before its softmax and
+// arrives on the other's after it
+constexpr int kSoftmaxBarrier = 1;
+
+__device__ __forceinline__ void named_sync(int id) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kWgConsumers) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kWgConsumers) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from touching accumulator registers while a wgmma
+// that writes them may be in flight
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define MMLSPARK_ACC8(d, i)                                                              \
+    "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
+        "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define MMLSPARK_ACC32(d) \
+    MMLSPARK_ACC8(d, 0), MMLSPARK_ACC8(d, 8), MMLSPARK_ACC8(d, 16), MMLSPARK_ACC8(d, 24)
+#define MMLSPARK_ACC64(d)                                                                \
+    MMLSPARK_ACC8(d, 0), MMLSPARK_ACC8(d, 8), MMLSPARK_ACC8(d, 16), MMLSPARK_ACC8(d, 24), \
+        MMLSPARK_ACC8(d, 32), MMLSPARK_ACC8(d, 40), MMLSPARK_ACC8(d, 48), MMLSPARK_ACC8(d, 56)
+
+// d (+)= A.B, m64nNk16, A and B from shared memory, both K-major;
+// scale_d == 0 ignores d's old value
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : MMLSPARK_ACC32(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : MMLSPARK_ACC64(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A.B, m64nNk16, A from registers (the mma.sync A fragment per
+// warp), B from shared memory MN-major (transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : MMLSPARK_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : MMLSPARK_ACC64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// One key tile of the online softmax on a thread's S accumulator `s`
+// (raw q.k over NK keys, NK / 2 values: rows r = (i % 4) / 2 of {g, g + 8}, key
+// k0 + 8 (i / 4) + 2t + (i % 2)). Leaves p in `s`, updates the base-2
+// running max m and the thread's share of l, and returns in corr the
+// factor the accumulator must be scaled by. kMasked checks every key
+// against Tk and, under causal, the query position.
+template <bool kMasked, int NK>
+__device__ __forceinline__ void softmax_tile(float (&s)[NK / 2], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2], int64_t k0,
+                                             const int64_t (&qpos)[2], int64_t tk, int causal,
+                                             float scale_log2, int t) {
+    // the mask flags, one bit per (row, key) of the thread: bit 2 (i / 4)
+    // + (i % 2) of word (i % 4) / 2 keeps key k0 + 8 (i / 4) + 2t + (i % 2)
+    uint32_t kept[2] = {0xffffffffu, 0xffffffffu};
+    if constexpr (kMasked) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            // keys of this tile at offsets below `lim` count for row r
+            int64_t lim = tk - k0;
+            if (causal && qpos[r] + 1 - k0 < lim) lim = qpos[r] + 1 - k0;
+            const int lim_t = static_cast<int>(lim < 0 ? 0 : lim > NK ? NK : lim) - 2 * t;
+            kept[r] = 0;
+#pragma unroll
+            for (int c = 0; c < NK / 8; ++c) {
+                kept[r] |= static_cast<uint32_t>(8 * c < lim_t) << (2 * c);
+                kept[r] |= static_cast<uint32_t>(8 * c + 1 < lim_t) << (2 * c + 1);
+            }
+        }
+    }
+    auto keep = [&](int i) {
+        return !kMasked || ((kept[(i % 4) / 2] >> (2 * (i / 4) + (i % 2))) & 1u);
+    };
+    // the row max and row sum in four independent chains a row
+    float mx4[2][4], ps4[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mx4[r][c] = -INFINITY, ps4[r][c] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i)
+        if (keep(i)) mx4[(i % 4) / 2][(i / 4) % 4] = fmaxf(mx4[(i % 4) / 2][(i / 4) % 4], s[i]);
+    float mx[2], m_new[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(fmaxf(mx4[r][0], mx4[r][1]), fmaxf(mx4[r][2], mx4[r][3]));
+        // the four threads of a quad hold one row
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // the scale is positive, so the max of the scaled scores is the
+        // scaled max
+        m_new[r] = fmaxf(m[r], mx[r] * scale_log2);
+        corr[r] = exp2_approx(m[r] - m_new[r]);
+        m[r] = m_new[r];
+    }
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) {
+        const int r = (i % 4) / 2;
+        s[i] = keep(i) ? exp2_approx(fmaf(s[i], scale_log2, -m_new[r])) : 0.0f;   // s now holds p
+        ps4[r][(i / 4) % 4] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+        l[r] = l[r] * corr[r] + ((ps4[r][0] + ps4[r][1]) + (ps4[r][2] + ps4[r][3]));
+}
+
+// The accumulator scaled by corr, and p rounded to bf16 into the A
+// fragments of the PV product's 16-key steps
+template <int D, int NK>
+__device__ __forceinline__ void scale_and_pack(float (&o)[D / 2], const float (&corr)[2],
+                                               const float (&p)[NK / 2],
+                                               uint32_t (&pa)[NK / 16][4]) {
+    // once the row maxima settle, corr is 1 for the whole warp: skip
+    if (__any_sync(0xffffffffu, corr[0] != 1.0f || corr[1] != 1.0f)) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i % 4) / 2];
+    }
+#pragma unroll
+    for (int kt = 0; kt < NK / 16; ++kt) {
+        pa[kt][0] = pack_bf16(p[8 * kt], p[8 * kt + 1]);
+        pa[kt][1] = pack_bf16(p[8 * kt + 2], p[8 * kt + 3]);
+        pa[kt][2] = pack_bf16(p[8 * kt + 4], p[8 * kt + 5]);
+        pa[kt][3] = pack_bf16(p[8 * kt + 6], p[8 * kt + 7]);
+    }
+}
+
+// One work item of the wgmma kernel: a (batch, head, 128-row query tile),
+// and how many key tiles it walks (keys after the tile's last query are
+// masked for all its rows under causal: skipped). Without a mask the items
+// of one head are numbered together, so the blocks that run at once share
+// its keys and values in L2; under a causal mask the later query tiles,
+// which hold the most keys, come first.
+struct WgWork {
+    int64_t bh, q0;
+    int b, h, n_tiles;
+};
+
+template <int NK>
+__device__ __forceinline__ WgWork wg_work(int64_t w, int64_t num_bh, int heads,
+                                          int64_t num_q_tiles, int64_t tk, int causal) {
+    WgWork x;
+    x.bh = causal ? w % num_bh : w / num_q_tiles;
+    x.q0 = (causal ? num_q_tiles - 1 - w / num_bh : w % num_q_tiles) * kWgRows;
+    x.b = static_cast<int>(x.bh / heads);
+    x.h = static_cast<int>(x.bh % heads);
+    int64_t kend = tk;
+    if (causal && x.q0 + kWgRows < kend) kend = x.q0 + kWgRows;
+    x.n_tiles = static_cast<int>((kend + NK - 1) / NK);
+    return x;
+}
+
+// The shared-memory map of the wgmma kernel: two q buffers (work item i
+// uses buffer i % 2, so the next item's q loads during this one), the ring
+// of K/V stages (stage s: K then V, each kHalves swizzled (kKeys x 64)
+// boxes) and the mbarriers after them
+template <int D>
+struct WgSmem {
+    using Tl = WgTiling<D>;
+    static constexpr int S = Tl::kStages;
+    uint32_t base, kv, bars;
+    __device__ explicit WgSmem(uint32_t b)
+        : base(b), kv(b + 2 * Tl::kQBytes), bars(b + 2 * Tl::kQBytes + 2 * S * Tl::kTileBytes) {}
+    __device__ uint32_t q(int buf) const { return base + buf * Tl::kQBytes; }
+    __device__ uint32_t q_full(int buf) const { return bars + 8u * buf; }
+    __device__ uint32_t q_empty(int buf) const { return bars + 8u * (2 + buf); }
+    __device__ uint32_t k_full(int s) const { return bars + 8u * (4 + s); }
+    __device__ uint32_t v_full(int s) const { return bars + 8u * (4 + S + s); }
+    __device__ uint32_t empty(int s) const { return bars + 8u * (4 + 2 * S + s); }
+    __device__ uint32_t k_tile(int s) const { return kv + 2u * s * Tl::kTileBytes; }
+    __device__ uint32_t v_tile(int s) const { return kv + (2u * s + 1) * Tl::kTileBytes; }
+};
+
+// The consumer warpgroups' part of flash_fwd_wgmma_kernel: for each of the
+// block's work items, warpgroup wg owns query rows q0 + 64 wg .. + 63.
+template <int D>
+__device__ __forceinline__ void consume(const WgSmem<D>& sm, int warp, int lane,
+                                        __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                                        int64_t num_work, int64_t num_bh, int heads, int64_t tq,
+                                        int64_t tk, int64_t num_q_tiles, int causal,
+                                        float scale_log2) {
+    using Tl = WgTiling<D>;
+    constexpr int S = Tl::kStages;
+    constexpr int NK = Tl::kKeys;
+    const int wg = warp / 4;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    float o[D / 2];
+    float s[NK / 2];
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) s[i] = 0.0f;
+    uint32_t pa[NK / 16][4];
+    int use = 0;     // ring tiles consumed so far, over all work items
+    // warpgroup 0 takes the first softmax turn
+    if (wg == 1) named_arrive(kSoftmaxBarrier);
+
+    // S = Q.K^T over D / 16 steps of 16 columns; a step within a 128-byte
+    // swizzle row advances the start address by 32 bytes
+    auto issue_qk = [&](int qbuf, int st) {
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+            const uint32_t col = (ks % 4) * 32;
+            const uint64_t da = sw128_desc(
+                sm.q(qbuf) + (ks / 4) * kWgRows * 128 + wg * 64 * 128 + col, 16, 1024);
+            const uint64_t db =
+                sw128_desc(sm.k_tile(st) + (ks / 4) * NK * 128 + col, 16, 1024);
+            wgmma_ss(s, da, db, ks > 0);
+        }
+        wgmma_commit();
+    };
+
+    int item = 0;
+    for (int64_t w = blockIdx.x; w < num_work; w += gridDim.x, ++item) {
+        const WgWork x = wg_work<Tl::kKeys>(w, num_bh, heads, num_q_tiles, tk, causal);
+        const int qbuf = item & 1;
+        const int64_t wg_q0 = x.q0 + 64 * wg;
+        const int64_t qpos[2] = {wg_q0 + 16 * (warp % 4) + g, wg_q0 + 16 * (warp % 4) + g + 8};
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+        float m[2] = {kNegInf, kNegInf};
+        float l[2] = {0.0f, 0.0f};
+        float corr[2];
+
+        // the softmax of tile j, which runs while the other warpgroup's
+        // products occupy the tensor cores (the two take turns); a tile
+        // inside the sequence and, under causal, wholly at or before the
+        // warpgroup's first query has nothing to mask
+        auto softmax = [&](int j) {
+            const int64_t k0 = static_cast<int64_t>(j) * NK;
+            named_sync(kSoftmaxBarrier + wg);
+            if (k0 + NK <= tk && (!causal || k0 + NK - 1 <= wg_q0))
+                softmax_tile<false, NK>(s, m, l, corr, k0, qpos, tk, causal, scale_log2, t);
+            else
+                softmax_tile<true, NK>(s, m, l, corr, k0, qpos, tk, causal, scale_log2, t);
+            named_arrive(kSoftmaxBarrier + 1 - wg);
+            scale_and_pack<D, NK>(o, corr, s, pa);
+        };
+        // O += P.V over NK / 16 steps of 16 keys (16 swizzle rows, 2048
+        // bytes); the leading offset steps between the 64-column halves
+        // of V
+        auto issue_pv = [&](int st) {
+            mbar_wait(sm.v_full(st), (use / S) & 1);
+            wgmma_fence();
+#pragma unroll
+            for (int kt = 0; kt < NK / 16; ++kt)
+                wgmma_rs(o, pa[kt], sw128_desc(sm.v_tile(st) + kt * 2048, NK * 128, 1024));
+            wgmma_commit();
+        };
+
+        mbar_wait(sm.q_full(qbuf), (item >> 1) & 1);
+        if (x.n_tiles > 0) {
+            mbar_wait(sm.k_full(use % S), (use / S) & 1);
+            wgmma_fence();
+            issue_qk(qbuf, use % S);
+            // Tile j's S product is in flight on entry. After its softmax,
+            // tile j's PV product and tile j + 1's S product are issued
+            // together, so the wait for the first overlaps the second. The
+            // last tile is peeled off: every product in the loop is issued
+            // on every pass (a product issued under a branch makes the
+            // compiler serialize them all).
+            for (int j = 0; j < x.n_tiles - 1; ++j, ++use) {
+                wgmma_wait<0>();
+                fence_regs(s);
+                softmax(j);
+                issue_pv(use % S);
+                mbar_wait(sm.k_full((use + 1) % S), ((use + 1) / S) & 1);
+                issue_qk(qbuf, (use + 1) % S);
+                wgmma_wait<1>();
+                fence_regs(o);
+                mbar_arrive(sm.empty(use % S));
+            }
+            wgmma_wait<0>();
+            fence_regs(s);
+            // q is free for the item after next after its last S product
+            mbar_arrive(sm.q_empty(qbuf));
+            softmax(x.n_tiles - 1);
+            issue_pv(use % S);
+            wgmma_wait<0>();
+            fence_regs(o);
+            mbar_arrive(sm.empty(use % S));
+            ++use;
+        } else {
+            mbar_arrive(sm.q_empty(qbuf));
+        }
+
+        constexpr float kLn2 = 0.6931471805599453f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float lr = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+            lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+            if (qpos[r] >= tq) continue;
+            const float denom = fmaxf(lr, 1e-30f);
+            // one division a row, not one an element
+            const float inv = lr > 0.0f ? 1.0f / denom : 0.0f;
+            __nv_bfloat16* op = out + ((x.b * tq + qpos[r]) * heads + x.h) * D;
+#pragma unroll
+            for (int n = 0; n < D / 8; ++n) {
+                const float x0 = o[4 * n + 2 * r] * inv;
+                const float x1 = o[4 * n + 2 * r + 1] * inv;
+                *reinterpret_cast<__nv_bfloat162*>(op + n * 8 + 2 * t) =
+                    __floats2bfloat162_rn(x0, x1);
+            }
+            if (t == 0)
+                lse[x.bh * tq + qpos[r]] = lr > 0.0f ? m[r] * kLn2 + logf(denom) : INFINITY;
+        }
+    }
+    // warpgroup 1's last hand-over (or its first, if there was no key
+    // tile) is taken here, so both barriers end with every arrival matched
+    if (wg == 0) named_sync(kSoftmaxBarrier);
+}
+
+// Persistent: the grid has at most one block per SM, and block i takes
+// work items i, i + gridDim.x, ... The producer runs ahead across items,
+// so the next item's q and first key tiles load while the consumers
+// finish the current one.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                       int64_t num_work, int64_t num_bh, int heads, int64_t tq, int64_t tk,
+                       int64_t num_q_tiles, int causal, float scale_log2) {
+    using Tl = WgTiling<D>;
+    constexpr int S = Tl::kStages;
+    extern __shared__ uint8_t smem_raw[];
+    const WgSmem<D> sm((smem_addr(smem_raw) + 1023u) & ~1023u);
+
+    if (threadIdx.x == 0) {
+        for (int buf = 0; buf < 2; ++buf) {
+            mbar_init(sm.q_full(buf), 1);
+            mbar_init(sm.q_empty(buf), kWgConsumers);
+        }
+        for (int s = 0; s < S; ++s) {
+            mbar_init(sm.k_full(s), 1);
+            mbar_init(sm.v_full(s), 1);
+            mbar_init(sm.empty(s), kWgConsumers);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (warp >= kWgConsumers / 32) {
+        // the producer warpgroup gives its registers to the consumers;
+        // one thread issues every copy
+        setmaxnreg_dec<kProducerRegs>();
+        if (warp == kWgConsumers / 32 && lane == 0) {
+            int fill = 0;    // ring tiles filled so far, over all work items
+            int item = 0;
+            for (int64_t w = blockIdx.x; w < num_work; w += gridDim.x, ++item) {
+                const WgWork x = wg_work<Tl::kKeys>(w, num_bh, heads, num_q_tiles, tk, causal);
+                // the consumers are done with this buffer's previous item
+                // (two items back; the first use of a buffer passes at once)
+                const int qbuf = item & 1;
+                mbar_wait(sm.q_empty(qbuf), ((item >> 1) & 1) ^ 1);
+                mbar_expect_tx(sm.q_full(qbuf), Tl::kQBytes);
+                for (int c = 0; c < Tl::kHalves; ++c)
+                    tma_load_4d(sm.q(qbuf) + c * kWgRows * 128, &q_map, sm.q_full(qbuf),
+                                c * kSwizzleCols, x.h, static_cast<int>(x.q0), x.b);
+                for (int j = 0; j < x.n_tiles; ++j, ++fill) {
+                    const int s = fill % S;
+                    // a stage's first fill passes at once: the barrier's
+                    // phase before phase 0 counts as complete
+                    mbar_wait(sm.empty(s), ((fill / S) & 1) ^ 1);
+                    const int k0 = j * Tl::kKeys;
+                    mbar_expect_tx(sm.k_full(s), Tl::kTileBytes);
+                    for (int c = 0; c < Tl::kHalves; ++c)
+                        tma_load_4d(sm.k_tile(s) + c * Tl::kKeys * 128, &k_map, sm.k_full(s),
+                                    c * kSwizzleCols, x.h, k0, x.b);
+                    mbar_expect_tx(sm.v_full(s), Tl::kTileBytes);
+                    for (int c = 0; c < Tl::kHalves; ++c)
+                        tma_load_4d(sm.v_tile(s) + c * Tl::kKeys * 128, &v_map, sm.v_full(s),
+                                    c * kSwizzleCols, x.h, k0, x.b);
+                }
+            }
+        }
+    } else {
+        setmaxnreg_inc<kConsumerRegs>();
+        consume<D>(sm, warp, lane, out, lse, num_work, num_bh, heads, tq, tk, num_q_tiles, causal,
+                   scale_log2);
+    }
+}
+
+// libcuda's cuTensorMapEncodeTiled (CUDA 12.0 ABI), looked up once.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+    static const EncodeTiledFn fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t err =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+                   ? reinterpret_cast<EncodeTiledFn>(p)
+                   : nullptr;
+    }();
+    return fn;
+}
+
+// Error codes of the wgmma path's host side, beside cudaError_t's
+constexpr int kErrNoEncoder = -1;              // libcuda has no cuTensorMapEncodeTiled
+constexpr int kErrEncodeBase = -1000;          // -1000 - CUresult of a refused map
+
+// The tensor map of a (B, T, H, D) bf16 tensor over dims (D, H, T, B)
+// with element strides st = (batch, time, head), box (64, 1, rows, 1),
+// 128-byte swizzle, zeros past the edge. A dim of extent 1 is never
+// stepped, so its stride is replaced by a packed one.
+CUresult encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int d, int heads,
+                    int64_t t, int64_t batch, const int64_t* st, uint32_t rows) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                                static_cast<cuuint64_t>(t),
+                                static_cast<cuuint64_t>(batch)};
+    const int64_t elem[3] = {st[2], st[1], st[0]};            // head, time, batch
+    cuuint64_t strides[3];
+    int64_t packed = d;
+    for (int i = 0; i < 3; ++i) {
+        strides[i] = static_cast<cuuint64_t>(dims[i + 1] == 1 ? packed : elem[i]) * 2;
+        packed = static_cast<int64_t>(strides[i] / 2) * static_cast<int64_t>(dims[i + 1]);
+    }
+    const cuuint32_t box[4] = {kSwizzleCols, 1, rows, 1};
+    const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+               box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
+                 int64_t batch, int heads, int64_t tq, int64_t tk, int causal, float scale,
+                 const int64_t* st, int device, cudaStream_t stream) {
+    const EncodeTiledFn enc = encode_tiled();
+    if (enc == nullptr) return kErrNoEncoder;
+    CUtensorMap maps[3];
+    const void* ptrs[3] = {q, k, v};
+    // with no keys the kernel loads no key tile: k and v take q's map
+    for (int i = 0; i < (tk > 0 ? 3 : 1); ++i) {
+        const CUresult res = encode_map(enc, &maps[i], ptrs[i], D, heads, i == 0 ? tq : tk, batch,
+                                        st + 3 * i, i == 0 ? kWgRows : WgTiling<D>::kKeys);
+        if (res != CUDA_SUCCESS) return kErrEncodeBase - static_cast<int>(res);
+    }
+    if (tk == 0) maps[1] = maps[2] = maps[0];
+    // above 48 KB of shared memory only after this attribute, set once a device
+    static std::atomic<uint64_t> configured{0};
+    const uint64_t bit = device < 64 ? 1ull << device : 0;
+    if (!(configured.load() & bit)) {
+        const cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                     WgTiling<D>::kSmemBytes);
+        if (err != cudaSuccess) return err;
+        configured.fetch_or(bit);
+    }
+    int sms = 0;
+    const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    const int64_t num_bh = batch * heads;
+    const int64_t num_q_tiles = (tq + kWgRows - 1) / kWgRows;
+    const int64_t num_work = num_bh * num_q_tiles;
+    if (batch > 0x7fffffffLL || tq > 0x7fffffffLL || tk > 0x7fffffffLL)
+        return cudaErrorInvalidConfiguration;
+    const int blocks = static_cast<int>(num_work < sms ? num_work : sms);
+    constexpr float kLog2e = 1.4426950408889634f;
+    flash_fwd_wgmma_kernel<D><<<blocks, kWgThreads, WgTiling<D>::kSmemBytes, stream>>>(
+        maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), lse, num_work, num_bh, heads,
+        tq, tk, num_q_tiles, causal, scale * kLog2e);
     return cudaGetLastError();
 }
 
+// which kernel a (dtype, head dim) takes; reported to the caller
+constexpr int kPathFfma = 0;
+constexpr int kPathMma = 1;
+constexpr int kPathWgmma = 2;
+
+// bf16 with D = 64 or 128: wgmma; other bf16 (D = 16 or 32): mma.sync;
+// f32, and bf16 with D = 8: FFMA
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int64_t batch,
+           int heads, int64_t tq, int64_t tk, int causal, float scale, const int64_t* st,
+           int device, cudaStream_t stream, int* path) {
+    constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+    if constexpr (kBf16 && (D == 64 || D == 128)) {
+        *path = kPathWgmma;
+        return launch_wgmma<D>(q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st,
+                               device, stream);
+    } else {
+        const int64_t num_bh = batch * heads;
+        const int64_t num_q_tiles = (tq + kBlockQ - 1) / kBlockQ;
+        const int64_t blocks = num_bh * num_q_tiles;
+        if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+        if constexpr (kBf16 && D >= 16) {
+            *path = kPathMma;
+            flash_fwd_mma_kernel<D><<<static_cast<unsigned>(blocks), MmaTiling<D>::kThreads, 0,
+                                      stream>>>(
+                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<T*>(out), lse, num_bh, heads, tq, tk, num_q_tiles, causal, scale,
+                st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+        } else {
+            *path = kPathFfma;
+            flash_fwd_kernel<T, D><<<static_cast<unsigned>(blocks), Tiling<T, D>::kThreads, 0,
+                                     stream>>>(
+                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<T*>(out), lse, num_bh, heads, tq, tk, num_q_tiles, causal, scale,
+                st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+        }
+        return cudaGetLastError();
+    }
+}
+
 template <typename T>
-cudaError_t launch_dim(int head_dim, const void* q, const void* k,
-                       const void* v, void* out, float* lse, int64_t batch,
-                       int heads, int64_t tq, int64_t tk, int causal,
-                       float scale, const int64_t* st, cudaStream_t stream) {
+int launch_dim(int head_dim, const void* q, const void* k, const void* v, void* out, float* lse,
+               int64_t batch, int heads, int64_t tq, int64_t tk, int causal, float scale,
+               const int64_t* st, int device, cudaStream_t stream, int* path) {
+#define MMLSPARK_LAUNCH(D) \
+    launch<T, D>(q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st, device, stream, path)
     switch (head_dim) {
-        case 8: return launch<T, 8>(q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st, stream);
-        case 16: return launch<T, 16>(q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st, stream);
-        case 32: return launch<T, 32>(q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st, stream);
-        case 64: return launch<T, 64>(q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st, stream);
-        case 128: return launch<T, 128>(q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st, stream);
+        case 8: return MMLSPARK_LAUNCH(8);
+        case 16: return MMLSPARK_LAUNCH(16);
+        case 32: return MMLSPARK_LAUNCH(32);
+        case 64: return MMLSPARK_LAUNCH(64);
+        case 128: return MMLSPARK_LAUNCH(128);
         default: return cudaErrorInvalidValue;
     }
+#undef MMLSPARK_LAUNCH
 }
 
 }  // namespace
@@ -464,26 +1179,35 @@ extern "C" {
 // `dtype` 0 (f32) or 1 (bf16). `strides` holds the (batch, time, head)
 // element strides of q, k and v in that order; the head dim is
 // contiguous. Writes out (B, Tq, H, D) contiguous in the input dtype and
-// lse (B, H, Tq) f32. Returns a cudaError_t code, 0 on success.
+// lse (B, H, Tq) f32, and the kernel it launched to `path` (0 FFMA,
+// 1 mma.sync, 2 wgmma). Returns 0 on success, else a cudaError_t code or
+// one of the wgmma path's negative codes (mmlspark_flash_error_string
+// names both).
 int mmlspark_flash_fwd(const void* q, const void* k, const void* v,
                        void* out, float* lse, int dtype, int64_t batch,
                        int heads, int64_t tq, int64_t tk, int head_dim,
                        int causal, float scale, const int64_t* strides,
-                       int device, void* stream) {
+                       int device, void* stream, int* path) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
-        return launch_dim<float>(head_dim, q, k, v, out, lse, batch, heads,
-                                 tq, tk, causal, scale, strides, s);
+        return launch_dim<float>(head_dim, q, k, v, out, lse, batch, heads, tq, tk, causal,
+                                 scale, strides, device, s, path);
     if (dtype == 1)
-        return launch_dim<__nv_bfloat16>(head_dim, q, k, v, out, lse, batch,
-                                         heads, tq, tk, causal, scale,
-                                         strides, s);
+        return launch_dim<__nv_bfloat16>(head_dim, q, k, v, out, lse, batch, heads, tq, tk,
+                                         causal, scale, strides, device, s, path);
     return cudaErrorInvalidValue;
 }
 
 const char* mmlspark_flash_error_string(int code) {
+    static thread_local char msg[96];
+    if (code == kErrNoEncoder) return "libcuda has no cuTensorMapEncodeTiled";
+    if (code <= kErrEncodeBase) {
+        snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled refused a tensor map (CUresult %d)",
+                 kErrEncodeBase - code);
+        return msg;
+    }
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -13,7 +13,8 @@ its (B, T, H, D) layout: q (B, Tq, H, D), k and v (B, Tk, H, D), output
   csrc/flash_attn.cu that replaces the Pallas TPU kernel
   `_flash_fwd_lse`. On a CUDA tensor it launches the kernel or raises; on
   a CPU tensor it runs `flash_attention_torch`. `flash_attention.launches`
-  counts kernel launches. Forward only: the backward comes with the
+  counts kernel launches and `flash_attention.last_path` names the kernel
+  of the last one ("wgmma", "mma" or "ffma"). Forward only: the backward comes with the
   trainer (ROADMAP Queue 1, P4 trainer item).
 - `flash_attention_torch`: the plain version of K2, a transcription of
   `_flash_kernel` (attention.py:139-189) over key blocks; returns
@@ -41,6 +42,7 @@ _NEG_INF = -1e30          # the TPU kernel's mask value: keeps exp/max NaN-free
 HEAD_DIMS = (8, 16, 32, 64, 128)      # head dims K2 is built for
 IMPLS = ("dense", "chunked", "flash")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_PATHS = ("ffma", "mma", "wgmma")      # the kernel's path codes
 
 
 def dense_attention(q, k, v, causal: bool = False, q_offset: int = 0,
@@ -175,6 +177,7 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int),
         ]
         lib.mmlspark_flash_fwd.restype = ctypes.c_int
         lib.mmlspark_flash_error_string.argtypes = [ctypes.c_int]
@@ -188,9 +191,11 @@ def _flash_fwd_lse(q, k, v, causal: bool = False, block_q: int = 128,
     """K2 forward: (out (B, Tq, H, D) in q's dtype, lse (B, H, Tq) f32).
 
     A CPU tensor runs `flash_attention_torch` (with these block sizes). A
-    CUDA tensor launches the kernel, whose own tiles (64 query rows, 64 or
-    32 keys) replace the block sizes, or raises. bf16 with D >= 16 runs on
-    the tensor cores and needs 16-byte aligned rows."""
+    CUDA tensor launches the kernel, whose own tiles replace the block
+    sizes, or raises; `flash_attention.last_path` then names the kernel
+    that ran: "wgmma" (bf16, D 64 or 128), "mma" (bf16, D 16 or 32) or
+    "ffma" (f32, and bf16 with D 8). bf16 with D >= 16 runs on the tensor
+    cores and needs 16-byte aligned rows (TMA's rule for the wgmma path)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal, block_q, block_k)
@@ -199,7 +204,9 @@ def _flash_fwd_lse(q, k, v, causal: bool = False, block_q: int = 128,
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if q.dtype == torch.bfloat16 and d >= 16:
-        # the tensor-core path copies rows to shared memory 16 bytes at a time
+        # the tensor-core paths copy rows to shared memory 16 bytes at a time
+        # (mma) or through TMA tensor maps (wgmma): 16-byte aligned base
+        # and strides
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
                 raise ValueError(f"bf16 {name} must have 16-byte aligned rows "
@@ -211,14 +218,16 @@ def _flash_fwd_lse(q, k, v, causal: bool = False, block_q: int = 128,
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
     lib = _lib()
+    path = ctypes.c_int(-1)
     code = lib.mmlspark_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         _DTYPE_CODES[q.dtype], b, h, tq, tk, d, int(bool(causal)), d ** -0.5,
-        strides, dev, torch.cuda.current_stream(dev).cuda_stream)
+        strides, dev, torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(path))
     if code != 0:
         raise RuntimeError("flash attention kernel launch failed: "
                            + lib.mmlspark_flash_error_string(code).decode())
     flash_attention.launches += 1
+    flash_attention.last_path = _PATHS[path.value]
     return out, lse
 
 
@@ -231,6 +240,7 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = 128,
 
 
 flash_attention.launches = 0
+flash_attention.last_path = None
 
 
 class SelfAttention(nn.Module):

@@ -92,26 +92,60 @@ def test_one_tree_on_the_card_equals_the_cpu_tree_bit_for_bit(cuda):
 # (rtol 2**-7) plus 2e-3 for outputs near 0, since p is rounded to bf16 at
 # running maxima that differ between the kernel's and the plain version's
 # key blocks
-@pytest.mark.parametrize("dtype,causal,tol", [
-    (torch.float32, False, (2e-5, 1e-5)),
-    (torch.float32, True, (2e-5, 1e-5)),
-    (torch.bfloat16, True, (2e-3, 2.0 ** -7)),
+_F32_TOL, _BF16_TOL = (2e-5, 1e-5), (2e-3, 2.0 ** -7)
+
+
+def _k2_path(dtype, d):
+    """The kernel a (dtype, head dim) must take."""
+    if dtype == torch.bfloat16 and d in (64, 128):
+        return "wgmma"
+    return "mma" if dtype == torch.bfloat16 and d >= 16 else "ffma"
+
+
+# every head dim K2 is built for, so each of its instantiations runs
+@pytest.mark.parametrize("dtype,d,causal,tol", [
+    (torch.float32, 64, False, _F32_TOL),
+    (torch.float32, 64, True, _F32_TOL),
+    *[(torch.float32, d, True, _F32_TOL) for d in (8, 16, 32, 128)],
+    *[(torch.bfloat16, d, causal, _BF16_TOL) for d in (8, 16, 32, 64, 128)
+      for causal in (False, True)],
 ])
-def test_flash_kernel_matches_plain_version_and_repeats_its_bits(cuda, dtype, causal, tol):
+def test_flash_kernel_matches_plain_version_and_repeats_its_bits(cuda, dtype, d, causal, tol):
     rng = np.random.default_rng(8)
-    q, k, v = (torch.tensor(rng.normal(size=(2, t, 4, 64)), dtype=dtype, device=cuda)
+    q, k, v = (torch.tensor(rng.normal(size=(2, t, 4, d)), dtype=dtype, device=cuda)
                for t in (200, 137, 137))
     with torch.no_grad():
         before = att.flash_attention.launches
         out, lse = att._flash_fwd_lse(q, k, v, causal)
+        assert att.flash_attention.last_path == _k2_path(dtype, d)
         again, lse2 = att._flash_fwd_lse(q, k, v, causal)
         assert att.flash_attention.launches == before + 2
         ref, ref_lse = att.flash_attention_torch(q, k, v, causal)
     torch.cuda.synchronize()
     assert out.dtype == dtype and lse.dtype == torch.float32
     torch.testing.assert_close(out.float(), ref.float(), atol=tol[0], rtol=tol[1])
-    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-5)
+    # rows with no visible key (causal, Tq > Tk) have lse +inf in both
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref_lse))
+    fin = torch.isfinite(ref_lse)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=2e-5, rtol=1e-5)
     assert torch.equal(out, again) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_reads_q_k_v_through_the_strides_of_a_packed_tensor(cuda, causal):
+    # q, k and v as views of one packed (B, T, 3, H, D) tensor, the layout a
+    # fused qkv projection gives: the tensor maps must step by 3 H D a token
+    rng = np.random.default_rng(12)
+    qkv = torch.tensor(rng.normal(size=(2, 200, 3, 4, 64)), dtype=torch.bfloat16, device=cuda)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert q.stride() == (200 * 3 * 4 * 64, 3 * 4 * 64, 64, 1)
+    with torch.no_grad():
+        out, lse = att._flash_fwd_lse(q, k, v, causal)
+        assert att.flash_attention.last_path == "wgmma"
+        ref, ref_lse = att.flash_attention_torch(*(x.contiguous() for x in (q, k, v)), causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=_BF16_TOL[0], rtol=_BF16_TOL[1])
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-5)
 
 
 def test_flash_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda):
