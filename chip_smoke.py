@@ -13,9 +13,9 @@ a user calls — GBDTClassifier fit on the Adult-Census shape (32,768 rows x
 14 features, 31 leaves, 100 rounds), then transform and
 ComputeModelStatistics; and DeepModelTransformer serving 1,024 rows x 512
 token ids through bench.py's accelerator transformer (8 layers, d_model
-512, 8 heads, vocab 16,384) in bf16 with attention_impl="flash" — and
-shows through the kernels' launch counters that each path ran on its
-kernel. It prints one JSON line per phase:
+512, 8 heads, vocab 16,384) with attention_impl="flash", in bf16 and in
+f32 — and shows through the kernels' launch counters that each path ran
+on its kernel. It prints one JSON line per phase:
 
   env          torch/CUDA versions and the card (the nvidia-smi name and
                power limit also stand alone on the next line)
@@ -25,7 +25,8 @@ kernel. It prints one JSON line per phase:
                plain version's and one PyTorch library call's ms, and the
                bound (least time the card could take); K1 "histogram",
                K2 "flash_attention" with the kernel path each shape took
-               ("wgmma", "mma" or "ffma") and its achieved TFLOP/s
+               ("tf32x3", "wgmma", "mma" or "ffma") and its achieved
+               TFLOP/s
   slice_adult  the GBDT path: fit seconds, launches (must be 3,100),
                train accuracy > 0.7, held-out AUC > 0.75, and the card's
                scores equal to the host walk bit for bit
@@ -34,10 +35,12 @@ kernel. It prints one JSON line per phase:
   slice_parity the same data, 10 rounds, fitted on "cpu" and on "cuda":
                equal trees, or trees that part only at a printed near-tie
   slice_higgs  1,048,576 x 28, 63 leaves, uint8 bins, 5 rounds
-  slice_transformer  the DNN path: tokens/s, K2 launches (must be 128),
-               finite logits, probabilities summing to 1; f32 flash against
-               f32 dense on the card, card against CPU on 2 rows, bf16
-               against f32; 4 rows x 4,096 tokens (8 launches)
+  slice_transformer  the DNN path: tokens/s, K2 launches (must be 128,
+               on "wgmma"), finite logits, probabilities summing to 1; the
+               same 1,024 x 512 tokens served in f32 (128 launches on
+               "tf32x3", f32 tokens/s); f32 flash against f32 dense on the
+               card, card against CPU on 2 rows, bf16 against f32; 4 rows
+               x 4,096 tokens (8 launches)
   profile_transformer  4 minibatches under torch.profiler: K2's and the
                GEMMs' share of device time, device busy share
   stage_roundtrip  the serving stage saved and loaded through
@@ -64,6 +67,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12        # f32 outside the tensor cores
+H100_TF32_OPS_PER_S = 495e12      # dense TF32 tensor cores
 HIST_BINS = 256
 
 
@@ -250,7 +254,11 @@ def histogram_rows() -> list:
 # The slice shape is the serving transformer's attention (64 rows x 512
 # tokens, 8 heads of 64); "masked" is tests/test_attention.py:120-132's
 # construction; "no_keys" has Tk = 0, so every row has l == 0. d128 and
-# d32 hold the wgmma path's other head dim and the mma path.
+# d32 hold the wgmma path's other head dim and the mma path, d8 the FFMA
+# path (bf16 with D = 8), causal and ragged against its 64-row tiles.
+# "default" is TransformerEncoder's own default width (d_model 64, 4 heads
+# of 16; mmlspark_tpu/nn/models.py:177-178) at the slice's 64 rows x 512
+# tokens.
 FLASH_SHAPES = [
     ("slice_bf16", 64, 512, 512, 8, 64, torch.bfloat16, False),
     ("slice_f32", 64, 512, 512, 8, 64, torch.float32, False),
@@ -258,18 +266,24 @@ FLASH_SHAPES = [
     ("ragged_causal_bf16", 2, 1000, 1000, 8, 64, torch.bfloat16, True),
     ("d128_bf16", 8, 1024, 1024, 4, 128, torch.bfloat16, True),
     ("d32_bf16", 4, 300, 300, 4, 32, torch.bfloat16, False),
+    ("d8_bf16", 4, 300, 300, 4, 8, torch.bfloat16, True),
     ("cross_f32", 1, 24, 40, 2, 16, torch.float32, False),
     ("masked_f32", 1, 4, 8, 1, 8, torch.float32, True),
     ("no_keys_f32", 1, 4, 0, 1, 8, torch.float32, True),
+    ("default_f32", 64, 512, 512, 4, 16, torch.float32, False),
+    ("default_bf16", 64, 512, 512, 4, 16, torch.bfloat16, False),
 ]
 
 
 def flash_path(dtype, d: int) -> str:
-    """The K2 kernel a (dtype, head dim) must take: bf16 with D 64 or 128
-    on wgmma, other bf16 with D >= 16 on mma.sync, the rest on FFMA."""
-    if dtype == torch.bfloat16 and d in (64, 128):
+    """The K2 kernel a (dtype, head dim) must take: f32 on 3xTF32, bf16
+    with D 64 or 128 on wgmma, other bf16 with D >= 16 on mma.sync, bf16
+    with D 8 on FFMA."""
+    if dtype == torch.float32:
+        return "tf32x3"
+    if d in (64, 128):
         return "wgmma"
-    return "mma" if dtype == torch.bfloat16 and d >= 16 else "ffma"
+    return "mma" if d >= 16 else "ffma"
 # f32: the reference's own gate between attention tiers
 # (tests/test_attention.py:56). bf16: the output is rounded to bf16 once,
 # and p is rounded to bf16 before the PV product at a running max that
@@ -336,14 +350,19 @@ def flash_rows() -> list:
                 library_ms = median_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal))
             # bytes: q, k, v read once, out and lse written once; operations:
-            # two products of 2 * D per visible (query, key) pair
+            # two products of 2 * D per visible (query, key) pair. The least
+            # time for f32-accurate products on this card is three TF32
+            # products per product (3xTF32) on the tensor cores: the f32
+            # rate outside them (67 TFLOP/s) is slower than 495 / 3
             bytes_moved = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size() \
                 + lse.numel() * 4
             pairs = (sum(min(t + 1, tk) for t in range(tq)) if causal else tq * tk) * b * h
             ops = 4 * pairs * d
-            rate = H100_BF16_OPS_PER_S if dt == torch.bfloat16 else H100_F32_OPS_PER_S
             bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
-            ops_ms = ops / rate * 1e3
+            if dt == torch.bfloat16:
+                ops_ms = ops / H100_BF16_OPS_PER_S * 1e3
+            else:
+                ops_ms = 3 * ops / H100_TF32_OPS_PER_S * 1e3
             rows.append({
                 "shape": name, "B": b, "Tq": tq, "Tk": tk, "H": h, "D": d,
                 "dtype": str(dt).replace("torch.", ""), "causal": causal, "path": path,
@@ -592,8 +611,9 @@ def _variant(bundle, **config):
 def phase_slice_transformer() -> dict:
     """The DNN slice's main path: 1,024 rows x 512 token ids through
     DeepModelTransformer on the card, attention_impl="flash" in bf16, one
-    K2 launch per layer and minibatch; then the outputs checked three
-    ways, a 4 x 4096 long-sequence run, and a profiled run."""
+    K2 launch per layer and minibatch; the same tokens served in f32 (K2's
+    3xTF32 path); then the outputs checked three ways, and a 4 x 4096
+    long-sequence run."""
     from mmlspark_tpu_torch.core import Table
     from mmlspark_tpu_torch.nn import ModelBundle
     from mmlspark_tpu_torch.nn.attention import flash_attention
@@ -623,15 +643,30 @@ def phase_slice_transformer() -> dict:
     assert np.isfinite(logits).all() and np.isfinite(prob).all()
     assert np.allclose(prob.sum(-1), 1.0, atol=1e-5)
 
+    # the same tokens served in f32 (the bundle's default dtype): every K2
+    # launch on the 3xTF32 path; the first minibatch is the warm-up
+    stage32, flash32 = _serve(_variant(bundle, dtype="float32"), x[:SLICE_BATCH], "cuda",
+                              SLICE_BATCH)
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out32 = stage32.transform(Table({"tokens": x}))
+    serve32_s = time.perf_counter() - t0
+    launches32 = flash_attention.launches
+    path32 = flash_attention.last_path
+    assert launches32 == want, f"f32 serving launched K2 {launches32} times, want {want}"
+    assert path32 == "tf32x3", f"f32 serving ran K2's {path32} kernel, want tf32x3"
+    logits32 = np.asarray(out32["logits"])
+    assert logits32.shape == (SLICE_ROWS, 8) and np.isfinite(logits32).all()
+
     # f32 flash against f32 dense on the card: the same weights and param
-    # tree, the dense path runs no K2. f32 throughout with TF32 off, so
-    # only the order of sums differs: 1e-4
+    # tree, the dense path runs no K2. f32 throughout (TF32 off for the
+    # GEMMs; K2's 3xTF32 keeps f32 accuracy), so only the order of sums
+    # differs: 1e-4
     before = flash_attention.launches
     _, dense = _serve(_variant(bundle, attention_impl="dense", dtype="float32"),
                       x[:SLICE_BATCH], "cuda", SLICE_BATCH)
     assert flash_attention.launches == before, "the dense path launched K2"
-    _, flash32 = _serve(_variant(bundle, dtype="float32"), x[:SLICE_BATCH], "cuda",
-                        SLICE_BATCH)
     dense, flash32 = np.asarray(dense["logits"]), np.asarray(flash32["logits"])
     flash_vs_dense = float(np.abs(flash32 - dense).max())
     np.testing.assert_allclose(flash32, dense, atol=1e-4, rtol=1e-4)
@@ -666,6 +701,8 @@ def phase_slice_transformer() -> dict:
            "init_seconds": init_s, "serve_seconds": serve_s,
            "rows_per_s": SLICE_ROWS / serve_s, "tokens_per_s": SLICE_ROWS * SLICE_TOKENS / serve_s,
            "flash_launches": launches, "flash_path": path,
+           "f32_serve_seconds": serve32_s, "f32_tokens_per_s": SLICE_ROWS * SLICE_TOKENS / serve32_s,
+           "f32_flash_launches": launches32, "f32_flash_path": path32,
            "f32_flash_vs_dense_max_abs": flash_vs_dense,
            "card_vs_cpu_max_abs_f32_2rows": card_vs_cpu, "cpu_2rows_seconds": cpu2_s,
            "bf16_vs_f32_flash_max_abs": bf16_vs_f32,
@@ -797,6 +834,8 @@ def main() -> int:
 
     main_shape = kern["histogram"][0]
     flash_main = kern["flash_attention"][0]
+    f32_rows = [r for r in kern["flash_attention"] if r["path"] == "tf32x3"]
+    f32_main = next(r for r in f32_rows if r["shape"] == "slice_f32")
     emit({"kernels": [{
         "name": "histogram",
         "route": "cuda",
@@ -826,6 +865,22 @@ def main() -> int:
         "shape": flash_main["shape"],
         "path": flash_main["path"],
         "shapes": kern["flash_attention"],
+    }, {
+        # the same wrapper and TPU kernel; the CUDA kernel every f32 bundle
+        # serves through, with its launches from the f32 serving run
+        "name": "flash_attention_tf32x3",
+        "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/flash_attn.cu",
+        "replaces": "mmlspark_tpu/nn/attention.py:192",
+        "launches": dnn["f32_flash_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in f32_rows),
+        "ms": f32_main["ms"],
+        "plain_ms": f32_main["plain_ms"],
+        "bound_ms": f32_main["bound_ms"],
+        "bound_by": f32_main["bound_by"],
+        "library_ms": f32_main["library_ms"],
+        "shape": f32_main["shape"],
+        "path": f32_main["path"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -22,8 +22,9 @@
 //
 // Bound: at short T (the serving shape B 64, T 512, H 8, D 64) the bytes
 // (q, k, v read once, out and lse written once) and the tensor-core
-// operations (4 * B * H * Tq * Tk * D) take about the same time; at long
-// T the operations bound it. What the design does about it, by path:
+// operations (4 * B * H * Tq * Tk * D; three TF32 products each in f32)
+// take about the same time in bf16; at long T, and in f32 at any T, the
+// operations bound it. What the design does about it, by path:
 //   - "wgmma": bf16 with D = 64 or 128 (the serving path) runs both
 //     products on Hopper's warpgroup tensor-core instruction, fed by TMA
 //     through a ring of key/value tiles in shared memory that a producer
@@ -31,10 +32,13 @@
 //   - "mma": bf16 with D = 16 or 32 runs both products with mma.sync
 //     m16n8k16 (bf16 in, f32 accumulate), four warps of 16 query rows
 //     each; see flash_fwd_mma_kernel;
-//   - "ffma": f32 keeps the reference's f32 products (TF32 would break its
-//     2e-5 gate), so it and bf16 with D = 8 take the FFMA kernel below:
-//     one thread per query row (two for D = 128, joined by a shuffle),
-//     keys 8 at a time as independent chains.
+//   - "tf32x3": f32 at every head dim runs both products on the tensor
+//     cores as three TF32 products (3xTF32), which keeps the reference's
+//     f32 accuracy (its 2e-5 gate, which one TF32 pass would miss):
+//     mma.sync m16n8k8, eight warps of 16 query rows, key/value tiles
+//     through a cp.async ring; see flash_fwd_tf32x3_kernel;
+//   - "ffma": bf16 with D = 8 takes the FFMA kernel below: one thread per
+//     query row, keys 8 at a time as independent chains.
 // On every path each key tile is read once per query tile and shared by
 // the tile's rows through shared memory; causal tiles wholly after the
 // query tile are skipped (their p would be zero, so the outputs do not
@@ -59,47 +63,28 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;        // query rows per block
-constexpr int kKeyStep = 8;        // keys per online-softmax update
+constexpr int kBlockQ = 64;        // query rows per block (ffma and mma paths)
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+// ---------------------------------------------------------------------
+// bf16 with D = 8: the "ffma" path, off the tensor cores. One thread per
+// query row, 64 rows a block; key tiles staged in shared memory in f32,
+// keys 8 at a time as independent chains.
+// ---------------------------------------------------------------------
 
-// p as the PV product of the TPU kernel sees it: cast to v's dtype
-template <typename T>
-__device__ __forceinline__ float like_v(float p) {
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-        return __bfloat162float(__float2bfloat16(p));
-    } else {
-        return p;
-    }
-}
+constexpr int kFfmaKeys = 64;      // keys per smem tile
+constexpr int kKeyStep = 8;        // keys per online-softmax update
 
-__device__ __forceinline__ void narrow(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16(x); }
-
-template <typename T, int D>
-struct Tiling {
-    static constexpr int kThreadsPerRow = D > 64 ? D / 64 : 1;
-    static constexpr int kDims = D / kThreadsPerRow;      // dims per thread
-    static constexpr int kBlockK = D > 64 ? 32 : 64;      // keys per smem tile
-    static constexpr int kThreads = kBlockQ * kThreadsPerRow;
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(Tiling<T, D>::kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+template <int D>
+__global__ void __launch_bounds__(kBlockQ)
+flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                  float* __restrict__ lse, int64_t num_bh, int heads,
                  int64_t tq, int64_t tk, int64_t num_q_tiles, int causal,
                  float scale, int64_t qsb, int64_t qst, int64_t qsh,
                  int64_t ksb, int64_t kst, int64_t ksh, int64_t vsb,
                  int64_t vst, int64_t vsh) {
-    using Tl = Tiling<T, D>;
-    constexpr int TPR = Tl::kThreadsPerRow;
-    constexpr int DPT = Tl::kDims;
-    constexpr int BK = Tl::kBlockK;
+    constexpr int BK = kFfmaKeys;
     __shared__ __align__(16) float ks[BK][D];
     __shared__ __align__(16) float vs[BK][D];
 
@@ -108,17 +93,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t qt = num_q_tiles - 1 - blockIdx.x / num_bh;
     const int64_t b = bh / heads;
     const int64_t h = bh % heads;
-    const int row = threadIdx.x / TPR;
-    const int part = threadIdx.x % TPR;
-    const int64_t qpos = qt * kBlockQ + row;
+    const int64_t qpos = qt * kBlockQ + threadIdx.x;
     const bool valid = qpos < tq;
 
-    float qr[DPT];
-    float acc[DPT];
-    const T* qp = q + b * qsb + qpos * qst + h * qsh + part * DPT;
+    float qr[D];
+    float acc[D];
+    const __nv_bfloat16* qp = q + b * qsb + qpos * qst + h * qsh;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-        qr[i] = valid ? widen(qp[i]) : 0.0f;
+    for (int i = 0; i < D; ++i) {
+        qr[i] = valid ? __bfloat162float(qp[i]) : 0.0f;
         acc[i] = 0.0f;
     }
     float m = kNegInf;
@@ -131,14 +114,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int64_t k0 = 0; k0 < kend; k0 += BK) {
         __syncthreads();   // the previous tile is consumed
-        for (int e = threadIdx.x; e < BK * D; e += Tl::kThreads) {
+        for (int e = threadIdx.x; e < BK * D; e += kBlockQ) {
             const int j = e / D;
             const int d = e % D;
             const int64_t kp = k0 + j;
             float kv = 0.0f, vv = 0.0f;
             if (kp < tk) {
-                kv = widen(k[b * ksb + kp * kst + h * ksh + d]);
-                vv = widen(v[b * vsb + kp * vst + h * vsh + d]);
+                kv = __bfloat162float(k[b * ksb + kp * kst + h * ksh + d]);
+                vv = __bfloat162float(v[b * vsb + kp * vst + h * vsh + d]);
             }
             ks[j][d] = kv;
             vs[j][d] = vv;
@@ -150,11 +133,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int c = 0; c < kKeyStep; ++c) s[c] = 0.0f;
 #pragma unroll
-            for (int i = 0; i < DPT; i += 4) {
+            for (int i = 0; i < D; i += 4) {
 #pragma unroll
                 for (int c = 0; c < kKeyStep; ++c) {
-                    const float4 k4 =
-                        *reinterpret_cast<const float4*>(&ks[j0 + c][part * DPT + i]);
+                    const float4 k4 = *reinterpret_cast<const float4*>(&ks[j0 + c][i]);
                     s[c] = fmaf(qr[i], k4.x, s[c]);
                     s[c] = fmaf(qr[i + 1], k4.y, s[c]);
                     s[c] = fmaf(qr[i + 2], k4.z, s[c]);
@@ -165,7 +147,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             bool ok[kKeyStep];
 #pragma unroll
             for (int c = 0; c < kKeyStep; ++c) {
-                if (TPR > 1) s[c] += __shfl_xor_sync(0xffffffffu, s[c], 1);
                 const int64_t kp = k0 + j0 + c;
                 ok[c] = kp < tk && (!causal || qpos >= kp);
                 s[c] = ok[c] ? s[c] * scale : kNegInf;
@@ -180,14 +161,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             }
             l = l * corr + psum;
 #pragma unroll
-            for (int i = 0; i < DPT; ++i) acc[i] *= corr;
+            for (int i = 0; i < D; ++i) acc[i] *= corr;
 #pragma unroll
             for (int c = 0; c < kKeyStep; ++c) {
-                const float p = like_v<T>(s[c]);
+                // p as the TPU kernel's PV product sees it: cast to v's dtype
+                const float p = __bfloat162float(__float2bfloat16(s[c]));
 #pragma unroll
-                for (int i = 0; i < DPT; i += 4) {
-                    const float4 v4 =
-                        *reinterpret_cast<const float4*>(&vs[j0 + c][part * DPT + i]);
+                for (int i = 0; i < D; i += 4) {
+                    const float4 v4 = *reinterpret_cast<const float4*>(&vs[j0 + c][i]);
                     acc[i] = fmaf(p, v4.x, acc[i]);
                     acc[i + 1] = fmaf(p, v4.y, acc[i + 1]);
                     acc[i + 2] = fmaf(p, v4.z, acc[i + 2]);
@@ -199,11 +180,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     if (!valid) return;
-    T* op = out + ((b * tq + qpos) * heads + h) * D + part * DPT;
+    __nv_bfloat16* op = out + ((b * tq + qpos) * heads + h) * D;
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) narrow(op + i, l > 0.0f ? acc[i] / denom : 0.0f);
-    if (part == 0) lse[bh * tq + qpos] = l > 0.0f ? m + logf(denom) : INFINITY;
+    for (int i = 0; i < D; ++i) op[i] = __float2bfloat16(l > 0.0f ? acc[i] / denom : 0.0f);
+    lse[bh * tq + qpos] = l > 0.0f ? m + logf(denom) : INFINITY;
 }
 
 // ---------------------------------------------------------------------
@@ -1022,6 +1003,332 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
 }
 
+// ---------------------------------------------------------------------
+// f32 at every head dim: the "tf32x3" path. Both products run on the
+// tensor cores as 3xTF32: x = x_hi + x_lo with x_hi = cvt.rna.tf32(x) and
+// x_lo = cvt.rna.tf32(x - x_hi), and a.b = a_lo.b_hi + a_hi.b_lo +
+// a_hi.b_hi, summed into one f32 accumulator, small terms first. tf32
+// products are exact in f32; dropping a_lo.b_lo costs about 2^-22 of
+// each product, far inside the reference's f32 gate (atol 2e-5, rtol
+// 1e-5), which one TF32 pass (2^-11) misses.
+//
+// - mma.sync m16n8k8 (tf32 in, f32 accumulate), not wgmma: wgmma takes a
+//   tf32 B operand from shared memory only K-major, and in O += P.V the K
+//   dim is the key while V is stored (key, D), D contiguous; tf32 has no
+//   transpose bit, so wgmma would need a transposed, split copy of every
+//   V tile. The split is done in registers, on the fragments a thread
+//   loads.
+// - Eight warps own 16 query rows each, 128 a block (four warps, 64
+//   rows, measured 6% slower at the serving shape: each key tile then
+//   feeds half as many rows). Fragments (PTX ISA,
+//   "mma.m16n8k8", tf32), g = lane / 4, t = lane % 4: A a0 = (g, k t),
+//   a1 = (g + 8, k t), a2 = (g, k t + 4), a3 = (g + 8, k t + 4); B b0 =
+//   (k t, n g), b1 = (k t + 4, n g); C c0, c1 = (g, n 2t, 2t + 1), c2, c3
+//   = (g + 8, n 2t, 2t + 1).
+// - No shuffles between the two products. A product sums over k in any
+//   order, so in both products k index t stands for element 2t of an
+//   8-wide step and t + 4 for element 2t + 1. Then S's C fragment of an
+//   8-key group is, as it stands, the A fragment of the PV step over
+//   those keys (a0 = c0, a1 = c2, a2 = c1, a3 = c3); v's B fragment is
+//   keys 2t and 2t + 1 of column g; q's and k's fragments are float2
+//   loads of dims 2t, 2t + 1.
+// - Feed: a ring of three key/value stages in shared memory, filled by
+//   cp.async.cg 16-byte copies two tiles ahead of the math (rows past Tk
+//   arrive as zeros), one __syncthreads a tile. The q tile is copied once
+//   and split at each use, so no register holds it across tiles (at
+//   D = 128 its fragments alone would take 128 registers). Row pitches
+//   put every fragment load of a warp in 32 distinct banks: q and K rows
+//   are padded by 8 floats (16 at D = 8), so a half-warp's float2 loads
+//   of rows g at dims 2t cover the banks once; V rows by 4, so the scalar
+//   loads of keys 2t (or 2t + 1) x columns g do.
+// - The softmax in base 2, as on the wgmma path (scale * log2(e) folded
+//   into the scale, lse = m ln 2 + ln l); masked keys are left out of the
+//   max and their p set to 0. In f32, p goes to the PV product unrounded
+//   (split like any operand), and l sums the same p.
+// - Shared memory 40 KB (D = 8) to 173 KB (D = 128): 64-key tiles up to
+//   D = 32, 32-key tiles above, so that two blocks share an SM at D = 64.
+// - What bounds it: not the tensor pipe. mma.sync m16n8k8 issues TF32 at
+//   about three times this kernel's rate when nothing else is in the
+//   loop, and three products into one accumulator cost nothing; with the
+//   operands split at each use, as here, the rate halves
+//   (tools/mma_rate.cu). The instructions around each product (the hi/lo
+//   splits, the fragment loads) are the likely limit; taking the splits
+//   off the inner loop by storing K and V split doubled the loads and did
+//   not gain (PERF.md, the tf32x3 findings).
+// ---------------------------------------------------------------------
+
+template <int D>
+struct Tf32Tiling {
+    static constexpr int kWarps = 8;
+    static constexpr int kRows = 16 * kWarps;              // query rows a block
+    static constexpr int kThreads = 32 * kWarps;
+    static constexpr int kKeys = D >= 64 ? 32 : 64;        // keys a ring tile
+    static constexpr int kStages = 3;
+    static constexpr int kLdK = D + (D == 8 ? 16 : 8);     // q and K row pitch (floats)
+    static constexpr int kLdV = D + 4;                     // V row pitch
+    static constexpr int kStageFloats = kKeys * (kLdK + kLdV);
+    static constexpr int kSmemBytes = 4 * (kRows * kLdK + kStages * kStageFloats);
+};
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+    return r;
+}
+
+// x as hi + lo, both tf32 values
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+    hi = tf32_rna(x);
+    lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split_frag(const float (&a)[4], uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(a[i], hi[i], lo[i]);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b in 3xTF32, a given split, b as its two f32 values
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0, float b1) {
+    uint32_t bh0, bl0, bh1, bl1;
+    split_tf32(b0, bh0, bl0);
+    split_tf32(b1, bh1, bl1);
+    mma_tf32(c, al, bh0, bh1);
+    mma_tf32(c, ah, bl0, bl1);
+    mma_tf32(c, ah, bh0, bh1);
+}
+
+// a 16-byte copy to shared memory; with `valid` false it reads nothing
+// and writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 16 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [row0, row0 + ROWS) of a (T, D) f32 slice with row stride `stride`
+// into shared memory at `dst` (pitch LD floats); rows at or past `valid`
+// are zeros
+template <int D, int ROWS, int LD>
+__device__ __forceinline__ void copy_rows_async(uint32_t dst, const float* base, int64_t row0,
+                                                int64_t valid, int64_t stride) {
+    constexpr int C = D / 4;                                // 16-byte chunks a row
+    for (int c = threadIdx.x; c < ROWS * C; c += Tf32Tiling<D>::kThreads) {
+        const int i = c / C;
+        const int d = (c % C) * 4;
+        const bool ok = row0 + i < valid;
+        cp_async16(dst + 4u * (i * LD + d), ok ? base + (row0 + i) * stride + d : base, ok);
+    }
+}
+
+// The online softmax over one key tile of a warp's S accumulator `s` (raw
+// q.k; s[n][e] is row g + 8 (e / 2), key k0 + 8n + 2t + e % 2). Leaves p
+// in `s`, updates the base-2 running max m and the thread's share of l,
+// and scales the accumulator `o` by the change of the max. kMasked checks
+// every key against Tk and, under causal, the query position.
+template <bool kMasked, int NT, int DT>
+__device__ __forceinline__ void softmax_tf32(float (&s)[NT][4], float (&o)[DT][4], float (&m)[2],
+                                             float (&l)[2], int64_t k0, const int64_t (&qpos)[2],
+                                             int64_t tk, int causal, float scale_log2, int t) {
+    auto keep = [&](int n, int e) {
+        const int64_t kp = k0 + 8 * n + 2 * t + (e & 1);
+        return !kMasked || (kp < tk && (!causal || qpos[e / 2] >= kp));
+    };
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            if (keep(n, e)) mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
+    float m_new[2], corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        // the four threads of a quad hold one row
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // the scale is positive, so the max of the scaled scores is the
+        // scaled max
+        m_new[r] = fmaxf(m[r], mx[r] * scale_log2);
+        corr[r] = exp2_approx(m[r] - m_new[r]);
+        m[r] = m_new[r];
+    }
+    float ps[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            s[n][e] = keep(n, e) ? exp2_approx(fmaf(s[n][e], scale_log2, -m_new[e / 2])) : 0.0f;
+            ps[e / 2][n % 2] += s[n][e];
+        }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + (ps[r][0] + ps[r][1]);
+    // once the row maxima settle, corr is 1 for the whole warp: skip
+    if (__any_sync(0xffffffffu, corr[0] != 1.0f || corr[1] != 1.0f)) {
+#pragma unroll
+        for (int n = 0; n < DT; ++n) {
+            o[n][0] *= corr[0];
+            o[n][1] *= corr[0];
+            o[n][2] *= corr[1];
+            o[n][3] *= corr[1];
+        }
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Tf32Tiling<D>::kThreads)
+flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ out,
+                        float* __restrict__ lse, int64_t num_bh, int heads, int64_t tq,
+                        int64_t tk, int64_t num_q_tiles, int causal, float scale_log2,
+                        int64_t qsb, int64_t qst, int64_t qsh, int64_t ksb, int64_t kst,
+                        int64_t ksh, int64_t vsb, int64_t vst, int64_t vsh) {
+    using Tl = Tf32Tiling<D>;
+    constexpr int BK = Tl::kKeys;
+    constexpr int S = Tl::kStages;
+    constexpr int NT = BK / 8;        // 8-key groups of S, and k-steps of the PV product
+    constexpr int DT = D / 8;         // 8-wide column tiles of O, and k-steps of S
+    constexpr int LDK = Tl::kLdK;
+    constexpr int LDV = Tl::kLdV;
+    extern __shared__ __align__(16) float smem_f32[];
+    float* const qs = smem_f32;                                // [kRows][LDK]
+    float* const ring = smem_f32 + Tl::kRows * LDK;            // stage s: K [BK][LDK], V [BK][LDV]
+
+    // without a mask the query tiles of one head run side by side and share
+    // its keys and values in L2; under a causal mask the later tiles, which
+    // hold the most keys, go first
+    const int64_t x = blockIdx.x;
+    const int64_t bh = causal ? x % num_bh : x / num_q_tiles;
+    const int64_t qt = causal ? num_q_tiles - 1 - x / num_bh : x % num_q_tiles;
+    const int64_t b = bh / heads;
+    const int64_t h = bh % heads;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int64_t q0 = qt * Tl::kRows;
+    const int64_t wq0 = q0 + 16 * warp;          // the warp's first query row
+    const int64_t qpos[2] = {wq0 + g, wq0 + g + 8};
+
+    // keys after the tile's last query are masked for every row of the
+    // tile under a causal mask: skipped
+    int64_t kend = tk;
+    if (causal && q0 + Tl::kRows < kend) kend = q0 + Tl::kRows;
+    const int n_tiles = static_cast<int>((kend + BK - 1) / BK);
+
+    const float* const kb = k + b * ksb + h * ksh;
+    const float* const vb = v + b * vsb + h * vsh;
+    auto load_tile = [&](int j) {
+        float* const st = ring + (j % S) * Tl::kStageFloats;
+        copy_rows_async<D, BK, LDK>(smem_addr(st), kb, static_cast<int64_t>(j) * BK, tk, kst);
+        copy_rows_async<D, BK, LDV>(smem_addr(st + BK * LDK), vb, static_cast<int64_t>(j) * BK,
+                                    tk, vst);
+    };
+    // q joins the first group; every group is committed, empty or not, so
+    // that the wait below counts the same on every pass
+    if (n_tiles > 0)
+        copy_rows_async<D, Tl::kRows, LDK>(smem_addr(qs), q + b * qsb + h * qsh, q0, tq, qst);
+#pragma unroll
+    for (int j = 0; j < S - 1; ++j) {
+        if (j < n_tiles) load_tile(j);
+        cp_async_commit();
+    }
+
+    float o[DT][4];
+#pragma unroll
+    for (int n = 0; n < DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.0f, 0.0f};
+    // this thread's q row g at dims 2t, 2t + 1; row g + 8 is 8 rows on
+    const float* const qrow = qs + (16 * warp + g) * LDK + 2 * t;
+
+    for (int j = 0; j < n_tiles; ++j) {
+        // tile j has landed; every thread is done with tile j - 1, whose
+        // stage the copies issued next refill
+        cp_async_wait<S - 2>();
+        __syncthreads();
+        if (j + S - 1 < n_tiles) load_tile(j + S - 1);
+        cp_async_commit();
+        const float* const ks = ring + (j % S) * Tl::kStageFloats;
+        const float* const vs = ks + BK * LDK;
+
+        float s[NT][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < DT; ++kk) {
+            const float2 qa = *reinterpret_cast<const float2*>(qrow + 8 * kk);
+            const float2 qb = *reinterpret_cast<const float2*>(qrow + 8 * LDK + 8 * kk);
+            const float a[4] = {qa.x, qb.x, qa.y, qb.y};
+            uint32_t ah[4], al[4];
+            split_frag(a, ah, al);
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+                const float2 kv =
+                    *reinterpret_cast<const float2*>(ks + (8 * n + g) * LDK + 8 * kk + 2 * t);
+                mma_3xtf32(s[n], ah, al, kv.x, kv.y);
+            }
+        }
+
+        // a tile inside the sequence and, under causal, wholly at or before
+        // the warp's first query has nothing to mask
+        const int64_t k0 = static_cast<int64_t>(j) * BK;
+        if (k0 + BK <= tk && (!causal || k0 + BK - 1 <= wq0))
+            softmax_tf32<false>(s, o, m, l, k0, qpos, tk, causal, scale_log2, t);
+        else
+            softmax_tf32<true>(s, o, m, l, k0, qpos, tk, causal, scale_log2, t);
+
+        // O += P.V, one k-step per 8-key group: p of keys 2t, 2t + 1 is the
+        // thread's own S accumulator
+        const float* const vrow = vs + 2 * t * LDV + g;
+#pragma unroll
+        for (int kk = 0; kk < NT; ++kk) {
+            const float a[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+            uint32_t ah[4], al[4];
+            split_frag(a, ah, al);
+#pragma unroll
+            for (int n = 0; n < DT; ++n)
+                mma_3xtf32(o[n], ah, al, vrow[8 * kk * LDV + 8 * n],
+                           vrow[(8 * kk + 1) * LDV + 8 * n]);
+        }
+    }
+
+    constexpr float kLn2 = 0.6931471805599453f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        float lr = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+        if (qpos[r] >= tq) continue;
+        const float denom = fmaxf(lr, 1e-30f);
+        // one division a row, not one an element
+        const float inv = lr > 0.0f ? 1.0f / denom : 0.0f;
+        float* const op = out + ((b * tq + qpos[r]) * heads + h) * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < DT; ++n)
+            *reinterpret_cast<float2*>(op + 8 * n) =
+                make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+        if (t == 0) lse[bh * tq + qpos[r]] = lr > 0.0f ? m[r] * kLn2 + logf(denom) : INFINITY;
+    }
+}
+
 // libcuda's cuTensorMapEncodeTiled (CUDA 12.0 ABI), looked up once.
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -1073,6 +1380,18 @@ CUresult encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int d,
                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// Above 48 KB of dynamic shared memory a kernel launches only after this
+// attribute is set; set once a device (`configured` holds a bit a device)
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, int bytes, int device, std::atomic<uint64_t>& configured) {
+    const uint64_t bit = device < 64 ? 1ull << device : 0;
+    if (configured.load() & bit) return cudaSuccess;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) configured.fetch_or(bit);
+    return err;
+}
+
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
                  int64_t batch, int heads, int64_t tq, int64_t tk, int causal, float scale,
@@ -1088,18 +1407,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* 
         if (res != CUDA_SUCCESS) return kErrEncodeBase - static_cast<int>(res);
     }
     if (tk == 0) maps[1] = maps[2] = maps[0];
-    // above 48 KB of shared memory only after this attribute, set once a device
     static std::atomic<uint64_t> configured{0};
-    const uint64_t bit = device < 64 ? 1ull << device : 0;
-    if (!(configured.load() & bit)) {
-        const cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
-                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                     WgTiling<D>::kSmemBytes);
-        if (err != cudaSuccess) return err;
-        configured.fetch_or(bit);
-    }
+    cudaError_t err = allow_smem(flash_fwd_wgmma_kernel<D>, WgTiling<D>::kSmemBytes, device,
+                                 configured);
+    if (err != cudaSuccess) return err;
     int sms = 0;
-    const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return err;
     const int64_t num_bh = batch * heads;
     const int64_t num_q_tiles = (tq + kWgRows - 1) / kWgRows;
@@ -1114,19 +1427,45 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* 
     return cudaGetLastError();
 }
 
+template <int D>
+int launch_tf32x3(const void* q, const void* k, const void* v, void* out, float* lse,
+                  int64_t batch, int heads, int64_t tq, int64_t tk, int causal, float scale,
+                  const int64_t* st, int device, cudaStream_t stream) {
+    using Tl = Tf32Tiling<D>;
+    static std::atomic<uint64_t> configured{0};
+    const cudaError_t err =
+        allow_smem(flash_fwd_tf32x3_kernel<D>, Tl::kSmemBytes, device, configured);
+    if (err != cudaSuccess) return err;
+    const int64_t num_bh = batch * heads;
+    const int64_t num_q_tiles = (tq + Tl::kRows - 1) / Tl::kRows;
+    const int64_t blocks = num_bh * num_q_tiles;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    constexpr float kLog2e = 1.4426950408889634f;
+    flash_fwd_tf32x3_kernel<D><<<static_cast<unsigned>(blocks), Tl::kThreads, Tl::kSmemBytes,
+                                 stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(out), lse, num_bh, heads, tq, tk, num_q_tiles, causal,
+        scale * kLog2e, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+    return cudaGetLastError();
+}
+
 // which kernel a (dtype, head dim) takes; reported to the caller
 constexpr int kPathFfma = 0;
 constexpr int kPathMma = 1;
 constexpr int kPathWgmma = 2;
+constexpr int kPathTf32x3 = 3;
 
-// bf16 with D = 64 or 128: wgmma; other bf16 (D = 16 or 32): mma.sync;
-// f32, and bf16 with D = 8: FFMA
+// f32: 3xTF32 on mma.sync; bf16 with D = 64 or 128: wgmma; bf16 with
+// D = 16 or 32: mma.sync; bf16 with D = 8: FFMA
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int64_t batch,
            int heads, int64_t tq, int64_t tk, int causal, float scale, const int64_t* st,
            int device, cudaStream_t stream, int* path) {
-    constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-    if constexpr (kBf16 && (D == 64 || D == 128)) {
+    if constexpr (std::is_same<T, float>::value) {
+        *path = kPathTf32x3;
+        return launch_tf32x3<D>(q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st,
+                                device, stream);
+    } else if constexpr (D == 64 || D == 128) {
         *path = kPathWgmma;
         return launch_wgmma<D>(q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st,
                                device, stream);
@@ -1135,20 +1474,21 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
         const int64_t num_q_tiles = (tq + kBlockQ - 1) / kBlockQ;
         const int64_t blocks = num_bh * num_q_tiles;
         if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-        if constexpr (kBf16 && D >= 16) {
+        const auto* qb = static_cast<const __nv_bfloat16*>(q);
+        const auto* kb = static_cast<const __nv_bfloat16*>(k);
+        const auto* vb = static_cast<const __nv_bfloat16*>(v);
+        auto* ob = static_cast<__nv_bfloat16*>(out);
+        if constexpr (D >= 16) {
             *path = kPathMma;
             flash_fwd_mma_kernel<D><<<static_cast<unsigned>(blocks), MmaTiling<D>::kThreads, 0,
                                       stream>>>(
-                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<T*>(out), lse, num_bh, heads, tq, tk, num_q_tiles, causal, scale,
-                st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+                qb, kb, vb, ob, lse, num_bh, heads, tq, tk, num_q_tiles, causal, scale, st[0],
+                st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
         } else {
             *path = kPathFfma;
-            flash_fwd_kernel<T, D><<<static_cast<unsigned>(blocks), Tiling<T, D>::kThreads, 0,
-                                     stream>>>(
-                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<T*>(out), lse, num_bh, heads, tq, tk, num_q_tiles, causal, scale,
-                st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+            flash_fwd_kernel<D><<<static_cast<unsigned>(blocks), kBlockQ, 0, stream>>>(
+                qb, kb, vb, ob, lse, num_bh, heads, tq, tk, num_q_tiles, causal, scale, st[0],
+                st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
         }
         return cudaGetLastError();
     }
@@ -1180,9 +1520,9 @@ extern "C" {
 // element strides of q, k and v in that order; the head dim is
 // contiguous. Writes out (B, Tq, H, D) contiguous in the input dtype and
 // lse (B, H, Tq) f32, and the kernel it launched to `path` (0 FFMA,
-// 1 mma.sync, 2 wgmma). Returns 0 on success, else a cudaError_t code or
-// one of the wgmma path's negative codes (mmlspark_flash_error_string
-// names both).
+// 1 mma.sync, 2 wgmma, 3 3xTF32 on mma.sync). Returns 0 on success, else
+// a cudaError_t code or one of the wgmma path's negative codes
+// (mmlspark_flash_error_string names both).
 int mmlspark_flash_fwd(const void* q, const void* k, const void* v,
                        void* out, float* lse, int dtype, int64_t batch,
                        int heads, int64_t tq, int64_t tk, int head_dim,

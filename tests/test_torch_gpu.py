@@ -97,16 +97,19 @@ _F32_TOL, _BF16_TOL = (2e-5, 1e-5), (2e-3, 2.0 ** -7)
 
 def _k2_path(dtype, d):
     """The kernel a (dtype, head dim) must take."""
-    if dtype == torch.bfloat16 and d in (64, 128):
+    if dtype == torch.float32:
+        return "tf32x3"
+    if d in (64, 128):
         return "wgmma"
-    return "mma" if dtype == torch.bfloat16 and d >= 16 else "ffma"
+    return "mma" if d >= 16 else "ffma"
 
 
-# every head dim K2 is built for, so each of its instantiations runs
+# every head dim K2 is built for, so each of its instantiations runs; Tk
+# 137 is ragged against every key tile, so a fragment element taken from
+# the wrong lane shows as a wrong row
 @pytest.mark.parametrize("dtype,d,causal,tol", [
-    (torch.float32, 64, False, _F32_TOL),
-    (torch.float32, 64, True, _F32_TOL),
-    *[(torch.float32, d, True, _F32_TOL) for d in (8, 16, 32, 128)],
+    *[(torch.float32, d, causal, _F32_TOL) for d in (64, 8, 16, 32, 128)
+      for causal in (False, True)],
     *[(torch.bfloat16, d, causal, _BF16_TOL) for d in (8, 16, 32, 64, 128)
       for causal in (False, True)],
 ])
@@ -131,20 +134,23 @@ def test_flash_kernel_matches_plain_version_and_repeats_its_bits(cuda, dtype, d,
     assert torch.equal(out, again) and torch.equal(lse, lse2)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, _BF16_TOL), (torch.float32, _F32_TOL)])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_kernel_reads_q_k_v_through_the_strides_of_a_packed_tensor(cuda, causal):
+def test_flash_kernel_reads_q_k_v_through_the_strides_of_a_packed_tensor(cuda, causal, dtype,
+                                                                         tol):
     # q, k and v as views of one packed (B, T, 3, H, D) tensor, the layout a
-    # fused qkv projection gives: the tensor maps must step by 3 H D a token
+    # fused qkv projection gives: the tensor maps (bf16) and the async
+    # copies (f32) must step by 3 H D a token
     rng = np.random.default_rng(12)
-    qkv = torch.tensor(rng.normal(size=(2, 200, 3, 4, 64)), dtype=torch.bfloat16, device=cuda)
+    qkv = torch.tensor(rng.normal(size=(2, 200, 3, 4, 64)), dtype=dtype, device=cuda)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     assert q.stride() == (200 * 3 * 4 * 64, 3 * 4 * 64, 64, 1)
     with torch.no_grad():
         out, lse = att._flash_fwd_lse(q, k, v, causal)
-        assert att.flash_attention.last_path == "wgmma"
+        assert att.flash_attention.last_path == _k2_path(dtype, 64)
         ref, ref_lse = att.flash_attention_torch(*(x.contiguous() for x in (q, k, v)), causal)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out.float(), ref.float(), atol=_BF16_TOL[0], rtol=_BF16_TOL[1])
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol[0], rtol=tol[1])
     torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-5)
 
 
@@ -162,6 +168,15 @@ def test_flash_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda):
     shifted = flat[1:].view(1, 8, 2, 16)            # rows 2 bytes off 16-byte alignment
     with pytest.raises(ValueError, match="aligned"):
         att.flash_attention(shifted, shifted, shifted)
+    # f32 rows 4 bytes off, and an f32 head stride that is no multiple of 4
+    flat = torch.zeros(8 * 2 * 8 + 1, device=cuda)
+    shifted = flat[1:].view(1, 8, 2, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        att.flash_attention(shifted, shifted, shifted)
+    wide = torch.zeros((1, 8, 2, 10), device=cuda)[..., :8]    # head stride 10
+    assert wide.stride(-1) == 1
+    with pytest.raises(ValueError, match="aligned"):
+        att.flash_attention(wide, wide, wide)
     assert att.flash_attention.launches == before
 
 

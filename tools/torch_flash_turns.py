@@ -15,17 +15,28 @@ Run from the root of a checkout on a machine with a card:
         one launch of K2 at each of chip_smoke.FLASH_SHAPES against
         flash_attention_torch, with chip_smoke's gates: path, errors.
     python3 tools/torch_flash_turns.py time NAME=TREE ...
-        K2's median ms at the bf16 shapes of chip_smoke.FLASH_SHAPES for
-        each tree, in a fresh process each, without any check: for
-        variants of the kernel that are deliberately wrong (an ablation
-        that drops one instruction class to see what bounds the kernel).
+        K2's median ms at every shape of chip_smoke.FLASH_SHAPES (bf16 and
+        f32) for each tree, in a fresh process each, without any check:
+        for variants of the kernel that are deliberately wrong (an
+        ablation that drops one instruction class to see what bounds the
+        kernel) or tuned differently.
     python3 tools/torch_flash_turns.py turns NAME=TREE ... --order A,B,B,A
         for each name in --order, a fresh process that builds TREE's
         kernels and runs TREE's chip_smoke.flash_rows() (median ms of K2,
-        the plain version and SDPA at each shape), plus the host
-        microseconds of one K2 call at a small shape (B 1, T 128, H 1,
-        D 64, bf16), where the launch overhead, not the device, sets the
-        time. Compare two versions only inside one such call.
+        the plain version and SDPA at each shape), the host microseconds
+        of one K2 call at a small shape (B 1, T 128, H 1, D 64, bf16),
+        where the launch overhead, not the device, sets the time, and
+        the seconds and tokens/s of serving chip_smoke's 1,024 x 512
+        tokens through the f32 flash transformer with TREE's own package
+        (K2's launches and path beside them). Compare two versions only
+        inside one such call.
+    python3 tools/torch_flash_turns.py mma_rate
+        the issue rate of mma.sync on the card, from tools/mma_rate.cu:
+        m16n8k8 TF32 alone, as three products into one accumulator
+        (3xTF32), with the operands split every time, with B loaded from
+        shared memory, and m16n8k16 bf16 for scale; each with 1, 4 and 8
+        independent accumulators a warp, at 16 and 32 warps an SM (the
+        tf32x3 kernel runs 16 at D = 64). TFLOP/s counts 2 m n k per mma.
 
 Each result is one JSON line on stdout, with the card's name and power
 limit. The TREEs are checkouts (for example a `git archive` of a parent
@@ -62,7 +73,29 @@ with torch.no_grad():
         _flash_fwd_lse(q, k, v)
     host_us = chip_smoke.host_us_per_call(lambda: _flash_fwd_lse(q, k, v), reps=2000)
 rows = chip_smoke.flash_rows()
-print("TURN " + json.dumps({"rows": rows, "host_us_small": host_us}), flush=True)
+
+# f32 flash serving of chip_smoke's slice: warm-up on one minibatch, then
+# all rows, timed
+import numpy as np
+from mmlspark_tpu_torch.core import Table
+from mmlspark_tpu_torch.nn import ModelBundle
+from mmlspark_tpu_torch.nn.attention import flash_attention
+bundle = ModelBundle.init("transformer", (chip_smoke.SLICE_TOKENS,), seed=0,
+                          attention_impl="flash", dtype="float32",
+                          **chip_smoke.SLICE_TRANSFORMER)
+x = np.random.default_rng(11).integers(0, chip_smoke.SLICE_TRANSFORMER["vocab_size"],
+                                       size=(chip_smoke.SLICE_ROWS, chip_smoke.SLICE_TOKENS))
+stage, _ = chip_smoke._serve(bundle, x[:chip_smoke.SLICE_BATCH], "cuda", chip_smoke.SLICE_BATCH)
+torch.cuda.synchronize()
+flash_attention.launches = 0
+t0 = time.perf_counter()
+logits = np.asarray(stage.transform(Table({"tokens": x}))["logits"])
+serve_s = time.perf_counter() - t0
+assert np.isfinite(logits).all()
+serve = {"seconds": serve_s, "tokens_per_s": x.size / serve_s,
+         "launches": flash_attention.launches, "path": flash_attention.last_path}
+print("TURN " + json.dumps({"rows": rows, "host_us_small": host_us, "f32_serving": serve}),
+      flush=True)
 """
 
 
@@ -78,9 +111,8 @@ kernels.build()
 ms = {}
 with torch.no_grad():
     for i, (name, b, tq, tk, h, d, dt, causal) in enumerate(chip_smoke.FLASH_SHAPES):
-        if dt == torch.bfloat16:
-            q, k, v = chip_smoke._flash_inputs(name, b, tq, tk, h, d, dt, seed=200 + i)
-            ms[name] = chip_smoke.median_ms(lambda: _flash_fwd_lse(q, k, v, causal))
+        q, k, v = chip_smoke._flash_inputs(name, b, tq, tk, h, d, dt, seed=200 + i)
+        ms[name] = chip_smoke.median_ms(lambda: _flash_fwd_lse(q, k, v, causal))
 print("TIME " + json.dumps(ms), flush=True)
 """
 
@@ -206,7 +238,9 @@ def turns(trees: list[str], order: list[str]) -> None:
         print(json.dumps({"turn": turn, "tree": label, "card": card, **doc}), flush=True)
         print(f"turn {turn} {label}: " + ", ".join(
             f"{r['shape']} {r['ms']:.4f} ms" for r in doc["rows"])
-            + f"; host {doc['host_us_small']:.1f} us/call", file=sys.stderr, flush=True)
+            + f"; host {doc['host_us_small']:.1f} us/call"
+            + f"; f32 serving {doc['f32_serving']['tokens_per_s']:.0f} tokens/s",
+            file=sys.stderr, flush=True)
 
 
 def time_trees(trees: list[str]) -> None:
@@ -222,12 +256,55 @@ def time_trees(trees: list[str]) -> None:
         print(json.dumps({"tree": label, "card": card, "ms": doc}), flush=True)
 
 
+_MMA_MODES = {"tf32": (0, 1), "chain3": (1, 3), "split3": (2, 3), "split3_lds": (3, 3),
+              "bf16": (4, 1)}     # name: (mode, mma a warp per accumulator and iteration)
+
+
+def mma_rate(iters: int = 4096) -> None:
+    import ctypes
+
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import chip_smoke
+    from mmlspark_tpu_torch.core import kernels
+
+    card = _card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    with tempfile.TemporaryDirectory() as tmp:
+        lib_path = Path(tmp) / "libmma_rate.so"
+        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib_path),
+                        str(ROOT / "tools" / "mma_rate.cu")], check=True)
+        lib = ctypes.CDLL(str(lib_path))
+    threads = 256                                   # eight warps a block
+    for warps_per_sm in (16, 32):
+        blocks = sms * warps_per_sm // 8
+        sink = torch.empty(blocks * threads, device="cuda")
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        for name, (mode, per_acc) in _MMA_MODES.items():
+            for acc in (1, 4, 8):
+                def run():
+                    err = lib.mma_rate(mode, acc, blocks, threads, iters,
+                                       ctypes.c_void_p(sink.data_ptr()), stream)
+                    if err:
+                        raise RuntimeError(f"mma_rate {name} acc {acc}: cudaError {err}")
+                ms = chip_smoke.median_ms(run, reps=10, warmup=2)
+                mmas = blocks * (threads // 32) * iters * acc * per_acc
+                flops = mmas * 2 * 16 * 8 * (16 if name == "bf16" else 8)
+                print(json.dumps({
+                    "mma_rate": name, "accumulators": acc, "warps_per_sm": warps_per_sm,
+                    "card": card, "ms": ms, "tflops": flops / (ms * 1e-3) / 1e12,
+                    "f32_accurate_tflops": flops / (ms * 1e-3) / 1e12 / 3 if per_acc == 3
+                    else None}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("ptxas")
     p.add_argument("trees", nargs="*")
     sub.add_parser("check")
+    sub.add_parser("mma_rate")
     p = sub.add_parser("time")
     p.add_argument("trees", nargs="+", metavar="NAME=TREE")
     p = sub.add_parser("turns")
@@ -240,6 +317,8 @@ def main() -> int:
         check()
     elif args.cmd == "time":
         time_trees(args.trees)
+    elif args.cmd == "mma_rate":
+        mma_rate()
     else:
         turns(args.trees, args.order.split(","))
     return 0
