@@ -14,19 +14,22 @@ a user calls — GBDTClassifier fit on the Adult-Census shape (32,768 rows x
 ComputeModelStatistics; and DeepModelTransformer serving 1,024 rows x 512
 token ids through bench.py's accelerator transformer (8 layers, d_model
 512, 8 heads, vocab 16,384) with attention_impl="flash", in bf16 and in
-f32 — and shows through the kernels' launch counters that each path ran
-on its kernel. It prints one JSON line per phase:
+f32, and through two small bf16 transformers (head dims 16 and 8) — and
+shows through the kernels' launch counters that each path ran on its
+kernel. It prints one JSON line per phase:
 
   env          torch/CUDA versions and the card (the nvidia-smi name and
                power limit also stand alone on the next line)
   build        nvcc seconds, and which libraries came from the cache
+  ex2_rate     the card's issue rate of ex2.approx.f32 (tools/mma_rate.cu):
+               K2's floor at small head dims, one exponential a score
   kernels      each kernel against its plain version at its path's
                shapes: errors, repeatability, median ms (CUDA events), the
                plain version's and one PyTorch library call's ms, and the
                bound (least time the card could take); K1 "histogram",
                K2 "flash_attention" with the kernel path each shape took
-               ("tf32x3", "wgmma", "mma" or "ffma") and its achieved
-               TFLOP/s
+               ("tf32x3", "wgmma" or "mma"), its achieved TFLOP/s, and
+               its exponentials with their time at the measured ex2 rate
   slice_adult  the GBDT path: fit seconds, launches (must be 3,100),
                train accuracy > 0.7, held-out AUC > 0.75, and the card's
                scores equal to the host walk bit for bit
@@ -41,6 +44,12 @@ on its kernel. It prints one JSON line per phase:
                "tf32x3", f32 tokens/s); f32 flash against f32 dense on the
                card, card against CPU on 2 rows, bf16 against f32; 4 rows
                x 4,096 tokens (8 launches)
+  small_transformer  1,024 rows x 512 tokens in bf16 through
+               TransformerEncoder's default width (d_model 64, 4 heads of
+               16) and the reference tests' width (d_model 32, 4 heads of
+               8), 2 layers each: 32 K2 launches on "mma" in each of 400
+               passes, tokens/s of all of them with their spread, and one
+               pass profiled (device busy share, K2's share)
   profile_transformer  4 minibatches under torch.profiler: K2's and the
                GEMMs' share of device time, device busy share
   stage_roundtrip  the serving stage saved and loaded through
@@ -55,10 +64,14 @@ printing no result, without a CUDA device or outside a checkout.
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -146,9 +159,72 @@ def phase_env() -> dict:
 def phase_build() -> None:
     from mmlspark_tpu_torch.core import kernels
 
-    report = kernels.build()
+    # the microbenchmark builds beside the kernels, not after them
+    with ThreadPoolExecutor(1) as pool:
+        rate_lib = pool.submit(rate_lib_path)
+        report = kernels.build()
+        rate_lib.result()
     emit({"phase": "build", "nvcc_seconds": report["seconds"],
           "built": report["built"], "from_cache": report["cached"]})
+
+
+def rate_lib_path() -> Path:
+    """tools/mma_rate.cu (the issue rates of mma.sync and ex2) built with
+    the port's flags into build/tools/, keyed on a hash of the source and
+    the flags."""
+    from mmlspark_tpu_torch.core import kernels
+
+    src = ROOT / "tools" / "mma_rate.cu"
+    key = hashlib.sha256(src.read_bytes() + " ".join(kernels.NVCC_FLAGS).encode())
+    path = ROOT / "build" / "tools" / f"libmma_rate-{key.hexdigest()[:16]}.so"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    return path
+
+
+def rate_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(rate_lib_path()))
+    lib.mma_rate.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p]
+    lib.mma_rate.restype = ctypes.c_int
+    return lib
+
+
+EX2_MODE = 5            # tools/mma_rate.cu's "ex2" mode
+
+
+def ex2_rate() -> dict:
+    """The card's issue rate of ex2.approx.ftz.f32: tools/mma_rate.cu's
+    "ex2" mode, 8 independent chains a thread at 32 warps an SM, timed with
+    median_ms. Exponentials a second, for the floor of K2 where every score
+    costs one."""
+    lib = rate_lib()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    threads, warps_per_sm, chains, iters = 256, 32, 8, 4096
+    blocks = sms * warps_per_sm // (threads // 32)
+    sink = torch.empty(blocks * threads, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = lib.mma_rate(EX2_MODE, chains, blocks, threads, iters, sink.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"the ex2 rate kernel failed: cudaError {err}")
+
+    ms = median_ms(run, reps=10, warmup=2)
+    n = blocks * threads * iters * chains
+    return {"ex2_per_s": n / (ms * 1e-3), "ex2_per_s_per_sm": n / (ms * 1e-3) / sms,
+            "ms": ms, "ex2": n, "sms": sms, "warps_per_sm": warps_per_sm, "chains": chains}
+
+
+def phase_ex2_rate() -> dict:
+    doc = {"phase": "ex2_rate", **ex2_rate()}
+    emit(doc)
+    return doc
 
 
 def _hist_inputs(n: int, f: int, bin_dtype, mask_frac: float, seed: int,
@@ -253,12 +329,15 @@ def histogram_rows() -> list:
 # K2 against its plain version: (name, B, Tq, Tk, H, D, dtype, causal).
 # The slice shape is the serving transformer's attention (64 rows x 512
 # tokens, 8 heads of 64); "masked" is tests/test_attention.py:120-132's
-# construction; "no_keys" has Tk = 0, so every row has l == 0. d128 and
-# d32 hold the wgmma path's other head dim and the mma path, d8 the FFMA
-# path (bf16 with D = 8), causal and ragged against its 64-row tiles.
-# "default" is TransformerEncoder's own default width (d_model 64, 4 heads
-# of 16; mmlspark_tpu/nn/models.py:177-178) at the slice's 64 rows x 512
-# tokens.
+# construction; "no_keys" has Tk = 0, so every row has l == 0. d128 holds
+# the wgmma path's other head dim; d32 and d8 (causal) the mma path at the
+# reference tests' small widths and short ragged sequences, where the
+# grid's fill sets the time. "default" is TransformerEncoder's own default
+# width (d_model 64, 4 heads of 16; mmlspark_tpu/nn/models.py:177-178) at
+# the slice's 64 rows x 512 tokens: the mma path at serving width;
+# "serve_d8" the D = 8 small transformer's attention at the same rows and
+# tokens. The mma path takes 8-warp blocks at default and serve_d8, 2-warp
+# blocks at d32 and d8.
 FLASH_SHAPES = [
     ("slice_bf16", 64, 512, 512, 8, 64, torch.bfloat16, False),
     ("slice_f32", 64, 512, 512, 8, 64, torch.float32, False),
@@ -272,22 +351,20 @@ FLASH_SHAPES = [
     ("no_keys_f32", 1, 4, 0, 1, 8, torch.float32, True),
     ("default_f32", 64, 512, 512, 4, 16, torch.float32, False),
     ("default_bf16", 64, 512, 512, 4, 16, torch.bfloat16, False),
+    ("serve_d8_bf16", 64, 512, 512, 4, 8, torch.bfloat16, False),
 ]
 
 
 def flash_path(dtype, d: int) -> str:
     """The K2 kernel a (dtype, head dim) must take: f32 on 3xTF32, bf16
-    with D 64 or 128 on wgmma, other bf16 with D >= 16 on mma.sync, bf16
-    with D 8 on FFMA."""
+    with D 64 or 128 on wgmma, bf16 with D 8, 16 or 32 on mma.sync."""
     if dtype == torch.float32:
         return "tf32x3"
-    if d in (64, 128):
-        return "wgmma"
-    return "mma" if d >= 16 else "ffma"
+    return "wgmma" if d in (64, 128) else "mma"
 # f32: the reference's own gate between attention tiers
 # (tests/test_attention.py:56). bf16: the output is rounded to bf16 once,
 # and p is rounded to bf16 before the PV product at a running max that
-# differs between the kernel's 64-key tiles and the plain version's
+# may differ between the kernel's key tiles and the plain version's
 # 128-key blocks, so the two may part by a bf16 ulp or two of the output:
 # rtol 2**-7 is two ulps at the top of a binade, atol 2e-3 covers outputs
 # near 0, whose ulp is smaller than that rounding noise. lse sums the
@@ -306,17 +383,21 @@ def _flash_inputs(name, b, tq, tk, h, d, dtype, seed):
             for t in (tq, tk, tk)]
 
 
-def flash_rows() -> list:
+def flash_rows(ex2_per_s: "float | None" = None) -> list:
     """K2 against `flash_attention_torch` on the card at FLASH_SHAPES:
     the kernel path that ran (it must be `flash_path`'s), out and lse
     errors, the same bits on two launches, median ms beside the plain
     version's, F.scaled_dot_product_attention's (on pre-transposed
-    (B, H, T, D), a yardstick the port never calls) and the bound."""
+    (B, H, T, D), a yardstick the port never calls) and the bound; and the
+    scores' exponentials, one a visible (query, key) pair, with their time
+    at the card's ex2 rate (`ex2_rate`, measured here if not given)."""
     import torch.nn.functional as F
 
     from mmlspark_tpu_torch.nn.attention import (_flash_fwd_lse, flash_attention,
                                                  flash_attention_torch)
 
+    if ex2_per_s is None:
+        ex2_per_s = ex2_rate()["ex2_per_s"]
     rows = []
     with torch.no_grad():
         for i, (name, b, tq, tk, h, d, dt, causal) in enumerate(FLASH_SHAPES):
@@ -371,14 +452,15 @@ def flash_rows() -> list:
                 "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bytes": bytes_moved, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "exps": pairs, "exp_ms": pairs / ex2_per_s * 1e3,
                 "achieved_tflops": ops / (kernel_ms * 1e-3) / 1e12 if kernel_ms > 0 else None,
             })
             del q, k, v, out, out2, lse, lse2, p_out, p_lse
     return rows
 
 
-def phase_kernels() -> dict:
-    kern = {"histogram": histogram_rows(), "flash_attention": flash_rows()}
+def phase_kernels(ex2_per_s: float) -> dict:
+    kern = {"histogram": histogram_rows(), "flash_attention": flash_rows(ex2_per_s)}
     emit({"phase": "kernels", **kern})
     return kern
 
@@ -712,15 +794,90 @@ def phase_slice_transformer() -> dict:
     return {**doc, "bundle": bundle, "stage": stage, "tokens": x}
 
 
-def phase_profile_transformer(stage, x) -> dict:
-    """Where the serving time goes: 4 minibatches under torch.profiler,
-    device kernel time by name against wall time."""
+# Two small bf16 transformers, K2 on its mma path: TransformerEncoder's
+# default width, which bench.py's small transformer also uses (bench.py:628;
+# mmlspark_tpu/nn/models.py:176-179), D = 16; and the width of the
+# reference's own transformer tests (tests/test_attention.py:136), D = 8
+SMALL_TRANSFORMERS = {
+    "d16": dict(num_layers=2, d_model=64, num_heads=4, d_ff=128, vocab_size=512, max_len=512,
+                num_outputs=8),
+    "d8": dict(num_layers=2, d_model=32, num_heads=4, d_ff=64, vocab_size=50, num_outputs=3),
+}
+
+
+# Timed passes of a small transformer. The host sets a pass's time, which
+# spreads by ~20% between passes, while K2 is ~3% of it: 400 passes (~20 s)
+# bring the rate's standard error to ~1%.
+SMALL_PASSES = 400
+
+
+def pass_rate(seconds: list, tokens_per_pass: int) -> dict:
+    """Tokens/s of timed passes as all their tokens over all their seconds
+    (a stall counts), with the passes' spread and the rate's relative
+    standard error."""
+    s = np.asarray(seconds)
+    return {"passes": len(s), "tokens_per_s": tokens_per_pass * len(s) / s.sum(),
+            "pass_seconds_min": float(s.min()), "pass_seconds_median": float(np.median(s)),
+            "pass_seconds_max": float(s.max()),
+            "rate_rel_stderr": float(s.std(ddof=1) / np.sqrt(len(s)) / s.mean())}
+
+
+def serve_small(config: dict, seed: int = 11) -> dict:
+    """1,024 rows x 512 token ids through DeepModelTransformer on the card,
+    attention_impl="flash" with the bundle's dtype bf16 (not the stage's
+    bfloat16 switch, which rounds token ids: ROADMAP Queue 3): one K2 launch
+    per layer and minibatch, every one on "mma". The first minibatch is the
+    warm-up; then SMALL_PASSES passes over all rows, each checked and
+    timed, and one more under torch.profiler: how busy the device is, and
+    K2's share of its time."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.nn import ModelBundle
+    from mmlspark_tpu_torch.nn.attention import flash_attention
+
+    bundle = ModelBundle.init("transformer", (SLICE_TOKENS,), seed=0, attention_impl="flash",
+                              dtype="bfloat16", **config)
+    x = np.random.default_rng(seed).integers(0, config["vocab_size"],
+                                             size=(SLICE_ROWS, SLICE_TOKENS))
+    stage, _ = _serve(bundle, x[:SLICE_BATCH], "cuda", SLICE_BATCH,
+                      {"logits": "logits", "prob": "probability"})
+    want = SLICE_ROWS // SLICE_BATCH * config["num_layers"]
+    n_out = config["num_outputs"]
+    seconds = []
+    for _ in range(SMALL_PASSES):
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        out = stage.transform(Table({"tokens": x}))
+        seconds.append(time.perf_counter() - t0)
+        launches, path = flash_attention.launches, flash_attention.last_path
+        assert launches == want, f"K2 launched {launches} times, want {want}"
+        assert path == "mma", f"the small transformer ran K2's {path} kernel, want mma"
+        logits, prob = np.asarray(out["logits"]), np.asarray(out["prob"])
+        assert logits.shape == (SLICE_ROWS, n_out) and prob.shape == (SLICE_ROWS, n_out)
+        assert np.isfinite(logits).all() and np.isfinite(prob).all()
+        assert np.allclose(prob.sum(-1), 1.0, atol=1e-5)
+    return {"config": config, "head_dim": config["d_model"] // config["num_heads"],
+            **pass_rate(seconds, SLICE_ROWS * SLICE_TOKENS),
+            "flash_launches": launches, "flash_path": path,
+            "profile": profile_serving(stage, x)}
+
+
+def phase_small_transformer() -> dict:
+    doc = {"phase": "small_transformer", "dtype": "bfloat16", "attention_impl": "flash",
+           "rows": SLICE_ROWS, "tokens_per_row": SLICE_TOKENS, "mini_batch_size": SLICE_BATCH,
+           **{name: serve_small(cfg) for name, cfg in SMALL_TRANSFORMERS.items()}}
+    emit(doc)
+    return doc
+
+
+def profile_serving(stage, rows) -> dict:
+    """Where the serving time goes: `rows` through the stage under
+    torch.profiler, device kernel time by name against wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from mmlspark_tpu_torch.core import Table
 
-    rows = x[:4 * SLICE_BATCH]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -737,14 +894,19 @@ def phase_profile_transformer(stage, x) -> dict:
     gemm_s = sum(us for k, (us, _) in by_name.items()
                  if any(tag in k.lower() for tag in ("gemm", "nvjet", "xmma", "cutlass"))) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    doc = {"phase": "profile_transformer", "rows": len(rows), "wall_seconds_profiled": wall_s,
-           "device_kernel_seconds": device_s if by_name else None,
-           "device_busy_share": device_s / wall_s if by_name else None,
-           "flash_kernel_seconds": flash_s if by_name else None,
-           "flash_share_of_device": flash_s / device_s if device_s else None,
-           "gemm_seconds": gemm_s if by_name else None,
-           "top_kernels": [{"name": k[:80], "seconds": us / 1e6, "count": c}
-                           for k, (us, c) in top]}
+    return {"rows": len(rows), "wall_seconds_profiled": wall_s,
+            "device_kernel_seconds": device_s if by_name else None,
+            "device_busy_share": device_s / wall_s if by_name else None,
+            "flash_kernel_seconds": flash_s if by_name else None,
+            "flash_share_of_device": flash_s / device_s if device_s else None,
+            "gemm_seconds": gemm_s if by_name else None,
+            "top_kernels": [{"name": k[:80], "seconds": us / 1e6, "count": c}
+                            for k, (us, c) in top]}
+
+
+def phase_profile_transformer(stage, x) -> dict:
+    """The serving transformer's time, 4 minibatches under torch.profiler."""
+    doc = {"phase": "profile_transformer", **profile_serving(stage, x[:4 * SLICE_BATCH])}
     emit(doc)
     return doc
 
@@ -822,12 +984,14 @@ def main() -> int:
 
     phase_env()
     phase_build()
-    kern = phase_kernels()
+    rate = phase_ex2_rate()
+    kern = phase_kernels(rate["ex2_per_s"])
     adult = phase_slice_adult()
     phase_profile_adult()
     phase_slice_parity()
     phase_slice_higgs()
     dnn = phase_slice_transformer()
+    small = phase_small_transformer()
     phase_profile_transformer(dnn["stage"], dnn["tokens"])
     phase_stage_roundtrip(dnn["stage"], dnn["tokens"])
     phase_slice_zoo()
@@ -836,6 +1000,8 @@ def main() -> int:
     flash_main = kern["flash_attention"][0]
     f32_rows = [r for r in kern["flash_attention"] if r["path"] == "tf32x3"]
     f32_main = next(r for r in f32_rows if r["shape"] == "slice_f32")
+    mma_rows = [r for r in kern["flash_attention"] if r["path"] == "mma"]
+    mma_main = next(r for r in mma_rows if r["shape"] == "default_bf16")
     emit({"kernels": [{
         "name": "histogram",
         "route": "cuda",
@@ -881,6 +1047,24 @@ def main() -> int:
         "library_ms": f32_main["library_ms"],
         "shape": f32_main["shape"],
         "path": f32_main["path"],
+    }, {
+        # the same wrapper and TPU kernel; the CUDA kernel every bf16 bundle
+        # with head dim 8, 16 or 32 serves through, with its launches from
+        # the small transformer at TransformerEncoder's default width
+        "name": "flash_attention_mma",
+        "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/flash_attn.cu",
+        "replaces": "mmlspark_tpu/nn/attention.py:192",
+        "launches": small["d16"]["flash_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in mma_rows),
+        "ms": mma_main["ms"],
+        "plain_ms": mma_main["plain_ms"],
+        "bound_ms": mma_main["bound_ms"],
+        "bound_by": mma_main["bound_by"],
+        "library_ms": mma_main["library_ms"],
+        "exp_ms": mma_main["exp_ms"],
+        "shape": mma_main["shape"],
+        "path": mma_main["path"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

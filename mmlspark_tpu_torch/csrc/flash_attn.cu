@@ -24,21 +24,23 @@
 // (q, k, v read once, out and lse written once) and the tensor-core
 // operations (4 * B * H * Tq * Tk * D; three TF32 products each in f32)
 // take about the same time in bf16; at long T, and in f32 at any T, the
-// operations bound it. What the design does about it, by path:
+// operations bound it. In bf16 below D = 64 neither does: each score costs
+// one exponential whatever D is, so the special-function units' rate of
+// ex2 sets the floor. What the design does about it, by path:
 //   - "wgmma": bf16 with D = 64 or 128 (the serving path) runs both
 //     products on Hopper's warpgroup tensor-core instruction, fed by TMA
 //     through a ring of key/value tiles in shared memory that a producer
 //     warpgroup keeps ahead of the math; see flash_fwd_wgmma_kernel;
-//   - "mma": bf16 with D = 16 or 32 runs both products with mma.sync
-//     m16n8k16 (bf16 in, f32 accumulate), four warps of 16 query rows
-//     each; see flash_fwd_mma_kernel;
+//   - "mma": bf16 with D = 8, 16 or 32 runs both products on mma.sync
+//     (bf16 in, f32 accumulate), fed by a cp.async ring of key/value
+//     tiles, with a softmax that spends its instructions on the
+//     exponentials and blocks sized to fill the card; see
+//     flash_fwd_mma_kernel;
 //   - "tf32x3": f32 at every head dim runs both products on the tensor
 //     cores as three TF32 products (3xTF32), which keeps the reference's
 //     f32 accuracy (its 2e-5 gate, which one TF32 pass would miss):
 //     mma.sync m16n8k8, eight warps of 16 query rows, key/value tiles
-//     through a cp.async ring; see flash_fwd_tf32x3_kernel;
-//   - "ffma": bf16 with D = 8 takes the FFMA kernel below: one thread per
-//     query row, keys 8 at a time as independent chains.
+//     through a cp.async ring; see flash_fwd_tf32x3_kernel.
 // On every path each key tile is read once per query tile and shared by
 // the tile's rows through shared memory; causal tiles wholly after the
 // query tile are skipped (their p would be zero, so the outputs do not
@@ -63,345 +65,11 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;        // query rows per block (ffma and mma paths)
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
-
-// ---------------------------------------------------------------------
-// bf16 with D = 8: the "ffma" path, off the tensor cores. One thread per
-// query row, 64 rows a block; key tiles staged in shared memory in f32,
-// keys 8 at a time as independent chains.
-// ---------------------------------------------------------------------
-
-constexpr int kFfmaKeys = 64;      // keys per smem tile
-constexpr int kKeyStep = 8;        // keys per online-softmax update
-
-template <int D>
-__global__ void __launch_bounds__(kBlockQ)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ lse, int64_t num_bh, int heads,
-                 int64_t tq, int64_t tk, int64_t num_q_tiles, int causal,
-                 float scale, int64_t qsb, int64_t qst, int64_t qsh,
-                 int64_t ksb, int64_t kst, int64_t ksh, int64_t vsb,
-                 int64_t vst, int64_t vsh) {
-    constexpr int BK = kFfmaKeys;
-    __shared__ __align__(16) float ks[BK][D];
-    __shared__ __align__(16) float vs[BK][D];
-
-    // later query tiles first: under a causal mask they hold the most keys
-    const int64_t bh = blockIdx.x % num_bh;
-    const int64_t qt = num_q_tiles - 1 - blockIdx.x / num_bh;
-    const int64_t b = bh / heads;
-    const int64_t h = bh % heads;
-    const int64_t qpos = qt * kBlockQ + threadIdx.x;
-    const bool valid = qpos < tq;
-
-    float qr[D];
-    float acc[D];
-    const __nv_bfloat16* qp = q + b * qsb + qpos * qst + h * qsh;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-        qr[i] = valid ? __bfloat162float(qp[i]) : 0.0f;
-        acc[i] = 0.0f;
-    }
-    float m = kNegInf;
-    float l = 0.0f;
-
-    // keys after the tile's last query are masked for every row of the
-    // tile under a causal mask: skip them
-    int64_t kend = tk;
-    if (causal && (qt + 1) * kBlockQ < kend) kend = (qt + 1) * kBlockQ;
-
-    for (int64_t k0 = 0; k0 < kend; k0 += BK) {
-        __syncthreads();   // the previous tile is consumed
-        for (int e = threadIdx.x; e < BK * D; e += kBlockQ) {
-            const int j = e / D;
-            const int d = e % D;
-            const int64_t kp = k0 + j;
-            float kv = 0.0f, vv = 0.0f;
-            if (kp < tk) {
-                kv = __bfloat162float(k[b * ksb + kp * kst + h * ksh + d]);
-                vv = __bfloat162float(v[b * vsb + kp * vst + h * vsh + d]);
-            }
-            ks[j][d] = kv;
-            vs[j][d] = vv;
-        }
-        __syncthreads();
-        const int nkeys = kend - k0 < BK ? static_cast<int>(kend - k0) : BK;
-        for (int j0 = 0; j0 < nkeys; j0 += kKeyStep) {
-            float s[kKeyStep];
-#pragma unroll
-            for (int c = 0; c < kKeyStep; ++c) s[c] = 0.0f;
-#pragma unroll
-            for (int i = 0; i < D; i += 4) {
-#pragma unroll
-                for (int c = 0; c < kKeyStep; ++c) {
-                    const float4 k4 = *reinterpret_cast<const float4*>(&ks[j0 + c][i]);
-                    s[c] = fmaf(qr[i], k4.x, s[c]);
-                    s[c] = fmaf(qr[i + 1], k4.y, s[c]);
-                    s[c] = fmaf(qr[i + 2], k4.z, s[c]);
-                    s[c] = fmaf(qr[i + 3], k4.w, s[c]);
-                }
-            }
-            float m_new = m;
-            bool ok[kKeyStep];
-#pragma unroll
-            for (int c = 0; c < kKeyStep; ++c) {
-                const int64_t kp = k0 + j0 + c;
-                ok[c] = kp < tk && (!causal || qpos >= kp);
-                s[c] = ok[c] ? s[c] * scale : kNegInf;
-                m_new = fmaxf(m_new, s[c]);
-            }
-            const float corr = expf(m - m_new);
-            float psum = 0.0f;
-#pragma unroll
-            for (int c = 0; c < kKeyStep; ++c) {
-                s[c] = ok[c] ? expf(s[c] - m_new) : 0.0f;   // s now holds p
-                psum += s[c];
-            }
-            l = l * corr + psum;
-#pragma unroll
-            for (int i = 0; i < D; ++i) acc[i] *= corr;
-#pragma unroll
-            for (int c = 0; c < kKeyStep; ++c) {
-                // p as the TPU kernel's PV product sees it: cast to v's dtype
-                const float p = __bfloat162float(__float2bfloat16(s[c]));
-#pragma unroll
-                for (int i = 0; i < D; i += 4) {
-                    const float4 v4 = *reinterpret_cast<const float4*>(&vs[j0 + c][i]);
-                    acc[i] = fmaf(p, v4.x, acc[i]);
-                    acc[i + 1] = fmaf(p, v4.y, acc[i + 1]);
-                    acc[i + 2] = fmaf(p, v4.z, acc[i + 2]);
-                    acc[i + 3] = fmaf(p, v4.w, acc[i + 3]);
-                }
-            }
-            m = m_new;
-        }
-    }
-
-    if (!valid) return;
-    __nv_bfloat16* op = out + ((b * tq + qpos) * heads + h) * D;
-    const float denom = fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < D; ++i) op[i] = __float2bfloat16(l > 0.0f ? acc[i] / denom : 0.0f);
-    lse[bh * tq + qpos] = l > 0.0f ? m + logf(denom) : INFINITY;
-}
-
-// ---------------------------------------------------------------------
-// bf16 with D = 16 or 32: both products on the tensor cores (mma.sync
-// m16n8k16, bf16 in, f32 accumulate). Four warps own 16 query rows each.
-// Fragment layouts (PTX ISA, "mma.m16n8k16"), with g = lane / 4 and
-// t = lane % 4: A (16x16, row-major) a0 = (g, 2t..2t+1), a1 = (g+8, 2t..),
-// a2 = (g, 2t+8..), a3 = (g+8, 2t+8..); B (16x8) b0 = (2t..2t+1, g),
-// b1 = (2t+8.., g); C (16x8) c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..).
-// The S accumulator of two neighbouring 8-key tiles is therefore the A
-// fragment of the PV product once rounded to bf16: p goes to the PV
-// product in bf16, as the TPU kernel casts p to v's dtype, while l sums
-// the f32 p. q, k and v are copied to shared memory in 16-byte chunks
-// (the wrapper checks that rows are 16-byte aligned) with rows padded by
-// 8 elements, so the 8 rows a fragment load touches fall in distinct
-// banks; v's B fragments (pairs of neighbouring keys) come transposed by
-// ldmatrix.trans.
-// ---------------------------------------------------------------------
-
-constexpr int kPad = 8;
-
-template <int D>
-struct MmaTiling {
-    static constexpr int kBlockK = 64;                    // keys per tile
-    static constexpr int kThreads = 128;                  // 4 warps x 16 rows
-    static constexpr int kLd = D + kPad;                  // smem row pitch
-    static constexpr int kChunks = D / 8;                 // 16-byte chunks a row
-};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [row, row + 8) of `tile` (pitch kLd) from global memory, 16 bytes
-// a thread; rows at or past `valid` are zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16 (*tile)[MmaTiling<D>::kLd],
-                                           const __nv_bfloat16* base, int64_t row0,
-                                           int64_t valid, int64_t row_stride) {
-    constexpr int C = MmaTiling<D>::kChunks;
-    for (int c = threadIdx.x; c < ROWS * C; c += MmaTiling<D>::kThreads) {
-        const int i = c / C;
-        const int d = (c % C) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (row0 + i < valid)
-            val = *reinterpret_cast<const uint4*>(base + (row0 + i) * row_stride + d);
-        *reinterpret_cast<uint4*>(&tile[i][d]) = val;
-    }
-}
-
-// the B fragment (b0, b1) of keys [k, k + 16) x columns [n, n + 8) of a
-// row-major (keys, D) tile, transposed on the way by ldmatrix
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1,
-                                              const __nv_bfloat16* row) {
-    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                 : "=r"(b0), "=r"(b1)
-                 : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int D>
-__global__ void __launch_bounds__(MmaTiling<D>::kThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                     int64_t num_bh, int heads, int64_t tq, int64_t tk,
-                     int64_t num_q_tiles, int causal, float scale, int64_t qsb,
-                     int64_t qst, int64_t qsh, int64_t ksb, int64_t kst,
-                     int64_t ksh, int64_t vsb, int64_t vst, int64_t vsh) {
-    using Tl = MmaTiling<D>;
-    constexpr int BK = Tl::kBlockK;
-    constexpr int NT = BK / 8;        // 8-key tiles of S
-    constexpr int DT = D / 8;         // 8-wide column tiles of the output
-    constexpr int KS = D / 16;        // k-steps of the score product
-    __shared__ __align__(16) __nv_bfloat16 qs[kBlockQ][Tl::kLd];
-    __shared__ __align__(16) __nv_bfloat16 ks[BK][Tl::kLd];
-    __shared__ __align__(16) __nv_bfloat16 vs[BK][Tl::kLd];
-
-    const int64_t bh = blockIdx.x % num_bh;
-    const int64_t qt = num_q_tiles - 1 - blockIdx.x / num_bh;
-    const int64_t b = bh / heads;
-    const int64_t h = bh % heads;
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    const int g = lane / 4;
-    const int t = lane % 4;
-    const int64_t q0 = qt * kBlockQ;
-
-    stage_rows<D, kBlockQ>(qs, q + b * qsb + h * qsh, q0, tq, qst);
-    __syncthreads();
-    uint32_t qa[KS][4];
-    const int r0 = warp * 16 + g;                     // this thread's rows r0, r0 + 8
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-        qa[s][0] = ld_pair(&qs[r0][s * 16 + 2 * t]);
-        qa[s][1] = ld_pair(&qs[r0 + 8][s * 16 + 2 * t]);
-        qa[s][2] = ld_pair(&qs[r0][s * 16 + 2 * t + 8]);
-        qa[s][3] = ld_pair(&qs[r0 + 8][s * 16 + 2 * t + 8]);
-    }
-    const int64_t qpos[2] = {q0 + r0, q0 + r0 + 8};
-
-    float o[DT][4];
-#pragma unroll
-    for (int n = 0; n < DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
-    float m[2] = {kNegInf, kNegInf};
-    float l[2] = {0.0f, 0.0f};
-
-    int64_t kend = tk;
-    if (causal && (qt + 1) * kBlockQ < kend) kend = (qt + 1) * kBlockQ;
-
-    for (int64_t k0 = 0; k0 < kend; k0 += BK) {
-        __syncthreads();   // the previous tile is consumed
-        stage_rows<D, BK>(ks, k + b * ksb + h * ksh, k0, tk, kst);
-        stage_rows<D, BK>(vs, v + b * vsb + h * vsh, k0, tk, vst);
-        __syncthreads();
-
-        float s[NT][4];
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-            s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-#pragma unroll
-            for (int st = 0; st < KS; ++st)
-                mma_bf16(s[n], qa[st], ld_pair(&ks[n * 8 + g][st * 16 + 2 * t]),
-                         ld_pair(&ks[n * 8 + g][st * 16 + 2 * t + 8]));
-        }
-        // scale, mask, running max of this thread's two rows over the tile;
-        // a tile inside the sequence and wholly before the query tile
-        // under a causal mask has nothing to mask
-        const bool whole = k0 + BK <= tk && (!causal || k0 + BK <= q0 + 1);
-        float m_new[2] = {m[0], m[1]};
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int64_t kp = k0 + n * 8 + 2 * t + (e & 1);
-                const int r = e / 2;
-                const bool ok = whole || (kp < tk && (!causal || qpos[r] >= kp));
-                s[n][e] = ok ? s[n][e] * scale : kNegInf;
-                m_new[r] = fmaxf(m_new[r], s[n][e]);
-            }
-        }
-        float corr[2], psum[2] = {0.0f, 0.0f};
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            // the four threads of a quad hold one row
-            m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
-            m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
-            corr[r] = expf(m[r] - m_new[r]);
-        }
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int r = e / 2;
-                // masked entries are exactly kNegInf; their p is zero even
-                // when the whole row is masked (then exp(s - m_new) == 1)
-                s[n][e] = s[n][e] == kNegInf ? 0.0f : expf(s[n][e] - m_new[r]);
-                psum[r] += s[n][e];
-            }
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
-            psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
-            l[r] = l[r] * corr[r] + psum[r];
-            m[r] = m_new[r];
-        }
-#pragma unroll
-        for (int n = 0; n < DT; ++n) {
-            o[n][0] *= corr[0];
-            o[n][1] *= corr[0];
-            o[n][2] *= corr[1];
-            o[n][3] *= corr[1];
-        }
-#pragma unroll
-        for (int kt = 0; kt < BK / 16; ++kt) {
-            const uint32_t pa[4] = {pack_bf16(s[2 * kt][0], s[2 * kt][1]),
-                                    pack_bf16(s[2 * kt][2], s[2 * kt][3]),
-                                    pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-                                    pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
-#pragma unroll
-            for (int n = 0; n < DT; ++n) {
-                uint32_t b0, b1;
-                ldsm_x2_trans(b0, b1, &vs[kt * 16 + (lane & 15)][n * 8]);
-                mma_bf16(o[n], pa, b0, b1);
-            }
-        }
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        if (qpos[r] >= tq) continue;
-        const float denom = fmaxf(l[r], 1e-30f);
-        __nv_bfloat16* op = out + ((b * tq + qpos[r]) * heads + h) * D;
-#pragma unroll
-        for (int n = 0; n < DT; ++n) {
-            const float x0 = l[r] > 0.0f ? o[n][2 * r] / denom : 0.0f;
-            const float x1 = l[r] > 0.0f ? o[n][2 * r + 1] / denom : 0.0f;
-            *reinterpret_cast<__nv_bfloat162*>(op + n * 8 + 2 * t) = __floats2bfloat162_rn(x0, x1);
-        }
-        if (t == 0) lse[bh * tq + qpos[r]] = l[r] > 0.0f ? m[r] + logf(denom) : INFINITY;
-    }
 }
 
 // ---------------------------------------------------------------------
@@ -1125,20 +793,28 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows [row0, row0 + ROWS) of a (T, D) f32 slice with row stride `stride`
-// into shared memory at `dst` (pitch LD floats); rows at or past `valid`
-// are zeros
-template <int D, int ROWS, int LD>
-__device__ __forceinline__ void copy_rows_async(uint32_t dst, const float* base, int64_t row0,
-                                                int64_t valid, int64_t stride) {
-    constexpr int C = D / 4;                                // 16-byte chunks a row
-    for (int c = threadIdx.x; c < ROWS * C; c += Tf32Tiling<D>::kThreads) {
+// rows [row0, row0 + ROWS) of a (T, D) slice of T (f32 or bf16) with row
+// stride `stride` elements into shared memory, by THREADS threads: 16-byte
+// chunk c of row i lands at dst + at(i, c); rows at or past `valid` are
+// zeros
+template <int D, int ROWS, int THREADS, typename T, typename At>
+__device__ __forceinline__ void copy_rows_async(uint32_t dst, const T* base, int64_t row0,
+                                                int64_t valid, int64_t stride, At at) {
+    constexpr int E = 16 / static_cast<int>(sizeof(T));     // elements a chunk
+    constexpr int C = D / E;                                // chunks a row
+    for (int c = threadIdx.x; c < ROWS * C; c += THREADS) {
         const int i = c / C;
-        const int d = (c % C) * 4;
+        const int j = c % C;
         const bool ok = row0 + i < valid;
-        cp_async16(dst + 4u * (i * LD + d), ok ? base + (row0 + i) * stride + d : base, ok);
+        cp_async16(dst + at(i, j), ok ? base + (row0 + i) * stride + j * E : base, ok);
     }
 }
+
+// the byte offset of chunk c of row i in an f32 tile of pitch LD floats
+template <int LD>
+struct F32Pitch {
+    __device__ uint32_t operator()(int i, int c) const { return 4u * (i * LD + 4 * c); }
+};
 
 // The online softmax over one key tile of a warp's S accumulator `s` (raw
 // q.k; s[n][e] is row g + 8 (e / 2), key k0 + 8n + 2t + e % 2). Leaves p
@@ -1236,16 +912,19 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
 
     const float* const kb = k + b * ksb + h * ksh;
     const float* const vb = v + b * vsb + h * vsh;
+    constexpr int TH = Tl::kThreads;
     auto load_tile = [&](int j) {
         float* const st = ring + (j % S) * Tl::kStageFloats;
-        copy_rows_async<D, BK, LDK>(smem_addr(st), kb, static_cast<int64_t>(j) * BK, tk, kst);
-        copy_rows_async<D, BK, LDV>(smem_addr(st + BK * LDK), vb, static_cast<int64_t>(j) * BK,
-                                    tk, vst);
+        copy_rows_async<D, BK, TH>(smem_addr(st), kb, static_cast<int64_t>(j) * BK, tk, kst,
+                                   F32Pitch<LDK>());
+        copy_rows_async<D, BK, TH>(smem_addr(st + BK * LDK), vb, static_cast<int64_t>(j) * BK,
+                                   tk, vst, F32Pitch<LDV>());
     };
     // q joins the first group; every group is committed, empty or not, so
     // that the wait below counts the same on every pass
     if (n_tiles > 0)
-        copy_rows_async<D, Tl::kRows, LDK>(smem_addr(qs), q + b * qsb + h * qsh, q0, tq, qst);
+        copy_rows_async<D, Tl::kRows, TH>(smem_addr(qs), q + b * qsb + h * qsh, q0, tq, qst,
+                                          F32Pitch<LDK>());
 #pragma unroll
     for (int j = 0; j < S - 1; ++j) {
         if (j < n_tiles) load_tile(j);
@@ -1325,6 +1004,261 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
         for (int n = 0; n < DT; ++n)
             *reinterpret_cast<float2*>(op + 8 * n) =
                 make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+        if (t == 0) lse[bh * tq + qpos[r]] = lr > 0.0f ? m[r] * kLn2 + logf(denom) : INFINITY;
+    }
+}
+
+// ---------------------------------------------------------------------
+// bf16 with D = 8, 16 or 32: the "mma" path. At these head dims a score
+// costs 2 D multiply-adds on the tensor cores but one exponential on the
+// special-function units (16 a clock an SM): the exponentials, not the
+// bytes, set the floor. Measured, neither they nor the products set the
+// time (removing either saves 12% and 23%): a warp runs its S product,
+// softmax and PV product in turn, so latency does. Issuing the next
+// tile's S product before the softmax needs a second S buffer, which
+// spills more under this kernel's 128 registers and ran slower (PERF.md).
+// At that cap the kernel as it is spills too: 116 bytes at D = 32, 8 at
+// D = 16, none at D = 8 (torch_flash_turns.py ptxas). Lifting the cap at
+// D = 32 was 5% faster in 2-warp blocks (kept) and 25% slower in 8-warp
+// blocks, where it halves the warps an SM.
+//
+// - Both products on mma.sync, bf16 in, f32 accumulate: S = Q.K^T is
+//   m16n8k16 (m16n8k8 at D = 8, one k-step of 8), O += P.V m16n8k16. Each
+//   warp owns 16 query rows. The C fragment gives a thread rows g and
+//   g + 8 (g = lane / 4) and keys 2t, 2t + 1 (t = lane % 4) of every
+//   8-key group, so two neighbouring groups of S, rounded to bf16, are the
+//   A fragment of the PV step over those 16 keys: the TPU kernel's cast of
+//   p to v's dtype, while l sums the unrounded f32 p. q's A fragments are
+//   read once, straight from global memory into registers.
+// - Keys and values through a three-stage cp.async ring of 128-key tiles,
+//   two tiles ahead of the math, one __syncthreads a tile; rows past Tk
+//   arrive as zeros (the mask decides which keys count). Rows are packed
+//   (D = 8: one 16-byte chunk a row) with the chunks XOR-swizzled, so the
+//   eight rows each ldmatrix reads at one chunk column fall in the eight
+//   16-byte bank groups: K's B fragments come by ldmatrix, V's by
+//   ldmatrix.trans (keys 2t, 2t + 1 of column g), four 8x8 matrices a load.
+// - The softmax of the wgmma path (softmax_tile, scale_and_pack): base 2
+//   with log2(e) folded into the scale and ex2.approx; on whole tiles
+//   nothing per score but the max, the fma, the ex2, the add to l and the
+//   bf16 pack; mask bits from 32-bit in-tile offsets on edge tiles only;
+//   the accumulator's rescale skipped when no row max of the warp moved.
+// - Blocks sized to fill the card: 8 warps (128 rows) when that gives
+//   every SM a block, else 2 (32 rows). Under causal a warp skips the
+//   tiles wholly after its last row, and a warp wholly past Tq skips all.
+// ---------------------------------------------------------------------
+
+template <int D, int W>
+struct MmaTiling {
+    static constexpr int kRows = 16 * W;                   // query rows a block
+    static constexpr int kThreads = 32 * W;
+    static constexpr int kKeys = 128;                      // keys a ring tile
+    static constexpr int kStages = 3;
+    static constexpr int kChunks = D / 8;                  // 16-byte chunks a row
+    static constexpr int kTileBytes = kKeys * D * 2;       // one K or V tile
+    static constexpr int kSmemBytes = kStages * 2 * kTileBytes;
+    // blocks an SM that the registers must allow: 16 warps (128 registers
+    // a thread), except 2-warp blocks at D = 32, which run at most two an
+    // SM: there 4 (255 registers), so nothing spills
+    static constexpr int kMinBlocks = D == 32 && W == 2 ? 4 : 16 / W;
+};
+
+// the byte offset of chunk c of row i in a packed bf16 tile of D columns,
+// swizzled: 8 / C rows share a 128-byte line, and the chunk index is XORed
+// with the row's line, so 8 consecutive rows at one chunk column cover the
+// line's eight 16-byte bank groups
+template <int D>
+struct Bf16Swizzle {
+    __device__ uint32_t operator()(int i, int c) const {
+        constexpr int C = D / 8;
+        return static_cast<uint32_t>(i * D * 2 + 16 * (c ^ ((i / (8 / C)) % C)));
+    }
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// c += a.b, m16n8k16, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_k16(float* c, const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b, m16n8k8, bf16 in, f32 accumulate: a0 rows g, a1 rows g + 8 at
+// k 2t, 2t + 1; b0 k 2t, 2t + 1 of column g
+__device__ __forceinline__ void mma_k8(float* c, uint32_t a0, uint32_t a1, uint32_t b0) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(b0));
+}
+
+template <int D, int W>
+__global__ void __launch_bounds__(MmaTiling<D, W>::kThreads, MmaTiling<D, W>::kMinBlocks)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ lse, int64_t num_bh, int heads, int64_t tq, int64_t tk,
+                     int64_t num_q_tiles, int causal, float scale_log2, int64_t qsb, int64_t qst,
+                     int64_t qsh, int64_t ksb, int64_t kst, int64_t ksh, int64_t vsb,
+                     int64_t vst, int64_t vsh) {
+    using Tl = MmaTiling<D, W>;
+    constexpr int BK = Tl::kKeys;
+    constexpr int S = Tl::kStages;
+    constexpr int C = Tl::kChunks;
+    constexpr int KS = D >= 16 ? D / 16 : 1;          // k-steps of the score product
+    extern __shared__ __align__(128) uint8_t smem_mma[];
+    const uint32_t ring = smem_addr(smem_mma);        // stage s: K tile, then V tile
+
+    // without a mask the query tiles of one head run side by side and share
+    // its keys and values in L2; under a causal mask the later tiles, which
+    // hold the most keys, go first
+    const int64_t x = blockIdx.x;
+    const int64_t bh = causal ? x % num_bh : x / num_q_tiles;
+    const int64_t qt = causal ? num_q_tiles - 1 - x / num_bh : x % num_q_tiles;
+    const int64_t b = bh / heads;
+    const int64_t h = bh % heads;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int64_t q0 = qt * Tl::kRows;
+    const int64_t wq0 = q0 + 16 * warp;          // the warp's first query row
+    const int64_t qpos[2] = {wq0 + g, wq0 + g + 8};
+
+    // keys after the tile's last query are masked for every row of the
+    // tile under a causal mask: skipped
+    int64_t kend = tk;
+    if (causal && q0 + Tl::kRows < kend) kend = q0 + Tl::kRows;
+    const int n_tiles = static_cast<int>((kend + BK - 1) / BK);
+
+    const __nv_bfloat16* const kb = k + b * ksb + h * ksh;
+    const __nv_bfloat16* const vb = v + b * vsb + h * vsh;
+    auto load_tile = [&](int j) {
+        const uint32_t st = ring + (j % S) * 2 * Tl::kTileBytes;
+        const int64_t row0 = static_cast<int64_t>(j) * BK;
+        copy_rows_async<D, BK, Tl::kThreads>(st, kb, row0, tk, kst, Bf16Swizzle<D>());
+        copy_rows_async<D, BK, Tl::kThreads>(st + Tl::kTileBytes, vb, row0, tk, vst,
+                                             Bf16Swizzle<D>());
+    };
+    // every group is committed, empty or not, so that the wait below counts
+    // the same on every pass
+#pragma unroll
+    for (int j = 0; j < S - 1; ++j) {
+        if (j < n_tiles) load_tile(j);
+        cp_async_commit();
+    }
+
+    // q's A fragments: rows g (index 0) and g + 8 (index 1) at dims
+    // 16 st + 2t, and (from D = 16) the same rows 8 dims on (indices 2, 3)
+    uint32_t qa[KS][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const bool ok = qpos[r] < tq;
+        const __nv_bfloat16* const qr = q + b * qsb + h * qsh + (ok ? qpos[r] : 0) * qst + 2 * t;
+#pragma unroll
+        for (int st = 0; st < KS; ++st) {
+            qa[st][r] = ok ? __ldg(reinterpret_cast<const unsigned int*>(qr + 16 * st)) : 0u;
+            qa[st][2 + r] =
+                ok && D >= 16 ? __ldg(reinterpret_cast<const unsigned int*>(qr + 16 * st + 8)) : 0u;
+        }
+    }
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.0f, 0.0f};
+    float s[BK / 2];
+    uint32_t pa[BK / 16][4];
+    float corr[2];
+    const bool live = wq0 < tq;                   // the warp has rows to write
+
+    for (int j = 0; j < n_tiles; ++j) {
+        // tile j has landed; every thread is done with tile j - 1, whose
+        // stage the copies issued next refill
+        cp_async_wait<S - 2>();
+        __syncthreads();
+        if (j + S - 1 < n_tiles) load_tile(j + S - 1);
+        cp_async_commit();
+        const int64_t k0 = static_cast<int64_t>(j) * BK;
+        // under causal, a tile wholly after the warp's last row leaves its
+        // state as it is (p = 0, corr = 1)
+        if (!live || (causal && k0 > wq0 + 15)) continue;
+        const uint32_t ks = ring + (j % S) * 2 * Tl::kTileBytes;
+        const uint32_t vs = ks + Tl::kTileBytes;
+
+        // S = Q.K^T. Matrix mt of K is 8-key group mt / C at chunk mt % C;
+        // an x4 load takes four, i.e. 4 / C whole groups
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) s[i] = 0.0f;
+#pragma unroll
+        for (int xi = 0; xi < BK / 8 * C / 4; ++xi) {
+            const int mt = 4 * xi + lane / 8;
+            uint32_t r[4];
+            ldsm_x4(r, ks + Bf16Swizzle<D>()(8 * (mt / C) + lane % 8, mt % C));
+#pragma unroll
+            for (int jj = 0; jj < 4 / C; ++jj) {
+                const int n = xi * (4 / C) + jj;
+                if constexpr (D == 8) {
+                    mma_k8(&s[4 * n], qa[0][0], qa[0][1], r[jj]);
+                } else {
+#pragma unroll
+                    for (int st = 0; st < KS; ++st)
+                        mma_k16(&s[4 * n], qa[st], r[jj * C + 2 * st], r[jj * C + 2 * st + 1]);
+                }
+            }
+        }
+
+        // a tile inside the sequence and, under causal, wholly at or before
+        // the warp's first query has nothing to mask
+        if (k0 + BK <= tk && (!causal || k0 + BK - 1 <= wq0))
+            softmax_tile<false, BK>(s, m, l, corr, k0, qpos, tk, causal, scale_log2, t);
+        else
+            softmax_tile<true, BK>(s, m, l, corr, k0, qpos, tk, causal, scale_log2, t);
+        scale_and_pack<D, BK>(o, corr, s, pa);
+
+        // O += P.V. Matrix mt of V is keys 16 (mt / 2C) + 8 (mt % 2) at
+        // chunk (mt / 2) % C, transposed; an x4 load takes the (b0, b1)
+        // pairs of two (16-key step, 8-column group) products
+#pragma unroll
+        for (int xi = 0; xi < BK / 16 * C / 2; ++xi) {
+            const int mt = 4 * xi + lane / 8;
+            uint32_t r[4];
+            ldsm_x4_trans(r, vs + Bf16Swizzle<D>()(16 * (mt / (2 * C)) + 8 * (mt % 2) + lane % 8,
+                                                   (mt / 2) % C));
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+                const int mm = 4 * xi + 2 * jj;
+                mma_k16(&o[4 * ((mm / 2) % C)], pa[mm / (2 * C)], r[2 * jj], r[2 * jj + 1]);
+            }
+        }
+    }
+
+    constexpr float kLn2 = 0.6931471805599453f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        float lr = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+        if (qpos[r] >= tq) continue;
+        const float denom = fmaxf(lr, 1e-30f);
+        // one division a row, not one an element
+        const float inv = lr > 0.0f ? 1.0f / denom : 0.0f;
+        __nv_bfloat16* const op = out + ((b * tq + qpos[r]) * heads + h) * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(op + 8 * n) =
+                __floats2bfloat162_rn(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
         if (t == 0) lse[bh * tq + qpos[r]] = lr > 0.0f ? m[r] * kLn2 + logf(denom) : INFINITY;
     }
 }
@@ -1449,14 +1383,53 @@ int launch_tf32x3(const void* q, const void* k, const void* v, void* out, float*
     return cudaGetLastError();
 }
 
+template <int D, int W>
+int launch_mma_warps(const void* q, const void* k, const void* v, void* out, float* lse,
+                     int64_t num_bh, int heads, int64_t tq, int64_t tk, int causal, float scale,
+                     const int64_t* st, int device, cudaStream_t stream) {
+    using Tl = MmaTiling<D, W>;
+    static std::atomic<uint64_t> configured{0};
+    const cudaError_t err =
+        allow_smem(flash_fwd_mma_kernel<D, W>, Tl::kSmemBytes, device, configured);
+    if (err != cudaSuccess) return err;
+    const int64_t num_q_tiles = (tq + Tl::kRows - 1) / Tl::kRows;
+    const int64_t blocks = num_bh * num_q_tiles;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    constexpr float kLog2e = 1.4426950408889634f;
+    flash_fwd_mma_kernel<D, W><<<static_cast<unsigned>(blocks), Tl::kThreads, Tl::kSmemBytes,
+                                 stream>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, num_bh,
+        heads, tq, tk, num_q_tiles, causal, scale * kLog2e, st[0], st[1], st[2], st[3], st[4],
+        st[5], st[6], st[7], st[8]);
+    return cudaGetLastError();
+}
+
+// 8 warps of 16 query rows a block where that gives every SM a block (the
+// serving shapes), else 2 (the short sequences, where a block's serial key
+// walk sets the time)
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* out, float* lse,
+               int64_t batch, int heads, int64_t tq, int64_t tk, int causal, float scale,
+               const int64_t* st, int device, cudaStream_t stream) {
+    int sms = 0;
+    const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    const int64_t num_bh = batch * heads;
+    if (num_bh * ((tq + 127) / 128) >= sms)
+        return launch_mma_warps<D, 8>(q, k, v, out, lse, num_bh, heads, tq, tk, causal, scale,
+                                      st, device, stream);
+    return launch_mma_warps<D, 2>(q, k, v, out, lse, num_bh, heads, tq, tk, causal, scale, st,
+                                  device, stream);
+}
+
 // which kernel a (dtype, head dim) takes; reported to the caller
-constexpr int kPathFfma = 0;
-constexpr int kPathMma = 1;
-constexpr int kPathWgmma = 2;
-constexpr int kPathTf32x3 = 3;
+constexpr int kPathMma = 0;
+constexpr int kPathWgmma = 1;
+constexpr int kPathTf32x3 = 2;
 
 // f32: 3xTF32 on mma.sync; bf16 with D = 64 or 128: wgmma; bf16 with
-// D = 16 or 32: mma.sync; bf16 with D = 8: FFMA
+// D = 8, 16 or 32: mma.sync
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int64_t batch,
            int heads, int64_t tq, int64_t tk, int causal, float scale, const int64_t* st,
@@ -1470,27 +1443,9 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
         return launch_wgmma<D>(q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st,
                                device, stream);
     } else {
-        const int64_t num_bh = batch * heads;
-        const int64_t num_q_tiles = (tq + kBlockQ - 1) / kBlockQ;
-        const int64_t blocks = num_bh * num_q_tiles;
-        if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-        const auto* qb = static_cast<const __nv_bfloat16*>(q);
-        const auto* kb = static_cast<const __nv_bfloat16*>(k);
-        const auto* vb = static_cast<const __nv_bfloat16*>(v);
-        auto* ob = static_cast<__nv_bfloat16*>(out);
-        if constexpr (D >= 16) {
-            *path = kPathMma;
-            flash_fwd_mma_kernel<D><<<static_cast<unsigned>(blocks), MmaTiling<D>::kThreads, 0,
-                                      stream>>>(
-                qb, kb, vb, ob, lse, num_bh, heads, tq, tk, num_q_tiles, causal, scale, st[0],
-                st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
-        } else {
-            *path = kPathFfma;
-            flash_fwd_kernel<D><<<static_cast<unsigned>(blocks), kBlockQ, 0, stream>>>(
-                qb, kb, vb, ob, lse, num_bh, heads, tq, tk, num_q_tiles, causal, scale, st[0],
-                st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
-        }
-        return cudaGetLastError();
+        *path = kPathMma;
+        return launch_mma<D>(q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st, device,
+                             stream);
     }
 }
 
@@ -1519,8 +1474,8 @@ extern "C" {
 // `dtype` 0 (f32) or 1 (bf16). `strides` holds the (batch, time, head)
 // element strides of q, k and v in that order; the head dim is
 // contiguous. Writes out (B, Tq, H, D) contiguous in the input dtype and
-// lse (B, H, Tq) f32, and the kernel it launched to `path` (0 FFMA,
-// 1 mma.sync, 2 wgmma, 3 3xTF32 on mma.sync). Returns 0 on success, else
+// lse (B, H, Tq) f32, and the kernel it launched to `path` (0 mma.sync
+// in bf16, 1 wgmma, 2 3xTF32 on mma.sync). Returns 0 on success, else
 // a cudaError_t code or one of the wgmma path's negative codes
 // (mmlspark_flash_error_string names both).
 int mmlspark_flash_fwd(const void* q, const void* k, const void* v,

@@ -14,7 +14,7 @@ its (B, T, H, D) layout: q (B, Tq, H, D), k and v (B, Tk, H, D), output
   `_flash_fwd_lse`. On a CUDA tensor it launches the kernel or raises; on
   a CPU tensor it runs `flash_attention_torch`. `flash_attention.launches`
   counts kernel launches and `flash_attention.last_path` names the kernel
-  of the last one ("tf32x3", "wgmma", "mma" or "ffma"). Forward only: the
+  of the last one ("tf32x3", "wgmma" or "mma"). Forward only: the
   backward comes with the trainer (ROADMAP Queue 1, P4 trainer item).
 - `flash_attention_torch`: the plain version of K2, a transcription of
   `_flash_kernel` (attention.py:139-189) over key blocks; returns
@@ -42,7 +42,7 @@ _NEG_INF = -1e30          # the TPU kernel's mask value: keeps exp/max NaN-free
 HEAD_DIMS = (8, 16, 32, 64, 128)      # head dims K2 is built for
 IMPLS = ("dense", "chunked", "flash")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_PATHS = ("ffma", "mma", "wgmma", "tf32x3")      # the kernel's path codes
+_PATHS = ("mma", "wgmma", "tf32x3")      # the kernel's path codes
 
 
 def dense_attention(q, k, v, causal: bool = False, q_offset: int = 0,
@@ -194,9 +194,9 @@ def _flash_fwd_lse(q, k, v, causal: bool = False, block_q: int = 128,
     CUDA tensor launches the kernel, whose own tiles replace the block
     sizes, or raises; `flash_attention.last_path` then names the kernel
     that ran: "tf32x3" (f32, 3xTF32 on the tensor cores), "wgmma" (bf16,
-    D 64 or 128), "mma" (bf16, D 16 or 32) or "ffma" (bf16, D 8). f32, and
-    bf16 with D >= 16, run on the tensor cores and need 16-byte aligned
-    rows; a CUDA tensor without them raises."""
+    D 64 or 128) or "mma" (bf16, D 8, 16 or 32). Every path runs on the
+    tensor cores and needs 16-byte aligned rows; a CUDA tensor without
+    them raises."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal, block_q, block_k)
@@ -204,16 +204,15 @@ def _flash_fwd_lse(q, k, v, causal: bool = False, block_q: int = 128,
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    if q.dtype == torch.float32 or d >= 16:
-        # the tensor-core paths copy rows to shared memory 16 bytes at a time
-        # (tf32x3, mma) or through TMA tensor maps (wgmma): 16-byte aligned
-        # base and strides
-        per16 = 16 // q.element_size()
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(st % per16 for st in t.stride()[:3]):
-                raise ValueError(f"{str(q.dtype).replace('torch.', '')} {name} must have "
-                                 "16-byte aligned rows (data pointer and strides in "
-                                 f"multiples of {per16} elements)")
+    # every path copies rows to shared memory 16 bytes at a time (tf32x3,
+    # mma) or through TMA tensor maps (wgmma): 16-byte aligned base and
+    # strides
+    per16 = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(st % per16 for st in t.stride()[:3]):
+            raise ValueError(f"{str(q.dtype).replace('torch.', '')} {name} must have "
+                             "16-byte aligned rows (data pointer and strides in "
+                             f"multiples of {per16} elements)")
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:

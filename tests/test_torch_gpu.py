@@ -99,24 +99,27 @@ def _k2_path(dtype, d):
     """The kernel a (dtype, head dim) must take."""
     if dtype == torch.float32:
         return "tf32x3"
-    if d in (64, 128):
-        return "wgmma"
-    return "mma" if d >= 16 else "ffma"
+    return "wgmma" if d in (64, 128) else "mma"
 
 
 # every head dim K2 is built for, so each of its instantiations runs; Tk
 # 137 is ragged against every key tile, so a fragment element taken from
-# the wrong lane shows as a wrong row
-@pytest.mark.parametrize("dtype,d,causal,tol", [
-    *[(torch.float32, d, causal, _F32_TOL) for d in (64, 8, 16, 32, 128)
+# the wrong lane shows as a wrong row. The mma path (bf16, D 8/16/32) takes
+# 2-warp blocks at B 2 (16 blocks) and 8-warp blocks at B 16, Tq 300 (192
+# blocks of 128 rows, the last one ragged, on the H100's 132 SMs)
+@pytest.mark.parametrize("dtype,d,causal,tol,b,tq", [
+    *[(torch.float32, d, causal, _F32_TOL, 2, 200) for d in (64, 8, 16, 32, 128)
       for causal in (False, True)],
-    *[(torch.bfloat16, d, causal, _BF16_TOL) for d in (8, 16, 32, 64, 128)
+    *[(torch.bfloat16, d, causal, _BF16_TOL, 2, 200) for d in (8, 16, 32, 64, 128)
+      for causal in (False, True)],
+    *[(torch.bfloat16, d, causal, _BF16_TOL, 16, 300) for d in (8, 16, 32)
       for causal in (False, True)],
 ])
-def test_flash_kernel_matches_plain_version_and_repeats_its_bits(cuda, dtype, d, causal, tol):
+def test_flash_kernel_matches_plain_version_and_repeats_its_bits(cuda, dtype, d, causal, tol, b,
+                                                                 tq):
     rng = np.random.default_rng(8)
-    q, k, v = (torch.tensor(rng.normal(size=(2, t, 4, d)), dtype=dtype, device=cuda)
-               for t in (200, 137, 137))
+    q, k, v = (torch.tensor(rng.normal(size=(b, t, 4, d)), dtype=dtype, device=cuda)
+               for t in (tq, 137, 137))
     with torch.no_grad():
         before = att.flash_attention.launches
         out, lse = att._flash_fwd_lse(q, k, v, causal)
@@ -166,6 +169,11 @@ def test_flash_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda):
         att.flash_attention(q.detach(), q.detach().cpu(), q.detach())
     flat = torch.zeros(8 * 2 * 16 + 1, dtype=torch.bfloat16, device=cuda)
     shifted = flat[1:].view(1, 8, 2, 16)            # rows 2 bytes off 16-byte alignment
+    with pytest.raises(ValueError, match="aligned"):
+        att.flash_attention(shifted, shifted, shifted)
+    # bf16 with D = 8: a row is one 16-byte copy, so it must be aligned too
+    flat = torch.zeros(8 * 2 * 8 + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(1, 8, 2, 8)
     with pytest.raises(ValueError, match="aligned"):
         att.flash_attention(shifted, shifted, shifted)
     # f32 rows 4 bytes off, and an f32 head stride that is no multiple of 4

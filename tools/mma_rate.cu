@@ -1,9 +1,11 @@
-// Issue-rate microbenchmark of mma.sync on Hopper, for the questions K2's
-// f32 path ("tf32x3" in mmlspark_tpu_torch/csrc/flash_attn.cu) raises:
-// how fast does mma.sync m16n8k8 run TF32 when nothing else is in the way,
-// and how much do the 3xTF32 pattern around it (three products into one
+// Issue-rate microbenchmark of mma.sync and ex2 on Hopper, for the
+// questions K2 (mmlspark_tpu_torch/csrc/flash_attn.cu) raises: how fast
+// does mma.sync m16n8k8 run TF32 when nothing else is in the way, and how
+// much do the 3xTF32 pattern around it (three products into one
 // accumulator, the hi/lo split of the operands, the operand loads from
-// shared memory) take off that rate?
+// shared memory) take off that rate ("tf32x3" path)? And how many
+// ex2.approx.f32 a second does the card issue, the floor of the bf16
+// paths at small head dims, where every score costs one exponential?
 //
 // Every warp runs `iters` iterations; each iteration issues, for each of
 // ACC independent accumulators:
@@ -18,7 +20,10 @@
 //   mode 3 "split3_lds":  as split3, B loaded from shared memory (one
 //                         8-byte load a thread, conflict-free) instead of
 //                         moved in registers;
-//   mode 4 "bf16":        one m16n8k16 bf16 mma (f32 accumulate), for scale.
+//   mode 4 "bf16":        one m16n8k16 bf16 mma (f32 accumulate), for scale;
+//   mode 5 "ex2":         no mma: one ex2.approx.ftz.f32 on each of ACC
+//                         independent chains x = 2^-x (which stay finite,
+//                         near 0.64), as K2's softmax issues them.
 // The accumulators are summed into `sink` at the end so nothing is dead.
 //
 // Built with the port's flags and called through the C interface at the
@@ -54,6 +59,21 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int ACC>
+__global__ void ex2_rate_kernel(float* __restrict__ sink, int iters, float seed) {
+    float x[ACC];
+#pragma unroll
+    for (int j = 0; j < ACC; ++j) x[j] = seed + 0.01f * (threadIdx.x % 32 + 7 * j);
+    for (int it = 0; it < iters; ++it) {
+#pragma unroll
+        for (int j = 0; j < ACC; ++j) asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(x[j]) : "f"(-x[j]));
+    }
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < ACC; ++j) sum += x[j];
+    sink[blockIdx.x * blockDim.x + threadIdx.x] = sum;
 }
 
 template <int MODE, int ACC>
@@ -119,6 +139,15 @@ template <int MODE>
 cudaError_t launch_mode(int acc, int blocks, int threads, int iters, float* sink,
                         cudaStream_t stream) {
     const float seed = 0.75f, step = 1e-6f;
+    if constexpr (MODE == 5) {
+        switch (acc) {
+            case 1: ex2_rate_kernel<1><<<blocks, threads, 0, stream>>>(sink, iters, seed); break;
+            case 4: ex2_rate_kernel<4><<<blocks, threads, 0, stream>>>(sink, iters, seed); break;
+            case 8: ex2_rate_kernel<8><<<blocks, threads, 0, stream>>>(sink, iters, seed); break;
+            default: return cudaErrorInvalidValue;
+        }
+        return cudaGetLastError();
+    }
     switch (acc) {
         case 1: mma_rate_kernel<MODE, 1><<<blocks, threads, 0, stream>>>(sink, iters, seed, step); break;
         case 4: mma_rate_kernel<MODE, 4><<<blocks, threads, 0, stream>>>(sink, iters, seed, step); break;
@@ -142,6 +171,7 @@ extern "C" int mma_rate(int mode, int acc, int blocks, int threads, int iters, f
         case 2: err = launch_mode<2>(acc, blocks, threads, iters, sink, s); break;
         case 3: err = launch_mode<3>(acc, blocks, threads, iters, sink, s); break;
         case 4: err = launch_mode<4>(acc, blocks, threads, iters, sink, s); break;
+        case 5: err = launch_mode<5>(acc, blocks, threads, iters, sink, s); break;
         default: err = cudaErrorInvalidValue;
     }
     return static_cast<int>(err);

@@ -14,12 +14,19 @@ Run from the root of a checkout on a machine with a card:
     python3 tools/torch_flash_turns.py check
         one launch of K2 at each of chip_smoke.FLASH_SHAPES against
         flash_attention_torch, with chip_smoke's gates: path, errors.
-    python3 tools/torch_flash_turns.py time NAME=TREE ...
-        K2's median ms at every shape of chip_smoke.FLASH_SHAPES (bf16 and
-        f32) for each tree, in a fresh process each, without any check:
-        for variants of the kernel that are deliberately wrong (an
-        ablation that drops one instruction class to see what bounds the
-        kernel) or tuned differently.
+    python3 tools/torch_flash_turns.py time NAME=TREE ... [--shapes A,B]
+        K2's median ms at every shape of chip_smoke.FLASH_SHAPES and of
+        TIME_SHAPES below (or only the named ones) for each tree, in a fresh process
+        each, without any check: for variants of the kernel that are
+        deliberately wrong (an ablation that drops one instruction class
+        to see what bounds the kernel) or tuned differently.
+    python3 tools/torch_flash_turns.py variants OUT NAME ...
+        writes, for each NAME of VARIANTS below, a copy of this checkout's
+        chip_smoke.py and mmlspark_tpu_torch/ to OUT/NAME with that
+        variant's edits to csrc/flash_attn.cu (each edit must match once),
+        for `time`: the ablations of the mma path ("no_exp": every ex2 an
+        add; "no_mma": every mma.sync of the path an xor of its operands
+        into the accumulator) and its tunings.
     python3 tools/torch_flash_turns.py turns NAME=TREE ... --order A,B,B,A
         for each name in --order, a fresh process that builds TREE's
         kernels and runs TREE's chip_smoke.flash_rows() (median ms of K2,
@@ -27,9 +34,13 @@ Run from the root of a checkout on a machine with a card:
         of one K2 call at a small shape (B 1, T 128, H 1, D 64, bf16),
         where the launch overhead, not the device, sets the time, and
         the seconds and tokens/s of serving chip_smoke's 1,024 x 512
-        tokens through the f32 flash transformer with TREE's own package
-        (K2's launches and path beside them). Compare two versions only
-        inside one such call.
+        tokens through the f32 flash transformer and through the bf16
+        transformer at TransformerEncoder's default width (this
+        checkout's chip_smoke.SMALL_TRANSFORMERS["d16"], head dim 16, in
+        its chip_smoke.SMALL_PASSES passes: all tokens over all seconds,
+        with the rate's standard error) with TREE's own package (K2's
+        launches and path beside them). Compare
+        two versions only inside one such call.
     python3 tools/torch_flash_turns.py mma_rate
         the issue rate of mma.sync on the card, from tools/mma_rate.cu:
         m16n8k8 TF32 alone, as three products into one accumulator
@@ -37,6 +48,8 @@ Run from the root of a checkout on a machine with a card:
         shared memory, and m16n8k16 bf16 for scale; each with 1, 4 and 8
         independent accumulators a warp, at 16 and 32 warps an SM (the
         tf32x3 kernel runs 16 at D = 64). TFLOP/s counts 2 m n k per mma.
+        Then the issue rate of ex2.approx.f32 ("ex2", exponentials a
+        second and a second an SM) with 1, 4 and 8 chains a thread.
 
 Each result is one JSON line on stdout, with the card's name and power
 limit. The TREEs are checkouts (for example a `git archive` of a parent
@@ -48,6 +61,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -94,8 +108,33 @@ serve_s = time.perf_counter() - t0
 assert np.isfinite(logits).all()
 serve = {"seconds": serve_s, "tokens_per_s": x.size / serve_s,
          "launches": flash_attention.launches, "path": flash_attention.last_path}
-print("TURN " + json.dumps({"rows": rows, "host_us_small": host_us, "f32_serving": serve}),
-      flush=True)
+
+# the bf16 transformer at TransformerEncoder's default width (head dim 16),
+# its config and number of passes passed in by the caller: 1,024 x 512
+# tokens a pass, the rate of all passes' tokens over all their seconds
+cfg, passes = json.loads(sys.argv[1]), int(sys.argv[2])
+bundle16 = ModelBundle.init("transformer", (chip_smoke.SLICE_TOKENS,), seed=0,
+                            attention_impl="flash", dtype="bfloat16", **cfg)
+x16 = np.random.default_rng(11).integers(0, cfg["vocab_size"],
+                                         size=(chip_smoke.SLICE_ROWS, chip_smoke.SLICE_TOKENS))
+stage16, _ = chip_smoke._serve(bundle16, x16[:chip_smoke.SLICE_BATCH], "cuda",
+                               chip_smoke.SLICE_BATCH)
+seconds16 = []
+for _ in range(passes):
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    logits16 = np.asarray(stage16.transform(Table({"tokens": x16}))["logits"])
+    seconds16.append(time.perf_counter() - t0)
+    assert np.isfinite(logits16).all()
+s16 = np.asarray(seconds16)
+serve16 = {"passes": passes, "tokens_per_s": x16.size * passes / s16.sum(),
+           "pass_seconds_min": s16.min(), "pass_seconds_median": float(np.median(s16)),
+           "pass_seconds_max": s16.max(),
+           "rate_rel_stderr": s16.std(ddof=1) / np.sqrt(passes) / s16.mean(),
+           "launches": flash_attention.launches, "path": flash_attention.last_path}
+print("TURN " + json.dumps({"rows": rows, "host_us_small": host_us, "f32_serving": serve,
+                            "bf16_d16_serving": serve16}), flush=True)
 """
 
 
@@ -108,9 +147,14 @@ import mmlspark_tpu_torch  # noqa: F401
 from mmlspark_tpu_torch.core import kernels
 from mmlspark_tpu_torch.nn.attention import _flash_fwd_lse
 kernels.build()
+only = set(json.loads(sys.argv[1]))
+extra = [(n, b, tq, tk, h, d, getattr(torch, dt), c) for n, b, tq, tk, h, d, dt, c
+         in json.loads(sys.argv[2])]
 ms = {}
 with torch.no_grad():
-    for i, (name, b, tq, tk, h, d, dt, causal) in enumerate(chip_smoke.FLASH_SHAPES):
+    for i, (name, b, tq, tk, h, d, dt, causal) in enumerate(chip_smoke.FLASH_SHAPES + extra):
+        if only and name not in only:
+            continue
         q, k, v = chip_smoke._flash_inputs(name, b, tq, tk, h, d, dt, seed=200 + i)
         ms[name] = chip_smoke.median_ms(lambda: _flash_fwd_lse(q, k, v, causal))
 print("TIME " + json.dumps(ms), flush=True)
@@ -225,10 +269,15 @@ def check() -> None:
 
 
 def turns(trees: list[str], order: list[str]) -> None:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
     named = dict(t.split("=", 1) for t in trees)
     card = _card()
+    small = json.dumps(chip_smoke.SMALL_TRANSFORMERS["d16"])
     for turn, label in enumerate(order):
-        proc = subprocess.run([sys.executable, "-c", _TURN], cwd=named[label],
+        proc = subprocess.run([sys.executable, "-c", _TURN, small, str(chip_smoke.SMALL_PASSES)],
+                              cwd=named[label],
                               capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
@@ -239,15 +288,23 @@ def turns(trees: list[str], order: list[str]) -> None:
         print(f"turn {turn} {label}: " + ", ".join(
             f"{r['shape']} {r['ms']:.4f} ms" for r in doc["rows"])
             + f"; host {doc['host_us_small']:.1f} us/call"
-            + f"; f32 serving {doc['f32_serving']['tokens_per_s']:.0f} tokens/s",
+            + f"; f32 serving {doc['f32_serving']['tokens_per_s']:.0f} tokens/s"
+            + f"; bf16 d16 serving {doc['bf16_d16_serving']['tokens_per_s']:.0f} tokens/s"
+            + f" (standard error {100 * doc['bf16_d16_serving']['rate_rel_stderr']:.2f}%)",
             file=sys.stderr, flush=True)
 
 
-def time_trees(trees: list[str]) -> None:
+# timed by `time` beside chip_smoke.FLASH_SHAPES, (name, B, Tq, Tk, H, D,
+# dtype, causal): the mma path at D = 32 in 8-warp blocks (d_model 128, 4
+# heads, at the serving rows and tokens), which no model of the repo serves
+TIME_SHAPES = [("serve_d32_bf16", 64, 512, 512, 4, 32, "bfloat16", False)]
+
+
+def time_trees(trees: list[str], shapes: list[str]) -> None:
     card = _card()
     for label, tree in (t.split("=", 1) for t in trees):
-        proc = subprocess.run([sys.executable, "-c", _TIME], cwd=tree, capture_output=True,
-                              text=True)
+        proc = subprocess.run([sys.executable, "-c", _TIME, json.dumps(shapes),
+                               json.dumps(TIME_SHAPES)], cwd=tree, capture_output=True, text=True)
         if proc.returncode:
             print(proc.stderr[-8000:], file=sys.stderr)
             raise SystemExit(f"{label} failed with exit {proc.returncode}")
@@ -257,45 +314,115 @@ def time_trees(trees: list[str]) -> None:
 
 
 _MMA_MODES = {"tf32": (0, 1), "chain3": (1, 3), "split3": (2, 3), "split3_lds": (3, 3),
-              "bf16": (4, 1)}     # name: (mode, mma a warp per accumulator and iteration)
+              "bf16": (4, 1), "ex2": (5, 1)}
+# name: (mode, mma (or ex2 a thread) a warp per accumulator and iteration)
 
 
 def mma_rate(iters: int = 4096) -> None:
-    import ctypes
-
     sys.path.insert(0, str(ROOT))
     import torch
 
     import chip_smoke
-    from mmlspark_tpu_torch.core import kernels
 
     card = _card()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    with tempfile.TemporaryDirectory() as tmp:
-        lib_path = Path(tmp) / "libmma_rate.so"
-        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib_path),
-                        str(ROOT / "tools" / "mma_rate.cu")], check=True)
-        lib = ctypes.CDLL(str(lib_path))
+    lib = chip_smoke.rate_lib()
     threads = 256                                   # eight warps a block
     for warps_per_sm in (16, 32):
         blocks = sms * warps_per_sm // 8
         sink = torch.empty(blocks * threads, device="cuda")
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
         for name, (mode, per_acc) in _MMA_MODES.items():
             for acc in (1, 4, 8):
                 def run():
-                    err = lib.mma_rate(mode, acc, blocks, threads, iters,
-                                       ctypes.c_void_p(sink.data_ptr()), stream)
+                    err = lib.mma_rate(mode, acc, blocks, threads, iters, sink.data_ptr(),
+                                       stream)
                     if err:
                         raise RuntimeError(f"mma_rate {name} acc {acc}: cudaError {err}")
                 ms = chip_smoke.median_ms(run, reps=10, warmup=2)
-                mmas = blocks * (threads // 32) * iters * acc * per_acc
-                flops = mmas * 2 * 16 * 8 * (16 if name == "bf16" else 8)
-                print(json.dumps({
-                    "mma_rate": name, "accumulators": acc, "warps_per_sm": warps_per_sm,
-                    "card": card, "ms": ms, "tflops": flops / (ms * 1e-3) / 1e12,
-                    "f32_accurate_tflops": flops / (ms * 1e-3) / 1e12 / 3 if per_acc == 3
-                    else None}), flush=True)
+                doc = {"mma_rate": name, "accumulators": acc, "warps_per_sm": warps_per_sm,
+                       "card": card, "ms": ms}
+                if name == "ex2":
+                    ex2 = blocks * threads * iters * acc
+                    doc.update(ex2_per_s=ex2 / (ms * 1e-3), ex2_per_s_per_sm=ex2 / (ms * 1e-3) / sms)
+                else:
+                    mmas = blocks * (threads // 32) * iters * acc * per_acc
+                    flops = mmas * 2 * 16 * 8 * (16 if name == "bf16" else 8)
+                    doc.update(tflops=flops / (ms * 1e-3) / 1e12,
+                               f32_accurate_tflops=flops / (ms * 1e-3) / 1e12 / 3
+                               if per_acc == 3 else None)
+                print(json.dumps(doc), flush=True)
+
+
+# Edits of csrc/flash_attn.cu, each (old, new) matching once: the mma
+# path's ablations, which are wrong on purpose and only timed, and its
+# tunings
+_EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));'
+_MMA_K16 = '''    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));'''
+_MMA_K8 = '''    asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(b0));'''
+_X = "fmaf(s[i], scale_log2, -m_new[r])"          # softmax_tile's exponent of a score
+_P_LINE = f"s[i] = keep(i) ? exp2_approx({_X}) : 0.0f;"
+_POLY = ("__device__ __forceinline__ float exp2_approx(float x) {", """\
+__device__ __forceinline__ float exp2_poly(float x) {
+    x = fmaxf(x, -125.0f);
+    const float t = x + 12582912.0f;
+    const float f = x - (t - 12582912.0f);
+    float p = 0.00129156734328717f;
+    p = fmaf(p, f, 0.009668530896306038f);
+    p = fmaf(p, f, 0.055516887456178665f);
+    p = fmaf(p, f, 0.24022264778614044f);
+    p = fmaf(p, f, 0.6931464672088623f);
+    p = fmaf(p, f, 1.0f);
+    return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {""")
+VARIANTS = {
+    # every exponential an add (1 when the max did not move, as ex2 gives)
+    "no_exp": [(_EX2, "y = x + 1.0f;")],
+    # no tensor-core products: each mma.sync of the path xors its operands
+    # into one accumulator register, so the fragment loads and the bf16
+    # packs stay live
+    "no_mma": [(_MMA_K16, "    c[0] = __uint_as_float(__float_as_uint(c[0]) ^ a[0] ^ a[1] ^ "
+                          "a[2] ^ a[3] ^ b0 ^ b1);"),
+               (_MMA_K8, "    c[0] = __uint_as_float(__float_as_uint(c[0]) ^ a0 ^ a1 ^ b0);")],
+    # a share of the exponentials on the FMA pipe: 2^x as 2^n 2^f, n the
+    # nearest integer, 2^f a degree-5 polynomial on [-0.5, 0.5] (relative
+    # error 3.4e-7), for every 4th or 8th score of a thread
+    "poly4": [_POLY, (_P_LINE, _P_LINE.replace(f"exp2_approx({_X})", f"(i % 4 == 0 ? "
+                                               f"exp2_poly({_X}) : exp2_approx({_X}))"))],
+    "poly8": [_POLY, (_P_LINE, _P_LINE.replace(f"exp2_approx({_X})", f"(i % 8 == 0 ? "
+                                               f"exp2_poly({_X}) : exp2_approx({_X}))"))],
+    # 8-warp blocks only where the grid gives every SM two of them
+    "fill2": [("((tq + 127) / 128) >= sms)", "((tq + 127) / 128) >= 2 * sms)")],
+    # at D = 32 the register cap lifted from 128 to 255 in 8-warp blocks
+    # too (half the blocks an SM guaranteed), so nothing spills there
+    "d32_regs_w8": [("D == 32 && W == 2 ? 4 : 16 / W;", "D == 32 ? 8 / W : 16 / W;")],
+}
+
+
+def variants(out: str, names: list[str]) -> None:
+    src_rel = Path("mmlspark_tpu_torch") / "csrc" / "flash_attn.cu"
+    for name in names:
+        tree = Path(out) / name
+        shutil.rmtree(tree, ignore_errors=True)
+        tree.mkdir(parents=True)
+        shutil.copy2(ROOT / "chip_smoke.py", tree / "chip_smoke.py")
+        shutil.copytree(ROOT / "mmlspark_tpu_torch", tree / "mmlspark_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__", "_build"))
+        src = (tree / src_rel).read_text()
+        for old, new in VARIANTS[name]:
+            if src.count(old) != 1:
+                raise SystemExit(f"variant {name}: an edit matches {src.count(old)} times")
+            src = src.replace(old, new)
+        (tree / src_rel).write_text(src)
+        print(json.dumps({"variant": name, "tree": str(tree), "edits": len(VARIANTS[name])}))
 
 
 def main() -> int:
@@ -307,6 +434,10 @@ def main() -> int:
     sub.add_parser("mma_rate")
     p = sub.add_parser("time")
     p.add_argument("trees", nargs="+", metavar="NAME=TREE")
+    p.add_argument("--shapes", default="")
+    p = sub.add_parser("variants")
+    p.add_argument("out")
+    p.add_argument("names", nargs="+", choices=sorted(VARIANTS))
     p = sub.add_parser("turns")
     p.add_argument("trees", nargs="+", metavar="NAME=TREE")
     p.add_argument("--order", required=True)
@@ -316,7 +447,9 @@ def main() -> int:
     elif args.cmd == "check":
         check()
     elif args.cmd == "time":
-        time_trees(args.trees)
+        time_trees(args.trees, [s for s in args.shapes.split(",") if s])
+    elif args.cmd == "variants":
+        variants(args.out, args.names)
     elif args.cmd == "mma_rate":
         mma_rate()
     else:
