@@ -26,10 +26,14 @@ kernel. It prints one JSON line per phase:
   kernels      each kernel against its plain version at its path's
                shapes: errors, repeatability, median ms (CUDA events), the
                plain version's and one PyTorch library call's ms, and the
-               bound (least time the card could take); K1 "histogram",
-               K2 "flash_attention" with the kernel path each shape took
-               ("tf32x3", "wgmma" or "mma"), its achieved TFLOP/s, and
-               its exponentials with their time at the measured ex2 rate
+               bound (least time the card could take); K1 "histogram" at
+               HIST_SHAPES, which take every launch branch of its wrapper
+               (each row names its plan), with its host microseconds a
+               call and an empty kernel launched as its plans are (the
+               floor of a call timed this way); K2 "flash_attention" with
+               the kernel path each shape took ("tf32x3", "wgmma" or
+               "mma"), its achieved TFLOP/s, and its exponentials with
+               their time at the measured ex2 rate
   slice_adult  the GBDT path: fit seconds, launches (must be 3,100),
                train accuracy > 0.7, held-out AUC > 0.75, and the card's
                scores equal to the host walk bit for bit
@@ -145,6 +149,20 @@ def host_us_per_call(fn, reps: int = 200) -> float:
     return (time.perf_counter() - t0) / reps * 1e6
 
 
+def host_enqueue_us(fn, reps: int = 200) -> float:
+    """Host wall time of one call while a sleep kernel holds the stream:
+    the wrapper's own cost (checks, plan, launch), with none of the
+    device's time in it."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e6
+
+
 def phase_env() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -228,14 +246,14 @@ def phase_ex2_rate() -> dict:
 
 
 def _hist_inputs(n: int, f: int, bin_dtype, mask_frac: float, seed: int,
-                 quantized: bool = True):
-    """Bins uniform over 256 values; binary-objective-like stats (grad in
+                 quantized: bool = True, num_bins: int = HIST_BINS):
+    """Bins uniform over num_bins values; binary-objective-like stats (grad in
     [-1, 1], hess in [0, 0.25], count 1) on the kept rows, zeros elsewhere.
     Quantized, grad and hess are multiples of 2**-10, so every partial sum
     is exact in f32 and any correct summation order gives the same bits:
     the check then isolates the kernel's indexing from rounding order."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    bins = torch.randint(0, HIST_BINS, (n, f), generator=g, device="cuda").to(bin_dtype)
+    bins = torch.randint(0, num_bins, (n, f), generator=g, device="cuda").to(bin_dtype)
     mask = (torch.rand(n, generator=g, device="cuda") < mask_frac).float()
     grad = torch.rand(n, generator=g, device="cuda") * 2 - 1
     hess = torch.rand(n, generator=g, device="cuda") * 0.25
@@ -245,32 +263,55 @@ def _hist_inputs(n: int, f: int, bin_dtype, mask_frac: float, seed: int,
     return bins, stats
 
 
-def _hist_f64(bins: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+def _hist_f64(bins: torch.Tensor, stats: torch.Tensor, num_bins: int = HIST_BINS) -> torch.Tensor:
     """The histogram summed in float64: the exact value to within far less
     than f32 rounding, to grade f32 sums taken in different orders."""
     n, f = bins.shape
-    ids = (bins.long() + torch.arange(f, device=bins.device) * HIST_BINS).reshape(-1)
-    out = torch.zeros((f * HIST_BINS, 3), dtype=torch.float64, device=bins.device)
+    ids = (bins.long() + torch.arange(f, device=bins.device) * num_bins).reshape(-1)
+    out = torch.zeros((f * num_bins, 3), dtype=torch.float64, device=bins.device)
     out.index_add_(0, ids, stats.double()[:, None, :].expand(n, f, 3).reshape(-1, 3))
-    return out.view(f, HIST_BINS, 3)
+    return out.view(f, num_bins, 3)
+
+
+# K1 against its plain version: (name, n, F, bin dtype, share of rows kept,
+# B). The first five are the main path's shapes (the Adult fit's root and a
+# deep node, the Higgs fit's root) and a ragged n; the rest take each
+# other launch configuration `launch_plan` can choose (HIST_BRANCHES): one
+# block along the rows (n 1 and 31, and 50 rows in feature groups), B = 2
+# and 64, one histogram copy of 17 warps, a tile under 256 rows without a
+# feature split (F = 48 int32), feature groups along grid_y (F = 100), and
+# the Higgs grid with gathered rows (3% kept)
+HIST_SHAPES = [
+    ("adult_int32", 32768, 14, torch.int32, 1.0, 256),
+    ("adult_uint8", 32768, 14, torch.uint8, 1.0, 256),
+    ("adult_int32_masked3pct", 32768, 14, torch.int32, 0.03, 256),
+    ("ragged_int32", 10007, 14, torch.int32, 1.0, 256),
+    ("higgs_uint8", 1 << 20, 28, torch.uint8, 1.0, 256),
+    ("higgs_uint8_masked3pct", 1 << 20, 28, torch.uint8, 0.03, 256),
+    ("n1_int32", 1, 14, torch.int32, 1.0, 256),
+    ("n31_uint8_b16", 31, 5, torch.uint8, 1.0, 16),
+    ("b2_uint8", 5000, 5, torch.uint8, 1.0, 2),
+    ("b64_int32", 5000, 5, torch.int32, 1.0, 64),
+    ("f17_int32", 20000, 17, torch.int32, 1.0, 256),
+    ("f48_int32_tile64", 50000, 48, torch.int32, 1.0, 256),
+    ("split_f100_int32", 50000, 100, torch.int32, 1.0, 256),
+    ("split_f100_uint8", 50000, 100, torch.uint8, 1.0, 256),
+    ("split_f100_one_block", 50, 100, torch.int32, 1.0, 256),
+]
+HIST_BRANCHES = ("rows", "capped", "one_block", "small_tile", "split")   # LaunchPlan.branch
 
 
 def histogram_rows() -> list:
-    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram, histogram_torch
+    from mmlspark_tpu_torch.gbdt.hist_kernel import (_num_sms, histogram, histogram_torch,
+                                                     launch_plan)
 
-    shapes = [
-        ("adult_int32", 32768, 14, torch.int32, 1.0),
-        ("adult_uint8", 32768, 14, torch.uint8, 1.0),
-        ("adult_int32_masked3pct", 32768, 14, torch.int32, 0.03),
-        ("ragged_int32", 10007, 14, torch.int32, 1.0),
-        ("higgs_uint8", 1 << 20, 28, torch.uint8, 1.0),
-    ]
     rows = []
-    for i, (name, n, f, dt, frac) in enumerate(shapes):
-        bins, stats = _hist_inputs(n, f, dt, frac, seed=100 + i)
-        first = histogram(bins, stats, HIST_BINS)
-        again = histogram(bins, stats, HIST_BINS)
-        plain = histogram_torch(bins, stats, HIST_BINS)
+    for i, (name, n, f, dt, frac, nb) in enumerate(HIST_SHAPES):
+        bins, stats = _hist_inputs(n, f, dt, frac, seed=100 + i, num_bins=nb)
+        plan = launch_plan(n, f, nb, bins.element_size(), _num_sms(0))
+        first = histogram(bins, stats, nb)
+        again = histogram(bins, stats, nb)
+        plain = histogram_torch(bins, stats, nb)
         torch.cuda.synchronize()
         diff = (first - plain).abs()
         max_abs = diff.max().item()
@@ -282,48 +323,73 @@ def histogram_rows() -> list:
         # no fixed order) round differently. Both are graded against the
         # float64 sum, relative to the bin's absolute mass sum(|stats|),
         # which bounds the rounding of any summation order
-        _, fstats = _hist_inputs(n, f, dt, frac, seed=100 + i, quantized=False)
-        exact = _hist_f64(bins, fstats)
-        mass = _hist_f64(bins, fstats.abs())
-        fk, fp = histogram(bins, fstats, HIST_BINS), histogram_torch(bins, fstats, HIST_BINS)
+        _, fstats = _hist_inputs(n, f, dt, frac, seed=100 + i, quantized=False, num_bins=nb)
+        exact = _hist_f64(bins, fstats, nb)
+        mass = _hist_f64(bins, fstats.abs(), nb)
+        fk, fp = histogram(bins, fstats, nb), histogram_torch(bins, fstats, nb)
+        float_same_bits = torch.equal(fk, histogram(bins, fstats, nb))
         float_err = (fk - fp).abs().max().item()
         kernel_vs_mass = ((fk.double() - exact).abs() / mass.clamp_min(1e-30)).max().item()
         plain_vs_mass = ((fp.double() - exact).abs() / mass.clamp_min(1e-30)).max().item()
         assert kernel_vs_mass <= 1e-5, (name, kernel_vs_mass)
+        assert float_same_bits, f"{name}: two launches on float stats gave different bits"
         del exact, mass, fk, fp
 
-        kernel_ms = median_ms(lambda: histogram(bins, stats, HIST_BINS))
-        call_us = host_us_per_call(lambda: histogram(bins, stats, HIST_BINS))
-        plain_ms = median_ms(lambda: histogram_torch(bins, stats, HIST_BINS), reps=20)
-        ids = (bins.long() + torch.arange(f, device="cuda") * HIST_BINS).reshape(-1)
+        kernel_ms = median_ms(lambda: histogram(bins, stats, nb))
+        call_us = host_us_per_call(lambda: histogram(bins, stats, nb))
+        enqueue_us = host_enqueue_us(lambda: histogram(bins, stats, nb))
+        plain_ms = median_ms(lambda: histogram_torch(bins, stats, nb), reps=20)
+        ids = (bins.long() + torch.arange(f, device="cuda") * nb).reshape(-1)
         data = stats[:, None, :].expand(n, f, 3).reshape(-1, 3)
-        out = torch.zeros((f * HIST_BINS, 3), device="cuda")
+        out = torch.zeros((f * nb, 3), device="cuda")
         library_ms = median_ms(lambda: out.index_add_(0, ids, data), reps=20,
                                before=out.zero_)
         # the least the function must move: every row's stats (to see which
         # rows are kept), the bins of the kept rows, the output once
         kept = int((stats != 0).any(dim=1).sum().item())
         bytes_moved = (kept * f * bins.element_size() + stats.numel() * 4
-                       + f * HIST_BINS * 3 * 4)
+                       + f * nb * 3 * 4)
         ops = kept * f * 3
         bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
         ops_ms = ops / H100_F32_OPS_PER_S * 1e3
         rows.append({
-            "shape": name, "n": n, "features": f, "bins": HIST_BINS,
+            "shape": name, "n": n, "features": f, "bins": nb,
             "bin_dtype": str(dt).replace("torch.", ""), "rows_kept": frac,
-            "rows_with_stats": kept,
+            "rows_with_stats": kept, "branch": plan.branch, "plan": plan._asdict(),
             "max_abs_err": max_abs, "max_rel_err": max_rel, "same_bits": same_bits,
             "float_stats_max_abs_err": float_err,
             "float_stats_kernel_err_over_mass": kernel_vs_mass,
             "float_stats_plain_err_over_mass": plain_vs_mass,
-            "ms": kernel_ms, "host_us_per_call": call_us,
+            "ms": kernel_ms, "host_us_per_call": call_us, "host_enqueue_us": enqueue_us,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bytes": bytes_moved, "bound_ms": max(bytes_ms, ops_ms),
             "bound_us": max(bytes_ms, ops_ms) * 1e3,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         })
         del bins, stats, first, again, plain, ids, data, out, fstats
+    missing = set(HIST_BRANCHES) - {r["branch"] for r in rows}
+    assert not missing, f"no K1 shape took the launch branches {sorted(missing)}"
     return rows
+
+
+def hist_empty_launch_ms() -> dict:
+    """The floor of one K1 call timed as median_ms times it: an empty
+    kernel launched as the Adult shape's plan is (cooperatively, 64 blocks
+    of 896 threads) and as a one-block plan is (plainly)."""
+    from mmlspark_tpu_torch.gbdt.hist_kernel import _lib, _num_sms, launch_plan
+
+    lib = _lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for label, plan in (("adult_plan", launch_plan(32768, 14, HIST_BINS, 4, _num_sms(0))),
+                        ("one_block_plan", launch_plan(31, 14, HIST_BINS, 4, _num_sms(0)))):
+        def run():
+            err = lib.mmlspark_hist_empty(plan.grid_x, plan.grid_y, plan.threads, 0, stream)
+            if err:
+                raise RuntimeError(f"the empty kernel failed: cudaError {err}")
+        out[label] = {"grid": [plan.grid_x, plan.grid_y], "threads": plan.threads,
+                      "ms": median_ms(run)}
+    return out
 
 
 # K2 against its plain version: (name, B, Tq, Tk, H, D, dtype, causal).
@@ -337,7 +403,8 @@ def histogram_rows() -> list:
 # the slice's 64 rows x 512 tokens: the mma path at serving width;
 # "serve_d8" the D = 8 small transformer's attention at the same rows and
 # tokens. The mma path takes 8-warp blocks at default and serve_d8, 2-warp
-# blocks at d32 and d8.
+# blocks at d32 and d8. "pad_d24" is a head dim K2 is not built for (a
+# d_model 96 model over 4 heads): the wrapper pads it to 32 for "mma".
 FLASH_SHAPES = [
     ("slice_bf16", 64, 512, 512, 8, 64, torch.bfloat16, False),
     ("slice_f32", 64, 512, 512, 8, 64, torch.float32, False),
@@ -352,15 +419,17 @@ FLASH_SHAPES = [
     ("default_f32", 64, 512, 512, 4, 16, torch.float32, False),
     ("default_bf16", 64, 512, 512, 4, 16, torch.bfloat16, False),
     ("serve_d8_bf16", 64, 512, 512, 4, 8, torch.bfloat16, False),
+    ("pad_d24_bf16", 4, 300, 300, 4, 24, torch.bfloat16, False),
 ]
 
 
 def flash_path(dtype, d: int) -> str:
     """The K2 kernel a (dtype, head dim) must take: f32 on 3xTF32, bf16
-    with D 64 or 128 on wgmma, bf16 with D 8, 16 or 32 on mma.sync."""
+    with D 64 or 128 on wgmma, bf16 with D 8, 16 or 32 on mma.sync; a D
+    between those runs zero-padded to the next one."""
     if dtype == torch.float32:
         return "tf32x3"
-    return "wgmma" if d in (64, 128) else "mma"
+    return "wgmma" if d > 32 else "mma"
 # f32: the reference's own gate between attention tiers
 # (tests/test_attention.py:56). bf16: the output is rounded to bf16 once,
 # and p is rounded to bf16 before the PV product at a running max that
@@ -460,7 +529,8 @@ def flash_rows(ex2_per_s: "float | None" = None) -> list:
 
 
 def phase_kernels(ex2_per_s: float) -> dict:
-    kern = {"histogram": histogram_rows(), "flash_attention": flash_rows(ex2_per_s)}
+    kern = {"histogram": histogram_rows(), "histogram_empty_launch": hist_empty_launch_ms(),
+            "flash_attention": flash_rows(ex2_per_s)}
     emit({"phase": "kernels", **kern})
     return kern
 
@@ -568,13 +638,18 @@ def phase_profile_adult() -> dict:
             by_name[e.key] = (by_name.get(e.key, (0.0, 0))[0] + e.self_device_time_total,
                               by_name.get(e.key, (0.0, 0))[1] + e.count)
     device_s = sum(us for us, _ in by_name.values()) / 1e6
-    hist_s = sum(us for k, (us, _) in by_name.items() if "hist_" in k) / 1e6
+    hist = {k: v for k, v in by_name.items() if "hist_" in k}
+    hist_s = sum(us for us, _ in hist.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     doc = {"phase": "profile_adult", "rounds": 10, "num_leaves": 31,
            "wall_seconds_profiled": wall_s,
            "device_kernel_seconds": device_s if by_name else None,
            "device_busy_share": device_s / wall_s if by_name else None,
            "histogram_kernel_seconds": hist_s if by_name else None,
+           # K1's kernels by name, against the split search's scan (cumsum)
+           "histogram_kernels": [{"name": k[:80], "seconds": us / 1e6, "count": c}
+                                 for k, (us, c) in hist.items()],
+           "scan_seconds": sum(us for k, (us, _) in by_name.items() if "scan" in k) / 1e6,
            "kernel_launches": sum(c for _, c in by_name.values()),
            "top_kernels": [{"name": k[:80], "seconds": us / 1e6, "count": c}
                            for k, (us, c) in top]}
@@ -1015,6 +1090,9 @@ def main() -> int:
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
         "shape": main_shape["shape"],
+        "host_us_per_call": main_shape["host_us_per_call"],
+        "host_enqueue_us": main_shape["host_enqueue_us"],
+        "empty_launch": kern["histogram_empty_launch"],
         "shapes": kern["histogram"],
     }, {
         "name": "flash_attention",

@@ -39,7 +39,7 @@ __all__ = ["dense_attention", "chunked_attention", "flash_attention",
            "flash_attention_torch", "SelfAttention", "HEAD_DIMS"]
 
 _NEG_INF = -1e30          # the TPU kernel's mask value: keeps exp/max NaN-free
-HEAD_DIMS = (8, 16, 32, 64, 128)      # head dims K2 is built for
+HEAD_DIMS = (8, 16, 32, 64, 128)      # head dims K2 is built for; D <= 128 pads up
 IMPLS = ("dense", "chunked", "flash")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = ("mma", "wgmma", "tf32x3")      # the kernel's path codes
@@ -161,8 +161,11 @@ def _check(q, k, v) -> None:
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"k and v must be (B, Tk, H, D) with q's B, H, D: "
                          f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} is not one K2 is built for {HEAD_DIMS}")
+    if not 1 <= d <= HEAD_DIMS[-1]:
+        raise ValueError(
+            f"head dim {d} is outside 1..{HEAD_DIMS[-1]}: K2's tiles end at D = "
+            f"{HEAD_DIMS[-1]} (ROADMAP Queue 3, 'K2 refuses head dims above 128', "
+            "which goes with Queue 1 item 12b)")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
@@ -194,9 +197,11 @@ def _flash_fwd_lse(q, k, v, causal: bool = False, block_q: int = 128,
     CUDA tensor launches the kernel, whose own tiles replace the block
     sizes, or raises; `flash_attention.last_path` then names the kernel
     that ran: "tf32x3" (f32, 3xTF32 on the tensor cores), "wgmma" (bf16,
-    D 64 or 128) or "mma" (bf16, D 8, 16 or 32). Every path runs on the
-    tensor cores and needs 16-byte aligned rows; a CUDA tensor without
-    them raises."""
+    D 64 or 128) or "mma" (bf16, D 8, 16 or 32). A head dim between those
+    runs zero-padded to the next one (D 24 on "mma" at 32, D 96 on "wgmma"
+    at 128) at the true D's scale; above 128 it raises on both devices.
+    Every path runs on the tensor cores and needs 16-byte aligned rows; a
+    CUDA tensor without them raises."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal, block_q, block_k)
@@ -204,6 +209,12 @@ def _flash_fwd_lse(q, k, v, causal: bool = False, block_q: int = 128,
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
     b, tq, h, d = q.shape
     tk = k.shape[1]
+    # a head dim between the built ones runs at the next built one: zero
+    # columns leave every score, and so lse, unchanged as long as the
+    # scale stays the true D's; the padded copies are fresh, so aligned
+    dk = next(x for x in HEAD_DIMS if x >= d)
+    if dk != d:
+        q, k, v = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
     # every path copies rows to shared memory 16 bytes at a time (tf32x3,
     # mma) or through TMA tensor maps (wgmma): 16-byte aligned base and
     # strides
@@ -213,24 +224,24 @@ def _flash_fwd_lse(q, k, v, causal: bool = False, block_q: int = 128,
             raise ValueError(f"{str(q.dtype).replace('torch.', '')} {name} must have "
                              "16-byte aligned rows (data pointer and strides in "
                              f"multiples of {per16} elements)")
-    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, tq, h, dk), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return out, lse
+        return out[..., :d], lse
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
     lib = _lib()
     path = ctypes.c_int(-1)
     code = lib.mmlspark_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        _DTYPE_CODES[q.dtype], b, h, tq, tk, d, int(bool(causal)), d ** -0.5,
+        _DTYPE_CODES[q.dtype], b, h, tq, tk, dk, int(bool(causal)), d ** -0.5,
         strides, dev, torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(path))
     if code != 0:
         raise RuntimeError("flash attention kernel launch failed: "
                            + lib.mmlspark_flash_error_string(code).decode())
     flash_attention.launches += 1
     flash_attention.last_path = _PATHS[path.value]
-    return out, lse
+    return out[..., :d], lse
 
 
 def flash_attention(q, k, v, causal: bool = False, block_q: int = 128,

@@ -29,21 +29,133 @@ def cuda():
     return torch.device("cuda")
 
 
-def test_cuda_kernel_matches_plain_version_and_repeats_its_bits(cuda):
+# Every launch configuration the wrapper's launch_plan can choose, as
+# (id, n, F, B, bin dtype, share of rows kept, the plan's branch): blocks
+# along the rows fewer than the SMs, with two histogram copies a block
+# (Adult) and one (F = 17); the grid capped at one block an SM (Higgs); one
+# block along the rows (n = 1, n = 31, a feature split of 50 rows), which
+# writes the output directly without the grid barrier; B = 2 and 64; a tile
+# under 256 rows without a feature split (F = 48 int32); feature groups
+# along grid_y (F = 100, int32 and uint8). Each shape runs with every row
+# kept (dense tiles) and with 3% kept (gathered rows), except where noted
+HIST_CASES = [
+    ("adult", 32768, 14, 256, np.int32, "rows"),
+    ("adult_u8", 32768, 14, 256, np.uint8, "rows"),
+    ("higgs", 1 << 20, 28, 256, np.uint8, "capped"),
+    ("n1", 1, 14, 256, np.int32, "one_block"),
+    ("n31", 31, 5, 16, np.uint8, "one_block"),
+    ("b2", 5000, 5, 2, np.uint8, "rows"),
+    ("b64", 5000, 5, 64, np.int32, "rows"),
+    ("f17", 20000, 17, 256, np.int32, "rows"),
+    ("f48_tile64", 50000, 48, 256, np.int32, "small_tile"),
+    ("split_i32", 50000, 100, 256, np.int32, "split"),
+    ("split_u8", 50000, 100, 256, np.uint8, "split"),
+    ("split_one_block", 50, 100, 256, np.int32, "one_block"),
+]
+
+
+@pytest.mark.parametrize("kept", [1.0, 0.03], ids=["all_rows", "3pct_rows"])
+@pytest.mark.parametrize("name,n,f,b,dtype,branch", HIST_CASES, ids=[c[0] for c in HIST_CASES])
+def test_cuda_kernel_matches_plain_version_and_repeats_its_bits(cuda, name, n, f, b, dtype,
+                                                                branch, kept):
     rng = np.random.default_rng(4)
-    bins = rng.integers(0, 256, size=(32768, 14)).astype(np.int32)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = hk.launch_plan(n, f, b, np.dtype(dtype).itemsize, sms)
+    assert plan.branch == branch, plan
+    bins = torch.from_numpy(rng.integers(0, b, size=(n, f)).astype(dtype)).to(cuda)
+    stats = rng.normal(size=(n, 3)).astype(np.float32)
+    stats[rng.random(n) >= kept] = 0.0
+    # on a 2**-10 grid every partial sum is exact in f32, so any order of
+    # adding gives the same bits: the kernel must equal the plain version
+    grid = torch.from_numpy(np.round(stats * 1024) / 1024).to(cuda)
+    stats = torch.from_numpy(stats).to(cuda)
+    before = hk.histogram.launches
+    exact = hk.histogram(bins, grid, b)
+    assert hk.histogram.launches == before + 1
+    assert torch.equal(exact, hk.histogram_torch(bins, grid, b))
+    first = hk.histogram(bins, stats, b)
+    again = hk.histogram(bins, stats, b)
+    assert torch.equal(first, again)
+    plain = hk.histogram_torch(bins, stats, b)
+    if name.startswith("adult"):
+        # the shape and gate of the first version of this test: rtol =
+        # atol = 1e-5 as between the JAX variants (the plain version adds
+        # with atomics in no fixed order)
+        torch.testing.assert_close(first, plain, rtol=1e-5, atol=1e-5)
+    # both against the float64 sum, relative to the bin's mass sum(|stats|),
+    # which bounds the rounding of any order of f32 sums (chip_smoke.py's
+    # gate; where a bin's many stats cancel, two orders part by more than
+    # 1e-5 of the small result)
+    ids = (bins.long() + torch.arange(f, device=cuda) * b).reshape(-1)
+    exact64 = torch.zeros((f * b, 3), dtype=torch.float64, device=cuda)
+    mass = torch.zeros_like(exact64)
+    rows = stats.double()[:, None, :].expand(n, f, 3).reshape(-1, 3)
+    exact64.index_add_(0, ids, rows)
+    mass.index_add_(0, ids, rows.abs())
+    for got in (first, plain):
+        err = (got.reshape(-1, 3).double() - exact64).abs() / mass.clamp_min(1e-30)
+        assert err.max().item() <= 1e-5
+
+
+def test_cuda_kernel_drops_out_of_range_bins_and_reads_unaligned_rows(cuda):
+    # int32 bins below 0 and at or above B add nothing; views that start
+    # one row into their tensors put the rows off every 16-byte boundary.
+    # Stats on a 2**-10 grid: exact sums, so the kernel must equal the
+    # plain version over the in-range bins
+    rng = np.random.default_rng(5)
+    n, f, b = 20000, 5, 64
+    raw = rng.integers(-3, b + 3, size=(n + 1, f)).astype(np.int32)
+    stats = np.round(rng.normal(size=(n + 1, 3)) * 1024) / 1024
+    stats = torch.from_numpy(stats.astype(np.float32)).to(cuda)[1:]
+    for bins in (torch.from_numpy(raw).to(cuda)[1:],
+                 torch.from_numpy(np.clip(raw, 0, 255).astype(np.uint8)).to(cuda)[1:]):
+        assert bins.data_ptr() % 16 != 0
+        ok = (bins >= 0) & (bins < b)
+        want = torch.zeros((f, b, 3), device=cuda)
+        for j in range(f):
+            keep = ok[:, j]
+            want[j] = hk.histogram_torch(bins[keep, j:j + 1].contiguous(), stats[keep].contiguous(),
+                                         b)[0]
+        got = hk.histogram(bins, stats, b)
+        assert torch.equal(got, want)
+        assert torch.equal(got, hk.histogram(bins, stats, b))
+
+
+@pytest.mark.parametrize("n", [32768, 31], ids=["grid_barrier", "one_block"])
+def test_histogram_in_a_cuda_graph_replays_the_eager_result(cuda, n):
+    rng = np.random.default_rng(6)
+    bins = torch.from_numpy(rng.integers(0, 256, size=(n, 14)).astype(np.int32)).to(cuda)
+    stats = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(cuda)
+    hk.histogram(bins, stats, 256)                 # warm-up: build, load, scratch
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = hk.histogram.launches
+    with torch.cuda.graph(graph):
+        captured = hk.histogram(bins, stats, 256)
+    for seed in (7, 8):
+        # new stats in the captured input: the replay must recompute
+        stats.copy_(torch.from_numpy(
+            np.random.default_rng(seed).normal(size=(n, 3)).astype(np.float32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, hk.histogram(bins, stats, 256))
+    assert hk.histogram.launches == before + 3
+
+
+def test_histogram_calls_allocate_only_their_output_and_query_nothing(cuda, monkeypatch):
+    rng = np.random.default_rng(9)
+    bins = torch.from_numpy(rng.integers(0, 256, size=(32768, 14)).astype(np.int32)).to(cuda)
     stats = torch.from_numpy(rng.normal(size=(32768, 3)).astype(np.float32)).to(cuda)
-    for dtype in (np.int32, np.uint8):
-        tb = torch.from_numpy(bins.astype(dtype)).to(cuda)
-        before = hk.histogram.launches
-        a = hk.histogram(tb, stats, 256)
-        b = hk.histogram(tb, stats, 256)
-        assert hk.histogram.launches == before + 2
-        # rtol = atol = 1e-5 as between the JAX variants: the plain version
-        # adds with atomics in no fixed order
-        torch.testing.assert_close(a, hk.histogram_torch(tb, stats, 256),
-                                   rtol=1e-5, atol=1e-5)
-        assert torch.equal(a, b)
+    hk.histogram(bins, stats, 256)                 # warm-up: build, load, scratch
+    torch.cuda.synchronize()
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a, **k: pytest.fail("a call queried the device"))
+    allocs = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+    outs = [hk.histogram(bins, stats, 256) for _ in range(10)]
+    # one allocation a call: its fresh output; the partials are reused
+    assert torch.cuda.memory_stats(cuda)["allocation.all.allocated"] - allocs == len(outs)
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    assert len({o.data_ptr() for o in outs}) == len(outs)
 
 
 def test_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda):
@@ -137,6 +249,39 @@ def test_flash_kernel_matches_plain_version_and_repeats_its_bits(cuda, dtype, d,
     assert torch.equal(out, again) and torch.equal(lse, lse2)
 
 
+# head dims between the built ones run zero-padded to the next built one:
+# D 24 on "mma" at 32 in bf16, D 96 on "wgmma" at 128, f32 on "tf32x3"
+@pytest.mark.parametrize("dtype,d,path,tol", [
+    (torch.bfloat16, 24, "mma", _BF16_TOL), (torch.bfloat16, 96, "wgmma", _BF16_TOL),
+    (torch.float32, 24, "tf32x3", _F32_TOL), (torch.float32, 96, "tf32x3", _F32_TOL),
+])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_pads_head_dims_between_built_ones_at_the_true_scale(cuda, dtype, d, path,
+                                                                          tol, causal):
+    rng = np.random.default_rng(13)
+    q, k, v = (torch.tensor(rng.normal(size=(2, t, 4, d)), dtype=dtype, device=cuda)
+               for t in (200, 137, 137))
+    with torch.no_grad():
+        out, lse = att._flash_fwd_lse(q, k, v, causal)
+        assert att.flash_attention.last_path == path
+        again, lse2 = att._flash_fwd_lse(q, k, v, causal)
+        ref, ref_lse = att.flash_attention_torch(q, k, v, causal)
+        # the plain version at the padded width scales by that width's
+        # d ** -0.5: the kernel's lse must be off from it by far more than
+        # the gate, or the test could not tell the two scales apart
+        dk = 32 if d == 24 else 128
+        wide = [torch.nn.functional.pad(x, (0, dk - d)) for x in (q, k, v)]
+        _, wrong_lse = att.flash_attention_torch(*wide, causal)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol[0], rtol=tol[1])
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref_lse))
+    fin = torch.isfinite(ref_lse)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=2e-5, rtol=1e-5)
+    assert (lse[fin] - wrong_lse[fin]).abs().max().item() > 1e-2
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, _BF16_TOL), (torch.float32, _F32_TOL)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_kernel_reads_q_k_v_through_the_strides_of_a_packed_tensor(cuda, causal, dtype,
@@ -158,9 +303,9 @@ def test_flash_kernel_reads_q_k_v_through_the_strides_of_a_packed_tensor(cuda, c
 
 
 def test_flash_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda):
-    q = torch.zeros((1, 8, 2, 12), device=cuda)
+    q = torch.zeros((1, 8, 2, 129), device=cuda)
     before = att.flash_attention.launches
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match="head dim 129 .*Queue 3"):
         att.flash_attention(q, q, q)
     q = torch.zeros((1, 8, 2, 16), device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="trainer"):

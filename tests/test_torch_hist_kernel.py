@@ -89,13 +89,62 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         hk.histogram(tb.to("meta"), ts.to("meta"), 16)
 
 
-@pytest.mark.parametrize("n,f", [(32768, 14), (1 << 20, 28), (1001, 5), (5, 3)])
-def test_tiling_covers_every_row_and_fills_the_card(n, f):
-    rows, chunks, warps = hk.tiling(n, f, num_sms=132)
-    groups = -(-f // warps)
-    assert warps == min(f, 8)
-    assert rows * chunks >= n > rows * (chunks - 1)      # every row, no empty chunk
-    assert rows <= 8192
-    if n >= 2 * 132 * groups:
-        assert chunks * groups >= 2 * 132                # at least two blocks per SM
+# (n, F, B, bin bytes): the Adult and Higgs shapes, a ragged n, n = 1 and
+# 31 (one block along the rows), B = 2 and 64, F = 17 (W = 17 warps, one
+# copy), F = 48 int32 (a smaller tile, no split) and F = 100 (feature
+# groups along grid_y), and F = 10,000 (more groups than SMs)
+PLAN_SHAPES = [(32768, 14, 256, 4), (1 << 20, 28, 256, 1), (10007, 14, 256, 4),
+               (1, 14, 256, 4), (31, 5, 16, 1), (5000, 5, 2, 1), (5000, 5, 64, 4),
+               (20000, 17, 256, 4), (50000, 48, 256, 4), (50000, 100, 256, 4),
+               (50, 100, 256, 4), (100000, 10000, 256, 4)]
 
+
+@pytest.mark.parametrize("n,f,b,bin_bytes", PLAN_SHAPES)
+def test_tiling_covers_every_row_and_fills_the_card(n, f, b, bin_bytes):
+    sms = 132
+    plan = hk.launch_plan(n, f, b, bin_bytes, sms)
+    rows = plan.tile_rows * plan.tiles_per_block
+    # every row in exactly one block along the rows, and no block empty
+    assert rows * plan.grid_x >= n > rows * (plan.grid_x - 1)
+    # every feature in exactly one group, and no group empty
+    fg = plan.feats_per_group
+    assert fg * plan.grid_y >= f > fg * (plan.grid_y - 1)
+    # the block: every feature of a group owned by one warp of each copy,
+    # at most 1,024 threads, the tile's rows and stats within its threads
+    assert plan.warps_per_copy == min(fg, 32) and plan.threads <= 1024
+    assert plan.tile_rows % 32 == 0 and 3 * plan.tile_rows <= 2 * plan.threads
+    assert plan.smem_bytes <= 232448
+    # a feature split only where one block cannot hold every histogram
+    # (the shapes sit far from the edge: 48 x 256 bins take 147 KB, 100 x
+    # 256 bins 307 KB)
+    assert (plan.grid_y == 1) == (f * b * 12 <= 200_000)
+    # the grid: co-resident (the grid barrier) unless one block along the
+    # rows needs none; the card filled as far as the rows allow
+    tiles = -(-n // plan.tile_rows)
+    assert plan.grid_x == -(-tiles // plan.tiles_per_block)
+    if plan.grid_x > 1:
+        assert plan.grid_x * plan.grid_y <= sms
+    if plan.grid_y <= sms // 2:
+        assert plan.grid_x == min(tiles, plan.grid_x) and (plan.grid_x >= 2 or tiles == 1)
+    if plan.tiles_per_block > 1:       # one tile fewer a block would not fit on the card
+        assert -(-tiles // (plan.tiles_per_block - 1)) * plan.grid_y > sms
+
+
+def test_launch_plans_take_each_branch():
+    sms = 132
+    adult = hk.launch_plan(32768, 14, 256, 4, sms)
+    assert (adult.grid_x, adult.grid_y, adult.copies, adult.tile_rows) == (128, 1, 2, 256)
+    assert adult.tiles_per_block == 1 and adult.branch == "rows"
+    higgs = hk.launch_plan(1 << 20, 28, 256, 1, sms)
+    assert (higgs.grid_x, higgs.copies, higgs.tiles_per_block) == (128, 1, 32)
+    assert higgs.branch == "capped"
+    assert hk.launch_plan(31, 5, 16, 1, sms).branch == "one_block"
+    assert hk.launch_plan(50, 100, 256, 4, sms)[:2] == (1, 2)
+    assert hk.launch_plan(50, 100, 256, 4, sms).branch == "one_block"
+    narrow_tile = hk.launch_plan(50000, 48, 256, 4, sms)
+    assert narrow_tile.grid_y == 1 and narrow_tile.tile_rows < 256
+    assert narrow_tile.branch == "small_tile"
+    split = hk.launch_plan(50000, 100, 256, 4, sms)
+    assert split.grid_y == 2 and split.grid_x * 2 <= sms and split.branch == "split"
+    wide = hk.launch_plan(100000, 10000, 256, 4, sms)
+    assert wide.grid_y > sms and wide.grid_x == 1

@@ -166,12 +166,12 @@ def _card() -> str:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
 
-def ptxas(trees: list[str]) -> None:
+def ptxas(trees: list[str], source: str = "flash_attn.cu") -> None:
     sys.path.insert(0, str(ROOT))
     from mmlspark_tpu_torch.core import kernels
 
     for tree in trees or [str(ROOT)]:
-        src = Path(tree) / "mmlspark_tpu_torch" / "csrc" / "flash_attn.cu"
+        src = Path(tree) / "mmlspark_tpu_torch" / "csrc" / source
         with tempfile.TemporaryDirectory() as tmp:
             lib = Path(tmp) / "lib.so"
             proc = subprocess.run(
@@ -212,7 +212,8 @@ def ptxas(trees: list[str]) -> None:
 def _sass_summary(cuobjdump: Path, lib: Path) -> dict:
     """Per kernel, from its SASS: the highest register number any
     instruction names (what a thread really uses, setmaxnreg regions
-    included) and the local-memory loads and stores (spill traffic)."""
+    included), the local-memory loads and stores (spill traffic), and the
+    shared-memory atomics by opcode."""
     out = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
                          text=True).stdout
     summary, name = {}, None
@@ -229,6 +230,10 @@ def _sass_summary(cuobjdump: Path, lib: Path) -> dict:
                                                          max(regs))
             summary[name]["sass_local_loads"] += bool(re.search(r"\bLDL\b", line))
             summary[name]["sass_local_stores"] += bool(re.search(r"\bSTL\b", line))
+            atom = re.search(r"\b(ATOMS\.[\w.]+)", line)
+            if atom:
+                ops = summary[name].setdefault("sass_shared_atomics", {})
+                ops[atom.group(1)] = ops.get(atom.group(1), 0) + 1
     return summary
 
 
