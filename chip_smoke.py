@@ -11,12 +11,15 @@ build/mmlspark_tpu_torch/), holds every kernel against its plain PyTorch
 version on the card, drives the port's two main paths through the stages
 a user calls — GBDTClassifier fit on the Adult-Census shape (32,768 rows x
 14 features, 31 leaves, 100 rounds), then transform and
-ComputeModelStatistics; and DeepModelTransformer serving 1,024 rows x 512
-token ids through bench.py's accelerator transformer (8 layers, d_model
-512, 8 heads, vocab 16,384) with attention_impl="flash", in bf16 and in
-f32, and through two small bf16 transformers (head dims 16 and 8) — and
-shows through the kernels' launch counters that each path ran on its
-kernel. It prints one JSON line per phase:
+ComputeModelStatistics, the Higgs-shaped fit binned on the card and scored
+by the fused bin -> traverse program, a 10-class fit on digits and the
+regression objectives' quality gate through GBDTRegressor; and
+DeepModelTransformer serving 1,024 rows x 512 token ids through bench.py's
+accelerator transformer (8 layers, d_model 512, 8 heads, vocab 16,384) with
+attention_impl="flash", in bf16 and in f32, through two small bf16
+transformers (head dims 16 and 8) and through a BERT-base-wide one (head
+dim 192) — and shows through the kernels' launch counters that each path
+ran on its kernel. It prints one JSON line per phase:
 
   env          torch/CUDA versions and the card (the nvidia-smi name and
                power limit also stand alone on the next line)
@@ -31,8 +34,8 @@ kernel. It prints one JSON line per phase:
                (each row names its plan), with its host microseconds a
                call and an empty kernel launched as its plans are (the
                floor of a call timed this way); K2 "flash_attention" with
-               the kernel path each shape took ("tf32x3", "wgmma" or
-               "mma"), its achieved TFLOP/s, and its exponentials with
+               the kernel path each shape took ("tf32x3", "wgmma", "mma"
+               or "wide"), its achieved TFLOP/s, and its exponentials with
                their time at the measured ex2 rate
   slice_adult  the GBDT path: fit seconds, launches (must be 3,100),
                train accuracy > 0.7, held-out AUC > 0.75, and the card's
@@ -40,8 +43,23 @@ kernel. It prints one JSON line per phase:
   profile_adult a 10-round Adult fit under torch.profiler: device kernel
                time by name against wall time
   slice_parity the same data, 10 rounds, fitted on "cpu" and on "cuda":
-               equal trees, or trees that part only at a printed near-tie
-  slice_higgs  1,048,576 x 28, 63 leaves, uint8 bins, 5 rounds
+               equal trees, or trees that part only at printed near-ties
+               (compared past a tie whose two splits route every row alike)
+  slice_higgs  1,048,576 x 28, 63 leaves, uint8 bins binned on the card
+               (device_binning), 5 rounds (315 launches); the host binning
+               timed alone beside the card's; the card's, the CPU's and
+               the host's bins of 65,536 rows equal
+  slice_predict  the Higgs booster over its 1,048,576 rows through the
+               fused bin -> traverse program (device_predict_fn), end to
+               end and resident, equal bit for bit to predict_raw;
+               predict_leaf and truncated(2) against the host walk
+  slice_multiclass  GBDTClassifier on digits (1,347 rows fitted, 450
+               held out, 10 classes, 30 rounds of 15 leaves: 4,500
+               launches), accuracy against the JAX package's, card against
+               host walk, CPU against card trees for 3 rounds
+  slice_objectives  tests/benchmarks/test_gbdt_benchmarks.py:86-114's
+               objectives gate through GBDTRegressor on the card (l1,
+               huber, quantile, poisson, tweedie: 2,250 launches)
   slice_transformer  the DNN path: tokens/s, K2 launches (must be 128,
                on "wgmma"), finite logits, probabilities summing to 1; the
                same 1,024 x 512 tokens served in f32 (128 launches on
@@ -54,6 +72,10 @@ kernel. It prints one JSON line per phase:
                8), 2 layers each: 32 K2 launches on "mma" in each of 400
                passes, tokens/s of all of them with their spread, and one
                pass profiled (device busy share, K2's share)
+  serve_wide   64 rows x 512 tokens through a 2-layer TransformerEncoder
+               of d_model 768 over 4 heads (D = 192) in bf16 and in f32:
+               8 K2 launches in each, all on "wide"; f32 card against CPU
+               and flash against dense
   profile_transformer  4 minibatches under torch.profiler: K2's and the
                GEMMs' share of device time, device busy share
   stage_roundtrip  the serving stage saved and loaded through
@@ -68,6 +90,7 @@ printing no result, without a CUDA device or outside a checkout.
 
 from __future__ import annotations
 
+import csv
 import ctypes
 import hashlib
 import json
@@ -405,6 +428,11 @@ def hist_empty_launch_ms() -> dict:
 # tokens. The mma path takes 8-warp blocks at default and serve_d8, 2-warp
 # blocks at d32 and d8. "pad_d24" is a head dim K2 is not built for (a
 # d_model 96 model over 4 heads): the wrapper pads it to 32 for "mma".
+# The "wide" rows are head dims above 128: d192 is serve_wide's attention
+# (TransformerEncoder d_model 768 over 4 heads, the importers' default heads
+# at BERT-base width) at 4 rows x 512 tokens, d256 the next such width
+# (d_model 1,024) under a causal mask, and pad_d160 a head dim the wrapper
+# pads to 192.
 FLASH_SHAPES = [
     ("slice_bf16", 64, 512, 512, 8, 64, torch.bfloat16, False),
     ("slice_f32", 64, 512, 512, 8, 64, torch.float32, False),
@@ -420,13 +448,21 @@ FLASH_SHAPES = [
     ("default_bf16", 64, 512, 512, 4, 16, torch.bfloat16, False),
     ("serve_d8_bf16", 64, 512, 512, 4, 8, torch.bfloat16, False),
     ("pad_d24_bf16", 4, 300, 300, 4, 24, torch.bfloat16, False),
+    ("d192_bf16", 4, 512, 512, 4, 192, torch.bfloat16, False),
+    ("d192_f32", 4, 512, 512, 4, 192, torch.float32, False),
+    ("d256_causal_bf16", 4, 512, 512, 4, 256, torch.bfloat16, True),
+    ("d256_causal_f32", 4, 512, 512, 4, 256, torch.float32, True),
+    ("pad_d160_bf16", 4, 512, 512, 4, 160, torch.bfloat16, False),
 ]
 
 
 def flash_path(dtype, d: int) -> str:
     """The K2 kernel a (dtype, head dim) must take: f32 on 3xTF32, bf16
     with D 64 or 128 on wgmma, bf16 with D 8, 16 or 32 on mma.sync; a D
-    between those runs zero-padded to the next one."""
+    between those runs zero-padded to the next one; above 128, both dtypes
+    on the wide kernel."""
+    if d > 128:
+        return "wide"
     if dtype == torch.float32:
         return "tf32x3"
     return "wgmma" if d > 32 else "mma"
@@ -657,13 +693,67 @@ def phase_profile_adult() -> dict:
     return doc
 
 
-def _first_difference(cpu, card):
+def _rows_at(booster, t, node, bins):
+    """Rows whose walk through tree t passes `node`."""
+    at = np.zeros(len(bins), np.int64)
+    seen = at == node
+    for _ in range(booster.feature.shape[1]):
+        f = booster.feature[t][at]
+        go_left = bins[np.arange(len(bins)), np.maximum(f, 0)] <= booster.threshold_bin[t][at]
+        at = np.where(f < 0, at, np.where(go_left, booster.left[t][at], booster.right[t][at]))
+        seen |= at == node
+    return seen
+
+
+def compare_fits(cpu, card, bins=None) -> dict:
+    """CPU and card trees of one fit (or any two fits of one data set).
+    Where they part, the two splits' gains must be a near-tie (within 1e-5
+    relative). A tie whose two splits send every training row of the
+    node the same way (`bins`, the fit's bin matrix: two thresholds around
+    a run of empty bins, or two features that part the node's rows alike)
+    changes no row's route, so the comparison goes on; any other tie ends
+    it before its tree. Leaf values of the trees before that: rtol
+    1e-5, and an absolute floor of 1e-5 of the tree's largest leaf value. A
+    right child's histogram is its parent's minus its sibling's, so a small
+    leaf's gradient sum carries the f32 rounding of sums far larger than
+    itself: its absolute error scales with the tree's values."""
+    ties, upto = [], cpu.num_trees
     for t in range(cpu.num_trees):
-        for name in ("feature", "threshold_bin", "left", "right"):
-            nodes = np.nonzero(getattr(cpu, name)[t] != getattr(card, name)[t])[0]
-            if len(nodes):
-                return t, int(nodes[0])
-    return None
+        parted = {int(m) for name in ("feature", "threshold_bin", "left", "right")
+                  for m in np.nonzero(getattr(cpu, name)[t] != getattr(card, name)[t])[0]}
+        # in split order (a node's children are numbered when it splits):
+        # the first tie that routes rows differently makes the later ones
+        for m in sorted(parted, key=lambda m: min(
+                int(c) for c in (cpu.left[t, m], card.left[t, m]) if c >= 0)):
+            g_cpu, g_card = float(cpu.gain[t, m]), float(card.gain[t, m])
+            rel = abs(g_cpu - g_card) / max(abs(g_cpu), abs(g_card), 1e-30)
+            tie = {"tree": t, "node": m, "cpu_gain": g_cpu, "cuda_gain": g_card,
+                   "relative_gap": rel}
+            assert rel <= 1e-5, f"trees part at tree {t} node {m} without a near-tie: {tie}"
+            tie["routes_alike"] = False
+            if (bins is not None and cpu.feature[t, m] >= 0 and card.feature[t, m] >= 0
+                    and cpu.left[t, m] == card.left[t, m]
+                    and cpu.right[t, m] == card.right[t, m]):
+                rows = bins[_rows_at(cpu, t, m, bins)]
+                tie["routes_alike"] = bool(np.array_equal(
+                    rows[:, cpu.feature[t, m]] <= cpu.threshold_bin[t, m],
+                    rows[:, card.feature[t, m]] <= card.threshold_bin[t, m]))
+            ties.append(tie)
+            if not tie["routes_alike"]:
+                upto = t
+                break
+        if upto < cpu.num_trees:
+            break
+    value_err, value_err_scaled = 0.0, 0.0
+    for t in range(upto):
+        scale = float(np.max(np.abs(cpu.value[t])))
+        err = np.abs(card.value[t].astype(np.float64) - cpu.value[t])
+        np.testing.assert_allclose(card.value[t], cpu.value[t], rtol=1e-5,
+                                   atol=1e-5 * scale, err_msg=f"tree {t}")
+        value_err = max(value_err, float(err.max()))
+        value_err_scaled = max(value_err_scaled, float(err.max()) / max(scale, 1e-30))
+    return {"trees_equal": not ties, "trees_compared": upto, "near_ties": ties,
+            "max_value_abs_err": value_err, "max_value_err_over_tree_max": value_err_scaled}
 
 
 def phase_slice_parity() -> dict:
@@ -677,40 +767,17 @@ def phase_slice_parity() -> dict:
         t0 = time.perf_counter()
         fits[device] = Booster.train(x, y, opts)
         fits[device + "_seconds"] = time.perf_counter() - t0
-    cpu, card = fits["cpu"], fits["cuda"]
-    first = _first_difference(cpu, card)
-    near_tie = None
-    upto = cpu.num_trees
-    if first is not None:
-        t, node = first
-        g_cpu, g_card = float(cpu.gain[t, node]), float(card.gain[t, node])
-        rel = abs(g_cpu - g_card) / max(abs(g_cpu), abs(g_card), 1e-30)
-        near_tie = {"tree": t, "node": node, "cpu_gain": g_cpu, "cuda_gain": g_card,
-                    "relative_gap": rel}
-        assert rel <= 1e-5, f"trees part at tree {t} node {node} without a near-tie: {near_tie}"
-        upto = t
-    # Leaf values: rtol 1e-5, and an absolute floor of 1e-5 of the tree's
-    # largest leaf value. A right child's histogram is its parent's minus
-    # its sibling's, so a small leaf's gradient sum carries the f32
-    # rounding of sums far larger than itself: its absolute error scales
-    # with the tree's values, not with its own.
-    value_err, value_err_scaled = 0.0, 0.0
-    for t in range(upto):
-        scale = float(np.max(np.abs(cpu.value[t])))
-        err = np.abs(card.value[t].astype(np.float64) - cpu.value[t])
-        np.testing.assert_allclose(card.value[t], cpu.value[t], rtol=1e-5,
-                                   atol=1e-5 * scale, err_msg=f"tree {t}")
-        value_err = max(value_err, float(err.max()))
-        value_err_scaled = max(value_err_scaled, float(err.max()) / max(scale, 1e-30))
-    doc = {"phase": "slice_parity", "rounds": 10, "trees_equal": first is None,
-           "trees_compared": upto, "near_tie": near_tie, "max_value_abs_err": value_err,
-           "max_value_err_over_tree_max": value_err_scaled,
+    doc = {"phase": "slice_parity", "rounds": 10,
+           **compare_fits(fits["cpu"], fits["cuda"], fits["cpu"].bin_mapper.transform(x)),
            "cpu_fit_seconds": fits["cpu_seconds"], "cuda_fit_seconds": fits["cuda_seconds"]}
     emit(doc)
     return doc
 
 
 def phase_slice_higgs() -> dict:
+    """The Higgs-shaped fit as bench.py:384-388 runs it first: uint8 bins,
+    binned on the card (`device_binning=True`). The host binning the fit no
+    longer does is timed alone beside it, and the card's binning alone."""
     from mmlspark_tpu_torch.gbdt.binning import BinMapper
     from mmlspark_tpu_torch.gbdt.booster import Booster, TrainOptions
     from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
@@ -718,12 +785,16 @@ def phase_slice_higgs() -> dict:
     n, f, rounds, leaves = 1 << 20, 28, 5, 63
     x, y = make_dataset_wide(n, f)
     opts = TrainOptions(objective="binary", num_iterations=rounds, num_leaves=leaves,
-                        bin_dtype="uint8", device="cuda")
-    # the fit's host binning, timed alone (the fit repeats it)
+                        bin_dtype="uint8", device_binning=True, device="cuda")
+    # host binning, timed alone: the boundary sketch (which the fit still
+    # runs) and the host transform (which it no longer runs)
     t0 = time.perf_counter()
-    BinMapper(max_bin=opts.max_bin,
-              bin_construct_sample_cnt=opts.bin_construct_sample_cnt).fit(x).transform(x)
-    binning_s = time.perf_counter() - t0
+    host_mapper = BinMapper(max_bin=opts.max_bin,
+                            bin_construct_sample_cnt=opts.bin_construct_sample_cnt).fit(x)
+    sketch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_mapper.transform(x)
+    host_transform_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     histogram.launches = 0
     t0 = time.perf_counter()
@@ -731,13 +802,251 @@ def phase_slice_higgs() -> dict:
     fit_s = time.perf_counter() - t0
     launches = histogram.launches
     assert launches == rounds * leaves, f"histogram launched {launches} times, want {rounds * leaves}"
-    raw = booster.predict_raw(x[:65536], device="device")
+    # the card's binning alone: the raw values to the card, binned there
+    mapper = booster.bin_mapper
+    assert np.array_equal(mapper.upper_bounds, np.float64(np.float32(mapper.upper_bounds)))
+    mapper.transform_device(x[:4096], "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bins_card = mapper.transform_device(x, "cuda")
+    torch.cuda.synchronize()
+    device_binning_s = time.perf_counter() - t0
+    # three sets of bins of 65,536 f32 rows (the data set's values are
+    # f32): the card's, the CPU's transform_device, the snapped host walk's
+    sub = x[:65536]
+    card = bins_card[:65536].cpu().numpy()
+    assert np.array_equal(card, mapper.transform_device(sub, "cpu").numpy()), \
+        "card and CPU device binning differ"
+    assert np.array_equal(card, mapper.transform(sub)), "device and host binning differ"
+    del bins_card
+    raw = booster.predict_raw(sub, device="device")
     acc = float(((raw > 0) == (y[:65536] > 0.5)).mean())
     assert np.isfinite(raw).all() and acc > 0.6, acc
     doc = {"phase": "slice_higgs", "rows": n, "features": f, "rounds": rounds,
-           "num_leaves": leaves, "bin_dtype": "uint8", "fit_seconds": fit_s,
-           "host_binning_seconds": binning_s,
+           "num_leaves": leaves, "bin_dtype": "uint8", "device_binning": True,
+           "fit_seconds": fit_s, "host_binning_seconds": sketch_s + host_transform_s,
+           "host_sketch_seconds": sketch_s, "host_transform_seconds": host_transform_s,
+           "device_binning_seconds": device_binning_s, "bins_equal_65536_rows": True,
            "histogram_launches": launches, "train_accuracy_first_65536": acc}
+    emit(doc)
+    return {**doc, "booster": booster, "x": x}
+
+
+def phase_slice_predict(booster, x) -> dict:
+    """Scoring the Higgs booster over its 1,048,576 rows (bench.py:408-419's
+    two tiers): the fused bin -> traverse program `device_predict_fn` end to
+    end (numpy f32 in, margins out) and resident (the values already on
+    the card), against the staged `predict_raw(device="device")` (host
+    binning, then the card's walk), bit for bit; then `predict_leaf` and
+    `truncated(2)` on 4,096 rows against the host walk."""
+    x32 = np.ascontiguousarray(x, dtype=np.float32)
+    n = len(x32)
+    params, fn = booster.device_predict_fn()
+    fn(params, x32[:4096]).cpu()
+    t0 = time.perf_counter()
+    margins = fn(params, x32).cpu().numpy()
+    e2e_s = time.perf_counter() - t0
+    xd = torch.as_tensor(x32, device="cuda")
+    fn(params, xd)
+    resident = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(params, xd)
+        torch.cuda.synchronize()
+        resident.append(time.perf_counter() - t0)
+    resident_s = float(np.median(resident))
+    t0 = time.perf_counter()
+    staged = booster.predict_raw(x32, device="device")
+    staged_s = time.perf_counter() - t0
+    assert margins.shape == (n,) and np.isfinite(margins).all()
+    assert np.array_equal(margins, staged), "the fused program differs from predict_raw"
+
+    sub = x[:4096]
+    host = booster.predict_raw(sub, device="host")
+    leaf = booster.predict_leaf(sub)
+    acc = np.full(len(sub), booster.init_score, np.float32)
+    for t in range(booster.num_trees):
+        acc = acc + booster.value[t][leaf[:, t]]
+    assert np.array_equal(acc, host), "predict_leaf's leaves do not add up to the host walk"
+    two = booster.truncated(2)
+    two_host = two.predict_raw(sub, device="host")
+    assert two.num_trees == 2
+    assert np.array_equal(two.predict_raw(sub, device="device"), two_host)
+    assert np.array_equal(booster.predict_raw(sub, device="device", num_iteration=2), two_host)
+    tp, tfn = two.device_predict_fn()
+    assert np.array_equal(tfn(tp, sub.astype(np.float32)).cpu().numpy(), two_host)
+    doc = {"phase": "slice_predict", "rows": n, "features": x.shape[1],
+           "trees": booster.num_trees,
+           "fused_end_to_end_seconds": e2e_s, "fused_end_to_end_rows_per_s": n / e2e_s,
+           "fused_resident_seconds": resident_s, "fused_resident_rows_per_s": n / resident_s,
+           "staged_predict_raw_seconds": staged_s, "staged_rows_per_s": n / staged_s,
+           "fused_equals_predict_raw": True, "leaf_and_truncated_equal_host_walk": True}
+    emit(doc)
+    return doc
+
+
+# The JAX package's held-out accuracy on digits (first 1,347 rows fitted,
+# last 450 scored) with GBDTClassifier(num_iterations=30, num_leaves=15),
+# computed on the CPU with
+#   JAX_PLATFORMS=cpu python -c "import numpy as np; from mmlspark_tpu.core.schema
+#   import Table; from mmlspark_tpu.gbdt import GBDTClassifier; d = np.loadtxt(
+#   'tests/benchmarks/data/digits.csv', delimiter=',', skiprows=1); x, y = d[:, 1:],
+#   d[:, 0]; c = 1347; m = GBDTClassifier(num_iterations=30, num_leaves=15).fit(
+#   Table({'features': x[:c], 'label': y[:c]})); print((np.asarray(m.transform(
+#   Table({'features': x[c:]}))['prediction']) == y[c:]).mean())"
+DIGITS_JAX_ACCURACY = 0.9044444444444445
+
+
+def phase_slice_multiclass() -> dict:
+    """Multiclass on the repo's own digits (1,797 x 64, 10 classes), 75/25:
+    GBDTClassifier on the card, 30 rounds of 10 trees of 15 leaves."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.gbdt.booster import Booster, TrainOptions
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+
+    data = np.loadtxt(ROOT / "tests" / "benchmarks" / "data" / "digits.csv", delimiter=",",
+                      skiprows=1)
+    x, y = data[:, 1:], data[:, 0]
+    cut = int(len(x) * 0.75)
+    rounds, leaves, k = 30, 15, 10
+    torch.cuda.synchronize()
+    histogram.launches = 0
+    t0 = time.perf_counter()
+    model = GBDTClassifier(num_iterations=rounds, num_leaves=leaves, device="cuda").fit(
+        _table(x[:cut], y[:cut]))
+    fit_s = time.perf_counter() - t0
+    launches = histogram.launches
+    want = rounds * k * leaves
+    assert launches == want, f"histogram launched {launches} times, want {want}"
+    assert model.booster.objective == "multiclass" and model.booster.num_trees == rounds * k
+    out = model.transform(Table({"features": x[cut:]}))
+    prob = np.asarray(out["probability"])
+    assert prob.shape == (len(x) - cut, k) and np.isfinite(prob).all()
+    assert np.allclose(prob.sum(-1), 1.0, atol=1e-5)
+    acc = float((np.asarray(out["prediction"]) == y[cut:]).mean())
+    assert acc >= DIGITS_JAX_ACCURACY - 0.02, (acc, DIGITS_JAX_ACCURACY)
+    raw_card = model.booster.predict_raw(x[cut:], device="device")
+    assert np.array_equal(raw_card, model.booster.predict_raw(x[cut:], device="host")), \
+        "card traversal differs from the host walk"
+    # CPU and card trees, 3 rounds (30 trees)
+    fits = {dev: Booster.train(x[:cut], y[:cut], TrainOptions(
+        objective="multiclass", num_class=k, num_iterations=3, num_leaves=leaves, device=dev))
+        for dev in ("cpu", "cuda")}
+    # digits' pixels take 17 values and many are 0 in the same rows, so
+    # tied splits are common: the fits may part at a tie before any tree
+    # is whole
+    parity = compare_fits(fits["cpu"], fits["cuda"],
+                          fits["cpu"].bin_mapper.transform(x[:cut]))
+    # so the per-class gradients and hessians are held on continuous
+    # features too: tests/test_gbdt.py's 4-class data, 20 rounds of 4 trees
+    xc, yc = make_classification(classes=4)
+    fits4 = {dev: Booster.train(xc, yc, TrainOptions(
+        objective="multiclass", num_class=4, num_iterations=20, num_leaves=leaves, device=dev))
+        for dev in ("cpu", "cuda")}
+    parity4 = compare_fits(fits4["cpu"], fits4["cuda"], fits4["cpu"].bin_mapper.transform(xc))
+    assert parity4["trees_compared"] > 0, f"no 4-class tree compared: {parity4['near_ties']}"
+    doc = {"phase": "slice_multiclass", "rows": cut, "held_out_rows": len(x) - cut,
+           "features": x.shape[1], "classes": k, "rounds": rounds, "num_leaves": leaves,
+           "fit_seconds": fit_s, "histogram_launches": launches, "held_out_accuracy": acc,
+           "jax_held_out_accuracy": DIGITS_JAX_ACCURACY, "card_equals_host_walk": True,
+           "parity_3_rounds": parity, "parity_4_class_20_rounds": parity4}
+    emit(doc)
+    return doc
+
+
+def make_classification(n=2000, f=10, seed=0, classes=2):
+    """A copy of tests/test_gbdt.py's classification data set (that module
+    imports the JAX package)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, f))
+    logits = x[:, 0] * 2.0 + x[:, 1] - 0.5 * x[:, 2] + 0.3 * rng.normal(size=n)
+    if classes == 2:
+        y = (logits > 0).astype(np.float64)
+    else:
+        y = np.digitize(logits, np.quantile(logits, np.linspace(0, 1, classes + 1)[1:-1]))
+    return x, y.astype(np.float64)
+
+
+# Copies of tests/benchmarks/datasets.py's generators (that module imports
+# the JAX package): frozen, since the committed baselines depend on every
+# draw. They return (x, y) in place of its Table.
+def airfoil_like(n=1503, f=5, seed=21):
+    """Regression, smooth nonlinear response (airfoil noise role)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, size=(n, f))
+    y = (
+        20.0 * np.sin(2.5 * x[:, 0])
+        + 8.0 * x[:, 1] * x[:, 2]
+        + 5.0 * np.square(x[:, 3])
+        + rng.normal(scale=1.5, size=n)
+        + 120.0
+    )
+    return x, y.astype(np.float64)
+
+
+def counts_like(n=900, f=6, seed=24):
+    """Poisson counts (for poisson/tweedie objective gates)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, f))
+    lam = np.exp(0.6 * x[:, 0] - 0.4 * x[:, 1] + 0.1)
+    y = rng.poisson(lam).astype(float)
+    return x, y.astype(np.float64)
+
+
+def objectives_gate(device: str) -> list:
+    """tests/benchmarks/test_gbdt_benchmarks.py:86-114 through the port's
+    GBDTRegressor on `device`: l1, huber and quantile on airfoil_like (test
+    RMSE), poisson and tweedie on counts_like (mean poisson deviance), each
+    30 rounds of 15 leaves on the first 75% of the rows. Each row holds its
+    value beside tests/benchmarks/benchmarks_objectives.csv's baseline and
+    precision."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.gbdt import GBDTRegressor
+
+    with open(ROOT / "tests" / "benchmarks" / "benchmarks_objectives.csv") as fh:
+        base = {r["name"]: (float(r["value"]), float(r["precision"]))
+                for r in csv.DictReader(fh)}
+
+    def predict(objective, x, y):
+        cut = int(len(x) * 0.75)
+        model = GBDTRegressor(objective=objective, num_iterations=30, num_leaves=15, seed=42,
+                              device=device).fit(_table(x[:cut], y[:cut]))
+        pred = model.transform(Table({"features": x[cut:]}))["prediction"]
+        return np.asarray(pred, np.float64), y[cut:]
+
+    values = {}
+    x, y = airfoil_like()
+    for objective in ("l1", "huber", "quantile"):
+        pred, yt = predict(objective, x, y)
+        values[f"airfoil_{objective}"] = float(np.sqrt(np.mean((pred - yt) ** 2)))
+    x, y = counts_like()
+    for objective in ("poisson", "tweedie"):
+        pred, yc = predict(objective, x, y)
+        eps = 1e-9
+        values[f"counts_{objective}_deviance"] = float(np.mean(
+            2 * (yc * np.log((yc + eps) / (pred + eps)) - (yc - pred))))
+    assert set(values) == set(base), (sorted(values), sorted(base))
+    return [{"name": name, "value": v, "baseline": base[name][0], "precision": base[name][1],
+             "within": abs(v - base[name][0]) <= base[name][1]} for name, v in values.items()]
+
+
+def phase_slice_objectives() -> dict:
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+
+    torch.cuda.synchronize()
+    histogram.launches = 0
+    t0 = time.perf_counter()
+    rows = objectives_gate("cuda")
+    seconds = time.perf_counter() - t0
+    launches = histogram.launches
+    want = 5 * 30 * 15
+    assert launches == want, f"histogram launched {launches} times, want {want}"
+    bad = [r for r in rows if not r["within"]]
+    assert not bad, f"objectives outside their benchmark precision: {bad}"
+    doc = {"phase": "slice_objectives", "fits": 5, "rounds": 30, "num_leaves": 15,
+           "seconds": seconds, "histogram_launches": launches, "gate": rows}
     emit(doc)
     return doc
 
@@ -945,6 +1254,82 @@ def phase_small_transformer() -> dict:
     return doc
 
 
+# Head dims above 128: TransformerEncoder at BERT-base width over the
+# importers' default of 4 heads (mmlspark_tpu/nn/import_weights.py:436),
+# D = 192, on K2's "wide" kernel; depth cut to 2 layers
+WIDE_TRANSFORMER = dict(num_layers=2, d_model=768, num_heads=4, d_ff=3072, vocab_size=16384,
+                        max_len=SLICE_TOKENS, num_outputs=8)
+# Serving runs at FLASH_SHAPES' d192 rows' shape (minibatches of 4 rows x
+# 512 tokens), so the kernel rows time and check the launches it makes;
+# WIDE_PASSES passes over slice_transformer's 1,024 rows give the rate and
+# its spread
+WIDE_BATCH, WIDE_PASSES = 4, 5
+
+
+def phase_serve_wide() -> dict:
+    """1,024 rows x 512 token ids through DeepModelTransformer on the card,
+    in bf16 (the bundle's dtype, with the stage's bfloat16 switch off, as
+    token models serve: ROADMAP Queue 3) and in f32, WIDE_PASSES timed
+    passes each: exactly minibatches x 2 layers K2 launches a pass, every
+    one on "wide". Then f32 card against CPU on 2 rows and f32 flash
+    against f32 dense on the card (slice_transformer's gates)."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.nn import ModelBundle
+    from mmlspark_tpu_torch.nn.attention import flash_attention
+
+    bundle = ModelBundle.init("transformer", (SLICE_TOKENS,), seed=0, attention_impl="flash",
+                              dtype="bfloat16", **WIDE_TRANSFORMER)
+    x = np.random.default_rng(12).integers(0, WIDE_TRANSFORMER["vocab_size"],
+                                           size=(SLICE_ROWS, SLICE_TOKENS))
+    want = SLICE_ROWS // WIDE_BATCH * WIDE_TRANSFORMER["num_layers"]
+    n_out = WIDE_TRANSFORMER["num_outputs"]
+    doc = {"phase": "serve_wide", "config": WIDE_TRANSFORMER, "attention_impl": "flash",
+           "head_dim": WIDE_TRANSFORMER["d_model"] // WIDE_TRANSFORMER["num_heads"],
+           "rows": SLICE_ROWS, "tokens_per_row": SLICE_TOKENS, "mini_batch_size": WIDE_BATCH}
+    served = {}
+    for dtype in ("bfloat16", "float32"):
+        b = bundle if dtype == "bfloat16" else _variant(bundle, dtype="float32")
+        stage, _ = _serve(b, x[:WIDE_BATCH], "cuda", WIDE_BATCH,
+                          {"logits": "logits", "prob": "probability"})
+        seconds, total = [], 0
+        for _ in range(WIDE_PASSES):
+            torch.cuda.synchronize()
+            flash_attention.launches = 0
+            flash_attention.launches_by_path = {}
+            t0 = time.perf_counter()
+            out = stage.transform(Table({"tokens": x}))
+            seconds.append(time.perf_counter() - t0)
+            launches, by_path = flash_attention.launches, dict(flash_attention.launches_by_path)
+            assert launches == want, f"{dtype}: K2 launched {launches} times, want {want}"
+            assert by_path == {"wide": want}, f"{dtype}: K2 launches by kernel {by_path}"
+            total += launches
+            logits, prob = np.asarray(out["logits"]), np.asarray(out["prob"])
+            assert logits.shape == (SLICE_ROWS, n_out) and np.isfinite(logits).all()
+            assert np.isfinite(prob).all() and np.allclose(prob.sum(-1), 1.0, atol=1e-5)
+        served[dtype] = logits
+        doc[dtype] = {**pass_rate(seconds, SLICE_ROWS * SLICE_TOKENS),
+                      "flash_launches_per_pass": want, "flash_launches": total,
+                      "flash_launches_by_path": by_path}
+    f32 = _variant(bundle, dtype="float32")
+    before = flash_attention.launches
+    _, dense = _serve(_variant(bundle, attention_impl="dense", dtype="float32"),
+                      x[:SLICE_BATCH], "cuda", WIDE_BATCH)
+    assert flash_attention.launches == before, "the dense path launched K2"
+    dense = np.asarray(dense["logits"])
+    np.testing.assert_allclose(served["float32"][:SLICE_BATCH], dense, atol=1e-4, rtol=1e-4)
+    _, card2 = _serve(f32, x[:2], "cuda", 2)
+    _, cpu2 = _serve(f32, x[:2], "cpu", 2)
+    card2, cpu2 = np.asarray(card2["logits"]), np.asarray(cpu2["logits"])
+    np.testing.assert_allclose(card2, cpu2, atol=1e-4, rtol=1e-4)
+    doc.update({
+        "flash_launches": doc["bfloat16"]["flash_launches"] + doc["float32"]["flash_launches"],
+        "f32_flash_vs_dense_max_abs": float(np.abs(served["float32"][:SLICE_BATCH] - dense).max()),
+        "card_vs_cpu_max_abs_f32_2rows": float(np.abs(card2 - cpu2).max()),
+        "bf16_vs_f32_flash_max_abs": float(np.abs(served["bfloat16"] - served["float32"]).max())})
+    emit(doc)
+    return doc
+
+
 def profile_serving(stage, rows) -> dict:
     """Where the serving time goes: `rows` through the stage under
     torch.profiler, device kernel time by name against wall time."""
@@ -1064,9 +1449,13 @@ def main() -> int:
     adult = phase_slice_adult()
     phase_profile_adult()
     phase_slice_parity()
-    phase_slice_higgs()
+    higgs = phase_slice_higgs()
+    phase_slice_predict(higgs.pop("booster"), higgs.pop("x"))
+    multiclass = phase_slice_multiclass()
+    objectives = phase_slice_objectives()
     dnn = phase_slice_transformer()
     small = phase_small_transformer()
+    wide = phase_serve_wide()
     phase_profile_transformer(dnn["stage"], dnn["tokens"])
     phase_stage_roundtrip(dnn["stage"], dnn["tokens"])
     phase_slice_zoo()
@@ -1077,12 +1466,21 @@ def main() -> int:
     f32_main = next(r for r in f32_rows if r["shape"] == "slice_f32")
     mma_rows = [r for r in kern["flash_attention"] if r["path"] == "mma"]
     mma_main = next(r for r in mma_rows if r["shape"] == "default_bf16")
+    wide_rows = [r for r in kern["flash_attention"] if r["path"] == "wide"]
+    wide_main = next(r for r in wide_rows if r["shape"] == "d192_bf16")
     emit({"kernels": [{
         "name": "histogram",
         "route": "cuda",
         "source": "mmlspark_tpu_torch/csrc/hist_kernel.cu",
         "replaces": "mmlspark_tpu/gbdt/hist_kernel.py:227",
-        "launches": adult["histogram_launches"],
+        # every fit of the main path: Adult, Higgs, digits multiclass and
+        # the five objectives
+        "launches": (adult["histogram_launches"] + higgs["histogram_launches"]
+                     + multiclass["histogram_launches"] + objectives["histogram_launches"]),
+        "launches_by_fit": {"adult": adult["histogram_launches"],
+                            "higgs": higgs["histogram_launches"],
+                            "multiclass": multiclass["histogram_launches"],
+                            "objectives": objectives["histogram_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern["histogram"]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -1143,6 +1541,23 @@ def main() -> int:
         "exp_ms": mma_main["exp_ms"],
         "shape": mma_main["shape"],
         "path": mma_main["path"],
+    }, {
+        # the same wrapper and TPU kernel; the CUDA kernel of every head dim
+        # above 128, f32 and bf16, with its launches from serve_wide
+        "name": "flash_attention_wide",
+        "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/flash_attn.cu",
+        "replaces": "mmlspark_tpu/nn/attention.py:192",
+        "launches": wide["flash_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in wide_rows),
+        "ms": wide_main["ms"],
+        "plain_ms": wide_main["plain_ms"],
+        "bound_ms": wide_main["bound_ms"],
+        "bound_by": wide_main["bound_by"],
+        "library_ms": wide_main["library_ms"],
+        "exp_ms": wide_main["exp_ms"],
+        "shape": wide_main["shape"],
+        "path": wide_main["path"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

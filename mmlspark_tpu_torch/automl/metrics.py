@@ -1,4 +1,4 @@
-"""Model evaluation metrics for classification.
+"""Model evaluation metrics for classification and regression.
 
 Counterpart of mmlspark_tpu/automl/metrics.py. Reference:
 `src/compute-model-statistics/ComputeModelStatistics.scala:57-467`
@@ -7,7 +7,8 @@ metric names from `core/metrics/MetricConstants.scala:7-60`.
 
 Metrics are small host reductions in numpy. The confusion matrix counts in
 float32, as the JAX package's does with 64-bit mode off, so both report the
-same accuracy bits. Regression and ranking metrics are later slices.
+same accuracy bits; the regression metrics reduce in float32 for the same
+reason. Ranking metrics are a later slice.
 """
 
 from __future__ import annotations
@@ -52,6 +53,19 @@ def _confusion_matrix(labels: np.ndarray, preds: np.ndarray, num_classes: int) -
     return counts.reshape(num_classes, num_classes)
 
 
+def _regression_metrics(labels: np.ndarray, preds: np.ndarray):
+    """(mse, rmse, r2, mae) in float32, as the JAX package's jitted
+    reduction computes them with 64-bit mode off."""
+    labels = np.asarray(labels, np.float32)
+    err = np.asarray(preds, np.float32) - labels
+    mse = np.mean(err * err, dtype=np.float32)
+    mae = np.mean(np.abs(err), dtype=np.float32)
+    ss_res = np.sum(err * err, dtype=np.float32)
+    ss_tot = np.sum(np.square(labels - np.mean(labels, dtype=np.float32)), dtype=np.float32)
+    r2 = np.float32(1.0) - ss_res / (np.float32(1.0) if ss_tot == 0 else ss_tot)
+    return mse, np.sqrt(mse), r2, mae
+
+
 def roc_curve(labels: np.ndarray, scores: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(fpr, tpr, thresholds), computed by a sort + cumulative sums.
     Reference rocCurve ComputeModelStatistics.scala:89."""
@@ -82,7 +96,8 @@ def auc(labels: np.ndarray, scores: np.ndarray) -> float:
 
 @register_stage
 class ComputeModelStatistics(Transformer):
-    """Emit a one-row metrics table for a classifier-scored dataset."""
+    """Emit a one-row metrics table for a classifier- or regressor-scored
+    dataset."""
 
     label_col = Param("label", "true-label column", ptype=str)
     scores_col = Param(None, "raw score / probability column (binary)", ptype=str)
@@ -101,11 +116,9 @@ class ComputeModelStatistics(Transformer):
                 "ranking metrics are not ported yet; see ROADMAP.md Queue 1, "
                 "'recommendation and AutoML'")
         labels = np.asarray(table[self.get("label_col")], np.float64)
-        if not self._infer_is_classification(table, labels, metric):
-            raise NotImplementedError(
-                "regression metrics are not ported yet; see ROADMAP.md Queue 1, "
-                "'other objectives and multiclass'")
-        return self._classification(table, labels)
+        if self._infer_is_classification(table, labels, metric):
+            return self._classification(table, labels)
+        return self._regression(table, labels)
 
     def _infer_is_classification(self, table: Table, labels: np.ndarray, metric: str) -> bool:
         if metric in MetricConstants.CLASSIFICATION_METRICS + ["classification"]:
@@ -183,3 +196,14 @@ class ComputeModelStatistics(Transformer):
             # positive class = larger label value = class id 1 after remap
             row[MetricConstants.AUC] = auc(lab_ids.astype(np.float64), scores)
         return Table.from_rows([row])
+
+    def _regression(self, table: Table, labels: np.ndarray) -> Table:
+        pred_col = self.get("scores_col") or self.get("scored_labels_col")
+        preds = np.asarray(table[pred_col], np.float64)
+        mse, rmse, r2, mae = (float(v) for v in _regression_metrics(labels, preds))
+        return Table.from_rows([{
+            MetricConstants.MSE: mse,
+            MetricConstants.RMSE: rmse,
+            MetricConstants.R2: r2,
+            MetricConstants.MAE: mae,
+        }])

@@ -36,11 +36,15 @@
 //     tiles, with a softmax that spends its instructions on the
 //     exponentials and blocks sized to fill the card; see
 //     flash_fwd_mma_kernel;
-//   - "tf32x3": f32 at every head dim runs both products on the tensor
+//   - "tf32x3": f32 up to head dim 128 runs both products on the tensor
 //     cores as three TF32 products (3xTF32), which keeps the reference's
 //     f32 accuracy (its 2e-5 gate, which one TF32 pass would miss):
 //     mma.sync m16n8k8, eight warps of 16 query rows, key/value tiles
-//     through a cp.async ring; see flash_fwd_tf32x3_kernel.
+//     through a cp.async ring; see flash_fwd_tf32x3_kernel;
+//   - "wide": head dims above 128, f32 and bf16, on the same TF32
+//     mma.sync, a block a 64-column slice of the output and the score
+//     product walked in 32-wide chunks of the head dim; see
+//     flash_fwd_wide_kernel.
 // On every path each key tile is read once per query tile and shared by
 // the tile's rows through shared memory; causal tiles wholly after the
 // query tile are skipped (their p would be zero, so the outputs do not
@@ -672,7 +676,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------
-// f32 at every head dim: the "tf32x3" path. Both products run on the
+// f32 at head dims up to 128: the "tf32x3" path. Both products run on the
 // tensor cores as 3xTF32: x = x_hi + x_lo with x_hi = cvt.rna.tf32(x) and
 // x_lo = cvt.rna.tf32(x - x_hi), and a.b = a_lo.b_hi + a_hi.b_lo +
 // a_hi.b_hi, summed into one f32 accumulator, small terms first. tf32
@@ -1005,6 +1009,247 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
             *reinterpret_cast<float2*>(op + 8 * n) =
                 make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
         if (t == 0) lse[bh * tq + qpos[r]] = lr > 0.0f ? m[r] * kLn2 + logf(denom) : INFINITY;
+    }
+}
+
+// ---------------------------------------------------------------------
+// Head dims above 128, f32 and bf16: the "wide" path. At D = 256 a warp's
+// O accumulator over the whole head dim would take 128 registers a thread,
+// and one 64-key f32 tile of K 64 KB of shared memory. So a block owns a
+// 64-wide slice of the output columns (the grid's y), and the head dim of
+// the score product is walked in 32-wide chunks:
+// - For each 64-key tile the block computes the full scores S = Q.K^T
+//   over all of D, chunk by chunk. Each step of a three-stage cp.async
+//   ring brings one chunk of the query tile and of the key tile, and on a
+//   tile's last chunk also the tile's values in the block's column slice.
+//   The query chunks are fetched again for every key tile (from L2): no
+//   part of Q stays resident, so the registers and shared memory a block
+//   takes do not grow with D.
+// - Then the online softmax of softmax_tf32 and O += P.V over the slice,
+//   as on the tf32x3 path. Every slice recomputes S: the price of that
+//   fixed budget (PERF.md, open questions).
+// - f32 keeps 3xTF32 for both products. bf16 operands widen to f32 on
+//   load and are exact in TF32 (8 significant bits of 11), so one TF32
+//   product a pair is exact; p is rounded to bf16 before the P.V product
+//   and l sums the unrounded p, as on every bf16 path.
+// - Slice 0 writes lse. D is a multiple of 64: the wrapper zero-pads
+//   other head dims and launches at the true D's scale.
+// ---------------------------------------------------------------------
+
+constexpr int kWideWarps = 8;
+constexpr int kWideRows = 16 * kWideWarps;     // query rows a block
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideKeys = 64;                  // keys a tile
+constexpr int kWideChunk = 32;                 // head-dim columns a step of S
+constexpr int kWideSlice = 64;                 // output columns a block
+constexpr int kWideStages = 3;
+
+template <typename T>
+struct WideTiling {
+    // q and K chunk pitch, V slice pitch (elements): a half-warp's
+    // fragment loads of rows g at dims 2t, and V's scalar loads of keys
+    // 2t at columns g, fall in distinct banks
+    static constexpr int kLdK = kWideChunk + 8;
+    static constexpr int kLdV = kWideSlice + (sizeof(T) == 4 ? 4 : 8);
+    static constexpr int kStageElems = (kWideRows + kWideKeys) * kLdK + kWideKeys * kLdV;
+    static constexpr int kSmemBytes = kWideStages * kStageElems * static_cast<int>(sizeof(T));
+};
+
+// the byte offset of 16-byte chunk c of row i in a tile of T with a pitch
+// of LD elements
+template <typename T, int LD>
+struct Pitch {
+    __device__ uint32_t operator()(int i, int c) const {
+        return static_cast<uint32_t>(sizeof(T)) * (i * LD + (16 / static_cast<int>(sizeof(T))) * c);
+    }
+};
+
+__device__ __forceinline__ float2 load_pair(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float load_one(const float* p) { return *p; }
+
+__device__ __forceinline__ float load_one(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// the A fragment of c += a.b: an f32 value as two TF32 halves; a widened
+// bf16 value is a TF32 value already (lo stays unused)
+template <typename T>
+__device__ __forceinline__ void wide_frag(const float (&a)[4], uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+    if constexpr (std::is_same<T, float>::value) {
+        split_frag(a, hi, lo);
+    } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) hi[i] = __float_as_uint(a[i]);
+    }
+}
+
+// c += a.b: 3xTF32 in f32, one exact TF32 product in bf16
+template <typename T>
+__device__ __forceinline__ void wide_mma(float (&c)[4], const uint32_t (&hi)[4],
+                                         const uint32_t (&lo)[4], float b0, float b1) {
+    if constexpr (std::is_same<T, float>::value)
+        mma_3xtf32(c, hi, lo, b0, b1);
+    else
+        mma_tf32(c, hi, __float_as_uint(b0), __float_as_uint(b1));
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      T* __restrict__ out, float* __restrict__ lse, int64_t num_bh, int heads,
+                      int64_t tq, int64_t tk, int64_t num_q_tiles, int d, int causal,
+                      float scale_log2, int64_t qsb, int64_t qst, int64_t qsh, int64_t ksb,
+                      int64_t kst, int64_t ksh, int64_t vsb, int64_t vst, int64_t vsh) {
+    using Tl = WideTiling<T>;
+    constexpr int BK = kWideKeys;
+    constexpr int S = kWideStages;
+    constexpr int NT = BK / 8;             // 8-key groups of S, k-steps of the PV product
+    constexpr int DT = kWideSlice / 8;     // 8-wide column tiles of the O slice
+    constexpr int CT = kWideChunk / 8;     // k-steps of S a chunk
+    constexpr int LDK = Tl::kLdK;
+    constexpr int LDV = Tl::kLdV;
+    constexpr bool kBf16 = !std::is_same<T, float>::value;
+    extern __shared__ __align__(16) unsigned char smem_wide[];
+    T* const ring = reinterpret_cast<T*>(smem_wide);   // stage: q chunk, K chunk, V slice
+
+    // the block order of the tf32x3 path: a head's query tiles side by
+    // side, or under a causal mask the heaviest tiles first
+    const int64_t x = blockIdx.x;
+    const int64_t bh = causal ? x % num_bh : x / num_q_tiles;
+    const int64_t qt = causal ? num_q_tiles - 1 - x / num_bh : x % num_q_tiles;
+    const int64_t b = bh / heads;
+    const int64_t h = bh % heads;
+    const int col0 = blockIdx.y * kWideSlice;    // the block's first output column
+    const int nc = d / kWideChunk;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int64_t q0 = qt * kWideRows;
+    const int64_t wq0 = q0 + 16 * warp;
+    const int64_t qpos[2] = {wq0 + g, wq0 + g + 8};
+
+    int64_t kend = tk;
+    if (causal && q0 + kWideRows < kend) kend = q0 + kWideRows;
+    const int n_tiles = static_cast<int>((kend + BK - 1) / BK);
+    const int n_steps = n_tiles * nc;
+
+    const T* const qb = q + b * qsb + h * qsh;
+    const T* const kb = k + b * ksb + h * ksh;
+    const T* const vb = v + b * vsb + h * vsh;
+    auto load_step = [&](int st) {
+        T* const sp = ring + (st % S) * Tl::kStageElems;
+        const int64_t k0 = static_cast<int64_t>(st / nc) * BK;
+        const int c = st % nc;
+        copy_rows_async<kWideChunk, kWideRows, kWideThreads>(
+            smem_addr(sp), qb + c * kWideChunk, q0, tq, qst, Pitch<T, LDK>());
+        copy_rows_async<kWideChunk, BK, kWideThreads>(smem_addr(sp + kWideRows * LDK),
+                                                      kb + c * kWideChunk, k0, tk, kst,
+                                                      Pitch<T, LDK>());
+        if (c == nc - 1)
+            copy_rows_async<kWideSlice, BK, kWideThreads>(
+                smem_addr(sp + (kWideRows + BK) * LDK), vb + col0, k0, tk, vst, Pitch<T, LDV>());
+    };
+    // every group is committed, empty or not, so that the wait below
+    // counts the same on every pass
+#pragma unroll
+    for (int st = 0; st < S - 1; ++st) {
+        if (st < n_steps) load_step(st);
+        cp_async_commit();
+    }
+
+    float o[DT][4];
+#pragma unroll
+    for (int n = 0; n < DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.0f, 0.0f};
+    float s[NT][4];
+
+    for (int st = 0; st < n_steps; ++st) {
+        // step st has landed; every thread is done with step st - 1, whose
+        // stage the copies issued next refill
+        cp_async_wait<S - 2>();
+        __syncthreads();
+        if (st + S - 1 < n_steps) load_step(st + S - 1);
+        cp_async_commit();
+        const T* const qs = ring + (st % S) * Tl::kStageElems;
+        const T* const ks = qs + kWideRows * LDK;
+        const T* const vs = ks + BK * LDK;
+        const int c = st % nc;
+
+        if (c == 0) {
+#pragma unroll
+            for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+        }
+        // this thread's q row g at dims 2t, 2t + 1 of the chunk; row g + 8
+        // is 8 rows on
+        const T* const qrow = qs + (16 * warp + g) * LDK + 2 * t;
+#pragma unroll
+        for (int kk = 0; kk < CT; ++kk) {
+            const float2 qa = load_pair(qrow + 8 * kk);
+            const float2 qc = load_pair(qrow + 8 * LDK + 8 * kk);
+            const float a[4] = {qa.x, qc.x, qa.y, qc.y};
+            uint32_t ah[4], al[4];
+            wide_frag<T>(a, ah, al);
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+                const float2 kv = load_pair(ks + (8 * n + g) * LDK + 8 * kk + 2 * t);
+                wide_mma<T>(s[n], ah, al, kv.x, kv.y);
+            }
+        }
+        if (c != nc - 1) continue;
+
+        const int64_t k0 = static_cast<int64_t>(st / nc) * BK;
+        if (k0 + BK <= tk && (!causal || k0 + BK - 1 <= wq0))
+            softmax_tf32<false>(s, o, m, l, k0, qpos, tk, causal, scale_log2, t);
+        else
+            softmax_tf32<true>(s, o, m, l, k0, qpos, tk, causal, scale_log2, t);
+
+        // O += P.V over the slice; in bf16 p is rounded to bf16 first
+        const T* const vrow = vs + 2 * t * LDV + g;
+#pragma unroll
+        for (int kk = 0; kk < NT; ++kk) {
+            float a[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+            if constexpr (kBf16) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) a[i] = __bfloat162float(__float2bfloat16_rn(a[i]));
+            }
+            uint32_t ah[4], al[4];
+            wide_frag<T>(a, ah, al);
+#pragma unroll
+            for (int n = 0; n < DT; ++n)
+                wide_mma<T>(o[n], ah, al, load_one(vrow + 8 * kk * LDV + 8 * n),
+                            load_one(vrow + (8 * kk + 1) * LDV + 8 * n));
+        }
+    }
+
+    constexpr float kLn2 = 0.6931471805599453f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        float lr = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+        if (qpos[r] >= tq) continue;
+        const float denom = fmaxf(lr, 1e-30f);
+        const float inv = lr > 0.0f ? 1.0f / denom : 0.0f;
+        T* const op = out + ((b * tq + qpos[r]) * heads + h) * d + col0 + 2 * t;
+#pragma unroll
+        for (int n = 0; n < DT; ++n) store_pair(op + 8 * n, o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+        if (t == 0 && blockIdx.y == 0)
+            lse[bh * tq + qpos[r]] = lr > 0.0f ? m[r] * kLn2 + logf(denom) : INFINITY;
     }
 }
 
@@ -1383,6 +1628,28 @@ int launch_tf32x3(const void* q, const void* k, const void* v, void* out, float*
     return cudaGetLastError();
 }
 
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* out, float* lse,
+                int64_t batch, int heads, int64_t tq, int64_t tk, int d, int causal, float scale,
+                const int64_t* st, int device, cudaStream_t stream) {
+    using Tl = WideTiling<T>;
+    static std::atomic<uint64_t> configured{0};
+    const cudaError_t err =
+        allow_smem(flash_fwd_wide_kernel<T>, Tl::kSmemBytes, device, configured);
+    if (err != cudaSuccess) return err;
+    const int64_t num_bh = batch * heads;
+    const int64_t num_q_tiles = (tq + kWideRows - 1) / kWideRows;
+    const int64_t blocks = num_bh * num_q_tiles;
+    if (blocks > 0x7fffffffLL || d / kWideSlice > 65535) return cudaErrorInvalidConfiguration;
+    constexpr float kLog2e = 1.4426950408889634f;
+    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(d / kWideSlice));
+    flash_fwd_wide_kernel<T><<<grid, kWideThreads, Tl::kSmemBytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), lse, num_bh, heads, tq, tk, num_q_tiles, d, causal, scale * kLog2e,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+    return cudaGetLastError();
+}
+
 template <int D, int W>
 int launch_mma_warps(const void* q, const void* k, const void* v, void* out, float* lse,
                      int64_t num_bh, int heads, int64_t tq, int64_t tk, int causal, float scale,
@@ -1427,6 +1694,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, float* ls
 constexpr int kPathMma = 0;
 constexpr int kPathWgmma = 1;
 constexpr int kPathTf32x3 = 2;
+constexpr int kPathWide = 3;
 
 // f32: 3xTF32 on mma.sync; bf16 with D = 64 or 128: wgmma; bf16 with
 // D = 8, 16 or 32: mma.sync
@@ -1461,8 +1729,13 @@ int launch_dim(int head_dim, const void* q, const void* k, const void* v, void* 
         case 32: return MMLSPARK_LAUNCH(32);
         case 64: return MMLSPARK_LAUNCH(64);
         case 128: return MMLSPARK_LAUNCH(128);
-        default: return cudaErrorInvalidValue;
+        default: break;
     }
+    // above 128, every multiple of the wide path's column slice
+    if (head_dim <= 128 || head_dim % kWideSlice) return cudaErrorInvalidValue;
+    *path = kPathWide;
+    return launch_wide<T>(q, k, v, out, lse, batch, heads, tq, tk, head_dim, causal, scale, st,
+                          device, stream);
 #undef MMLSPARK_LAUNCH
 }
 
@@ -1475,7 +1748,8 @@ extern "C" {
 // element strides of q, k and v in that order; the head dim is
 // contiguous. Writes out (B, Tq, H, D) contiguous in the input dtype and
 // lse (B, H, Tq) f32, and the kernel it launched to `path` (0 mma.sync
-// in bf16, 1 wgmma, 2 3xTF32 on mma.sync). Returns 0 on success, else
+// in bf16, 1 wgmma, 2 3xTF32 on mma.sync, 3 the wide path: head dims
+// above 128, multiples of 64). Returns 0 on success, else
 // a cudaError_t code or one of the wgmma path's negative codes
 // (mmlspark_flash_error_string names both).
 int mmlspark_flash_fwd(const void* q, const void* k, const void* v,

@@ -1,8 +1,10 @@
 """Histogram GBDT on PyTorch and one H100 — the LightGBM-on-Spark equivalent.
 
-Counterpart of mmlspark_tpu/gbdt. Quantile binning on the host, leaf-wise
-tree growth on device tensors with the histogram built by a hand-written
-CUDA kernel (csrc/hist_kernel.cu), and a batched tree traversal for scoring.
+Counterpart of mmlspark_tpu/gbdt. Quantile binning on the host (or on the
+device), leaf-wise tree growth on device tensors with the histogram built by
+a hand-written CUDA kernel (csrc/hist_kernel.cu), every objective and
+multiclass, and a batched tree traversal for scoring (also fused with
+binning: `Booster.device_predict_fn`).
 """
 
 from .binning import BinMapper
@@ -11,7 +13,10 @@ from .booster import Booster, booster_from_arrays
 from .estimators import (
     GBDTClassifier,
     GBDTClassificationModel,
+    GBDTRegressor,
+    GBDTRegressionModel,
     LightGBMClassifier,
+    LightGBMRegressor,
 )
 
 __all__ = [
@@ -21,5 +26,8 @@ __all__ = [
     "booster_from_arrays",
     "GBDTClassifier",
     "GBDTClassificationModel",
+    "GBDTRegressor",
+    "GBDTRegressionModel",
     "LightGBMClassifier",
+    "LightGBMRegressor",
 ]

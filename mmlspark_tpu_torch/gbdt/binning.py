@@ -9,8 +9,10 @@ A copy of the host path of mmlspark_tpu/gbdt/binning.py: binning is a
 one-time host-side preprocessing pass (numpy), because it is data-dependent
 (quantile sketch over distinct values) and runs once per fit. The *output* —
 a dense (n, F) int32 bin matrix — is exactly what the device-side histogram
-kernel wants: static shape, small cardinality. Binning on the device
-(`transform_device`) is a later slice (ROADMAP.md, Queue 1).
+kernel wants: static shape, small cardinality. `transform_device` bins
+numeric features on a torch device instead: one binary search per cell
+against the boundaries in float32 (`bin_on_device`, which the fused
+bin -> traverse scoring program of booster.py shares).
 
 Bin layout per feature (LightGBM-compatible semantics):
   - numeric: bins are right-closed intervals; `upper_bounds[f, b]` is the
@@ -29,7 +31,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-__all__ = ["BinMapper", "MISSING_BIN"]
+__all__ = ["BinMapper", "MISSING_BIN", "bin_on_device"]
 
 # Bin 0 is reserved: NaN/missing for numeric features, "other" for categorical.
 MISSING_BIN = 0
@@ -52,6 +54,10 @@ class BinMapper:
     num_bins: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int32))
     upper_bounds: np.ndarray = field(default_factory=lambda: np.zeros((0, 0)))
     category_maps: dict[int, dict[float, int]] = field(default_factory=dict)
+
+    @property
+    def total_bins(self) -> int:
+        return int(self.num_bins.max(initial=1))
 
     def fit(self, x) -> "BinMapper":
         """Accepts a dense (n, F) matrix or a CSR input (CSRMatrix / scipy).
@@ -178,6 +184,31 @@ class BinMapper:
             out[:, j] = binned
         return out
 
+    def transform_device(self, x, device: "str | torch.device" = "cuda") -> "torch.Tensor":
+        """Numeric binning on `device`: (n, F) raw values -> the (n, F)
+        int32 bin matrix as a tensor there, equal bit for bit to the JAX
+        package's `transform_device` (mmlspark_tpu/gbdt/binning.py:187).
+
+        The values and the boundaries compare in float32, so a value that
+        straddles a boundary distinguishable only in float64 may land one
+        bin off the host `transform`; `Booster.train(device_binning=True)`
+        snaps the boundaries through float32 first, so that both agree.
+        Categorical features are refused."""
+        import torch
+
+        from ..core.kernels import resolve_device
+
+        if self.category_maps:
+            raise ValueError("device binning does not support categorical features")
+        dev = resolve_device(device)
+        x = np.asarray(x, np.float32)
+        if x.ndim != 2 or x.shape[1] != self.num_features:
+            raise ValueError(f"expected (n, {self.num_features}) features, got {x.shape}")
+        ub = np.asarray(self.upper_bounds[:, 1:max(self.total_bins, 2)], np.float32)
+        return bin_on_device(torch.as_tensor(ub, device=dev),
+                             torch.as_tensor(self.num_bins, dtype=torch.int32, device=dev),
+                             torch.as_tensor(x, device=dev))
+
     # -- serialization (used by Booster.save_native_model) -----------------
     def to_dict(self) -> dict:
         return {
@@ -205,3 +236,20 @@ class BinMapper:
             int(k): {float(v): int(b) for v, b in m.items()} for k, m in d.get("category_maps", {}).items()
         }
         return bm
+
+
+def bin_on_device(keys: "torch.Tensor", nb: "torch.Tensor", x: "torch.Tensor") -> "torch.Tensor":
+    """Bins of the f32 values x (n, F) against per-feature f32 keys (F, K),
+    nondecreasing along K, on their device: count(keys < x) + 1 by
+    `torch.searchsorted(right=False)`, clipped to [1, nb - 1]; NaN goes to
+    MISSING_BIN and a feature with nb <= 1 bins every row to 0, as the host
+    transform does. Returns (n, F) int32."""
+    import torch
+
+    xt = x.t().contiguous()                                             # (F, n)
+    cnt = torch.searchsorted(keys.contiguous(), xt, right=False, out_int32=True)
+    top = torch.clamp(nb - 1, min=1)[:, None]
+    b = torch.minimum(torch.clamp(cnt + 1, min=1), top)
+    b = torch.where(torch.isnan(xt), MISSING_BIN, b)
+    b = torch.where(nb[:, None] <= 1, 0, b)
+    return b.to(torch.int32).t().contiguous()

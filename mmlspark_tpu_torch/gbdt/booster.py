@@ -4,24 +4,28 @@ Counterpart of mmlspark_tpu/gbdt/booster.py. Reference:
 src/lightgbm/src/main/scala/LightGBMBooster.scala:15-181 (model string,
 predict) and TrainUtils.scala:74-121 (boosting loop).
 
-Training (`Booster.train`) bins on the host, moves the bin matrix to the
-fit's device once, and runs the boosting loop of fused.py there; the trees
-come back in one transfer at the end. A Booster remembers the torch device
-it was trained on (`Booster.device`) and scores there; `Booster.to(device)`
-moves it. Scoring is the batched gather-walk (`_traverse_fn`) on that device,
-or the host walk (`_predict_raw_host`, native C++ with a numpy path) for
-small batches; both add the trees' values in tree order in float32, so they
-agree bit for bit.
+Training (`Booster.train`) bins on the host and moves the bin matrix to
+the fit's device once, or with `device_binning` moves the raw values and
+bins them there (`BinMapper.transform_device`), then runs the boosting loop
+of fused.py on that device; the trees come back in one transfer at the end.
+A Booster remembers the torch device it was trained on (`Booster.device`)
+and scores there; `Booster.to(device)` moves it. Scoring is the batched
+gather-walk (`_traverse_fn`) on that device, the fused bin -> traverse
+program (`device_predict_fn`, raw f32 values to margins on the device, the
+same walk), or the host walk (`_predict_raw_host`, native C++ with a numpy
+path) for small batches; all add the trees' values in tree order in
+float32, so they agree bit for bit.
 
-This slice ports the plain `gbdt` fit of a binary objective on one device.
-Options outside it raise NotImplementedError naming the ROADMAP item that
-ports them. The JSON model format (`to_text`/`from_text`) is the JAX
+This slice ports the plain `gbdt` fit of every objective, multiclass
+included, on one device. Options outside it raise NotImplementedError
+naming the ROADMAP item that ports them. The JSON model format (`to_text`/`from_text`) is the JAX
 package's, field for field, so models move between the two packages; the
 torch device is not part of it.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 from dataclasses import dataclass, field
@@ -31,9 +35,9 @@ import numpy as np
 import torch
 
 from ..core.kernels import resolve_device
-from .binning import BinMapper
+from .binning import BinMapper, bin_on_device
 from .engine import GrowConfig
-from .objectives import get_objective, init_raw_score
+from .objectives import get_leaf_renewal, get_objective, init_raw_score
 
 __all__ = ["Booster", "TrainOptions", "booster_from_arrays"]
 
@@ -113,9 +117,6 @@ def _check_supported(opts: TrainOptions, valid, mesh) -> None:
         raise ValueError(
             f"boosting_type={opts.boosting_type!r} is not supported; "
             "use gbdt, rf, dart, or goss (LightGBMParams.scala:56-60)")
-    if opts.objective.lower() != "binary":
-        raise _not_ported(f"objective={opts.objective!r}",
-                          "other objectives and multiclass")
     if opts.categorical_indexes:
         raise _not_ported("categorical_indexes", "categorical splits")
     if opts.bagging_fraction < 1.0 or opts.feature_fraction < 1.0:
@@ -132,8 +133,6 @@ def _check_supported(opts: TrainOptions, valid, mesh) -> None:
                           "early stopping, leaf renewal, warm start, checkpoints")
     if mesh is not None or tl.startswith("voting"):
         raise _not_ported("mesh and voting-parallel training", "distributed GBDT")
-    if opts.device_binning:
-        raise _not_ported("device_binning", "device binning and fused predict")
     if opts.bin_dtype not in ("int32", "uint8"):
         raise ValueError(f"bin_dtype must be 'int32' or 'uint8', got {opts.bin_dtype!r}")
 
@@ -192,28 +191,43 @@ class Booster:
         log: Callable[[str], None] | None = None,
     ) -> "Booster":
         from .fused import FusedTrainSpec, make_fused_train_fn
-        from .sparse import as_features
+        from .sparse import as_features, is_sparse
 
         _check_supported(opts, valid, mesh)
+        obj_fn = get_objective(opts.objective, alpha=opts.alpha,
+                               tweedie_variance_power=opts.tweedie_variance_power,
+                               fair_c=opts.fair_c)
         device = resolve_device(opts.device)
         x = as_features(x)  # CSR stays sparse until binning (binned-dense path)
         y = np.asarray(y, dtype=np.float64)
         n, f = x.shape
+        k = opts.num_class if opts.objective == "multiclass" else 1
         mapper = BinMapper(
             max_bin=opts.max_bin,
             bin_construct_sample_cnt=opts.bin_construct_sample_cnt,
         ).fit(x)
-        bins_np = mapper.transform(x)
         num_bins = max(int(mapper.num_bins.max(initial=2)), 2)
         if num_bins > 256:
             raise NotImplementedError(
                 f"max_bin={opts.max_bin} gives {num_bins} bins; the histogram "
                 "kernel takes at most 256 (max_bin <= 255)")
-        bin_dtype = np.uint8 if opts.bin_dtype == "uint8" else np.int32
-        bins_dev = torch.as_tensor(bins_np.astype(bin_dtype), device=device)
+        use_u8 = opts.bin_dtype == "uint8"
+        if opts.device_binning and not mapper.category_maps and not is_sparse(x):
+            # the device compares in f32: snap a copy of the boundaries
+            # through f32 first, so that scoring (host f64 searchsorted)
+            # routes against the thresholds the training matrix was binned
+            # with (booster.py:205-215 of the reference)
+            mapper = copy.copy(mapper)
+            mapper.upper_bounds = np.float64(np.float32(mapper.upper_bounds))
+            bins_dev = mapper.transform_device(x, device).to(
+                torch.uint8 if use_u8 else torch.int32)
+        else:
+            # narrowed on the host: a quarter of the bytes to the card
+            bins_dev = torch.as_tensor(
+                mapper.transform(x).astype(np.uint8 if use_u8 else np.int32), device=device)
 
         w = np.ones(n, np.float64) if weights is None else np.asarray(weights, np.float64)
-        if opts.is_unbalance:
+        if opts.is_unbalance and opts.objective == "binary":
             # reference is_unbalance: scale positive class by neg/pos ratio
             npos = max(float((y == 1).sum()), 1.0)
             nneg = max(float((y == 0).sum()), 1.0)
@@ -232,23 +246,35 @@ class Booster:
             learning_rate=opts.learning_rate,
             deterministic=opts.deterministic,
         )
-        init = init_raw_score(opts.objective, y, w, opts.boost_from_average, opts.alpha)
+        renewal = get_leaf_renewal(opts.objective, alpha=opts.alpha)
+        renew_alpha, renew_weighted = renewal if renewal else (None, False)
+        if k > 1:
+            init = 0.0
+            y_fit = np.eye(k)[y.astype(int)]                        # (n, K)
+            pred0 = torch.zeros((n, k), dtype=torch.float32, device=device)
+        else:
+            init = init_raw_score(opts.objective, y, w, opts.boost_from_average, opts.alpha)
+            y_fit = y
+            pred0 = torch.full((n,), init, dtype=torch.float32, device=device)
         trees: list[dict[str, np.ndarray]] = []
+        tree_classes: list[int] = []
         if opts.num_iterations > 0:
-            fused = make_fused_train_fn(
-                f, num_bins, cfg, mapper.num_bins, np.zeros(f, bool),
-                get_objective(opts.objective),
-                FusedTrainSpec(num_rounds=opts.num_iterations), device=device)
+            spec = FusedTrainSpec(num_rounds=opts.num_iterations, num_class=k,
+                                  renew_alpha=renew_alpha, renew_weighted=renew_weighted)
+            fused = make_fused_train_fn(f, num_bins, cfg, mapper.num_bins, np.zeros(f, bool),
+                                        obj_fn, spec, device=device)
             if log:
-                log(f"boosting: {opts.num_iterations} rounds on {device}")
-            t_stack, _ = fused(
-                bins_dev, torch.as_tensor(y, dtype=torch.float32, device=device),
-                base_mask, torch.full((n,), init, dtype=torch.float32, device=device))
+                log(f"boosting: {opts.num_iterations} rounds x {k} class(es) on {device}")
+            t_stack, _ = fused(bins_dev, torch.as_tensor(y_fit, dtype=torch.float32,
+                                                         device=device), base_mask, pred0)
             t_host = {name: getattr(t_stack, name).cpu().numpy() for name in _TREE_FIELDS}
-            trees = [{name: t_host[name][r] for name in _TREE_FIELDS}
-                     for r in range(opts.num_iterations)]
+            for r in range(opts.num_iterations):
+                for cls in range(k):
+                    idx = (r, cls) if k > 1 else (r,)
+                    trees.append({name: t_host[name][idx] for name in _TREE_FIELDS})
+                    tree_classes.append(cls)
         return Booster._from_tree_dicts(
-            trees, [0] * len(trees), mapper, opts, init, feature_names or [],
+            trees, tree_classes, mapper, opts, init, feature_names or [],
             device=str(device))
 
     # ------------------------------------------------------------------ #
@@ -332,66 +358,118 @@ class Booster:
     def num_features(self) -> int:
         return self.bin_mapper.num_features
 
-    def _traverse_fn(self):
-        """Batched traversal over binned inputs on `self.device`: trees in
-        blocks of up to 64 walk together (one gather per step for the whole
-        block), `max_steps` steps deep (fixed bound); the values are then
-        added in tree order."""
-        dev = resolve_device(self.device)
-        key = ("traverse", str(dev))
-        if key in self._predict_cache:
-            return self._predict_cache[key]
-        max_steps = int(self.feature.shape[1] // 2 + 1)  # deepest leaf-wise chain
-        k = self.num_class
+    def _tree_params(self, dev: torch.device) -> dict[str, torch.Tensor]:
+        """The tree SoA on `dev` in blocks of up to 64 trees: (blocks, block,
+        M) fields (bitset (blocks, block, M * Bc)), the last block padded
+        with leaf-only trees that `_walk` never adds."""
         t_total = self.num_trees
         block = min(64, max(t_total, 1))
+        pad = (-t_total) % block
+
+        def blocked(a, dtype, fill=0):
+            a = np.asarray(a)
+            if pad:
+                a = np.concatenate([a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+            a = np.ascontiguousarray(a).reshape((-1, block) + a.shape[1:])
+            return torch.as_tensor(a, device=dev).to(dtype)
+
+        return dict(
+            feature=blocked(self.feature, torch.long, -1),
+            thr=blocked(self.threshold_bin, torch.long),
+            cat=blocked(self.is_categorical, torch.bool),
+            bitset=blocked(self.cat_bitset.reshape(t_total, -1), torch.bool),
+            left=blocked(self.left, torch.long, -1),
+            right=blocked(self.right, torch.long, -1),
+            value=blocked(self.value, torch.float32),
+            cls=blocked(self.tree_class, torch.long),
+        )
+
+    def _walk(self, trees: dict[str, torch.Tensor], bins: torch.Tensor) -> torch.Tensor:
+        """Margins of binned rows (n, F) on their device from `_tree_params`:
+        the trees of a block walk together (one gather per step for the
+        whole block), `max_steps` steps deep (a fixed bound); then each
+        tree's values are added in tree order, one f32 add a tree, so the
+        sum matches the host walk bit for bit (a reduction kernel would fix
+        no order)."""
+        dev = bins.device
+        n = bins.shape[0]
+        k = self.num_class
+        t_total = self.num_trees
+        max_steps = int(self.feature.shape[1] // 2 + 1)  # deepest leaf-wise chain
         bc = int(self.cat_bitset.shape[-1])
+        cols = bins.long().t()                                   # (F, n)
+        out = (torch.zeros((n, k), dtype=torch.float32, device=dev) if k > 1
+               else torch.full((n,), self.init_score, dtype=torch.float32, device=dev))
+        num_blocks, block = trees["feature"].shape[:2]
+        for bi in range(num_blocks):
+            feature, thr, cat = trees["feature"][bi], trees["thr"][bi], trees["cat"][bi]
+            bitset, left, right = trees["bitset"][bi], trees["left"][bi], trees["right"][bi]
+            node = torch.zeros((block, n), dtype=torch.long, device=dev)
+            for _ in range(max_steps):
+                feat = feature.gather(1, node)
+                # explicit clamps: JAX clamps out-of-range gathers itself
+                col = cols.gather(0, feat.clamp(min=0))
+                go_left = torch.where(cat.gather(1, node),
+                                      bitset.gather(1, node * bc + col.clamp(max=bc - 1)),
+                                      col <= thr.gather(1, node))
+                node = torch.where(feat < 0, node, torch.where(
+                    go_left, left.gather(1, node), right.gather(1, node)))
+            vals = trees["value"][bi].gather(1, node)            # (block, n)
+            for j in range(min(block, t_total - bi * block)):
+                if k > 1:
+                    # one add into the tree's class column (a 0-d index
+                    # tensor would read back to the host)
+                    out.index_add_(1, trees["cls"][bi, j:j + 1], vals[j][:, None])
+                else:
+                    out = out + vals[j]
+        return out
 
-        def on_dev(a, dtype):
-            return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+    def _traverse_fn(self):
+        """Batched traversal over binned inputs on `self.device`:
+        bins (n, F) -> margins (n,) or (n, K), by `_walk`."""
+        dev = resolve_device(self.device)
+        key = ("traverse", str(dev))
+        if key not in self._predict_cache:
+            trees = self._tree_params(dev)
+            self._predict_cache[key] = lambda bins: self._walk(trees, bins)
+        return self._predict_cache[key]
 
-        feature = on_dev(self.feature, torch.long)
-        thr = on_dev(self.threshold_bin, torch.long)
-        cat = on_dev(self.is_categorical, torch.bool)
-        bitset = on_dev(self.cat_bitset.reshape(t_total, -1), torch.bool)
-        left = on_dev(self.left, torch.long)
-        right = on_dev(self.right, torch.long)
-        value = on_dev(self.value, torch.float32)
-        classes = [int(c) for c in self.tree_class]
-        init = self.init_score
+    def device_predict_fn(self):
+        """(params, fn): the fused decode -> bin -> traverse scoring program
+        (reference booster.py:969). `fn(params, x)` takes raw values (n, F)
+        (numpy or a tensor, cast to f32) and returns the margins as a tensor
+        on the booster's device; params hold the binning keys, `nb` and the
+        blocked tree SoA as tensors there, so they move to the card once.
 
-        def run(bins: torch.Tensor) -> torch.Tensor:
-            n = bins.shape[0]
-            cols = bins.long().t()                               # (F, n)
-            out = (torch.zeros((n, k), dtype=torch.float32, device=dev) if k > 1
-                   else torch.full((n,), init, dtype=torch.float32, device=dev))
-            for s in range(0, t_total, block):
-                blk = slice(s, min(s + block, t_total))
-                node = torch.zeros((blk.stop - s, n), dtype=torch.long, device=dev)
-                for _ in range(max_steps):
-                    feat = feature[blk].gather(1, node)
-                    # explicit clamps: JAX clamps out-of-range gathers itself
-                    col = cols.gather(0, feat.clamp(min=0))
-                    go_left = torch.where(
-                        cat[blk].gather(1, node),
-                        bitset[blk].gather(1, node * bc + col.clamp(max=bc - 1)),
-                        col <= thr[blk].gather(1, node),
-                    )
-                    node = torch.where(feat < 0, node, torch.where(
-                        go_left, left[blk].gather(1, node), right[blk].gather(1, node)))
-                vals = value[blk].gather(1, node)                # (block, n)
-                # accumulate IN TREE ORDER with one f32 add per tree, so the
-                # sum matches the host walk bit for bit (a reduction kernel
-                # would fix no order)
-                for j in range(vals.shape[0]):
-                    if k > 1:
-                        out[:, classes[s + j]] += vals[j]
-                    else:
-                        out = out + vals[j]
-            return out
+        Binning is one `torch.searchsorted` per (row, feature) over
+        ADJUSTED f32 boundary keys: key = the f32 value below f32(ub) where
+        f32(ub) rounded up, else f32(ub). For f32-representable x,
+        key < x <=> ub < x, so the bins equal the host's f64
+        searchsorted(ub, x, 'left') bit for bit; the walk is `_walk`, as in
+        `_traverse_fn`. So for such x the margins equal
+        `predict_raw(device="device")` bit for bit. Categorical features
+        are refused."""
+        mapper = self.bin_mapper
+        if mapper.category_maps:
+            raise ValueError("device predict does not support categorical features")
+        dev = resolve_device(self.device)
+        ub64 = np.asarray(mapper.upper_bounds[:, 1:max(mapper.total_bins, 2)], np.float64)
+        ub32 = ub64.astype(np.float32)
+        rounded_up = ub32.astype(np.float64) > ub64
+        # +inf padding keeps the key +inf and never counts; a finite ub
+        # beyond the f32 range maps to the largest f32
+        keys = np.where(rounded_up, np.nextafter(ub32, np.float32(-np.inf)), ub32)
+        params = dict(keys=torch.as_tensor(keys, device=dev),
+                      nb=torch.as_tensor(mapper.num_bins, dtype=torch.int32, device=dev),
+                      trees=self._tree_params(dev))
 
-        self._predict_cache[key] = run
-        return run
+        def fn(params, x):
+            xt = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x, np.float32))
+            xt = xt.to(device=params["keys"].device, dtype=torch.float32)
+            bins = bin_on_device(params["keys"], params["nb"], xt)
+            return self._walk(params["trees"], bins)
+
+        return params, fn
 
     # Below this row count one walk on the host costs less than the device
     # dispatches (the latency-path analogue of LightGBM's per-row CPU
@@ -448,7 +526,52 @@ class Booster:
                             np.where(go_left, left[node], right[node]))
         return node
 
-    def predict_raw(self, x: np.ndarray, device: str | None = None) -> np.ndarray:
+    def truncated(self, num_iteration: int) -> "Booster":
+        """The model's first `num_iteration` boosting rounds (one tree a
+        round, K under multiclass); num_iteration <= 0 or None means all,
+        as in LightGBM. Views are cached, the 8 most recently used."""
+        if num_iteration is None or int(num_iteration) <= 0:
+            return self
+        key = ("truncated", int(num_iteration))
+        if key in self._predict_cache:
+            view = self._predict_cache.pop(key)
+            self._predict_cache[key] = view
+            return view
+        per_round = self.num_class if self.objective == "multiclass" else 1
+        t = min(int(num_iteration) * per_round, self.num_trees)
+        view = dataclasses.replace(
+            self,
+            feature=self.feature[:t], threshold_bin=self.threshold_bin[:t],
+            threshold_value=self.threshold_value[:t],
+            is_categorical=self.is_categorical[:t],
+            cat_bitset=self.cat_bitset[:t],
+            left=self.left[:t], right=self.right[:t],
+            value=self.value[:t], gain=self.gain[:t],
+            tree_class=self.tree_class[:t],
+            best_iteration=-1,
+            _predict_cache={},
+        )
+        self._predict_cache[key] = view
+        stale = [c for c in self._predict_cache
+                 if isinstance(c, tuple) and c and c[0] == "truncated"][:-8]
+        for c in stale:
+            del self._predict_cache[c]
+        return view
+
+    def predict_leaf(self, x: np.ndarray) -> np.ndarray:
+        """Per-row leaf node index of every tree -> (n, T) int32, by the
+        host walk (reference: LightGBM predict(pred_leaf=True))."""
+        from .sparse import as_features
+
+        bins = self.bin_mapper.transform(as_features(x)).astype(np.int32)
+        max_steps = int(self.feature.shape[1] // 2 + 1)
+        out = np.zeros((bins.shape[0], self.num_trees), np.int32)
+        for t in range(self.num_trees):
+            out[:, t] = self._walk_tree(t, bins, max_steps)
+        return out
+
+    def predict_raw(self, x: np.ndarray, device: str | None = None,
+                    num_iteration: int | None = None) -> np.ndarray:
         """Raw margin scores: (n,) or (n, K) for multiclass, as numpy.
 
         `device` keeps the JAX package's meaning — the ROUTE, not the torch
@@ -456,9 +579,11 @@ class Booster:
         rows or fewer, batched traversal otherwise), "host" = the host walk,
         "device" = the batched traversal. The traversal runs on the torch
         device the booster holds (`Booster.device`, set at training or by
-        `Booster.to`)."""
+        `Booster.to`). `num_iteration` scores with the first N rounds."""
         from .sparse import as_features
 
+        if num_iteration is not None:
+            return self.truncated(num_iteration).predict_raw(x, device=device)
         x = as_features(x)
         if self.num_trees == 0:
             shape = (len(x), self.num_class) if self.num_class > 1 else (len(x),)
@@ -487,10 +612,24 @@ class Booster:
             return np.exp(raw)
         return raw
 
-    def predict(self, x: np.ndarray, device: str | None = None) -> np.ndarray:
+    def predict(self, x: np.ndarray, device: str | None = None,
+                num_iteration: int | None = None) -> np.ndarray:
         """Probability / transformed prediction (reference
         LightGBMBooster.score semantics)."""
-        return self.transform_score(self.predict_raw(x, device=device))
+        return self.transform_score(
+            self.predict_raw(x, device=device, num_iteration=num_iteration))
+
+    def feature_importances(self, importance_type: str = "split") -> np.ndarray:
+        """Reference: LightGBMBooster getFeatureImportances(split|gain)."""
+        imp = np.zeros(self.num_features, np.float64)
+        mask = self.feature >= 0
+        if importance_type == "split":
+            np.add.at(imp, self.feature[mask], 1.0)
+        elif importance_type == "gain":
+            np.add.at(imp, self.feature[mask], self.gain[mask])
+        else:
+            raise ValueError("importance_type must be 'split' or 'gain'")
+        return imp
 
     # ------------------------------------------------------------------ #
     # persistence                                                        #

@@ -1,12 +1,12 @@
-"""GBDT pipeline stages: the LightGBMClassifier surface.
+"""GBDT pipeline stages: the LightGBMClassifier and LightGBMRegressor surface.
 
 Counterpart of mmlspark_tpu/gbdt/estimators.py. Reference:
-src/lightgbm/src/main/scala/LightGBMClassifier.scala:27-158 and
-LightGBMParams.scala:11-149 (shared params). The Params keep the JAX
-package's names (the reference's spelling) and gain `device`, the torch
-device of the fit, "cuda" by default. A Param value outside this slice
-(see booster.py) raises NotImplementedError at fit time naming the ROADMAP
-item that ports it. The regressor is a later slice.
+src/lightgbm/src/main/scala/LightGBMClassifier.scala:27-158,
+LightGBMRegressor.scala:38-156 and LightGBMParams.scala:11-149 (shared
+params). The Params keep the JAX package's names (the reference's
+spelling) and gain `device`, the torch device of the fit, "cuda" by
+default. A Param value outside this slice (see booster.py) raises
+NotImplementedError at fit time naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -31,7 +31,10 @@ from .sparse import as_features
 __all__ = [
     "GBDTClassifier",
     "GBDTClassificationModel",
+    "GBDTRegressor",
+    "GBDTRegressionModel",
     "LightGBMClassifier",
+    "LightGBMRegressor",
 ]
 
 
@@ -63,7 +66,7 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCol):
     validation_fraction = Param(0.0, "fraction of rows held out for early stopping", ptype=float)
     categorical_slot_indexes = Param((), "indexes of categorical feature slots", ptype=(list, tuple))
     bin_dtype = Param("int32", "device bin-matrix dtype: int32 | uint8 (4x fewer bytes per histogram pass)", ptype=str)
-    device_binning = Param(False, "bin the training matrix on device (not ported yet)", ptype=bool)
+    device_binning = Param(False, "bin the training matrix on the fit's device (float32 compare; boundaries snapped through float32)", ptype=bool)
     bin_construct_sample_cnt = Param(200_000, "rows sampled per column for bin-boundary construction (0 = all)", ptype=int)
     cat_smooth = Param(10.0, "categorical smoothing for the sorted-subset split order", ptype=float)
     cat_l2 = Param(10.0, "extra L2 regularization on categorical splits", ptype=float)
@@ -172,6 +175,9 @@ class _BoosterModelMixin:
         self.booster = self.booster.to(device)
         return self
 
+    def get_feature_importances(self, importance_type: str = "split") -> list[float]:
+        return list(self.booster.feature_importances(importance_type))
+
 
 @register_stage
 class GBDTClassifier(_GBDTParams, Estimator):
@@ -277,5 +283,84 @@ class GBDTClassificationModel(_BoosterModelMixin, HasFeaturesCol, HasPredictionC
         return model
 
 
-# Drop-in familiar name for reference users.
+@register_stage
+class GBDTRegressor(_GBDTParams, Estimator):
+    """Reference: LightGBMRegressor (LightGBMRegressor.scala:38-101) with the
+    full objective set of :17-36."""
+
+    objective = Param(
+        "regression",
+        "regression|l1|l2|huber|fair|poisson|quantile|mape|gamma|tweedie",
+        ptype=str,
+    )
+    alpha = Param(0.9, "huber/quantile alpha", ptype=float)
+    tweedie_variance_power = Param(1.5, "tweedie variance power (1..2)", ptype=float)
+    fair_c = Param(1.0, "fair-loss c", ptype=float)
+
+    def _fit(self, table: Table) -> "GBDTRegressionModel":
+        x, y, w = self._fit_arrays(table)
+        opts = self._train_options(self.get("objective"))
+        opts.alpha = self.get("alpha")
+        opts.tweedie_variance_power = self.get("tweedie_variance_power")
+        opts.fair_c = self.get("fair_c")
+        booster = Booster.train(x, y, opts, weights=w, log=self._log())
+        model = GBDTRegressionModel(
+            features_col=self.get("features_col"),
+            prediction_col=self.get("prediction_col"),
+        )
+        model.booster = booster
+        return model
+
+
+@register_stage
+class GBDTRegressionModel(_BoosterModelMixin, HasFeaturesCol, HasPredictionCol, Model):
+    """Reference: LightGBMRegressionModel (LightGBMRegressor.scala:103-156)."""
+
+    booster: Booster | None = None
+
+    def _transform(self, table: Table) -> Table:
+        x = _features_from(table, self.get("features_col"))
+        if getattr(x, "ndim", 2) == 1:
+            x = x[:, None]
+        pred = self.booster.predict(x)
+        return table.with_column(
+            self.get("prediction_col"), np.asarray(pred, np.float64),
+            meta={SCORE_KIND: "prediction"})
+
+    def device_kernel(self):
+        """The pipeline fusion engine's kernel (core/fusion.py) comes with
+        ROADMAP Queue 1's GBDT-serving item; the fused bin -> traverse
+        program it wraps is `Booster.device_predict_fn`."""
+        raise _not_ported("GBDTRegressionModel.device_kernel (pipeline fusion)",
+                          "P3: GBDT serving")
+
+    def native_score_fn(self):
+        """Host-side scorer for a serving hot path: `fn(x) -> float64
+        predictions` on the native host walk, with no device dispatch.
+        Bit-identical to `_transform`'s column (the host walk adds in the
+        traversal's float32 order, and the regression objectives'
+        transform is the identity or exp). Returns a reason string when
+        there is no fitted booster."""
+        b = self.booster
+        if b is None:
+            return "no fitted booster"
+
+        def fn(x: np.ndarray) -> np.ndarray:
+            if getattr(x, "ndim", 2) == 1:
+                x = x[:, None]
+            return np.asarray(b.predict(x, device="host"), np.float64)
+
+        return fn
+
+    @staticmethod
+    def load_native_model(path: str, device: str = "cuda", **cols) -> "GBDTRegressionModel":
+        """Reference: LightGBMRegressionModel.loadNativeModelFromFile, for
+        the JSON format."""
+        model = GBDTRegressionModel(**cols)
+        model.booster = Booster.load_native_model(path, device=device)
+        return model
+
+
+# Drop-in familiar names for reference users.
 LightGBMClassifier = GBDTClassifier
+LightGBMRegressor = GBDTRegressor

@@ -13,8 +13,9 @@ its (B, T, H, D) layout: q (B, Tq, H, D), k and v (B, Tk, H, D), output
   csrc/flash_attn.cu that replaces the Pallas TPU kernel
   `_flash_fwd_lse`. On a CUDA tensor it launches the kernel or raises; on
   a CPU tensor it runs `flash_attention_torch`. `flash_attention.launches`
-  counts kernel launches and `flash_attention.last_path` names the kernel
-  of the last one ("tf32x3", "wgmma" or "mma"). Forward only: the
+  counts kernel launches, `flash_attention.launches_by_path` counts them
+  by kernel, and `flash_attention.last_path` names the kernel of the last
+  one ("tf32x3", "wgmma", "mma" or "wide"). Forward only: the
   backward comes with the trainer (ROADMAP Queue 1, P4 trainer item).
 - `flash_attention_torch`: the plain version of K2, a transcription of
   `_flash_kernel` (attention.py:139-189) over key blocks; returns
@@ -40,9 +41,10 @@ __all__ = ["dense_attention", "chunked_attention", "flash_attention",
 
 _NEG_INF = -1e30          # the TPU kernel's mask value: keeps exp/max NaN-free
 HEAD_DIMS = (8, 16, 32, 64, 128)      # head dims K2 is built for; D <= 128 pads up
+WIDE_SLICE = 64     # above 128 the "wide" kernel takes multiples of its column slice
 IMPLS = ("dense", "chunked", "flash")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_PATHS = ("mma", "wgmma", "tf32x3")      # the kernel's path codes
+_PATHS = ("mma", "wgmma", "tf32x3", "wide")      # the kernel's path codes
 
 
 def dense_attention(q, k, v, causal: bool = False, q_offset: int = 0,
@@ -161,11 +163,8 @@ def _check(q, k, v) -> None:
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"k and v must be (B, Tk, H, D) with q's B, H, D: "
                          f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if not 1 <= d <= HEAD_DIMS[-1]:
-        raise ValueError(
-            f"head dim {d} is outside 1..{HEAD_DIMS[-1]}: K2's tiles end at D = "
-            f"{HEAD_DIMS[-1]} (ROADMAP Queue 3, 'K2 refuses head dims above 128', "
-            "which goes with Queue 1 item 12b)")
+    if d < 1:
+        raise ValueError(f"head dim {d} is not a head dim: q, k, v need D >= 1")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
@@ -197,11 +196,11 @@ def _flash_fwd_lse(q, k, v, causal: bool = False, block_q: int = 128,
     CUDA tensor launches the kernel, whose own tiles replace the block
     sizes, or raises; `flash_attention.last_path` then names the kernel
     that ran: "tf32x3" (f32, 3xTF32 on the tensor cores), "wgmma" (bf16,
-    D 64 or 128) or "mma" (bf16, D 8, 16 or 32). A head dim between those
-    runs zero-padded to the next one (D 24 on "mma" at 32, D 96 on "wgmma"
-    at 128) at the true D's scale; above 128 it raises on both devices.
-    Every path runs on the tensor cores and needs 16-byte aligned rows; a
-    CUDA tensor without them raises."""
+    D 64 or 128), "mma" (bf16, D 8, 16 or 32) or "wide" (f32 and bf16,
+    D above 128). A head dim between those runs zero-padded to the next
+    one (D 24 on "mma" at 32, D 96 on "wgmma" at 128, D 160 on "wide" at
+    192) at the true D's scale. Every path runs on the tensor cores and
+    needs 16-byte aligned rows; a CUDA tensor without them raises."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal, block_q, block_k)
@@ -212,7 +211,8 @@ def _flash_fwd_lse(q, k, v, causal: bool = False, block_q: int = 128,
     # a head dim between the built ones runs at the next built one: zero
     # columns leave every score, and so lse, unchanged as long as the
     # scale stays the true D's; the padded copies are fresh, so aligned
-    dk = next(x for x in HEAD_DIMS if x >= d)
+    dk = (next(x for x in HEAD_DIMS if x >= d) if d <= HEAD_DIMS[-1]
+          else -(-d // WIDE_SLICE) * WIDE_SLICE)
     if dk != d:
         q, k, v = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
     # every path copies rows to shared memory 16 bytes at a time (tf32x3,
@@ -241,6 +241,8 @@ def _flash_fwd_lse(q, k, v, causal: bool = False, block_q: int = 128,
                            + lib.mmlspark_flash_error_string(code).decode())
     flash_attention.launches += 1
     flash_attention.last_path = _PATHS[path.value]
+    by_path = flash_attention.launches_by_path
+    by_path[flash_attention.last_path] = by_path.get(flash_attention.last_path, 0) + 1
     return out[..., :d], lse
 
 
@@ -253,6 +255,7 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = 128,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_path = {}
 flash_attention.last_path = None
 
 

@@ -119,8 +119,8 @@ def test_masked_construction_and_rows_without_keys():
 
 def test_wrapper_refusals():
     q, k, v = _t(_qkv(1, 8, 8, 2, 16))
-    with pytest.raises(ValueError, match="head dim 129 .*Queue 3"):
-        tatt.flash_attention(*_t(_qkv(1, 8, 8, 2, 129)))
+    with pytest.raises(ValueError, match="head dim 0 is not a head dim"):
+        tatt.flash_attention(*_t(_qkv(1, 8, 8, 2, 0)))
     with pytest.raises(ValueError, match="one dtype"):
         tatt.flash_attention(q, k.to(torch.bfloat16), v)
     with pytest.raises(ValueError, match="one dtype"):

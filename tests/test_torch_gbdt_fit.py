@@ -124,9 +124,6 @@ def test_cuda_without_a_card_raises(data, monkeypatch):
     dict(early_stopping_round=5),
     dict(checkpoint_dir="ckpt", checkpoint_every_n=2),
     dict(tree_learner="voting_parallel"),
-    dict(device_binning=True),
-    dict(objective="regression"),
-    dict(objective="multiclass", num_class=3),
 ], ids=lambda d: ",".join(d))
 def test_options_outside_the_slice_raise(data, opts):
     x, y = data

@@ -209,6 +209,8 @@ _F32_TOL, _BF16_TOL = (2e-5, 1e-5), (2e-3, 2.0 ** -7)
 
 def _k2_path(dtype, d):
     """The kernel a (dtype, head dim) must take."""
+    if d > 128:
+        return "wide"
     if dtype == torch.float32:
         return "tf32x3"
     return "wgmma" if d in (64, 128) else "mma"
@@ -282,6 +284,43 @@ def test_flash_kernel_pads_head_dims_between_built_ones_at_the_true_scale(cuda, 
     assert torch.equal(out, again) and torch.equal(lse, lse2)
 
 
+# head dims above 128 run on the "wide" kernel, a 64-column slice of the
+# output a block: 192 and 256 as they are (3 and 4 slices), 129 and 160
+# zero-padded to 192 at the true D's scale. Tq 200 and Tk 137 are ragged
+# against the 128-row and 64-key tiles; with no keys every row of every
+# slice has l == 0 (output 0, lse +inf)
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, _BF16_TOL), (torch.float32, _F32_TOL)])
+@pytest.mark.parametrize("d", [129, 160, 192, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_wide_kernel_matches_plain_version_above_128(cuda, causal, d, dtype, tol):
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.tensor(rng.normal(size=(2, t, 4, d)), dtype=dtype, device=cuda)
+               for t in (200, 137, 137))
+    with torch.no_grad():
+        before = att.flash_attention.launches
+        out, lse = att._flash_fwd_lse(q, k, v, causal)
+        assert att.flash_attention.last_path == "wide"
+        again, lse2 = att._flash_fwd_lse(q, k, v, causal)
+        assert att.flash_attention.launches == before + 2
+        ref, ref_lse = att.flash_attention_torch(q, k, v, causal)
+        dk = -(-d // 64) * 64
+        padded = [torch.nn.functional.pad(x, (0, dk - d)) for x in (q, k, v)]
+        _, wrong_lse = att.flash_attention_torch(*padded, causal)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol[0], rtol=tol[1])
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref_lse))
+    fin = torch.isfinite(ref_lse)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=2e-5, rtol=1e-5)
+    if dk != d:
+        # padded at the true D's scale, not the padded width's
+        assert (lse[fin] - wrong_lse[fin]).abs().max().item() > 1e-2
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    with torch.no_grad():
+        none_out, none_lse = att._flash_fwd_lse(q, k[:, :0], v[:, :0], causal)
+    assert torch.equal(none_out, torch.zeros_like(q)) and torch.isinf(none_lse).all()
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, _BF16_TOL), (torch.float32, _F32_TOL)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_kernel_reads_q_k_v_through_the_strides_of_a_packed_tensor(cuda, causal, dtype,
@@ -303,9 +342,9 @@ def test_flash_kernel_reads_q_k_v_through_the_strides_of_a_packed_tensor(cuda, c
 
 
 def test_flash_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda):
-    q = torch.zeros((1, 8, 2, 129), device=cuda)
+    q = torch.zeros((1, 8, 2, 0), device=cuda)
     before = att.flash_attention.launches
-    with pytest.raises(ValueError, match="head dim 129 .*Queue 3"):
+    with pytest.raises(ValueError, match="head dim 0 is not a head dim"):
         att.flash_attention(q, q, q)
     q = torch.zeros((1, 8, 2, 16), device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="trainer"):
