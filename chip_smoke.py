@@ -72,10 +72,11 @@ ran on its kernel. It prints one JSON line per phase:
                8), 2 layers each: 32 K2 launches on "mma" in each of 400
                passes, tokens/s of all of them with their spread, and one
                pass profiled (device busy share, K2's share)
-  serve_wide   64 rows x 512 tokens through a 2-layer TransformerEncoder
-               of d_model 768 over 4 heads (D = 192) in bf16 and in f32:
-               8 K2 launches in each, all on "wide"; f32 card against CPU
-               and flash against dense
+  serve_wide   1,024 rows x 512 tokens at minibatch 4 through a 2-layer
+               TransformerEncoder of d_model 768 over 4 heads (D = 192) in
+               bf16 and in f32, 5 timed passes each: 512 K2 launches a
+               pass, all on "wgmma" in bf16 and on "wide" in f32; f32 card
+               against CPU and flash against dense
   profile_transformer  4 minibatches under torch.profiler: K2's and the
                GEMMs' share of device time, device busy share
   stage_roundtrip  the serving stage saved and loaded through
@@ -428,11 +429,16 @@ def hist_empty_launch_ms() -> dict:
 # tokens. The mma path takes 8-warp blocks at default and serve_d8, 2-warp
 # blocks at d32 and d8. "pad_d24" is a head dim K2 is not built for (a
 # d_model 96 model over 4 heads): the wrapper pads it to 32 for "mma".
-# The "wide" rows are head dims above 128: d192 is serve_wide's attention
+# The rows above head dim 128: d192 is serve_wide's attention
 # (TransformerEncoder d_model 768 over 4 heads, the importers' default heads
 # at BERT-base width) at 4 rows x 512 tokens, d256 the next such width
-# (d_model 1,024) under a causal mask, and pad_d160 a head dim the wrapper
-# pads to 192.
+# (d_model 1,024) under a causal mask, pad_d160 a head dim between the
+# built ones (wgmma at 192 reads its true 160 columns: no pad copy),
+# d192_causal_ragged the TMA zero-fill of rows past T at B 2, T 1,000;
+# bf16 runs them on "wgmma" (64-row items: too few 128-row ones to fill
+# the card), f32 on "wide". d192_b16 has 256 items of 128 rows, so wgmma
+# takes them with two consumer warpgroups. d320 (d_model 1,280 over 4
+# heads) takes "wide" in both dtypes.
 FLASH_SHAPES = [
     ("slice_bf16", 64, 512, 512, 8, 64, torch.bfloat16, False),
     ("slice_f32", 64, 512, 512, 8, 64, torch.float32, False),
@@ -453,19 +459,32 @@ FLASH_SHAPES = [
     ("d256_causal_bf16", 4, 512, 512, 4, 256, torch.bfloat16, True),
     ("d256_causal_f32", 4, 512, 512, 4, 256, torch.float32, True),
     ("pad_d160_bf16", 4, 512, 512, 4, 160, torch.bfloat16, False),
+    ("d192_causal_ragged_bf16", 2, 1000, 1000, 4, 192, torch.bfloat16, True),
+    ("d192_b16_bf16", 16, 512, 512, 4, 192, torch.bfloat16, False),
+    ("d320_bf16", 4, 512, 512, 4, 320, torch.bfloat16, False),
+    ("d320_f32", 4, 512, 512, 4, 320, torch.float32, False),
 ]
 
 
 def flash_path(dtype, d: int) -> str:
-    """The K2 kernel a (dtype, head dim) must take: f32 on 3xTF32, bf16
-    with D 64 or 128 on wgmma, bf16 with D 8, 16 or 32 on mma.sync; a D
-    between those runs zero-padded to the next one; above 128, both dtypes
-    on the wide kernel."""
-    if d > 128:
-        return "wide"
+    """The K2 kernel a (dtype, head dim) must take: f32 on 3xTF32 up to D
+    128 and on the wide kernel above; bf16 on mma.sync up to D 32, on
+    wgmma up to 256 (at 64, 128, 192 or 256) and on the wide kernel
+    above."""
     if dtype == torch.float32:
-        return "tf32x3"
-    return "wgmma" if d > 32 else "mma"
+        return "tf32x3" if d <= 128 else "wide"
+    if d <= 32:
+        return "mma"
+    return "wgmma" if d <= 256 else "wide"
+
+
+def flash_pads(dtype, d: int) -> bool:
+    """Whether the wrapper copies q, k, v into zero-padded tensors first: up
+    to D 128 for a D between the built ones (8, 16, 32, 64, 128); above,
+    only where a row is no multiple of 16 bytes."""
+    if d <= 128:
+        return d not in (8, 16, 32, 64, 128)
+    return d * (4 if dtype == torch.float32 else 2) % 16 != 0
 # f32: the reference's own gate between attention tiers
 # (tests/test_attention.py:56). bf16: the output is rounded to bf16 once,
 # and p is rounded to bf16 before the PV product at a running max that
@@ -510,6 +529,9 @@ def flash_rows(ex2_per_s: "float | None" = None) -> list:
             out, lse = _flash_fwd_lse(q, k, v, causal)
             path = flash_attention.last_path
             assert path == flash_path(dt, d), f"{name}: K2 ran {path}, want {flash_path(dt, d)}"
+            # a padded launch returns a view of its wider output
+            assert out.is_contiguous() != flash_pads(dt, d), \
+                f"{name}: pad copy {not out.is_contiguous()}, want {flash_pads(dt, d)}"
             out2, lse2 = _flash_fwd_lse(q, k, v, causal)
             p_out, p_lse = flash_attention_torch(q, k, v, causal)
             torch.cuda.synchronize()
@@ -1256,7 +1278,8 @@ def phase_small_transformer() -> dict:
 
 # Head dims above 128: TransformerEncoder at BERT-base width over the
 # importers' default of 4 heads (mmlspark_tpu/nn/import_weights.py:436),
-# D = 192, on K2's "wide" kernel; depth cut to 2 layers
+# D = 192, on K2's "wgmma" kernel in bf16 and its "wide" kernel in f32;
+# depth cut to 2 layers
 WIDE_TRANSFORMER = dict(num_layers=2, d_model=768, num_heads=4, d_ff=3072, vocab_size=16384,
                         max_len=SLICE_TOKENS, num_outputs=8)
 # Serving runs at FLASH_SHAPES' d192 rows' shape (minibatches of 4 rows x
@@ -1271,8 +1294,9 @@ def phase_serve_wide() -> dict:
     in bf16 (the bundle's dtype, with the stage's bfloat16 switch off, as
     token models serve: ROADMAP Queue 3) and in f32, WIDE_PASSES timed
     passes each: exactly minibatches x 2 layers K2 launches a pass, every
-    one on "wide". Then f32 card against CPU on 2 rows and f32 flash
-    against f32 dense on the card (slice_transformer's gates)."""
+    one on "wgmma" in bf16 and on "wide" in f32. Then f32 card against CPU
+    on 2 rows and f32 flash against f32 dense on the card
+    (slice_transformer's gates)."""
     from mmlspark_tpu_torch.core import Table
     from mmlspark_tpu_torch.nn import ModelBundle
     from mmlspark_tpu_torch.nn.attention import flash_attention
@@ -1301,7 +1325,8 @@ def phase_serve_wide() -> dict:
             seconds.append(time.perf_counter() - t0)
             launches, by_path = flash_attention.launches, dict(flash_attention.launches_by_path)
             assert launches == want, f"{dtype}: K2 launched {launches} times, want {want}"
-            assert by_path == {"wide": want}, f"{dtype}: K2 launches by kernel {by_path}"
+            kernel = flash_path(getattr(torch, dtype), doc["head_dim"])
+            assert by_path == {kernel: want}, f"{dtype}: K2 launches by kernel {by_path}"
             total += launches
             logits, prob = np.asarray(out["logits"]), np.asarray(out["prob"])
             assert logits.shape == (SLICE_ROWS, n_out) and np.isfinite(logits).all()
@@ -1466,8 +1491,11 @@ def main() -> int:
     f32_main = next(r for r in f32_rows if r["shape"] == "slice_f32")
     mma_rows = [r for r in kern["flash_attention"] if r["path"] == "mma"]
     mma_main = next(r for r in mma_rows if r["shape"] == "default_bf16")
+    wgmma_wide_rows = [r for r in kern["flash_attention"]
+                       if r["path"] == "wgmma" and r["D"] > 128]
+    wgmma_d192 = next(r for r in wgmma_wide_rows if r["shape"] == "d192_bf16")
     wide_rows = [r for r in kern["flash_attention"] if r["path"] == "wide"]
-    wide_main = next(r for r in wide_rows if r["shape"] == "d192_bf16")
+    wide_main = next(r for r in wide_rows if r["shape"] == "d192_f32")
     emit({"kernels": [{
         "name": "histogram",
         "route": "cuda",
@@ -1497,7 +1525,11 @@ def main() -> int:
         "route": "cuda",
         "source": "mmlspark_tpu_torch/csrc/flash_attn.cu",
         "replaces": "mmlspark_tpu/nn/attention.py:192",
-        "launches": dnn["flash_launches"],
+        # the wgmma kernel: the bf16 serving transformer (D 64) and the
+        # bf16 wide transformer (D 192)
+        "launches": dnn["flash_launches"] + wide["bfloat16"]["flash_launches"],
+        "launches_by_phase": {"slice_transformer": dnn["flash_launches"],
+                              "serve_wide_bf16": wide["bfloat16"]["flash_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern["flash_attention"]),
         "ms": flash_main["ms"],
         "plain_ms": flash_main["plain_ms"],
@@ -1506,6 +1538,10 @@ def main() -> int:
         "library_ms": flash_main["library_ms"],
         "shape": flash_main["shape"],
         "path": flash_main["path"],
+        # its rows above head dim 128, d192 (serve_wide's) first
+        "wide_rows": [{key: r[key] for key in ("shape", "D", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms", "max_abs_err")}
+                      for r in [wgmma_d192] + [r for r in wgmma_wide_rows if r is not wgmma_d192]],
         "shapes": kern["flash_attention"],
     }, {
         # the same wrapper and TPU kernel; the CUDA kernel every f32 bundle
@@ -1542,13 +1578,14 @@ def main() -> int:
         "shape": mma_main["shape"],
         "path": mma_main["path"],
     }, {
-        # the same wrapper and TPU kernel; the CUDA kernel of every head dim
-        # above 128, f32 and bf16, with its launches from serve_wide
+        # the same wrapper and TPU kernel; the CUDA kernel of f32 above head
+        # dim 128 and bf16 above 256, with its launches from serve_wide's
+        # f32 run
         "name": "flash_attention_wide",
         "route": "cuda",
         "source": "mmlspark_tpu_torch/csrc/flash_attn.cu",
         "replaces": "mmlspark_tpu/nn/attention.py:192",
-        "launches": wide["flash_launches"],
+        "launches": wide["float32"]["flash_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in wide_rows),
         "ms": wide_main["ms"],
         "plain_ms": wide_main["plain_ms"],

@@ -27,10 +27,12 @@
 // operations bound it. In bf16 below D = 64 neither does: each score costs
 // one exponential whatever D is, so the special-function units' rate of
 // ex2 sets the floor. What the design does about it, by path:
-//   - "wgmma": bf16 with D = 64 or 128 (the serving path) runs both
-//     products on Hopper's warpgroup tensor-core instruction, fed by TMA
-//     through a ring of key/value tiles in shared memory that a producer
-//     warpgroup keeps ahead of the math; see flash_fwd_wgmma_kernel;
+//   - "wgmma": bf16 with D = 64, 128, 192 or 256 (the serving paths, and
+//     every head dim in (128, 256] that is a multiple of 8, read through
+//     TMA at its true width) runs both products on Hopper's warpgroup
+//     tensor-core instruction, fed by TMA through a ring of key/value
+//     tiles in shared memory that a producer warpgroup keeps ahead of the
+//     math; see flash_fwd_wgmma_kernel;
 //   - "mma": bf16 with D = 8, 16 or 32 runs both products on mma.sync
 //     (bf16 in, f32 accumulate), fed by a cp.async ring of key/value
 //     tiles, with a softmax that spends its instructions on the
@@ -41,15 +43,19 @@
 //     f32 accuracy (its 2e-5 gate, which one TF32 pass would miss):
 //     mma.sync m16n8k8, eight warps of 16 query rows, key/value tiles
 //     through a cp.async ring; see flash_fwd_tf32x3_kernel;
-//   - "wide": head dims above 128, f32 and bf16, on the same TF32
-//     mma.sync, a block a 64-column slice of the output and the score
-//     product walked in 32-wide chunks of the head dim; see
+//   - "wide": f32 above head dim 128 and bf16 above 256, on the same TF32
+//     mma.sync: the head dim split among a block's warps in 64-column
+//     chunks, whose partial scores are summed in shared memory in a fixed
+//     order, so S is computed once per key tile; see
 //     flash_fwd_wide_kernel.
 // On every path each key tile is read once per query tile and shared by
 // the tile's rows through shared memory; causal tiles wholly after the
 // query tile are skipped (their p would be zero, so the outputs do not
 // change) and the heaviest causal tiles launch first.
 //
+// Which kernel runs, at which built head dim and with how many query rows
+// a block, is the caller's plan (mmlspark_tpu_torch/nn/attention.py:
+// flash_plan); the C interface launches it or refuses it, never another.
 // The kernels allocate nothing: the caller passes out and lse. Built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through the C interface at the bottom (ctypes). The wgmma
@@ -77,33 +83,44 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------
-// bf16 with D = 64 or 128: the Hopper path. A persistent grid of at most
-// one 384-thread block per SM walks the work items, each a (batch, head,
-// 128-row query tile): two consumer warpgroups of 64 query rows each, and
-// one producer warpgroup.
+// bf16 with D = 64, 128, 192 or 256: the Hopper path. A persistent grid of
+// at most one block per SM walks the work items, each a (batch, head,
+// 64 W-row query tile): W consumer warpgroups of 64 query rows each over
+// the whole head dim, and one producer warpgroup: W = 2 (128 rows, 384
+// threads) at D = 64 and 128, and at D = 192 where 128-row items give every
+// SM one; else W = 1 (64 rows, 256 threads, twice the items), and always
+// at D = 256, where two warpgroups spilled registers and ran slower (the
+// caller's plan chooses; PERF.md, PR 9).
 //
 // - TMA in, no transposes: q, k and v keep the (B, T, H, D) layout. Each
 //   has a 4-D tensor map over dims (D, H, T, B) with the caller's strides,
 //   whose box (64, 1, rows, 1) copies `rows` rows of 64 columns (128 bytes)
-//   into shared memory with the 128-byte swizzle; D = 128 takes two boxes,
-//   one per 64-column half. TMA zero-fills rows past T, so the ragged edge
-//   needs no padding (the mask still decides which keys count).
-// - A ring of three key/value stages of 128 keys (64 at D = 128), each
+//   into shared memory with the 128-byte swizzle; D takes D / 64 boxes,
+//   one per 64-column chunk. TMA zero-fills rows past T, so the ragged edge
+//   needs no padding (the mask still decides which keys count), and
+//   columns past the tensors' true head dim d (a multiple of 8 in
+//   (D - 64, D]), so d needs no pad copy; the epilogue writes columns
+//   below d only. The scale is the true d's.
+// - A ring of three key/value stages of 128 keys (64 from D = 128), each
 //   with a "full" mbarrier per operand (TMA completes it by bytes) and an
 //   "empty" one (every consumer thread arrives when it is done with the
 //   stage), and two q buffers with their own full/empty pair. One producer
 //   thread walks the block's items and their key tiles, waiting for a
 //   stage or q buffer to empty before it refills it, so loads run up to
 //   three tiles ahead of the math and the next item's q arrives while
-//   this one is computed. Without a mask the items of one head run side
-//   by side, so they share its keys and values in L2.
+//   this one is computed. Where that does not fit in shared memory
+//   (WgTiling: D = 192 with two warpgroups, and D = 256) there is one q
+//   buffer. Without a mask the items of one head run side by side, so
+//   they share its keys and values in L2.
 // - Both products on wgmma (bf16 in, f32 accumulate). S = Q.K^T is
-//   m64nNk16 (N the key tile) with Q and K read from shared memory, both
-//   K-major (the head dim is contiguous, as stored). O += P.V is m64nDk16
+//   m64nNk16 (N the key tile) over D / 16 k-steps with Q and K read from
+//   shared memory, both K-major (the head dim is contiguous, as stored);
+//   Q stays resident for the whole item. O += P.V is m64nDk16
 //   with P from registers and V from shared memory as an MN-major operand
 //   (the transpose bit): V tiles need no transposed copy. Tile j's PV
 //   product and tile j + 1's S product are issued together after tile j's
-//   softmax, so one wait covers both.
+//   softmax, so one wait covers both (except with two warpgroups at
+//   D = 192: WgTiling::kOverlap).
 // - The wgmma accumulator gives a thread rows g and g + 8 (g = lane / 4)
 //   of its warp's 16 rows and columns 2t, 2t + 1 of every 8-column group
 //   (t = lane % 4): the mma.sync C layout, so the online softmax runs in
@@ -115,45 +132,70 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 //   p = 2^(s - m) with the max m tracked in base 2, and lse = m ln 2 +
 //   ln l. Masked keys (past Tk, or after the query under causal) are left
 //   out of the max and their p is set to 0 from the mask flags, one bit a
-//   key. The two warpgroups take turns at the softmax (named barriers):
+//   key. Two warpgroups take turns at the softmax (named barriers):
 //   left alone they fall into step and run their softmaxes, and then
 //   their products, at the same time, while in turns one's softmax runs
 //   beside the other's products.
-// - Shared memory is 128 KB (D = 64) or 160 KB (D = 128), so one block
-//   runs per SM. Its 12 warps start with 168 registers a thread; the
-//   producer warpgroup drops to 40 with setmaxnreg and the consumers rise
-//   to 232. Without it the compiler serializes the wgmma products.
+// - Shared memory is 128 KB (D = 64), 160 KB (D = 128), 192 KB (D = 192)
+//   or 224 KB (D = 256), so one block runs per SM. With two warpgroups its
+//   12 warps start with 168 registers a thread; the producer warpgroup
+//   drops to 40 with setmaxnreg and the consumers rise to 232. Without it
+//   the compiler serializes the wgmma products. With one, its 8 warps have
+//   255 from the start (O takes 96 registers a thread at D = 192, 128 at
+//   D = 256; S 32, P 16).
+// - The warp index comes through a shuffle, so ptxas knows it uniform and
+//   the producer/consumer branch is no divergent path: in one, a fence it
+//   inserts serializes every wgmma (C7520; 25-40% slower at D > 128).
 // - A barrier wait that has not completed after 10 s traps, so a fault
 //   (a copy that never lands) fails the launch instead of hanging the card.
 // ---------------------------------------------------------------------
 
-constexpr int kWgRows = 128;        // query rows per block: two warpgroups of 64
-constexpr int kWgConsumers = 256;   // threads of the two consumer warpgroups
-constexpr int kWgThreads = kWgConsumers + 128;  // and the producer warpgroup
-// registers a thread once the producer has given its own up: 384 threads
-// start with 168 each (the most 12 warps leave a thread), and 128 x 40 +
-// 256 x 232 is the same 384 x 168
+constexpr int kWgConsumers = 256;   // threads of two consumer warpgroups
+// registers a thread once the producer has given its own up (two consumer
+// warpgroups): 384 threads start with 168 each (the most 12 warps leave a
+// thread), and 128 x 40 + 256 x 232 is the same 384 x 168. With one
+// consumer warpgroup, 256 threads may each hold 255 from the start, and
+// nothing is moved
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr int kSwizzleCols = 64;    // bf16 columns of one 128-byte swizzle row
 constexpr uint64_t kWaitLimitNs = 10000000000ull;
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may take (227 KB)
 
-// keys per ring tile: 128, or 64 for D = 128, where S (kKeys / 2), O
-// (D / 2) and P (kKeys / 4) registers a thread must fit beside each other
-// for the products to stay in flight
-template <int D>
+// W consumer warpgroups of 64 query rows each (a work item of 64 W rows)
+// and one producer warpgroup. Keys per ring tile: 128, or 64 from D = 128
+// on, where S (kKeys / 2), O (D / 2) and P (kKeys / 4) registers a thread
+// must fit beside each other for the products to stay in flight. Three
+// ring stages and two q buffers where they fit in shared memory, else
+// fewer: the ring keeps its third stage first (one q buffer at D = 192
+// with two warpgroups, and at D = 256)
+template <int D, int W>
 struct WgTiling {
+    static constexpr int kRows = 64 * W;                              // query rows an item
+    static constexpr int kConsumers = 128 * W;
+    static constexpr int kThreads = kConsumers + 128;
     static constexpr int kKeys = D == 64 ? 128 : 64;
-    static constexpr int kStages = 3;
+    // tile j's PV product in flight beside tile j + 1's S product; not
+    // with two warpgroups above D = 128, where O, S and P held at once do
+    // not fit the registers ptxas gives a thread (the 168 of 12 warps: it
+    // does not count the setmaxnreg rise), so the products serialize:
+    // there the two warpgroups' turns are the overlap. (Two warpgroups
+    // at D = 256 spilled even so, and one ran faster: D = 256 takes one.)
+    static constexpr bool kOverlap = !(W == 2 && D > 128);
     static constexpr int kHalves = D / kSwizzleCols;                  // 64-column boxes a row
-    static constexpr int kQBytes = kWgRows * D * 2;
+    static constexpr int kQBytes = kRows * D * 2;
     static constexpr int kTileBytes = kKeys * D * 2;                  // one K or V tile
-    static constexpr int kBarriers = 4 + 3 * kStages;
-    // two q buffers, the ring, the barriers, and 1024 bytes of slack to
+    // room for the tiles: the limit less the alignment slack and barriers
+    static constexpr int kRoom = kSmemLimit - 1024 - 8 * 16;
+    static constexpr int kStages = kQBytes + 6 * kTileBytes <= kRoom ? 3 : 2;
+    static constexpr int kQBufs = 2 * kQBytes + 2 * kStages * kTileBytes <= kRoom ? 2 : 1;
+    static constexpr int kBarriers = 2 * kQBufs + 3 * kStages;
+    // the q buffers, the ring, the barriers, and 1024 bytes of slack to
     // align the swizzled tiles to the 1024-byte period of the 128-byte
     // swizzle
     static constexpr int kSmemBytes =
-        2 * kQBytes + 2 * kStages * kTileBytes + 8 * kBarriers + 1024;
+        kQBufs * kQBytes + 2 * kStages * kTileBytes + 8 * kBarriers + 1024;
+    static_assert(kSmemBytes <= kSmemLimit, "wgmma tiles exceed shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -274,6 +316,14 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
     MMLSPARK_ACC8(d, 0), MMLSPARK_ACC8(d, 8), MMLSPARK_ACC8(d, 16), MMLSPARK_ACC8(d, 24), \
         MMLSPARK_ACC8(d, 32), MMLSPARK_ACC8(d, 40), MMLSPARK_ACC8(d, 48), MMLSPARK_ACC8(d, 56)
 
+#define MMLSPARK_ACC96(d) \
+    MMLSPARK_ACC64(d), MMLSPARK_ACC8(d, 64), MMLSPARK_ACC8(d, 72), MMLSPARK_ACC8(d, 80), \
+        MMLSPARK_ACC8(d, 88)
+#define MMLSPARK_ACC128(d)                                                              \
+    MMLSPARK_ACC64(d), MMLSPARK_ACC8(d, 64), MMLSPARK_ACC8(d, 72), MMLSPARK_ACC8(d, 80), \
+        MMLSPARK_ACC8(d, 88), MMLSPARK_ACC8(d, 96), MMLSPARK_ACC8(d, 104),             \
+        MMLSPARK_ACC8(d, 112), MMLSPARK_ACC8(d, 120)
+
 // d (+)= A.B, m64nNk16, A and B from shared memory, both K-major;
 // scale_d == 0 ignores d's old value
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
@@ -323,6 +373,39 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
         "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
         : MMLSPARK_ACC64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// N = 192 and 256: the O accumulator of head dims 192 and 256
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : MMLSPARK_ACC96(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : MMLSPARK_ACC128(d)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -428,51 +511,55 @@ struct WgWork {
     int b, h, n_tiles;
 };
 
-template <int NK>
+template <int NK, int ROWS>
 __device__ __forceinline__ WgWork wg_work(int64_t w, int64_t num_bh, int heads,
                                           int64_t num_q_tiles, int64_t tk, int causal) {
     WgWork x;
     x.bh = causal ? w % num_bh : w / num_q_tiles;
-    x.q0 = (causal ? num_q_tiles - 1 - w / num_bh : w % num_q_tiles) * kWgRows;
+    x.q0 = (causal ? num_q_tiles - 1 - w / num_bh : w % num_q_tiles) * ROWS;
     x.b = static_cast<int>(x.bh / heads);
     x.h = static_cast<int>(x.bh % heads);
     int64_t kend = tk;
-    if (causal && x.q0 + kWgRows < kend) kend = x.q0 + kWgRows;
+    if (causal && x.q0 + ROWS < kend) kend = x.q0 + ROWS;
     x.n_tiles = static_cast<int>((kend + NK - 1) / NK);
     return x;
 }
 
-// The shared-memory map of the wgmma kernel: two q buffers (work item i
-// uses buffer i % 2, so the next item's q loads during this one), the ring
-// of K/V stages (stage s: K then V, each kHalves swizzled (kKeys x 64)
-// boxes) and the mbarriers after them
-template <int D>
+// The shared-memory map of the wgmma kernel: the q buffers (work item i
+// uses buffer i % kQBufs, so with two the next item's q loads during this
+// one), the ring of K/V stages (stage s: K then V, each kHalves swizzled
+// (kKeys x 64) boxes) and the mbarriers after them
+template <int D, int W>
 struct WgSmem {
-    using Tl = WgTiling<D>;
+    using Tl = WgTiling<D, W>;
     static constexpr int S = Tl::kStages;
+    static constexpr int QB = Tl::kQBufs;
     uint32_t base, kv, bars;
     __device__ explicit WgSmem(uint32_t b)
-        : base(b), kv(b + 2 * Tl::kQBytes), bars(b + 2 * Tl::kQBytes + 2 * S * Tl::kTileBytes) {}
+        : base(b), kv(b + QB * Tl::kQBytes), bars(b + QB * Tl::kQBytes + 2 * S * Tl::kTileBytes) {}
     __device__ uint32_t q(int buf) const { return base + buf * Tl::kQBytes; }
     __device__ uint32_t q_full(int buf) const { return bars + 8u * buf; }
-    __device__ uint32_t q_empty(int buf) const { return bars + 8u * (2 + buf); }
-    __device__ uint32_t k_full(int s) const { return bars + 8u * (4 + s); }
-    __device__ uint32_t v_full(int s) const { return bars + 8u * (4 + S + s); }
-    __device__ uint32_t empty(int s) const { return bars + 8u * (4 + 2 * S + s); }
+    __device__ uint32_t q_empty(int buf) const { return bars + 8u * (QB + buf); }
+    __device__ uint32_t k_full(int s) const { return bars + 8u * (2 * QB + s); }
+    __device__ uint32_t v_full(int s) const { return bars + 8u * (2 * QB + S + s); }
+    __device__ uint32_t empty(int s) const { return bars + 8u * (2 * QB + 2 * S + s); }
     __device__ uint32_t k_tile(int s) const { return kv + 2u * s * Tl::kTileBytes; }
     __device__ uint32_t v_tile(int s) const { return kv + (2u * s + 1) * Tl::kTileBytes; }
 };
 
 // The consumer warpgroups' part of flash_fwd_wgmma_kernel: for each of the
-// block's work items, warpgroup wg owns query rows q0 + 64 wg .. + 63.
-template <int D>
-__device__ __forceinline__ void consume(const WgSmem<D>& sm, int warp, int lane,
+// block's work items, warpgroup wg owns query rows q0 + 64 wg .. + 63 over
+// the whole head dim, so S is computed once per (query tile, key tile).
+// `d` is the head dim of q, k, v and out (D's boxes read zeros past it).
+template <int D, int W>
+__device__ __forceinline__ void consume(const WgSmem<D, W>& sm, int warp, int lane,
                                         __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                                         int64_t num_work, int64_t num_bh, int heads, int64_t tq,
-                                        int64_t tk, int64_t num_q_tiles, int causal,
+                                        int64_t tk, int64_t num_q_tiles, int d, int causal,
                                         float scale_log2) {
-    using Tl = WgTiling<D>;
+    using Tl = WgTiling<D, W>;
     constexpr int S = Tl::kStages;
+    constexpr int QB = Tl::kQBufs;
     constexpr int NK = Tl::kKeys;
     const int wg = warp / 4;
     const int g = lane / 4;
@@ -484,27 +571,28 @@ __device__ __forceinline__ void consume(const WgSmem<D>& sm, int warp, int lane,
     uint32_t pa[NK / 16][4];
     int use = 0;     // ring tiles consumed so far, over all work items
     // warpgroup 0 takes the first softmax turn
-    if (wg == 1) named_arrive(kSoftmaxBarrier);
+    if (W == 2 && wg == 1) named_arrive(kSoftmaxBarrier);
 
     // S = Q.K^T over D / 16 steps of 16 columns; a step within a 128-byte
-    // swizzle row advances the start address by 32 bytes
+    // swizzle row advances the start address by 32 bytes, one to the next
+    // 64-column box by the box's bytes, each added to the first
+    // descriptor's address field (16-byte units)
     auto issue_qk = [&](int qbuf, int st) {
+        const uint64_t da0 = sw128_desc(sm.q(qbuf) + wg * 64 * 128, 16, 1024);
+        const uint64_t db0 = sw128_desc(sm.k_tile(st), 16, 1024);
 #pragma unroll
         for (int ks = 0; ks < D / 16; ++ks) {
             const uint32_t col = (ks % 4) * 32;
-            const uint64_t da = sw128_desc(
-                sm.q(qbuf) + (ks / 4) * kWgRows * 128 + wg * 64 * 128 + col, 16, 1024);
-            const uint64_t db =
-                sw128_desc(sm.k_tile(st) + (ks / 4) * NK * 128 + col, 16, 1024);
-            wgmma_ss(s, da, db, ks > 0);
+            wgmma_ss(s, da0 + (((ks / 4) * Tl::kRows * 128 + col) >> 4),
+                     db0 + (((ks / 4) * NK * 128 + col) >> 4), ks > 0);
         }
         wgmma_commit();
     };
 
     int item = 0;
     for (int64_t w = blockIdx.x; w < num_work; w += gridDim.x, ++item) {
-        const WgWork x = wg_work<Tl::kKeys>(w, num_bh, heads, num_q_tiles, tk, causal);
-        const int qbuf = item & 1;
+        const WgWork x = wg_work<NK, Tl::kRows>(w, num_bh, heads, num_q_tiles, tk, causal);
+        const int qbuf = item % QB;
         const int64_t wg_q0 = x.q0 + 64 * wg;
         const int64_t qpos[2] = {wg_q0 + 16 * (warp % 4) + g, wg_q0 + 16 * (warp % 4) + g + 8};
 #pragma unroll
@@ -513,23 +601,23 @@ __device__ __forceinline__ void consume(const WgSmem<D>& sm, int warp, int lane,
         float l[2] = {0.0f, 0.0f};
         float corr[2];
 
-        // the softmax of tile j, which runs while the other warpgroup's
-        // products occupy the tensor cores (the two take turns); a tile
-        // inside the sequence and, under causal, wholly at or before the
-        // warpgroup's first query has nothing to mask
+        // the softmax of tile j, which with two warpgroups runs while the
+        // other one's products occupy the tensor cores (the two take
+        // turns); a tile inside the sequence and, under causal, wholly at or
+        // before the warpgroup's first query has nothing to mask
         auto softmax = [&](int j) {
             const int64_t k0 = static_cast<int64_t>(j) * NK;
-            named_sync(kSoftmaxBarrier + wg);
+            if (W == 2) named_sync(kSoftmaxBarrier + wg);
             if (k0 + NK <= tk && (!causal || k0 + NK - 1 <= wg_q0))
                 softmax_tile<false, NK>(s, m, l, corr, k0, qpos, tk, causal, scale_log2, t);
             else
                 softmax_tile<true, NK>(s, m, l, corr, k0, qpos, tk, causal, scale_log2, t);
-            named_arrive(kSoftmaxBarrier + 1 - wg);
+            if (W == 2) named_arrive(kSoftmaxBarrier + 1 - wg);
             scale_and_pack<D, NK>(o, corr, s, pa);
         };
         // O += P.V over NK / 16 steps of 16 keys (16 swizzle rows, 2048
-        // bytes); the leading offset steps between the 64-column halves
-        // of V
+        // bytes), N = D; the leading offset steps between the 64-column
+        // boxes of V
         auto issue_pv = [&](int st) {
             mbar_wait(sm.v_full(st), (use / S) & 1);
             wgmma_fence();
@@ -539,31 +627,40 @@ __device__ __forceinline__ void consume(const WgSmem<D>& sm, int warp, int lane,
             wgmma_commit();
         };
 
-        mbar_wait(sm.q_full(qbuf), (item >> 1) & 1);
+        mbar_wait(sm.q_full(qbuf), (item / QB) & 1);
         if (x.n_tiles > 0) {
             mbar_wait(sm.k_full(use % S), (use / S) & 1);
             wgmma_fence();
             issue_qk(qbuf, use % S);
             // Tile j's S product is in flight on entry. After its softmax,
             // tile j's PV product and tile j + 1's S product are issued
-            // together, so the wait for the first overlaps the second. The
-            // last tile is peeled off: every product in the loop is issued
-            // on every pass (a product issued under a branch makes the
+            // together, so the wait for the first overlaps the second
+            // (kOverlap; else the PV product completes first). The last
+            // tile is peeled off: every product in the loop is issued on
+            // every pass (a product issued under a branch makes the
             // compiler serialize them all).
             for (int j = 0; j < x.n_tiles - 1; ++j, ++use) {
                 wgmma_wait<0>();
                 fence_regs(s);
                 softmax(j);
                 issue_pv(use % S);
+                if constexpr (!Tl::kOverlap) {
+                    wgmma_wait<0>();
+                    fence_regs(o);
+                    mbar_arrive(sm.empty(use % S));
+                }
                 mbar_wait(sm.k_full((use + 1) % S), ((use + 1) / S) & 1);
+                if constexpr (!Tl::kOverlap) wgmma_fence();
                 issue_qk(qbuf, (use + 1) % S);
-                wgmma_wait<1>();
-                fence_regs(o);
-                mbar_arrive(sm.empty(use % S));
+                if constexpr (Tl::kOverlap) {
+                    wgmma_wait<1>();
+                    fence_regs(o);
+                    mbar_arrive(sm.empty(use % S));
+                }
             }
             wgmma_wait<0>();
             fence_regs(s);
-            // q is free for the item after next after its last S product
+            // q is free for a later item after its last S product
             mbar_arrive(sm.q_empty(qbuf));
             softmax(x.n_tiles - 1);
             issue_pv(use % S);
@@ -584,9 +681,11 @@ __device__ __forceinline__ void consume(const WgSmem<D>& sm, int warp, int lane,
             const float denom = fmaxf(lr, 1e-30f);
             // one division a row, not one an element
             const float inv = lr > 0.0f ? 1.0f / denom : 0.0f;
-            __nv_bfloat16* op = out + ((x.b * tq + qpos[r]) * heads + x.h) * D;
+            __nv_bfloat16* op = out + ((x.b * tq + qpos[r]) * heads + x.h) * d;
+            // d is a multiple of 8: an 8-column group is wholly in or out
 #pragma unroll
             for (int n = 0; n < D / 8; ++n) {
+                if (D > 128 && n * 8 >= d) break;
                 const float x0 = o[4 * n + 2 * r] * inv;
                 const float x1 = o[4 * n + 2 * r + 1] * inv;
                 *reinterpret_cast<__nv_bfloat162*>(op + n * 8 + 2 * t) =
@@ -598,58 +697,62 @@ __device__ __forceinline__ void consume(const WgSmem<D>& sm, int warp, int lane,
     }
     // warpgroup 1's last hand-over (or its first, if there was no key
     // tile) is taken here, so both barriers end with every arrival matched
-    if (wg == 0) named_sync(kSoftmaxBarrier);
+    if (W == 2 && wg == 0) named_sync(kSoftmaxBarrier);
 }
 
 // Persistent: the grid has at most one block per SM, and block i takes
 // work items i, i + gridDim.x, ... The producer runs ahead across items,
-// so the next item's q and first key tiles load while the consumers
-// finish the current one.
-template <int D>
-__global__ void __launch_bounds__(kWgThreads, 1)
+// so the next item's q (with two q buffers) and first key tiles load
+// while the consumers finish the current one.
+template <int D, int W>
+__global__ void __launch_bounds__(WgTiling<D, W>::kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
                        __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                        int64_t num_work, int64_t num_bh, int heads, int64_t tq, int64_t tk,
-                       int64_t num_q_tiles, int causal, float scale_log2) {
-    using Tl = WgTiling<D>;
+                       int64_t num_q_tiles, int d, int causal, float scale_log2) {
+    using Tl = WgTiling<D, W>;
     constexpr int S = Tl::kStages;
+    constexpr int QB = Tl::kQBufs;
     extern __shared__ uint8_t smem_raw[];
-    const WgSmem<D> sm((smem_addr(smem_raw) + 1023u) & ~1023u);
+    const WgSmem<D, W> sm((smem_addr(smem_raw) + 1023u) & ~1023u);
 
     if (threadIdx.x == 0) {
-        for (int buf = 0; buf < 2; ++buf) {
+        for (int buf = 0; buf < QB; ++buf) {
             mbar_init(sm.q_full(buf), 1);
-            mbar_init(sm.q_empty(buf), kWgConsumers);
+            mbar_init(sm.q_empty(buf), Tl::kConsumers);
         }
         for (int s = 0; s < S; ++s) {
             mbar_init(sm.k_full(s), 1);
             mbar_init(sm.v_full(s), 1);
-            mbar_init(sm.empty(s), kWgConsumers);
+            mbar_init(sm.empty(s), Tl::kConsumers);
         }
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
 
-    const int warp = threadIdx.x / 32;
+    // the warp index through a shuffle: ptxas then knows it uniform (see
+    // above)
+    const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 32), 0);
     const int lane = threadIdx.x % 32;
-    if (warp >= kWgConsumers / 32) {
-        // the producer warpgroup gives its registers to the consumers;
-        // one thread issues every copy
-        setmaxnreg_dec<kProducerRegs>();
-        if (warp == kWgConsumers / 32 && lane == 0) {
+    if (warp >= Tl::kConsumers / 32) {
+        // with two consumer warpgroups the producer warpgroup gives its
+        // registers to them; one thread issues every copy
+        if constexpr (W == 2) setmaxnreg_dec<kProducerRegs>();
+        if (warp == Tl::kConsumers / 32 && lane == 0) {
             int fill = 0;    // ring tiles filled so far, over all work items
             int item = 0;
             for (int64_t w = blockIdx.x; w < num_work; w += gridDim.x, ++item) {
-                const WgWork x = wg_work<Tl::kKeys>(w, num_bh, heads, num_q_tiles, tk, causal);
+                const WgWork x =
+                    wg_work<Tl::kKeys, Tl::kRows>(w, num_bh, heads, num_q_tiles, tk, causal);
                 // the consumers are done with this buffer's previous item
-                // (two items back; the first use of a buffer passes at once)
-                const int qbuf = item & 1;
-                mbar_wait(sm.q_empty(qbuf), ((item >> 1) & 1) ^ 1);
+                // (QB items back; the first use of a buffer passes at once)
+                const int qbuf = item % QB;
+                mbar_wait(sm.q_empty(qbuf), ((item / QB) & 1) ^ 1);
                 mbar_expect_tx(sm.q_full(qbuf), Tl::kQBytes);
                 for (int c = 0; c < Tl::kHalves; ++c)
-                    tma_load_4d(sm.q(qbuf) + c * kWgRows * 128, &q_map, sm.q_full(qbuf),
+                    tma_load_4d(sm.q(qbuf) + c * Tl::kRows * 128, &q_map, sm.q_full(qbuf),
                                 c * kSwizzleCols, x.h, static_cast<int>(x.q0), x.b);
                 for (int j = 0; j < x.n_tiles; ++j, ++fill) {
                     const int s = fill % S;
@@ -669,9 +772,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
             }
         }
     } else {
-        setmaxnreg_inc<kConsumerRegs>();
-        consume<D>(sm, warp, lane, out, lse, num_work, num_bh, heads, tq, tk, num_q_tiles, causal,
-                   scale_log2);
+        if constexpr (W == 2) setmaxnreg_inc<kConsumerRegs>();
+        consume<D, W>(sm, warp, lane, out, lse, num_work, num_bh, heads, tq, tk, num_q_tiles, d,
+                      causal, scale_log2);
     }
 }
 
@@ -1013,56 +1116,81 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
 }
 
 // ---------------------------------------------------------------------
-// Head dims above 128, f32 and bf16: the "wide" path. At D = 256 a warp's
-// O accumulator over the whole head dim would take 128 registers a thread,
-// and one 64-key f32 tile of K 64 KB of shared memory. So a block owns a
-// 64-wide slice of the output columns (the grid's y), and the head dim of
-// the score product is walked in 32-wide chunks:
-// - For each 64-key tile the block computes the full scores S = Q.K^T
-//   over all of D, chunk by chunk. Each step of a three-stage cp.async
-//   ring brings one chunk of the query tile and of the key tile, and on a
-//   tile's last chunk also the tile's values in the block's column slice.
-//   The query chunks are fetched again for every key tile (from L2): no
-//   part of Q stays resident, so the registers and shared memory a block
-//   takes do not grow with D.
-// - Then the online softmax of softmax_tf32 and O += P.V over the slice,
-//   as on the tf32x3 path. Every slice recomputes S: the price of that
-//   fixed budget (PERF.md, open questions).
-// - f32 keeps 3xTF32 for both products. bf16 operands widen to f32 on
-//   load and are exact in TF32 (8 significant bits of 11), so one TF32
-//   product a pair is exact; p is rounded to bf16 before the P.V product
-//   and l sums the unrounded p, as on every bf16 path.
-// - Slice 0 writes lse. D is a multiple of 64: the wrapper zero-pads
-//   other head dims and launches at the true D's scale.
+// f32 at every head dim above 128, and bf16 above 256: the "wide" path. A
+// warp's O accumulator over the whole head dim would take D / 2 registers
+// a thread (128 at D = 256), so the head dim is split among warps instead:
+// - A block owns 16 R query rows and (up to kWideMaxCols[T] 64-column
+//   chunks) all of D. Its warps form R row groups x CW column warps, CW =
+//   the head dim's 64-column chunks. Warp (r, c) keeps the 16 rows of
+//   group r of q's chunk c in registers, read once.
+// - For each 32-key tile, staged whole (K over the block's columns and V)
+//   through a two-stage cp.async ring (three stages measured no faster),
+//   warp (r, c) computes its rows'
+//   partial scores over chunk c and stores them in shared memory. After a
+//   barrier of the row group, each of its warps sums the CW partials in
+//   the fixed order c = 0 .. CW - 1, so all of them hold the same bits of
+//   S and run the same online softmax (softmax_tf32); each then adds P.V
+//   over its own 64 columns. S is computed once per (query tile, key
+//   tile), and q is read from memory once.
+// - Where CW would pass kWideMaxCols (f32 D > 320, bf16 D > 640), the
+//   block's columns are one slice of CW chunks (the grid's y): S is then
+//   summed over the head dim in groups of CW chunks, one ring step a
+//   group, recomputed by each slice, and q's chunks are read again at each
+//   group.
+// - f32 runs both products in 3xTF32 on mma.sync m16n8k8 (see the tf32x3
+//   path). bf16 operands widen to f32 on load and are exact in TF32 (8
+//   significant bits of 11), so one TF32 product a pair is exact; p is
+//   rounded to bf16 before the P.V product and l sums the unrounded p, as
+//   on every bf16 path.
+// - The head dim d needs only 16-byte rows (a multiple of 4 in f32, 8 in
+//   bf16): the copies zero-fill columns past d, and the epilogue writes
+//   only columns below d. Slice 0's column warp 0 writes lse.
 // ---------------------------------------------------------------------
 
-constexpr int kWideWarps = 8;
-constexpr int kWideRows = 16 * kWideWarps;     // query rows a block
-constexpr int kWideThreads = 32 * kWideWarps;
-constexpr int kWideKeys = 64;                  // keys a tile
-constexpr int kWideChunk = 32;                 // head-dim columns a step of S
-constexpr int kWideSlice = 64;                 // output columns a block
-constexpr int kWideStages = 3;
+constexpr int kWideKeys = 32;                  // keys a tile
+constexpr int kWideMaxWarps = 12;              // R x CW warps a block at most
+constexpr int kWideThreads = 32 * kWideMaxWarps;
 
+// 64-column chunks a block may hold: two ring stages of K and V tiles
+// and the score partials fit in shared memory
 template <typename T>
 struct WideTiling {
-    // q and K chunk pitch, V slice pitch (elements): a half-warp's
-    // fragment loads of rows g at dims 2t, and V's scalar loads of keys
-    // 2t at columns g, fall in distinct banks
-    static constexpr int kLdK = kWideChunk + 8;
-    static constexpr int kLdV = kWideSlice + (sizeof(T) == 4 ? 4 : 8);
-    static constexpr int kStageElems = (kWideRows + kWideKeys) * kLdK + kWideKeys * kLdV;
-    static constexpr int kSmemBytes = kWideStages * kStageElems * static_cast<int>(sizeof(T));
-};
-
-// the byte offset of 16-byte chunk c of row i in a tile of T with a pitch
-// of LD elements
-template <typename T, int LD>
-struct Pitch {
-    __device__ uint32_t operator()(int i, int c) const {
-        return static_cast<uint32_t>(sizeof(T)) * (i * LD + (16 / static_cast<int>(sizeof(T))) * c);
+    static constexpr int kMaxCols = sizeof(T) == 4 ? 5 : 10;
+    // K and V row pitch (elements) for CW column chunks: a half-warp's
+    // fragment loads of rows g at dims 2t, and V's scalar loads of keys 2t
+    // at columns g, fall in distinct banks
+    __host__ __device__ static constexpr int ld_k(int cw) { return 64 * cw + 8; }
+    __host__ __device__ static constexpr int ld_v(int cw) {
+        return 64 * cw + (sizeof(T) == 4 ? 4 : 8);
+    }
+    __host__ __device__ static constexpr int stage_elems(int cw) {
+        return kWideKeys * (ld_k(cw) + ld_v(cw));
+    }
+    // two stages, then the partials: R x CW warps of 16 x 32 floats
+    __host__ __device__ static constexpr int smem_bytes(int r, int cw) {
+        return 2 * stage_elems(cw) * static_cast<int>(sizeof(T)) +
+               r * cw * 16 * kWideKeys * 4;
     }
 };
+
+// rows [row0, row0 + ROWS) of a (T, d) slice with row stride `stride`,
+// columns [c0, c0 + 64 cw), into shared memory rows of pitch `ld`, by
+// every thread of the block: 16-byte chunks of rows at or past `valid`,
+// or of columns at or past d, are zeros
+template <int ROWS, typename T>
+__device__ __forceinline__ void copy_cols_async(uint32_t dst, const T* base, int64_t row0,
+                                                int64_t valid, int64_t stride, int c0, int cw,
+                                                int d, int ld) {
+    constexpr int E = 16 / static_cast<int>(sizeof(T));     // elements a chunk
+    const int per_row = 64 * cw / E;
+    for (int c = threadIdx.x; c < ROWS * per_row; c += blockDim.x) {
+        const int i = c / per_row;
+        const int col = c0 + (c % per_row) * E;
+        const bool ok = row0 + i < valid && col < d;
+        cp_async16(dst + static_cast<uint32_t>(sizeof(T)) * (i * ld + col - c0),
+                   ok ? base + (row0 + i) * stride + col : base, ok);
+    }
+}
 
 __device__ __forceinline__ float2 load_pair(const float* p) {
     return *reinterpret_cast<const float2*>(p);
@@ -1107,24 +1235,30 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+__device__ __forceinline__ void named_sync_n(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Launched with 32 R cw threads (R = rows / 16), grid (num_bh x query
+// tiles, groups); `groups` = the head dim's chunks over cw, rounded up.
 template <typename T>
 __global__ void __launch_bounds__(kWideThreads, 1)
 flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       T* __restrict__ out, float* __restrict__ lse, int64_t num_bh, int heads,
-                      int64_t tq, int64_t tk, int64_t num_q_tiles, int d, int causal,
-                      float scale_log2, int64_t qsb, int64_t qst, int64_t qsh, int64_t ksb,
-                      int64_t kst, int64_t ksh, int64_t vsb, int64_t vst, int64_t vsh) {
+                      int64_t tq, int64_t tk, int64_t num_q_tiles, int rows, int cw, int groups,
+                      int d, int causal, float scale_log2, int64_t qsb, int64_t qst, int64_t qsh,
+                      int64_t ksb, int64_t kst, int64_t ksh, int64_t vsb, int64_t vst,
+                      int64_t vsh) {
     using Tl = WideTiling<T>;
     constexpr int BK = kWideKeys;
-    constexpr int S = kWideStages;
     constexpr int NT = BK / 8;             // 8-key groups of S, k-steps of the PV product
-    constexpr int DT = kWideSlice / 8;     // 8-wide column tiles of the O slice
-    constexpr int CT = kWideChunk / 8;     // k-steps of S a chunk
-    constexpr int LDK = Tl::kLdK;
-    constexpr int LDV = Tl::kLdV;
     constexpr bool kBf16 = !std::is_same<T, float>::value;
     extern __shared__ __align__(16) unsigned char smem_wide[];
-    T* const ring = reinterpret_cast<T*>(smem_wide);   // stage: q chunk, K chunk, V slice
+    T* const ring = reinterpret_cast<T*>(smem_wide);   // stage: K tile, V tile
+    const int ldk = Tl::ld_k(cw);
+    const int ldv = Tl::ld_v(cw);
+    const int stage = Tl::stage_elems(cw);
+    float* const part = reinterpret_cast<float*>(ring + 2 * stage);
 
     // the block order of the tf32x3 path: a head's query tiles side by
     // side, or under a causal mask the heaviest tiles first
@@ -1133,94 +1267,128 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     const int64_t qt = causal ? num_q_tiles - 1 - x / num_bh : x % num_q_tiles;
     const int64_t b = bh / heads;
     const int64_t h = bh % heads;
-    const int col0 = blockIdx.y * kWideSlice;    // the block's first output column
-    const int nc = d / kWideChunk;
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
+    const int rg = warp / cw;                    // the warp's row group
+    const int c = warp % cw;                     // and column warp
     const int g = lane / 4;
     const int t = lane % 4;
-    const int64_t q0 = qt * kWideRows;
-    const int64_t wq0 = q0 + 16 * warp;
+    const int64_t q0 = qt * rows;
+    const int64_t wq0 = q0 + 16 * rg;
     const int64_t qpos[2] = {wq0 + g, wq0 + g + 8};
+    const int slice0 = blockIdx.y * cw * 64;     // the block's first output column
+    const int ocol = slice0 + 64 * c;            // the warp's first output column
 
     int64_t kend = tk;
-    if (causal && q0 + kWideRows < kend) kend = q0 + kWideRows;
+    if (causal && q0 + rows < kend) kend = q0 + rows;
     const int n_tiles = static_cast<int>((kend + BK - 1) / BK);
-    const int n_steps = n_tiles * nc;
+    const int n_steps = n_tiles * groups;
 
     const T* const qb = q + b * qsb + h * qsh;
     const T* const kb = k + b * ksb + h * ksh;
     const T* const vb = v + b * vsb + h * vsh;
+    // step st: key tile st / groups, K over the columns of group st %
+    // groups, and on a tile's last group also V over the block's slice
     auto load_step = [&](int st) {
-        T* const sp = ring + (st % S) * Tl::kStageElems;
-        const int64_t k0 = static_cast<int64_t>(st / nc) * BK;
-        const int c = st % nc;
-        copy_rows_async<kWideChunk, kWideRows, kWideThreads>(
-            smem_addr(sp), qb + c * kWideChunk, q0, tq, qst, Pitch<T, LDK>());
-        copy_rows_async<kWideChunk, BK, kWideThreads>(smem_addr(sp + kWideRows * LDK),
-                                                      kb + c * kWideChunk, k0, tk, kst,
-                                                      Pitch<T, LDK>());
-        if (c == nc - 1)
-            copy_rows_async<kWideSlice, BK, kWideThreads>(
-                smem_addr(sp + (kWideRows + BK) * LDK), vb + col0, k0, tk, vst, Pitch<T, LDV>());
+        T* const sp = ring + (st % 2) * stage;
+        const int64_t k0 = static_cast<int64_t>(st / groups) * BK;
+        const int grp = st % groups;
+        copy_cols_async<BK>(smem_addr(sp), kb, k0, tk, kst, grp * cw * 64, cw, d, ldk);
+        if (grp == groups - 1)
+            copy_cols_async<BK>(smem_addr(sp + BK * ldk), vb, k0, tk, vst, slice0, cw, d, ldv);
     };
-    // every group is committed, empty or not, so that the wait below
-    // counts the same on every pass
-#pragma unroll
-    for (int st = 0; st < S - 1; ++st) {
-        if (st < n_steps) load_step(st);
-        cp_async_commit();
-    }
+    if (n_steps > 0) load_step(0);
+    cp_async_commit();
 
-    float o[DT][4];
+    // q's A fragments of chunk col (64 columns, 8 k-steps): rows g and
+    // g + 8 at dims 8 kk + 2t, 2t + 1, zeros past Tq or d
+    float qa[8][4];
+    auto load_q = [&](int col) {
 #pragma unroll
-    for (int n = 0; n < DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+        for (int kk = 0; kk < 8; ++kk) {
+            const int cc = col + 8 * kk + 2 * t;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                float2 f = make_float2(0.0f, 0.0f);
+                if (qpos[r] < tq && cc < d) f = load_pair(qb + qpos[r] * qst + cc);
+                qa[kk][r] = f.x;
+                qa[kk][2 + r] = f.y;
+            }
+        }
+    };
+    if (groups == 1) load_q(64 * c);
+
+    float o[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
     float m[2] = {kNegInf, kNegInf};
     float l[2] = {0.0f, 0.0f};
     float s[NT][4];
+    // this warp's partial scores, element (n, e) of lane L at (4n + e) 32 + L
+    float* const my_part = part + warp * 16 * 32 + lane;
+    const float* const group_part = part + rg * cw * 16 * 32 + lane;
+    const bool live = wq0 < tq;                  // the row group has rows to write
 
     for (int st = 0; st < n_steps; ++st) {
-        // step st has landed; every thread is done with step st - 1, whose
-        // stage the copies issued next refill
-        cp_async_wait<S - 2>();
+        // step st has landed; every thread is done with step st - 1 (its
+        // stage, and the partials it read), which the copies issued next
+        // and the partials written next replace
+        cp_async_wait<0>();
         __syncthreads();
-        if (st + S - 1 < n_steps) load_step(st + S - 1);
+        if (st + 1 < n_steps) load_step(st + 1);
         cp_async_commit();
-        const T* const qs = ring + (st % S) * Tl::kStageElems;
-        const T* const ks = qs + kWideRows * LDK;
-        const T* const vs = ks + BK * LDK;
-        const int c = st % nc;
+        const int j = st / groups;
+        const int grp = st % groups;
+        const int64_t k0 = static_cast<int64_t>(j) * BK;
+        // under causal, a tile wholly after the row group's last row leaves
+        // its state as it is (p = 0, corr = 1); the whole group skips it
+        if (!live || (causal && k0 > wq0 + 15)) continue;
+        const T* const ks = ring + (st % 2) * stage;
+        const T* const vs = ks + BK * ldk;
 
-        if (c == 0) {
+        if (grp == 0) {
 #pragma unroll
             for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
         }
-        // this thread's q row g at dims 2t, 2t + 1 of the chunk; row g + 8
-        // is 8 rows on
-        const T* const qrow = qs + (16 * warp + g) * LDK + 2 * t;
+        if (groups > 1) load_q((grp * cw + c) * 64);
+        // the partial scores over this warp's chunk of the group
 #pragma unroll
-        for (int kk = 0; kk < CT; ++kk) {
-            const float2 qa = load_pair(qrow + 8 * kk);
-            const float2 qc = load_pair(qrow + 8 * LDK + 8 * kk);
-            const float a[4] = {qa.x, qc.x, qa.y, qc.y};
+        for (int kk = 0; kk < 8; ++kk) {
             uint32_t ah[4], al[4];
-            wide_frag<T>(a, ah, al);
+            wide_frag<T>(qa[kk], ah, al);
 #pragma unroll
             for (int n = 0; n < NT; ++n) {
-                const float2 kv = load_pair(ks + (8 * n + g) * LDK + 8 * kk + 2 * t);
+                const float2 kv = load_pair(ks + (8 * n + g) * ldk + 64 * c + 8 * kk + 2 * t);
                 wide_mma<T>(s[n], ah, al, kv.x, kv.y);
             }
         }
-        if (c != nc - 1) continue;
+        if (grp != groups - 1) continue;
 
-        const int64_t k0 = static_cast<int64_t>(st / nc) * BK;
+        // S: the row group's partials summed in column-warp order, the same
+        // bits in each of its warps
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) my_part[(4 * n + e) * 32] = s[n][e];
+        named_sync_n(1 + rg, 32 * cw);
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                float sum = group_part[(4 * n + e) * 32];
+                for (int cc = 1; cc < cw; ++cc) sum += group_part[cc * 16 * 32 + (4 * n + e) * 32];
+                s[n][e] = sum;
+            }
+
         if (k0 + BK <= tk && (!causal || k0 + BK - 1 <= wq0))
             softmax_tf32<false>(s, o, m, l, k0, qpos, tk, causal, scale_log2, t);
         else
             softmax_tf32<true>(s, o, m, l, k0, qpos, tk, causal, scale_log2, t);
+        if (ocol >= d) continue;
 
-        // O += P.V over the slice; in bf16 p is rounded to bf16 first
-        const T* const vrow = vs + 2 * t * LDV + g;
+        // O += P.V over the warp's 64 columns; in bf16 p is rounded to bf16
+        // first
+        const T* const vrow = vs + 2 * t * ldv + 64 * c + g;
 #pragma unroll
         for (int kk = 0; kk < NT; ++kk) {
             float a[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
@@ -1231,9 +1399,9 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
             uint32_t ah[4], al[4];
             wide_frag<T>(a, ah, al);
 #pragma unroll
-            for (int n = 0; n < DT; ++n)
-                wide_mma<T>(o[n], ah, al, load_one(vrow + 8 * kk * LDV + 8 * n),
-                            load_one(vrow + (8 * kk + 1) * LDV + 8 * n));
+            for (int n = 0; n < 8; ++n)
+                wide_mma<T>(o[n], ah, al, load_one(vrow + 8 * kk * ldv + 8 * n),
+                            load_one(vrow + (8 * kk + 1) * ldv + 8 * n));
         }
     }
 
@@ -1245,10 +1413,14 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
         if (qpos[r] >= tq) continue;
         const float denom = fmaxf(lr, 1e-30f);
         const float inv = lr > 0.0f ? 1.0f / denom : 0.0f;
-        T* const op = out + ((b * tq + qpos[r]) * heads + h) * d + col0 + 2 * t;
+        T* const op = out + ((b * tq + qpos[r]) * heads + h) * d + ocol + 2 * t;
+        // d is a multiple of 4 (f32) or 8 (bf16): a column pair is wholly
+        // in or out
 #pragma unroll
-        for (int n = 0; n < DT; ++n) store_pair(op + 8 * n, o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
-        if (t == 0 && blockIdx.y == 0)
+        for (int n = 0; n < 8; ++n)
+            if (ocol + 8 * n + 2 * t < d)
+                store_pair(op + 8 * n, o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+        if (t == 0 && c == 0 && blockIdx.y == 0)
             lse[bh * tq + qpos[r]] = lr > 0.0f ? m[r] * kLn2 + logf(denom) : INFINITY;
     }
 }
@@ -1532,8 +1704,9 @@ EncodeTiledFn encode_tiled() {
     return fn;
 }
 
-// Error codes of the wgmma path's host side, beside cudaError_t's
+// Error codes of the host side, beside cudaError_t's
 constexpr int kErrNoEncoder = -1;              // libcuda has no cuTensorMapEncodeTiled
+constexpr int kErrPlan = -2;                   // the plan names no kernel built here
 constexpr int kErrEncodeBase = -1000;          // -1000 - CUresult of a refused map
 
 // The tensor map of a (B, T, H, D) bf16 tensor over dims (D, H, T, B)
@@ -1571,38 +1744,39 @@ cudaError_t allow_smem(Kernel* kernel, int bytes, int device, std::atomic<uint64
     return err;
 }
 
-template <int D>
+template <int D, int W>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
-                 int64_t batch, int heads, int64_t tq, int64_t tk, int causal, float scale,
+                 int64_t batch, int heads, int64_t tq, int64_t tk, int d, int causal, float scale,
                  const int64_t* st, int device, cudaStream_t stream) {
+    using Tl = WgTiling<D, W>;
     const EncodeTiledFn enc = encode_tiled();
     if (enc == nullptr) return kErrNoEncoder;
     CUtensorMap maps[3];
     const void* ptrs[3] = {q, k, v};
     // with no keys the kernel loads no key tile: k and v take q's map
     for (int i = 0; i < (tk > 0 ? 3 : 1); ++i) {
-        const CUresult res = encode_map(enc, &maps[i], ptrs[i], D, heads, i == 0 ? tq : tk, batch,
-                                        st + 3 * i, i == 0 ? kWgRows : WgTiling<D>::kKeys);
+        const CUresult res = encode_map(enc, &maps[i], ptrs[i], d, heads, i == 0 ? tq : tk, batch,
+                                        st + 3 * i, i == 0 ? Tl::kRows : Tl::kKeys);
         if (res != CUDA_SUCCESS) return kErrEncodeBase - static_cast<int>(res);
     }
     if (tk == 0) maps[1] = maps[2] = maps[0];
     static std::atomic<uint64_t> configured{0};
-    cudaError_t err = allow_smem(flash_fwd_wgmma_kernel<D>, WgTiling<D>::kSmemBytes, device,
-                                 configured);
+    cudaError_t err =
+        allow_smem(flash_fwd_wgmma_kernel<D, W>, Tl::kSmemBytes, device, configured);
     if (err != cudaSuccess) return err;
     int sms = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return err;
     const int64_t num_bh = batch * heads;
-    const int64_t num_q_tiles = (tq + kWgRows - 1) / kWgRows;
+    const int64_t num_q_tiles = (tq + Tl::kRows - 1) / Tl::kRows;
     const int64_t num_work = num_bh * num_q_tiles;
     if (batch > 0x7fffffffLL || tq > 0x7fffffffLL || tk > 0x7fffffffLL)
         return cudaErrorInvalidConfiguration;
     const int blocks = static_cast<int>(num_work < sms ? num_work : sms);
     constexpr float kLog2e = 1.4426950408889634f;
-    flash_fwd_wgmma_kernel<D><<<blocks, kWgThreads, WgTiling<D>::kSmemBytes, stream>>>(
+    flash_fwd_wgmma_kernel<D, W><<<blocks, Tl::kThreads, Tl::kSmemBytes, stream>>>(
         maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), lse, num_work, num_bh, heads,
-        tq, tk, num_q_tiles, causal, scale * kLog2e);
+        tq, tk, num_q_tiles, d, causal, scale * kLog2e);
     return cudaGetLastError();
 }
 
@@ -1628,37 +1802,48 @@ int launch_tf32x3(const void* q, const void* k, const void* v, void* out, float*
     return cudaGetLastError();
 }
 
+// the wide kernel's column warps for head dim d: its 64-column chunks, at
+// most WideTiling::kMaxCols
+template <typename T>
+int wide_cols(int d) {
+    const int chunks = (d + 63) / 64;
+    return chunks < WideTiling<T>::kMaxCols ? chunks : WideTiling<T>::kMaxCols;
+}
+
 template <typename T>
 int launch_wide(const void* q, const void* k, const void* v, void* out, float* lse,
-                int64_t batch, int heads, int64_t tq, int64_t tk, int d, int causal, float scale,
-                const int64_t* st, int device, cudaStream_t stream) {
-    using Tl = WideTiling<T>;
+                int64_t batch, int heads, int64_t tq, int64_t tk, int d, int rows, int causal,
+                float scale, const int64_t* st, int device, cudaStream_t stream) {
+    const int cw = wide_cols<T>(d);
+    const int groups = ((d + 63) / 64 + cw - 1) / cw;
+    if (rows < 16 || rows % 16 || rows / 16 * cw > kWideMaxWarps) return kErrPlan;
     static std::atomic<uint64_t> configured{0};
-    const cudaError_t err =
-        allow_smem(flash_fwd_wide_kernel<T>, Tl::kSmemBytes, device, configured);
+    const cudaError_t err = allow_smem(flash_fwd_wide_kernel<T>, kSmemLimit, device, configured);
     if (err != cudaSuccess) return err;
     const int64_t num_bh = batch * heads;
-    const int64_t num_q_tiles = (tq + kWideRows - 1) / kWideRows;
+    const int64_t num_q_tiles = (tq + rows - 1) / rows;
     const int64_t blocks = num_bh * num_q_tiles;
-    if (blocks > 0x7fffffffLL || d / kWideSlice > 65535) return cudaErrorInvalidConfiguration;
+    if (blocks > 0x7fffffffLL || groups > 65535) return cudaErrorInvalidConfiguration;
     constexpr float kLog2e = 1.4426950408889634f;
-    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(d / kWideSlice));
-    flash_fwd_wide_kernel<T><<<grid, kWideThreads, Tl::kSmemBytes, stream>>>(
+    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(groups));
+    flash_fwd_wide_kernel<T><<<grid, 32 * (rows / 16) * cw,
+                               WideTiling<T>::smem_bytes(rows / 16, cw), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), lse, num_bh, heads, tq, tk, num_q_tiles, d, causal, scale * kLog2e,
-        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+        static_cast<T*>(out), lse, num_bh, heads, tq, tk, num_q_tiles, rows, cw, groups, d,
+        causal, scale * kLog2e, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
     return cudaGetLastError();
 }
 
 template <int D, int W>
-int launch_mma_warps(const void* q, const void* k, const void* v, void* out, float* lse,
-                     int64_t num_bh, int heads, int64_t tq, int64_t tk, int causal, float scale,
-                     const int64_t* st, int device, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* out, float* lse,
+               int64_t batch, int heads, int64_t tq, int64_t tk, int causal, float scale,
+               const int64_t* st, int device, cudaStream_t stream) {
     using Tl = MmaTiling<D, W>;
     static std::atomic<uint64_t> configured{0};
     const cudaError_t err =
         allow_smem(flash_fwd_mma_kernel<D, W>, Tl::kSmemBytes, device, configured);
     if (err != cudaSuccess) return err;
+    const int64_t num_bh = batch * heads;
     const int64_t num_q_tiles = (tq + Tl::kRows - 1) / Tl::kRows;
     const int64_t blocks = num_bh * num_q_tiles;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
@@ -1672,106 +1857,108 @@ int launch_mma_warps(const void* q, const void* k, const void* v, void* out, flo
     return cudaGetLastError();
 }
 
-// 8 warps of 16 query rows a block where that gives every SM a block (the
-// serving shapes), else 2 (the short sequences, where a block's serial key
-// walk sets the time)
-template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* out, float* lse,
-               int64_t batch, int heads, int64_t tq, int64_t tk, int causal, float scale,
-               const int64_t* st, int device, cudaStream_t stream) {
-    int sms = 0;
-    const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    const int64_t num_bh = batch * heads;
-    if (num_bh * ((tq + 127) / 128) >= sms)
-        return launch_mma_warps<D, 8>(q, k, v, out, lse, num_bh, heads, tq, tk, causal, scale,
-                                      st, device, stream);
-    return launch_mma_warps<D, 2>(q, k, v, out, lse, num_bh, heads, tq, tk, causal, scale, st,
-                                  device, stream);
-}
-
-// which kernel a (dtype, head dim) takes; reported to the caller
+// the kernels, as the caller's plan names them
 constexpr int kPathMma = 0;
 constexpr int kPathWgmma = 1;
 constexpr int kPathTf32x3 = 2;
 constexpr int kPathWide = 3;
 
-// f32: 3xTF32 on mma.sync; bf16 with D = 64 or 128: wgmma; bf16 with
-// D = 8, 16 or 32: mma.sync
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, float* lse, int64_t batch,
-           int heads, int64_t tq, int64_t tk, int causal, float scale, const int64_t* st,
-           int device, cudaStream_t stream, int* path) {
-    if constexpr (std::is_same<T, float>::value) {
-        *path = kPathTf32x3;
-        return launch_tf32x3<D>(q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st,
-                                device, stream);
-    } else if constexpr (D == 64 || D == 128) {
-        *path = kPathWgmma;
-        return launch_wgmma<D>(q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st,
-                               device, stream);
-    } else {
-        *path = kPathMma;
-        return launch_mma<D>(q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st, device,
-                             stream);
+// Launches the plan (path, built head dim kd, query rows a block or work
+// item) on tensors of head dim d, or returns kErrPlan for a plan no kernel
+// here takes: f32 on "tf32x3" at kd = d in {8, ..., 128}, 128 rows; bf16
+// on "mma" at kd = d in {8, 16, 32}, 128 or 32 rows (8 or 2 warps); bf16
+// on "wgmma" at kd in {64, 128} = d, 128 rows, or kd in {192, 256} from d,
+// a multiple of 8 above kd - 64 (TMA reads zeros past d), 128 or 64 rows
+// at 192 (two or one consumer warpgroups), 64 at 256; f32 and bf16 on
+// "wide" at kd = d above 128 with
+// 16-byte rows, rows a multiple of 16 whose row groups times its column
+// warps are at most 12.
+int launch_plan(int dtype, int plan_path, int kd, int rows, const void* q, const void* k,
+                const void* v, void* out, float* lse, int64_t batch, int heads, int64_t tq,
+                int64_t tk, int d, int causal, float scale, const int64_t* st, int device,
+                cudaStream_t stream) {
+#define MMLSPARK_ARGS q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st, device, stream
+    if (plan_path == kPathWide) {
+        if (kd != d || d <= 128) return kErrPlan;
+        if (dtype == 0 && d % 4 == 0)
+            return launch_wide<float>(q, k, v, out, lse, batch, heads, tq, tk, d, rows, causal,
+                                      scale, st, device, stream);
+        if (dtype == 1 && d % 8 == 0)
+            return launch_wide<__nv_bfloat16>(q, k, v, out, lse, batch, heads, tq, tk, d, rows,
+                                              causal, scale, st, device, stream);
+        return kErrPlan;
     }
-}
-
-template <typename T>
-int launch_dim(int head_dim, const void* q, const void* k, const void* v, void* out, float* lse,
-               int64_t batch, int heads, int64_t tq, int64_t tk, int causal, float scale,
-               const int64_t* st, int device, cudaStream_t stream, int* path) {
-#define MMLSPARK_LAUNCH(D) \
-    launch<T, D>(q, k, v, out, lse, batch, heads, tq, tk, causal, scale, st, device, stream, path)
-    switch (head_dim) {
-        case 8: return MMLSPARK_LAUNCH(8);
-        case 16: return MMLSPARK_LAUNCH(16);
-        case 32: return MMLSPARK_LAUNCH(32);
-        case 64: return MMLSPARK_LAUNCH(64);
-        case 128: return MMLSPARK_LAUNCH(128);
-        default: break;
+    if (plan_path == kPathTf32x3 && dtype == 0 && kd == d && rows == 128) {
+        switch (kd) {
+            case 8: return launch_tf32x3<8>(MMLSPARK_ARGS);
+            case 16: return launch_tf32x3<16>(MMLSPARK_ARGS);
+            case 32: return launch_tf32x3<32>(MMLSPARK_ARGS);
+            case 64: return launch_tf32x3<64>(MMLSPARK_ARGS);
+            case 128: return launch_tf32x3<128>(MMLSPARK_ARGS);
+            default: return kErrPlan;
+        }
     }
-    // above 128, every multiple of the wide path's column slice
-    if (head_dim <= 128 || head_dim % kWideSlice) return cudaErrorInvalidValue;
-    *path = kPathWide;
-    return launch_wide<T>(q, k, v, out, lse, batch, heads, tq, tk, head_dim, causal, scale, st,
-                          device, stream);
-#undef MMLSPARK_LAUNCH
+    if (plan_path == kPathMma && dtype == 1 && kd == d && (rows == 128 || rows == 32)) {
+        const bool w8 = rows == 128;
+        switch (kd) {
+            case 8: return w8 ? launch_mma<8, 8>(MMLSPARK_ARGS) : launch_mma<8, 2>(MMLSPARK_ARGS);
+            case 16:
+                return w8 ? launch_mma<16, 8>(MMLSPARK_ARGS) : launch_mma<16, 2>(MMLSPARK_ARGS);
+            case 32:
+                return w8 ? launch_mma<32, 8>(MMLSPARK_ARGS) : launch_mma<32, 2>(MMLSPARK_ARGS);
+            default: return kErrPlan;
+        }
+    }
+#undef MMLSPARK_ARGS
+    if (plan_path == kPathWgmma && dtype == 1 && (rows == 128 || rows == 64) && d % 8 == 0 &&
+        (kd <= 128 ? d == kd : d > kd - 64 && d <= kd)) {
+#define MMLSPARK_WGMMA(D, W)                                                                \
+    launch_wgmma<D, W>(q, k, v, out, lse, batch, heads, tq, tk, d, causal, scale, st, device, \
+                       stream)
+        const bool two = rows == 128;
+        switch (kd) {
+            case 64: return two ? MMLSPARK_WGMMA(64, 2) : kErrPlan;
+            case 128: return two ? MMLSPARK_WGMMA(128, 2) : kErrPlan;
+            case 192: return two ? MMLSPARK_WGMMA(192, 2) : MMLSPARK_WGMMA(192, 1);
+            case 256: return two ? kErrPlan : MMLSPARK_WGMMA(256, 1);
+            default: return kErrPlan;
+        }
+#undef MMLSPARK_WGMMA
+    }
+    return kErrPlan;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Attention forward of q (B, Tq, H, D) against k, v (B, Tk, H, D), all of
-// `dtype` 0 (f32) or 1 (bf16). `strides` holds the (batch, time, head)
-// element strides of q, k and v in that order; the head dim is
-// contiguous. Writes out (B, Tq, H, D) contiguous in the input dtype and
-// lse (B, H, Tq) f32, and the kernel it launched to `path` (0 mma.sync
-// in bf16, 1 wgmma, 2 3xTF32 on mma.sync, 3 the wide path: head dims
-// above 128, multiples of 64). Returns 0 on success, else
-// a cudaError_t code or one of the wgmma path's negative codes
-// (mmlspark_flash_error_string names both).
+// Attention forward of q (B, Tq, H, d) against k, v (B, Tk, H, d), all of
+// `dtype` 0 (f32) or 1 (bf16), by the caller's plan: `path` (0 mma.sync in
+// bf16, 1 wgmma, 2 3xTF32 on mma.sync, 3 the wide path), the kernel's
+// built head dim `kd` and its query rows a block or work item (see
+// launch_plan; mmlspark_tpu_torch/nn/attention.py:flash_plan makes the
+// plan). `strides` holds the (batch, time, head) element strides of q, k
+// and v in that order; the head dim is contiguous. Writes out (B, Tq, H,
+// d) contiguous in the input dtype and lse (B, H, Tq) f32. Returns 0 on
+// success, else a cudaError_t code or one of the negative codes above
+// (mmlspark_flash_error_string names both); a plan no kernel here takes
+// launches nothing.
 int mmlspark_flash_fwd(const void* q, const void* k, const void* v,
                        void* out, float* lse, int dtype, int64_t batch,
                        int heads, int64_t tq, int64_t tk, int head_dim,
                        int causal, float scale, const int64_t* strides,
-                       int device, void* stream, int* path) {
+                       int device, void* stream, int path, int kd, int rows) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0)
-        return launch_dim<float>(head_dim, q, k, v, out, lse, batch, heads, tq, tk, causal,
-                                 scale, strides, device, s, path);
-    if (dtype == 1)
-        return launch_dim<__nv_bfloat16>(head_dim, q, k, v, out, lse, batch, heads, tq, tk,
-                                         causal, scale, strides, device, s, path);
-    return cudaErrorInvalidValue;
+    if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+    return launch_plan(dtype, path, kd, rows, q, k, v, out, lse, batch, heads, tq, tk, head_dim,
+                       causal, scale, strides, device, static_cast<cudaStream_t>(stream));
 }
 
 const char* mmlspark_flash_error_string(int code) {
     static thread_local char msg[96];
     if (code == kErrNoEncoder) return "libcuda has no cuTensorMapEncodeTiled";
+    if (code == kErrPlan) return "no kernel of this library takes the launch plan";
     if (code <= kErrEncodeBase) {
         snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled refused a tensor map (CUresult %d)",
                  kErrEncodeBase - code);

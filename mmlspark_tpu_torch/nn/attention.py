@@ -11,12 +11,16 @@ its (B, T, H, D) layout: q (B, Tq, H, D), k and v (B, Tk, H, D), output
   accumulator in f32 (attention.py:63).
 - `flash_attention`: the wrapper of K2, the hand-written CUDA kernel in
   csrc/flash_attn.cu that replaces the Pallas TPU kernel
-  `_flash_fwd_lse`. On a CUDA tensor it launches the kernel or raises; on
-  a CPU tensor it runs `flash_attention_torch`. `flash_attention.launches`
-  counts kernel launches, `flash_attention.launches_by_path` counts them
-  by kernel, and `flash_attention.last_path` names the kernel of the last
-  one ("tf32x3", "wgmma", "mma" or "wide"). Forward only: the
-  backward comes with the trainer (ROADMAP Queue 1, P4 trainer item).
+  `_flash_fwd_lse`. On a CUDA tensor it launches the kernel `flash_plan`
+  names or raises; on a CPU tensor it runs `flash_attention_torch`.
+  `flash_attention.launches` counts kernel launches,
+  `flash_attention.launches_by_path` counts them by kernel, and
+  `flash_attention.last_path` names the kernel of the last one ("tf32x3",
+  "wgmma", "mma" or "wide"). Forward only: the backward comes with the
+  trainer (ROADMAP Queue 1, P4 trainer item).
+- `flash_plan`: which kernel a (dtype, head dim, shape) takes on a card,
+  at which built head dim, whether the inputs need a pad copy, and its
+  query rows a block or work item.
 - `flash_attention_torch`: the plain version of K2, a transcription of
   `_flash_kernel` (attention.py:139-189) over key blocks; returns
   (out, lse). The CPU tests use it, and chip_smoke.py holds the kernel
@@ -28,7 +32,9 @@ its (B, T, H, D) layout: q (B, Tq, H, D), k and v (B, Tk, H, D), output
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -37,14 +43,19 @@ from ..core import kernels
 from .layers import Dense
 
 __all__ = ["dense_attention", "chunked_attention", "flash_attention",
-           "flash_attention_torch", "SelfAttention", "HEAD_DIMS"]
+           "flash_attention_torch", "flash_plan", "FlashPlan", "SelfAttention",
+           "HEAD_DIMS"]
 
 _NEG_INF = -1e30          # the TPU kernel's mask value: keeps exp/max NaN-free
 HEAD_DIMS = (8, 16, 32, 64, 128)      # head dims K2 is built for; D <= 128 pads up
-WIDE_SLICE = 64     # above 128 the "wide" kernel takes multiples of its column slice
+WGMMA_WIDE_DIMS = (192, 256)      # bf16 head dims in (128, 256] run at these, unpadded
 IMPLS = ("dense", "chunked", "flash")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = ("mma", "wgmma", "tf32x3", "wide")      # the kernel's path codes
+# the "wide" kernel: 64-column chunks a block holds at most (shared memory),
+# and warps a block at most (csrc/flash_attn.cu, WideTiling, kWideMaxWarps)
+_WIDE_MAX_COLS = {torch.float32: 5, torch.bfloat16: 10}
+_WIDE_MAX_WARPS = 12
 
 
 def dense_attention(q, k, v, causal: bool = False, q_offset: int = 0,
@@ -179,7 +190,7 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-            ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ]
         lib.mmlspark_flash_fwd.restype = ctypes.c_int
         lib.mmlspark_flash_error_string.argtypes = [ctypes.c_int]
@@ -188,19 +199,87 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+class FlashPlan(NamedTuple):
+    """How K2 runs on a card: the kernel (`path`), its built head dim
+    (`d_kernel`), the head dim of the tensors it reads (`width`: the true D,
+    or the D they are zero-padded to), whether that takes a pad copy
+    (`pad`), and the query rows of a block or work item (`rows`)."""
+    path: str
+    d_kernel: int
+    width: int
+    pad: bool
+    rows: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def flash_plan(dtype, d: int, b: int, h: int, tq: int, sms: int) -> FlashPlan:
+    """The plan of a K2 launch on a card with `sms` SMs for q (b, tq, h, d).
+
+    - f32 up to D 128: "tf32x3", zero-padded to the next built head dim
+      (HEAD_DIMS), 128 rows a block.
+    - bf16 up to D 32: "mma" at 8, 16 or 32, padded likewise; 128 rows (8
+      warps) a block where 128-row blocks give every SM one, else 32 (2
+      warps).
+    - bf16 above 32 and up to 256: "wgmma" at 64 or 128 (padded up to
+      them), or at 192 or 256 (WGMMA_WIDE_DIMS) on the tensors' true D,
+      whose columns past D the tensor maps read as zeros: a pad copy only
+      where D is no multiple of 8 (rows must be 16 bytes), to the next
+      multiple. 128 rows (two consumer warpgroups) a work item; at D 192,
+      where 128-row items would leave SMs idle, 64 (one warpgroup), twice
+      the items; at D 256 always 64 (two warpgroups ran slower there at
+      any fill, and at D 64 the 64-row items did).
+    - f32 above 128 and bf16 above 256: "wide" on the true D (a pad copy
+      only to the next multiple of 4 in f32, 8 in bf16); its column warps
+      are the D's 64-column chunks (at most 5 in f32, 10 in bf16), and a
+      block takes 16 rows a row group, as many row groups (up to 4) as 12
+      warps allow."""
+    if d < 1:
+        raise ValueError(f"head dim {d} is not a head dim: q, k, v need D >= 1")
+    f32 = dtype == torch.float32
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"K2 takes float32 or bfloat16, not {dtype}")
+    fills = b * h * -(-tq // 128) >= sms           # 128-row tiles give every SM one
+    if f32 and d <= HEAD_DIMS[-1] or not f32 and d <= 32:
+        dk = next(x for x in HEAD_DIMS if x >= d)
+        rows = 128 if f32 or fills else 32
+        return FlashPlan("tf32x3" if f32 else "mma", dk, dk, dk != d, rows)
+    if not f32 and d <= WGMMA_WIDE_DIMS[-1]:
+        if d <= HEAD_DIMS[-1]:
+            dk = width = next(x for x in HEAD_DIMS if x >= d)
+        else:
+            dk = next(x for x in WGMMA_WIDE_DIMS if x >= d)
+            width = _round_up(d, 8)
+        rows = 64 if dk == 256 or dk == 192 and not fills else 128
+        return FlashPlan("wgmma", dk, width, width != d, rows)
+    width = _round_up(d, 4 if f32 else 8)
+    cols = min(-(-width // 64), _WIDE_MAX_COLS[dtype])
+    return FlashPlan("wide", width, width, width != d, 16 * min(4, _WIDE_MAX_WARPS // cols))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def _flash_fwd_lse(q, k, v, causal: bool = False, block_q: int = 128,
                    block_k: int = 128):
     """K2 forward: (out (B, Tq, H, D) in q's dtype, lse (B, H, Tq) f32).
 
     A CPU tensor runs `flash_attention_torch` (with these block sizes). A
-    CUDA tensor launches the kernel, whose own tiles replace the block
-    sizes, or raises; `flash_attention.last_path` then names the kernel
-    that ran: "tf32x3" (f32, 3xTF32 on the tensor cores), "wgmma" (bf16,
-    D 64 or 128), "mma" (bf16, D 8, 16 or 32) or "wide" (f32 and bf16,
-    D above 128). A head dim between those runs zero-padded to the next
-    one (D 24 on "mma" at 32, D 96 on "wgmma" at 128, D 160 on "wide" at
-    192) at the true D's scale. Every path runs on the tensor cores and
-    needs 16-byte aligned rows; a CUDA tensor without them raises."""
+    CUDA tensor launches the kernel `flash_plan` names, whose own tiles
+    replace the block sizes, or raises; `flash_attention.last_path` then
+    names it: "tf32x3" (f32 up to D 128, 3xTF32 on the tensor cores),
+    "mma" (bf16, D up to 32), "wgmma" (bf16, D above 32 up to 256) or
+    "wide" (f32 above D 128, bf16 above 256). A head dim up to 128 between
+    the built ones runs zero-padded to the next one (D 24 on "mma" at 32,
+    D 96 on "wgmma" at 128), above 128 on its true D unless its rows
+    cannot be 16 bytes (then padded to the next multiple of 4 in f32, 8 in
+    bf16); always at the true D's scale. Every path runs on the tensor
+    cores and needs 16-byte aligned rows; a CUDA tensor without them
+    raises."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal, block_q, block_k)
@@ -208,42 +287,40 @@ def _flash_fwd_lse(q, k, v, causal: bool = False, block_q: int = 128,
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    # a head dim between the built ones runs at the next built one: zero
-    # columns leave every score, and so lse, unchanged as long as the
+    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    plan = flash_plan(q.dtype, d, b, h, tq, _sms(dev))
+    # zero columns leave every score, and so lse, unchanged as long as the
     # scale stays the true D's; the padded copies are fresh, so aligned
-    dk = (next(x for x in HEAD_DIMS if x >= d) if d <= HEAD_DIMS[-1]
-          else -(-d // WIDE_SLICE) * WIDE_SLICE)
-    if dk != d:
-        q, k, v = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
+    if plan.pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, plan.width - d)) for t in (q, k, v))
     # every path copies rows to shared memory 16 bytes at a time (tf32x3,
-    # mma) or through TMA tensor maps (wgmma): 16-byte aligned base and
-    # strides
+    # mma, wide) or through TMA tensor maps (wgmma): 16-byte aligned base
+    # and strides
     per16 = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16 or any(st % per16 for st in t.stride()[:3]):
             raise ValueError(f"{str(q.dtype).replace('torch.', '')} {name} must have "
                              "16-byte aligned rows (data pointer and strides in "
                              f"multiples of {per16} elements)")
-    out = torch.empty((b, tq, h, dk), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, tq, h, plan.width), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out[..., :d], lse
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
     lib = _lib()
-    path = ctypes.c_int(-1)
     code = lib.mmlspark_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        _DTYPE_CODES[q.dtype], b, h, tq, tk, dk, int(bool(causal)), d ** -0.5,
-        strides, dev, torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(path))
+        _DTYPE_CODES[q.dtype], b, h, tq, tk, plan.width, int(bool(causal)), d ** -0.5,
+        strides, dev, torch.cuda.current_stream(dev).cuda_stream,
+        _PATHS.index(plan.path), plan.d_kernel, plan.rows)
     if code != 0:
-        raise RuntimeError("flash attention kernel launch failed: "
+        raise RuntimeError(f"flash attention kernel launch failed ({plan}): "
                            + lib.mmlspark_flash_error_string(code).decode())
     flash_attention.launches += 1
-    flash_attention.last_path = _PATHS[path.value]
+    flash_attention.last_path = plan.path
     by_path = flash_attention.launches_by_path
-    by_path[flash_attention.last_path] = by_path.get(flash_attention.last_path, 0) + 1
-    return out[..., :d], lse
+    by_path[plan.path] = by_path.get(plan.path, 0) + 1
+    return (out[..., :d] if plan.pad else out), lse
 
 
 def flash_attention(q, k, v, causal: bool = False, block_q: int = 128,

@@ -1,11 +1,14 @@
 """K2 at head dims above 128, on the CPU.
 
 The reference's `_flash_fwd_lse` takes any D; on a card the port runs a D
-above 128 on its "wide" kernel, zero-padded to a multiple of its 64-column
-slice at the true D's scale. On the CPU the wrapper runs the plain version
-at the true D: here it is held against the Pallas kernel in interpret
-mode, out and lse, at test_torch_attention.py's gates, at D the card pads
-(129, 160) and D it takes as they are (192, 256); and a TransformerEncoder
+above 128 on its "wgmma" kernel at 192 or 256 (bf16 up to 256) or on its
+"wide" kernel (f32, and bf16 above 256), reading the true D (a pad copy
+only where rows are not 16 bytes, as at 129) at the true D's scale. On the
+CPU the wrapper runs the plain version at the true D: here it is held
+against the Pallas kernel in interpret mode, out and lse, at
+test_torch_attention.py's gates, at D the card pads (129), reads through
+zeros past D (160, 200) and takes as they are (192, 256, and 320, beyond
+the wgmma kernel in both dtypes); and a TransformerEncoder
 of d_model 768 over 4 heads (D = 192: the importers' default of 4 heads,
 mmlspark_tpu/nn/import_weights.py:436, at BERT-base width) against the
 reference's, weights carried by nn/carry.py.
@@ -33,7 +36,7 @@ BLOCK = 16
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [129, 160, 192, 256])
+@pytest.mark.parametrize("d", [129, 160, 192, 200, 256, 320])
 def test_k2_matches_pallas_interpret_above_128(d, dtype, causal):
     rng = np.random.default_rng(d)
     qkv = [rng.normal(size=(2, t, 2, d)).astype(np.float32) for t in (40, 40, 40)]

@@ -209,22 +209,25 @@ _F32_TOL, _BF16_TOL = (2e-5, 1e-5), (2e-3, 2.0 ** -7)
 
 def _k2_path(dtype, d):
     """The kernel a (dtype, head dim) must take."""
-    if d > 128:
-        return "wide"
     if dtype == torch.float32:
-        return "tf32x3"
-    return "wgmma" if d in (64, 128) else "mma"
+        return "tf32x3" if d <= 128 else "wide"
+    if d <= 32:
+        return "mma"
+    return "wgmma" if d <= 256 else "wide"
 
 
 # every head dim K2 is built for, so each of its instantiations runs; Tk
 # 137 is ragged against every key tile, so a fragment element taken from
 # the wrong lane shows as a wrong row. The mma path (bf16, D 8/16/32) takes
 # 2-warp blocks at B 2 (16 blocks) and 8-warp blocks at B 16, Tq 300 (192
-# blocks of 128 rows, the last one ragged, on the H100's 132 SMs)
+# blocks of 128 rows, the last one ragged, on the H100's 132 SMs); the
+# wgmma path (bf16) takes 128-row items at D 64/128, and 64-row items with
+# one consumer warpgroup at D 256 and at D 192 with B 2 (the next test
+# holds its 128-row items at 192 to these bits)
 @pytest.mark.parametrize("dtype,d,causal,tol,b,tq", [
     *[(torch.float32, d, causal, _F32_TOL, 2, 200) for d in (64, 8, 16, 32, 128)
       for causal in (False, True)],
-    *[(torch.bfloat16, d, causal, _BF16_TOL, 2, 200) for d in (8, 16, 32, 64, 128)
+    *[(torch.bfloat16, d, causal, _BF16_TOL, 2, 200) for d in (8, 16, 32, 64, 128, 192, 256)
       for causal in (False, True)],
     *[(torch.bfloat16, d, causal, _BF16_TOL, 16, 300) for d in (8, 16, 32)
       for causal in (False, True)],
@@ -249,6 +252,32 @@ def test_flash_kernel_matches_plain_version_and_repeats_its_bits(cuda, dtype, d,
     fin = torch.isfinite(ref_lse)
     torch.testing.assert_close(lse[fin], ref_lse[fin], atol=2e-5, rtol=1e-5)
     assert torch.equal(out, again) and torch.equal(lse, lse2)
+
+
+# At head dim 192 the wgmma path's 128-row items (two consumer
+# warpgroups, where 128-row items give every SM one: 192 items at B 16,
+# Tq 300) and its 64-row items (one warpgroup) run the same instructions on
+# each 64 rows, key tile by key tile: a warpgroup's extra causal tiles are
+# wholly masked for it and leave its state as it is. So the two give the
+# same bits, and the 64-row items are held to the plain version above
+@pytest.mark.parametrize("d", [136, 192])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wgmma_two_warpgroups_give_the_bits_of_one(cuda, monkeypatch, causal, d):
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.tensor(rng.normal(size=(16, t, 4, d)), dtype=torch.bfloat16, device=cuda)
+               for t in (300, 137, 137))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = att.flash_plan(torch.bfloat16, d, 16, 4, 300, sms)
+    assert plan.path == "wgmma" and plan.rows == 128
+    with torch.no_grad():
+        out, lse = att._flash_fwd_lse(q, k, v, causal)
+        plain = att.flash_plan
+        monkeypatch.setattr(att, "flash_plan", lambda *a: plain(*a)._replace(rows=64))
+        out64, lse64 = att._flash_fwd_lse(q, k, v, causal)
+        assert att.flash_attention.last_path == "wgmma"
+    torch.cuda.synchronize()
+    assert torch.equal(out, out64) and torch.equal(lse, lse64)
+    assert torch.isfinite(out.float()).all() and out.abs().max() > 0
 
 
 # head dims between the built ones run zero-padded to the next built one:
@@ -284,41 +313,62 @@ def test_flash_kernel_pads_head_dims_between_built_ones_at_the_true_scale(cuda, 
     assert torch.equal(out, again) and torch.equal(lse, lse2)
 
 
-# head dims above 128 run on the "wide" kernel, a 64-column slice of the
-# output a block: 192 and 256 as they are (3 and 4 slices), 129 and 160
-# zero-padded to 192 at the true D's scale. Tq 200 and Tk 137 are ragged
-# against the 128-row and 64-key tiles; with no keys every row of every
-# slice has l == 0 (output 0, lse +inf)
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, _BF16_TOL), (torch.float32, _F32_TOL)])
-@pytest.mark.parametrize("d", [129, 160, 192, 256])
+# head dims above 128: bf16 up to 256 on "wgmma" at 192 or 256, reading
+# the true D through its tensor maps (136, 160, 200: zeros past D), f32 and
+# bf16 above on "wide", a block's warps splitting the head dim (320: five
+# column warps; 132: the copies' zeros past D in f32), and beyond a block's
+# columns (f32 384 and 1,000, bf16 704) in slices that each sum S over the
+# head dim in groups; 129 rows are no 16 bytes, so they alone are padded.
+# Tq 200 and Tk 137 are ragged against every tile; with no keys every row
+# has l == 0 (output 0, lse +inf); q, k and v also as views of one fused
+# qkv tensor
+@pytest.mark.parametrize("dtype,tol,d", [
+    *[(torch.bfloat16, _BF16_TOL, d) for d in (129, 136, 160, 192, 200, 256, 320, 704)],
+    *[(torch.float32, _F32_TOL, d) for d in (129, 132, 136, 160, 192, 256, 320, 384, 1000)],
+])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_wide_kernel_matches_plain_version_above_128(cuda, causal, d, dtype, tol):
     rng = np.random.default_rng(14)
     q, k, v = (torch.tensor(rng.normal(size=(2, t, 4, d)), dtype=dtype, device=cuda)
                for t in (200, 137, 137))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = att.flash_plan(dtype, d, 2, 4, 200, sms)
+    assert plan.path == _k2_path(dtype, d) and plan.pad == (d == 129), plan
     with torch.no_grad():
         before = att.flash_attention.launches
         out, lse = att._flash_fwd_lse(q, k, v, causal)
-        assert att.flash_attention.last_path == "wide"
+        assert att.flash_attention.last_path == plan.path
         again, lse2 = att._flash_fwd_lse(q, k, v, causal)
         assert att.flash_attention.launches == before + 2
         ref, ref_lse = att.flash_attention_torch(q, k, v, causal)
-        dk = -(-d // 64) * 64
-        padded = [torch.nn.functional.pad(x, (0, dk - d)) for x in (q, k, v)]
+        padded = [torch.nn.functional.pad(x, (0, plan.d_kernel - d)) for x in (q, k, v)]
         _, wrong_lse = att.flash_attention_torch(*padded, causal)
     torch.cuda.synchronize()
     assert out.shape == q.shape and out.dtype == dtype
+    # no pad copy where the plan needs none: the output is the kernel's own
+    assert out.is_contiguous() == (not plan.pad)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol[0], rtol=tol[1])
     assert torch.equal(torch.isinf(lse), torch.isinf(ref_lse))
     fin = torch.isfinite(ref_lse)
     torch.testing.assert_close(lse[fin], ref_lse[fin], atol=2e-5, rtol=1e-5)
-    if dk != d:
-        # padded at the true D's scale, not the padded width's
+    if plan.d_kernel != d:
+        # the kernel's built D is wider: the scale must be the true D's
         assert (lse[fin] - wrong_lse[fin]).abs().max().item() > 1e-2
     assert torch.equal(out, again) and torch.equal(lse, lse2)
     with torch.no_grad():
         none_out, none_lse = att._flash_fwd_lse(q, k[:, :0], v[:, :0], causal)
     assert torch.equal(none_out, torch.zeros_like(q)) and torch.isinf(none_lse).all()
+    if plan.pad:
+        return
+    qkv = torch.tensor(rng.normal(size=(2, 200, 3, 4, d)), dtype=dtype, device=cuda)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    with torch.no_grad():
+        out, lse = att._flash_fwd_lse(q, k, v, causal)
+        assert att.flash_attention.last_path == plan.path
+        ref, ref_lse = att.flash_attention_torch(*(x.contiguous() for x in (q, k, v)), causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol[0], rtol=tol[1])
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, _BF16_TOL), (torch.float32, _F32_TOL)])

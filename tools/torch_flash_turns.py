@@ -34,13 +34,29 @@ Run from the root of a checkout on a machine with a card:
         of one K2 call at a small shape (B 1, T 128, H 1, D 64, bf16),
         where the launch overhead, not the device, sets the time, and
         the seconds and tokens/s of serving chip_smoke's 1,024 x 512
-        tokens through the f32 flash transformer and through the bf16
+        tokens through the f32 flash transformer, through the bf16
         transformer at TransformerEncoder's default width (this
         checkout's chip_smoke.SMALL_TRANSFORMERS["d16"], head dim 16, in
         its chip_smoke.SMALL_PASSES passes: all tokens over all seconds,
-        with the rate's standard error) with TREE's own package (K2's
-        launches and path beside them). Compare
-        two versions only inside one such call.
+        with the rate's standard error) and through the tree's own
+        serve_wide transformer (chip_smoke.WIDE_TRANSFORMER, head dim 192,
+        minibatch chip_smoke.WIDE_BATCH, WIDE_PASSES passes) in bf16 and
+        in f32, with TREE's own package (K2's launches and path beside
+        them). Compare two versions only inside one such call.
+    python3 tools/torch_flash_turns.py rows --shapes A,B --rows R1,R2
+        K2's median ms at the named chip_smoke.FLASH_SHAPES with
+        flash_plan's query rows a block or work item replaced by each of
+        R1, R2 in turns (R1, R2, R2, R1) in one process, each launch first
+        checked against the plain version: the wgmma path's 64-row items
+        against 128-row ones, or the wide path's row groups.
+    python3 tools/torch_flash_turns.py serve NAME=TREE ... --order A,B,B,A,...
+        for each name in --order, a fresh process that serves TREE's
+        chip_smoke serve_wide transformer (head dim 192, minibatch
+        chip_smoke.WIDE_BATCH, 1,024 x 512 tokens) in bf16 and in f32,
+        WIDE_PASSES timed passes each, after one host-microseconds
+        measurement of a K2 call at that shape (B 4, T 512, H 4, D 192) in
+        each dtype: the end-to-end rates with nothing else in the process,
+        for many alternations in one call.
     python3 tools/torch_flash_turns.py mma_rate
         the issue rate of mma.sync on the card, from tools/mma_rate.cu:
         m16n8k8 TF32 alone, as three products into one accumulator
@@ -133,8 +149,31 @@ serve16 = {"passes": passes, "tokens_per_s": x16.size * passes / s16.sum(),
            "pass_seconds_max": s16.max(),
            "rate_rel_stderr": s16.std(ddof=1) / np.sqrt(passes) / s16.mean(),
            "launches": flash_attention.launches, "path": flash_attention.last_path}
+
+# the tree's serve_wide transformer (head dim 192), bf16 and f32, at its
+# minibatch and passes
+wide = {}
+bundle_w = ModelBundle.init("transformer", (chip_smoke.SLICE_TOKENS,), seed=0,
+                            attention_impl="flash", dtype="bfloat16",
+                            **chip_smoke.WIDE_TRANSFORMER)
+xw = np.random.default_rng(12).integers(0, chip_smoke.WIDE_TRANSFORMER["vocab_size"],
+                                        size=(chip_smoke.SLICE_ROWS, chip_smoke.SLICE_TOKENS))
+for dtype in ("bfloat16", "float32"):
+    bw = bundle_w if dtype == "bfloat16" else chip_smoke._variant(bundle_w, dtype="float32")
+    stage_w, _ = chip_smoke._serve(bw, xw[:chip_smoke.WIDE_BATCH], "cuda", chip_smoke.WIDE_BATCH)
+    seconds_w = []
+    for _ in range(chip_smoke.WIDE_PASSES):
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        flash_attention.launches_by_path = {}
+        t0 = time.perf_counter()
+        logits_w = np.asarray(stage_w.transform(Table({"tokens": xw}))["logits"])
+        seconds_w.append(time.perf_counter() - t0)
+        assert np.isfinite(logits_w).all()
+    wide[dtype] = {**chip_smoke.pass_rate(seconds_w, xw.size),
+                   "launches_by_path": dict(flash_attention.launches_by_path)}
 print("TURN " + json.dumps({"rows": rows, "host_us_small": host_us, "f32_serving": serve,
-                            "bf16_d16_serving": serve16}), flush=True)
+                            "bf16_d16_serving": serve16, "wide_serving": wide}), flush=True)
 """
 
 
@@ -170,6 +209,7 @@ def ptxas(trees: list[str], source: str = "flash_attn.cu") -> None:
     sys.path.insert(0, str(ROOT))
     from mmlspark_tpu_torch.core import kernels
 
+    failed = 0
     for tree in trees or [str(ROOT)]:
         src = Path(tree) / "mmlspark_tpu_torch" / "csrc" / source
         with tempfile.TemporaryDirectory() as tmp:
@@ -206,7 +246,9 @@ def ptxas(trees: list[str], source: str = "flash_attn.cu") -> None:
                           "kernels": report, "warnings": warnings}), flush=True)
         if proc.returncode:
             print(out, file=sys.stderr)
-            raise SystemExit(proc.returncode)
+            failed = proc.returncode
+    if failed:
+        raise SystemExit(failed)
 
 
 def _sass_summary(cuobjdump: Path, lib: Path) -> dict:
@@ -295,14 +337,78 @@ def turns(trees: list[str], order: list[str]) -> None:
             + f"; host {doc['host_us_small']:.1f} us/call"
             + f"; f32 serving {doc['f32_serving']['tokens_per_s']:.0f} tokens/s"
             + f"; bf16 d16 serving {doc['bf16_d16_serving']['tokens_per_s']:.0f} tokens/s"
-            + f" (standard error {100 * doc['bf16_d16_serving']['rate_rel_stderr']:.2f}%)",
+            + f" (standard error {100 * doc['bf16_d16_serving']['rate_rel_stderr']:.2f}%)"
+            + "".join(f"; wide {dt} serving {w['tokens_per_s']:.0f} tokens/s"
+                      for dt, w in doc["wide_serving"].items()),
             file=sys.stderr, flush=True)
 
 
-# timed by `time` beside chip_smoke.FLASH_SHAPES, (name, B, Tq, Tk, H, D,
-# dtype, causal): the mma path at D = 32 in 8-warp blocks (d_model 128, 4
-# heads, at the serving rows and tokens), which no model of the repo serves
-TIME_SHAPES = [("serve_d32_bf16", 64, 512, 512, 4, 32, "bfloat16", False)]
+_SERVE = r"""
+import json, sys, time
+sys.path.insert(0, ".")
+import numpy as np
+import torch
+import chip_smoke
+import mmlspark_tpu_torch  # noqa: F401
+from mmlspark_tpu_torch.core import Table, kernels
+from mmlspark_tpu_torch.nn import ModelBundle
+from mmlspark_tpu_torch.nn.attention import _flash_fwd_lse, flash_attention
+kernels.build()
+host_us = {}
+with torch.no_grad():
+    for dt in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v = (torch.randn((chip_smoke.WIDE_BATCH, chip_smoke.SLICE_TOKENS, 4, 192),
+                               generator=g, device="cuda").to(dt) for _ in range(3))
+        for _ in range(20):
+            _flash_fwd_lse(q, k, v)
+        host_us[str(dt).replace("torch.", "")] = chip_smoke.host_us_per_call(
+            lambda: _flash_fwd_lse(q, k, v), reps=500)
+bundle = ModelBundle.init("transformer", (chip_smoke.SLICE_TOKENS,), seed=0,
+                          attention_impl="flash", dtype="bfloat16", **chip_smoke.WIDE_TRANSFORMER)
+x = np.random.default_rng(12).integers(0, chip_smoke.WIDE_TRANSFORMER["vocab_size"],
+                                       size=(chip_smoke.SLICE_ROWS, chip_smoke.SLICE_TOKENS))
+out = {}
+for dtype in ("bfloat16", "float32"):
+    b = bundle if dtype == "bfloat16" else chip_smoke._variant(bundle, dtype="float32")
+    stage, _ = chip_smoke._serve(b, x[:chip_smoke.WIDE_BATCH], "cuda", chip_smoke.WIDE_BATCH)
+    seconds = []
+    for _ in range(chip_smoke.WIDE_PASSES):
+        torch.cuda.synchronize()
+        flash_attention.launches_by_path = {}
+        t0 = time.perf_counter()
+        logits = np.asarray(stage.transform(Table({"tokens": x}))["logits"])
+        seconds.append(time.perf_counter() - t0)
+        assert np.isfinite(logits).all()
+    out[dtype] = {**chip_smoke.pass_rate(seconds, x.size),
+                  "launches_by_path": dict(flash_attention.launches_by_path)}
+print("SERVE " + json.dumps({"host_us_d192": host_us, "wide_serving": out}), flush=True)
+"""
+
+
+def serve_turns(trees: list[str], order: list[str]) -> None:
+    named = dict(t.split("=", 1) for t in trees)
+    card = _card()
+    for turn, label in enumerate(order):
+        proc = subprocess.run([sys.executable, "-c", _SERVE], cwd=named[label],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            print(proc.stderr[-8000:], file=sys.stderr)
+            raise SystemExit(f"serve turn {turn} ({label}) failed with exit {proc.returncode}")
+        doc = json.loads(next(line for line in proc.stdout.splitlines()
+                              if line.startswith("SERVE "))[6:])
+        print(json.dumps({"turn": turn, "tree": label, "card": card, **doc}), flush=True)
+        print(f"serve {turn} {label}: " + "; ".join(
+            f"{dt} {w['tokens_per_s']:.0f} tokens/s, K2 host {doc['host_us_d192'][dt]:.1f} us"
+            for dt, w in doc["wide_serving"].items()), file=sys.stderr, flush=True)
+
+
+# timed by `time` and `rows` beside chip_smoke.FLASH_SHAPES, (name, B, Tq,
+# Tk, H, D, dtype, causal): the mma path at D = 32 in 8-warp blocks
+# (d_model 128, 4 heads, at the serving rows and tokens), which no model of
+# the repo serves; wgmma at D = 256 with 128-row items (256 of them)
+TIME_SHAPES = [("serve_d32_bf16", 64, 512, 512, 4, 32, "bfloat16", False),
+               ("d256_b16_bf16", 16, 512, 512, 4, 256, "bfloat16", False)]
 
 
 def time_trees(trees: list[str], shapes: list[str]) -> None:
@@ -316,6 +422,43 @@ def time_trees(trees: list[str], shapes: list[str]) -> None:
         doc = json.loads(next(line for line in proc.stdout.splitlines()
                               if line.startswith("TIME "))[5:])
         print(json.dumps({"tree": label, "card": card, "ms": doc}), flush=True)
+
+
+def rows_turns(shapes: list[str], rows: list[int]) -> None:
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import chip_smoke
+    from mmlspark_tpu_torch.nn import attention as att
+
+    card = _card()
+    plan = att.flash_plan
+    extra = [(n, b, tq, tk, h, d, getattr(torch, dt), c)
+             for n, b, tq, tk, h, d, dt, c in TIME_SHAPES]
+    picked = [(i, s) for i, s in enumerate(chip_smoke.FLASH_SHAPES + extra) if s[0] in shapes]
+    inputs = {s[0]: chip_smoke._flash_inputs(s[0], *s[1:7], seed=200 + i) for i, s in picked}
+    order = rows + rows[::-1]
+    ms = {}
+    try:
+        with torch.no_grad():
+            for turn, r in enumerate(order):
+                att.flash_plan = lambda *a, r=r: plan(*a)._replace(rows=r)
+                for _, (name, b, tq, tk, h, d, dt, causal) in picked:
+                    q, k, v = inputs[name]
+                    out, lse = att._flash_fwd_lse(q, k, v, causal)
+                    ref, ref_lse = att.flash_attention_torch(q, k, v, causal)
+                    atol, rtol = chip_smoke.FLASH_TOL[dt]
+                    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+                    fin = torch.isfinite(ref_lse)
+                    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=2e-5, rtol=1e-5)
+                    ms.setdefault(name, {}).setdefault(str(r), []).append(
+                        chip_smoke.median_ms(lambda: att._flash_fwd_lse(q, k, v, causal)))
+                    print(json.dumps({"turn": turn, "shape": name, "rows": r,
+                                      "path": att.flash_attention.last_path,
+                                      "ms": ms[name][str(r)][-1], "card": card}), flush=True)
+    finally:
+        att.flash_plan = plan
+    print(json.dumps({"rows_summary": ms, "order": order, "card": card}), flush=True)
 
 
 _MMA_MODES = {"tf32": (0, 1), "chain3": (1, 3), "split3": (2, 3), "split3_lds": (3, 3),
@@ -404,11 +547,17 @@ VARIANTS = {
                                                f"exp2_poly({_X}) : exp2_approx({_X}))"))],
     "poly8": [_POLY, (_P_LINE, _P_LINE.replace(f"exp2_approx({_X})", f"(i % 8 == 0 ? "
                                                f"exp2_poly({_X}) : exp2_approx({_X}))"))],
-    # 8-warp blocks only where the grid gives every SM two of them
-    "fill2": [("((tq + 127) / 128) >= sms)", "((tq + 127) / 128) >= 2 * sms)")],
     # at D = 32 the register cap lifted from 128 to 255 in 8-warp blocks
     # too (half the blocks an SM guaranteed), so nothing spills there
     "d32_regs_w8": [("D == 32 && W == 2 ? 4 : 16 / W;", "D == 32 ? 8 / W : 16 / W;")],
+    # wgmma with two consumer warpgroups at D = 192: tile j's PV product
+    # in flight beside tile j + 1's S product, as below
+    "overlap_w2": [("static constexpr bool kOverlap = !(W == 2 && D > 128);",
+                    "static constexpr bool kOverlap = true;")],
+    # the wgmma kernel's warp index straight from threadIdx, not through a
+    # shuffle
+    "warp_noshfl": [("const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 32), 0);",
+                     "const int warp = threadIdx.x / 32;")],
 }
 
 
@@ -437,15 +586,19 @@ def main() -> int:
     p.add_argument("trees", nargs="*")
     sub.add_parser("check")
     sub.add_parser("mma_rate")
+    p = sub.add_parser("rows")
+    p.add_argument("--shapes", required=True)
+    p.add_argument("--rows", required=True)
     p = sub.add_parser("time")
     p.add_argument("trees", nargs="+", metavar="NAME=TREE")
     p.add_argument("--shapes", default="")
     p = sub.add_parser("variants")
     p.add_argument("out")
     p.add_argument("names", nargs="+", choices=sorted(VARIANTS))
-    p = sub.add_parser("turns")
-    p.add_argument("trees", nargs="+", metavar="NAME=TREE")
-    p.add_argument("--order", required=True)
+    for name in ("turns", "serve"):
+        p = sub.add_parser(name)
+        p.add_argument("trees", nargs="+", metavar="NAME=TREE")
+        p.add_argument("--order", required=True)
     args = ap.parse_args()
     if args.cmd == "ptxas":
         ptxas(args.trees)
@@ -457,6 +610,10 @@ def main() -> int:
         variants(args.out, args.names)
     elif args.cmd == "mma_rate":
         mma_rate()
+    elif args.cmd == "serve":
+        serve_turns(args.trees, args.order.split(","))
+    elif args.cmd == "rows":
+        rows_turns(args.shapes.split(","), [int(r) for r in args.rows.split(",")])
     else:
         turns(args.trees, args.order.split(","))
     return 0
