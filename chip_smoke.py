@@ -12,8 +12,10 @@ version on the card, drives the port's two main paths through the stages
 a user calls — GBDTClassifier fit on the Adult-Census shape (32,768 rows x
 14 features, 31 leaves, 100 rounds), then transform and
 ComputeModelStatistics, the Higgs-shaped fit binned on the card and scored
-by the fused bin -> traverse program, a 10-class fit on digits and the
-regression objectives' quality gate through GBDTRegressor; and
+by the fused bin -> traverse program, a 10-class fit on digits, the
+regression objectives' quality gate through GBDTRegressor, the Adult fit
+under bagged gbdt, goss, rf and dart, an early-stopped fit and its warm
+start, and the classifier and regressor quality gates; and
 DeepModelTransformer serving 1,024 rows x 512 token ids through bench.py's
 accelerator transformer (8 layers, d_model 512, 8 heads, vocab 16,384) with
 attention_impl="flash", in bf16 and in f32, through two small bf16
@@ -60,6 +62,32 @@ ran on its kernel. It prints one JSON line per phase:
   slice_objectives  tests/benchmarks/test_gbdt_benchmarks.py:86-114's
                objectives gate through GBDTRegressor on the card (l1,
                huber, quantile, poisson, tweedie: 2,250 launches)
+  slice_boosting  the Adult shape through GBDTClassifier under bagged
+               gbdt (bagging 0.8 every round, feature fraction 0.8), goss,
+               rf and dart: each fit's seconds, 3,100 launches, train
+               accuracy > 0.7, held-out AUC > 0.75, card scores equal to
+               the host walk; first, two rounds of each loop under sync
+               debug mode "error" (nothing read back)
+  slice_boosting_parity  the random draws (bag, goss, feature and drop
+               keys of rounds 0, 1, 7, 99) at 32,768 and 1,048,576 rows on
+               the card and the CPU, bit for bit; the Adult data fitted on
+               "cpu" and "cuda" for 10 rounds under each boosting type:
+               the bags, feature masks and drop sets the loops used
+               (fused.round_hook) equal every round, GOSS's row weights up
+               to the first parting tree; the card's trees meet
+               compare_fits at 1e-5 through the CPU's row-order histogram
+               and at 1e-4 through K1; a draw's host microseconds and
+               device ms at both sizes
+  slice_early_stopping  GBDTClassifier on the Adult shape with
+               validation_fraction 0.1, early_stopping_round 5, learning
+               rate 0.5: best_iteration + 1 trees kept, the held-out loss
+               from predict_raw(num_iteration=i) smallest at the best
+               round, launches of exactly the rounds run; a warm start
+               from its model_string keeps its trees first
+  slice_gates  tests/benchmarks/test_gbdt_benchmarks.py:41-84 on the card:
+               16 classifier and 12 regressor fits (gbdt, rf, dart, goss;
+               bagging 0.85, seed 42), each within its precision of the
+               committed CSVs (21,600 launches)
   slice_transformer  the DNN path: tokens/s, K2 launches (must be 128,
                on "wgmma"), finite logits, probabilities summing to 1; the
                same 1,024 x 512 tokens served in f32 (128 launches on
@@ -727,18 +755,21 @@ def _rows_at(booster, t, node, bins):
     return seen
 
 
-def compare_fits(cpu, card, bins=None) -> dict:
+def compare_fits(cpu, card, bins=None, tol: float = 1e-5) -> dict:
     """CPU and card trees of one fit (or any two fits of one data set).
-    Where they part, the two splits' gains must be a near-tie (within 1e-5
+    Where they part, the two splits' gains must be a near-tie (within `tol`
     relative). A tie whose two splits send every training row of the
     node the same way (`bins`, the fit's bin matrix: two thresholds around
     a run of empty bins, or two features that part the node's rows alike)
     changes no row's route, so the comparison goes on; any other tie ends
-    it before its tree. Leaf values of the trees before that: rtol
-    1e-5, and an absolute floor of 1e-5 of the tree's largest leaf value. A
+    it before its tree. Leaf values of the trees before that: rtol `tol`,
+    and an absolute floor of `tol` times the tree's largest leaf value. A
     right child's histogram is its parent's minus its sibling's, so a small
     leaf's gradient sum carries the f32 rounding of sums far larger than
-    itself: its absolute error scales with the tree's values."""
+    itself: its absolute error scales with the tree's values. The default
+    1e-5 holds two fits whose histograms add rows in the same order (the
+    port against the JAX package; a card fit through the CPU's histogram);
+    K1 adds them in another (slice_boosting_parity)."""
     ties, upto = [], cpu.num_trees
     for t in range(cpu.num_trees):
         parted = {int(m) for name in ("feature", "threshold_bin", "left", "right")
@@ -751,7 +782,7 @@ def compare_fits(cpu, card, bins=None) -> dict:
             rel = abs(g_cpu - g_card) / max(abs(g_cpu), abs(g_card), 1e-30)
             tie = {"tree": t, "node": m, "cpu_gain": g_cpu, "cuda_gain": g_card,
                    "relative_gap": rel}
-            assert rel <= 1e-5, f"trees part at tree {t} node {m} without a near-tie: {tie}"
+            assert rel <= tol, f"trees part at tree {t} node {m} without a near-tie: {tie}"
             tie["routes_alike"] = False
             if (bins is not None and cpu.feature[t, m] >= 0 and card.feature[t, m] >= 0
                     and cpu.left[t, m] == card.left[t, m]
@@ -770,8 +801,8 @@ def compare_fits(cpu, card, bins=None) -> dict:
     for t in range(upto):
         scale = float(np.max(np.abs(cpu.value[t])))
         err = np.abs(card.value[t].astype(np.float64) - cpu.value[t])
-        np.testing.assert_allclose(card.value[t], cpu.value[t], rtol=1e-5,
-                                   atol=1e-5 * scale, err_msg=f"tree {t}")
+        np.testing.assert_allclose(card.value[t], cpu.value[t], rtol=tol,
+                                   atol=tol * scale, err_msg=f"tree {t}")
         value_err = max(value_err, float(err.max()))
         value_err_scaled = max(value_err_scaled, float(err.max()) / max(scale, 1e-30))
     return {"trees_equal": not ties, "trees_compared": upto, "near_ties": ties,
@@ -1017,6 +1048,118 @@ def counts_like(n=900, f=6, seed=24):
     return x, y.astype(np.float64)
 
 
+def breast_tissue_like(n=420, f=9, seed=11):
+    """6-class, well-separated clusters + overlap (BreastTissue role)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=2.2, size=(6, f))
+    y = rng.integers(0, 6, size=n)
+    x = centers[y] + rng.normal(scale=1.0, size=(n, f))
+    return x, y.astype(np.float64)
+
+
+def pima_like(n=768, f=8, seed=12):
+    """Binary, noisy nonlinear boundary (PimaIndian diabetes role)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, f))
+    logits = x[:, 0] + 0.8 * x[:, 1] * x[:, 2] - 0.6 * np.abs(x[:, 3]) + 0.4
+    y = (logits + rng.normal(scale=1.2, size=n) > 0).astype(int)
+    return x, y.astype(np.float64)
+
+
+def breast_cancer_like(n=560, f=10, seed=13):
+    """Binary, nearly separable (breast-cancer role)."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 2, size=n)
+    x = rng.normal(size=(n, f)) + y[:, None] * np.linspace(1.6, 0.2, f)
+    return x, y.astype(np.float64)
+
+
+def transfusion_like(n=748, f=4, seed=14):
+    """Binary, weak signal / high Bayes error (blood-transfusion role)."""
+    rng = np.random.default_rng(seed)
+    x = np.abs(rng.normal(size=(n, f))) * [1.0, 3.0, 10.0, 20.0]
+    logits = 0.3 * x[:, 1] - 0.04 * x[:, 3]
+    y = (logits + rng.normal(scale=1.0, size=n) > 0.4).astype(int)
+    return x, y.astype(np.float64)
+
+
+def energy_efficiency_like(n=768, f=8, seed=22):
+    """Regression, additive with interactions (energyefficiency role)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, size=(n, f))
+    y = (
+        15.0 * x[:, 0]
+        - 10.0 * x[:, 1]
+        + 6.0 * x[:, 2] * x[:, 3]
+        + 3.0 * np.sin(6.0 * x[:, 4])
+        + rng.normal(scale=1.0, size=n)
+        + 20.0
+    )
+    return x, y.astype(np.float64)
+
+
+def concrete_like(n=1030, f=8, seed=23):
+    """Regression, heteroscedastic noise (Concrete strength role)."""
+    rng = np.random.default_rng(seed)
+    x = np.abs(rng.normal(size=(n, f)))
+    base = 12.0 * x[:, 0] + 6.0 * np.sqrt(x[:, 1] + 0.1) - 4.0 * x[:, 2]
+    y = base + rng.normal(scale=0.5 + 0.8 * x[:, 3], size=n) + 35.0
+    return x, y.astype(np.float64)
+
+
+# tests/benchmarks/datasets.py's suites, by the names in the baselines
+GATE_SETS = {
+    "classifier": {"BreastTissue": breast_tissue_like, "PimaIndian": pima_like,
+                   "BreastCancer": breast_cancer_like, "Transfusion": transfusion_like},
+    "regressor": {"airfoil": airfoil_like, "energyefficiency": energy_efficiency_like,
+                  "Concrete": concrete_like},
+}
+GATE_BOOSTING_TYPES = ("gbdt", "rf", "dart", "goss")
+
+
+def _baselines(suite: str) -> dict:
+    with open(ROOT / "tests" / "benchmarks" / f"benchmarks_{suite}.csv") as fh:
+        return {r["name"]: (float(r["value"]), float(r["precision"]))
+                for r in csv.DictReader(fh)}
+
+
+def boosting_gate(suite: str, device: str, datasets=None) -> list:
+    """tests/benchmarks/test_gbdt_benchmarks.py:41-84 through the port on
+    `device`: for each data set of the suite (all, or the names in
+    `datasets`) and each boosting type, GBDTClassifier (held-out accuracy)
+    or GBDTRegressor (held-out RMSE) with 30 rounds of 15 leaves,
+    bagging_fraction 0.85 every round and seed 42, fitted on the first 75%
+    of the rows. Each row holds its value beside
+    tests/benchmarks/benchmarks_<suite>.csv's baseline and precision; the
+    committed files are read, nothing is written."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier, GBDTRegressor
+
+    base = _baselines(suite)
+    est = GBDTClassifier if suite == "classifier" else GBDTRegressor
+    rows = []
+    for name, gen in GATE_SETS[suite].items():
+        if datasets is not None and name not in datasets:
+            continue
+        x, y = gen()
+        cut = int(len(x) * 0.75)
+        for boosting in GATE_BOOSTING_TYPES:
+            model = est(boosting_type=boosting, num_iterations=30, num_leaves=15,
+                        bagging_fraction=0.85, bagging_freq=1, seed=42,
+                        device=device).fit(_table(x[:cut], y[:cut]))
+            pred = np.asarray(model.transform(Table({"features": x[cut:]}))["prediction"],
+                              np.float64)
+            value = (float((pred == y[cut:]).mean()) if suite == "classifier"
+                     else float(np.sqrt(np.mean((pred - y[cut:]) ** 2))))
+            ref, precision = base[f"{name}_{boosting}"]
+            rows.append({"name": f"{name}_{boosting}", "value": value, "baseline": ref,
+                         "precision": precision, "within": abs(value - ref) <= precision})
+    if datasets is None:
+        assert {r["name"] for r in rows} == set(base), (sorted(r["name"] for r in rows),
+                                                        sorted(base))
+    return rows
+
+
 def objectives_gate(device: str) -> list:
     """tests/benchmarks/test_gbdt_benchmarks.py:86-114 through the port's
     GBDTRegressor on `device`: l1, huber and quantile on airfoil_like (test
@@ -1068,6 +1211,287 @@ def phase_slice_objectives() -> dict:
     bad = [r for r in rows if not r["within"]]
     assert not bad, f"objectives outside their benchmark precision: {bad}"
     doc = {"phase": "slice_objectives", "fits": 5, "rounds": 30, "num_leaves": 15,
+           "seconds": seconds, "histogram_launches": launches, "gate": rows}
+    emit(doc)
+    return doc
+
+
+# The boosting options of the Adult fit, as GBDTClassifier takes them
+BOOSTING_FITS = {
+    "gbdt_bagged": dict(boosting_type="gbdt", bagging_fraction=0.8, bagging_freq=1,
+                        feature_fraction=0.8),
+    "goss": dict(boosting_type="goss"),
+    "rf": dict(boosting_type="rf"),
+    "dart": dict(boosting_type="dart"),          # drop_rate 0.1, the default
+}
+
+
+def _rounds_without_sync(x, y) -> list:
+    """Two rounds of each boosting type's loop on the card under sync debug
+    mode "error": bagging with feature sampling (the second round carries
+    the first one's bag), goss with feature sampling, rf and dart. No round
+    may read anything back to the host."""
+    from mmlspark_tpu_torch.gbdt.binning import BinMapper
+    from mmlspark_tpu_torch.gbdt.engine import GrowConfig
+    from mmlspark_tpu_torch.gbdt.fused import (FusedTrainSpec, make_fused_dart_fn,
+                                               make_fused_train_fn)
+    from mmlspark_tpu_torch.gbdt.objectives import get_objective
+
+    mapper = BinMapper(max_bin=255).fit(x)
+    bins = torch.as_tensor(mapper.transform(x), device="cuda")
+    nb = max(int(mapper.num_bins.max()), 2)
+    yt = torch.as_tensor(y, dtype=torch.float32, device="cuda")
+    w = torch.ones_like(yt)
+    pred0 = torch.zeros_like(yt)
+    args = (x.shape[1], nb, GrowConfig(num_leaves=31), mapper.num_bins,
+            np.zeros(x.shape[1], bool), get_objective("binary"))
+    specs = {
+        "gbdt_bagged": FusedTrainSpec(num_rounds=2, bagging_fraction=0.8, bagging_freq=2,
+                                      feature_fraction=0.8),
+        "goss": FusedTrainSpec(num_rounds=2, boosting_type="goss", feature_fraction=0.8),
+        "rf": FusedTrainSpec(num_rounds=2, boosting_type="rf"),
+        "dart": FusedTrainSpec(num_rounds=2, boosting_type="dart", bagging_fraction=0.8,
+                               bagging_freq=1, feature_fraction=0.8, drop_rate=0.5),
+    }
+    checked = []
+    for name, spec in specs.items():
+        if name == "dart":
+            fn = make_fused_dart_fn(*args, spec, device="cuda")
+            call = lambda: fn(bins, yt, w, pred0, 4, 3, 2)  # noqa: E731
+        else:
+            fn = make_fused_train_fn(*args, spec, device="cuda")
+            call = lambda: fn(bins, yt, w, pred0, 3)  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        checked.append(name)
+    return checked
+
+
+def phase_slice_boosting() -> dict:
+    """The Adult shape through GBDTClassifier on the card under each
+    boosting type: 100 rounds of 31 leaves, so 3,100 K1 launches a fit."""
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+
+    n, n_valid, f, rounds, leaves = 32768, 8192, 14, 100, 31
+    x_all, y_all = make_dataset(n + n_valid, f)
+    x, y, xv, yv = x_all[:n], y_all[:n], x_all[n:], y_all[n:]
+    sync_free = _rounds_without_sync(x, y)
+    fits = {}
+    for name, kw in BOOSTING_FITS.items():
+        GBDTClassifier(num_iterations=2, num_leaves=leaves, device="cuda", **kw).fit(_table(x, y))
+        torch.cuda.synchronize()
+        histogram.launches = 0
+        t0 = time.perf_counter()
+        model = GBDTClassifier(num_iterations=rounds, num_leaves=leaves, device="cuda",
+                               **kw).fit(_table(x, y))
+        fit_s = time.perf_counter() - t0
+        launches = histogram.launches
+        assert launches == rounds * leaves, \
+            f"{name}: histogram launched {launches} times, want {rounds * leaves}"
+        train = _metrics(model.transform(_table(x, y)))
+        valid = _metrics(model.transform(_table(xv, yv)))
+        assert train["accuracy"] > 0.7, (name, train)
+        assert valid["auc"] > 0.75, (name, valid)
+        raw_card = model.booster.predict_raw(xv, device="device")
+        assert raw_card.shape == (n_valid,) and np.isfinite(raw_card).all()
+        assert np.array_equal(raw_card, model.booster.predict_raw(xv, device="host")), \
+            f"{name}: card traversal differs from the host walk"
+        fits[name] = {"options": kw, "fit_seconds": fit_s, "histogram_launches": launches,
+                      "train_accuracy": train["accuracy"], "valid_auc": valid["auc"],
+                      "valid_accuracy": valid["accuracy"], "card_equals_host_walk": True}
+    doc = {"phase": "slice_boosting", "rows": n, "features": f, "rounds": rounds,
+           "num_leaves": leaves, "sync_free_rounds": sync_free, "fits": fits,
+           "histogram_launches": sum(v["histogram_launches"] for v in fits.values())}
+    emit(doc)
+    return doc
+
+
+def _row_order_histogram(bins, stats, num_bins):
+    """The CPU's plain histogram for a card fit: K1's place taken by
+    `histogram_torch` on host copies, which adds the rows in order."""
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram_torch
+
+    return histogram_torch(bins.cpu(), stats.cpu(), num_bins).to(bins.device)
+
+
+def _fit_with_draws(x, y, kw: dict, rounds: int, device: str, row_order: bool = False):
+    """An Adult fit of `rounds` rounds and, through fused.round_hook, each
+    tree's random parts as the loop used them: (grow mask, feature mask,
+    drop set or None), on the CPU. `row_order`: the card's histograms come
+    from `_row_order_histogram` in place of K1."""
+    from unittest import mock
+
+    from mmlspark_tpu_torch.gbdt import engine, fused
+    from mmlspark_tpu_torch.gbdt.booster import Booster, TrainOptions
+
+    parts = []
+    fused.round_hook = lambda it, cls, mask, fmask, drop: parts.append(
+        (mask.cpu(), fmask.cpu(), None if drop is None else drop.cpu()))
+    try:
+        with mock.patch.object(engine, "histogram",
+                               _row_order_histogram if row_order else engine.histogram):
+            t0 = time.perf_counter()
+            booster = Booster.train(x, y, TrainOptions(
+                objective="binary", num_iterations=rounds, num_leaves=31, device=device, **kw))
+            seconds = time.perf_counter() - t0
+    finally:
+        fused.round_hook = None
+    return booster, parts, seconds
+
+
+def phase_slice_boosting_parity() -> dict:
+    """The card's draws are the CPU's. `prng.uniform` for the bag, GOSS,
+    feature and drop keys of several rounds at 32,768 and 1,048,576 rows,
+    bit for bit. Then the Adult data fitted on "cpu" and on "cuda" for 10
+    rounds under each boosting type, the random parts each tree grew from
+    read through `fused.round_hook`: the bag, feature mask and dart drop
+    set equal every round, GOSS's row weights (set by each fit's own
+    margins) every round up to the card's first parting tree. Trees:
+    the card fit through the CPU's row-order histogram (in K1's place)
+    meets compare_fits's 1e-5 rules, so the devices' other steps agree;
+    the card fit through K1 meets them at 1e-4, K1 adding a node's rows in
+    block order (runs DE, DF: gain gaps at a parting up to 2.3e-5, leaf
+    gaps up to 3.6e-5 of a tree's largest)."""
+    from mmlspark_tpu_torch.core import prng
+
+    key, drop_key = prng.prng_key(3), prng.prng_key(4)
+    keys = {}
+    for it in (0, 1, 7, 99):
+        kr = prng.fold_in(key, it)
+        keys.update({f"bag_r{it}": prng.fold_in(kr, 1), f"goss_r{it}": prng.fold_in(kr, 2),
+                     f"feature_r{it}": prng.fold_in(kr, 100),
+                     f"drop_r{it}": prng.fold_in(drop_key, it)})
+    draws = 0
+    for n in (32768, 1 << 20):
+        for name, k in keys.items():
+            card = prng.uniform(k, (n,), "cuda").cpu()
+            cpu = prng.uniform(k, (n,), "cpu")
+            assert torch.equal(card.view(torch.int32), cpu.view(torch.int32)), \
+                f"the card's draw {name} at n={n} differs from the CPU's"
+            draws += 1
+    # what a draw costs the loop: ~130 small integer kernels (threefry)
+    bag_key = keys["bag_r0"]
+    draw_cost = {f"rows_{n}": {
+        "host_us_per_call": host_us_per_call(lambda: prng.uniform(bag_key, (n,), "cuda"), 50),
+        "device_ms": median_ms(lambda: prng.uniform(bag_key, (n,), "cuda"))}
+        for n in (32768, 1 << 20)}
+    rounds = 10
+    x, y = make_dataset(32768, 14)
+    fits = {}
+    for name, kw in BOOSTING_FITS.items():
+        cpu, cpu_parts, cpu_s = _fit_with_draws(x, y, kw, rounds, "cpu")
+        card, card_parts, card_s = _fit_with_draws(x, y, kw, rounds, "cuda")
+        rows, _, rows_s = _fit_with_draws(x, y, kw, rounds, "cuda", row_order=True)
+        bins = cpu.bin_mapper.transform(x)
+        witness = compare_fits(cpu, rows, bins)
+        k1 = compare_fits(cpu, card, bins, tol=1e-4)
+        parted = k1["near_ties"][0]["tree"] if k1["near_ties"] else rounds
+        assert len(cpu_parts) == len(card_parts) == rounds, (len(cpu_parts), len(card_parts))
+        goss_equal = 0
+        for r, ((m0, f0, d0), (m1, f1, d1)) in enumerate(zip(cpu_parts, card_parts)):
+            assert torch.equal(f0, f1), f"{name}: round {r}'s feature mask differs"
+            assert (d0 is None) == (d1 is None) and (d0 is None or torch.equal(d0, d1)), \
+                f"{name}: round {r}'s drop set differs"
+            if name != "goss":
+                assert torch.equal(m0, m1), f"{name}: round {r}'s bag differs"
+            elif torch.equal(m0, m1):
+                goss_equal += 1
+            else:
+                assert r > parted, f"goss: round {r}'s row weights differ before tree {parted}"
+        fits[name] = {
+            "random_parts_equal_rounds": goss_equal if name == "goss" else rounds,
+            "card_first_parting_tree": parted if parted < rounds else None,
+            "k1": {key: k1[key] for key in ("trees_equal", "trees_compared", "near_ties",
+                                           "max_value_err_over_tree_max")},
+            "row_order": {key: witness[key] for key in ("trees_equal", "trees_compared",
+                                                        "near_ties",
+                                                        "max_value_err_over_tree_max")},
+            "cpu_fit_seconds": cpu_s, "cuda_fit_seconds": card_s,
+            "cuda_row_order_fit_seconds": rows_s}
+    doc = {"phase": "slice_boosting_parity", "draws_equal": draws,
+           "draw_rows": [32768, 1 << 20], "draw_cost": draw_cost, "rounds": rounds,
+           "fits": fits}
+    emit(doc)
+    return doc
+
+
+def phase_slice_early_stopping() -> dict:
+    """An Adult fit on the card that stops early: GBDTClassifier with
+    validation_fraction 0.1 and early_stopping_round 5 at learning rate
+    0.5. The model keeps best_iteration + 1 rounds; the held-out loss
+    recomputed from `predict_raw(num_iteration=...)` is smallest at
+    best_iteration; a warm start from its `model_string` keeps its trees
+    first."""
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+    from mmlspark_tpu_torch.gbdt.objectives import get_validation_loss
+
+    n, f, rounds, leaves, patience, seed = 32768, 14, 100, 31, 5, 11
+    x, y = make_dataset(n, f)
+    params = dict(num_leaves=leaves, learning_rate=0.5, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    histogram.launches = 0
+    t0 = time.perf_counter()
+    model = GBDTClassifier(num_iterations=rounds, validation_fraction=0.1,
+                           early_stopping_round=patience, **params).fit(_table(x, y))
+    fit_s = time.perf_counter() - t0
+    launches = histogram.launches
+    booster = model.booster
+    best = booster.best_iteration
+    assert 0 <= best < rounds - patience, f"the fit did not stop early (best {best})"
+    assert booster.num_trees == best + 1, (booster.num_trees, best)
+    # the loop ran best + 1 + patience rounds, each of `leaves` launches
+    assert launches == (best + 1 + patience) * leaves, (launches, best)
+    held = np.random.default_rng(seed).permutation(n)[:int(round(0.1 * n))]
+    loss_fn = get_validation_loss("binary")
+    yv = torch.as_tensor(y[held], dtype=torch.float32, device="cuda")
+    losses = [float(loss_fn(torch.as_tensor(booster.predict_raw(x[held], num_iteration=i),
+                                            device="cuda"), yv))
+              for i in range(1, best + 2)]
+    assert int(np.argmin(losses)) == best, (int(np.argmin(losses)), best)
+
+    histogram.launches = 0
+    more = 10
+    warm = GBDTClassifier(num_iterations=best + 1 + more, model_string=booster.to_text(),
+                          **params).fit(_table(x, y))
+    warm_launches = histogram.launches
+    assert warm_launches == more * leaves, warm_launches
+    assert warm.booster.num_trees == best + 1 + more
+    for name in ("feature", "threshold_bin", "left", "right", "value"):
+        assert np.array_equal(getattr(warm.booster, name)[:best + 1], getattr(booster, name)), name
+    doc = {"phase": "slice_early_stopping", "rows": n - len(held), "held_out_rows": len(held),
+           "max_rounds": rounds, "learning_rate": 0.5, "early_stopping_round": patience,
+           "best_iteration": best, "trees_kept": booster.num_trees, "fit_seconds": fit_s,
+           "histogram_launches": launches, "held_out_loss_at_best": losses[best],
+           "held_out_loss_first": losses[0], "warm_start_rounds": more,
+           "warm_start_launches": warm_launches, "warm_trees_first": True}
+    emit(doc)
+    return doc
+
+
+def phase_slice_gates() -> dict:
+    """tests/benchmarks/test_gbdt_benchmarks.py:41-84 on the card: 16
+    classifier and 12 regressor fits, each row within its precision."""
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+
+    torch.cuda.synchronize()
+    histogram.launches = 0
+    t0 = time.perf_counter()
+    rows = boosting_gate("classifier", "cuda") + boosting_gate("regressor", "cuda")
+    seconds = time.perf_counter() - t0
+    launches = histogram.launches
+    # 30 rounds of 15 leaves, BreastTissue's 6 trees a round, one elsewhere
+    want = 4 * 30 * 15 * (6 + 3 + 3)
+    assert launches == want, f"histogram launched {launches} times, want {want}"
+    bad = [r for r in rows if not r["within"]]
+    assert len(rows) == 28 and not bad, f"gate rows outside their precision: {bad}"
+    doc = {"phase": "slice_gates", "fits": len(rows), "rounds": 30, "num_leaves": 15,
            "seconds": seconds, "histogram_launches": launches, "gate": rows}
     emit(doc)
     return doc
@@ -1478,6 +1902,10 @@ def main() -> int:
     phase_slice_predict(higgs.pop("booster"), higgs.pop("x"))
     multiclass = phase_slice_multiclass()
     objectives = phase_slice_objectives()
+    boosting = phase_slice_boosting()
+    phase_slice_boosting_parity()
+    early = phase_slice_early_stopping()
+    gates = phase_slice_gates()
     dnn = phase_slice_transformer()
     small = phase_small_transformer()
     wide = phase_serve_wide()
@@ -1501,14 +1929,22 @@ def main() -> int:
         "route": "cuda",
         "source": "mmlspark_tpu_torch/csrc/hist_kernel.cu",
         "replaces": "mmlspark_tpu/gbdt/hist_kernel.py:227",
-        # every fit of the main path: Adult, Higgs, digits multiclass and
-        # the five objectives
+        # every fit of the main path: Adult, Higgs, digits multiclass, the
+        # five objectives, the Adult fits under each boosting type, the
+        # early-stopped fit and its warm start, and the 28 gate fits
         "launches": (adult["histogram_launches"] + higgs["histogram_launches"]
-                     + multiclass["histogram_launches"] + objectives["histogram_launches"]),
+                     + multiclass["histogram_launches"] + objectives["histogram_launches"]
+                     + boosting["histogram_launches"] + early["histogram_launches"]
+                     + early["warm_start_launches"] + gates["histogram_launches"]),
         "launches_by_fit": {"adult": adult["histogram_launches"],
                             "higgs": higgs["histogram_launches"],
                             "multiclass": multiclass["histogram_launches"],
-                            "objectives": objectives["histogram_launches"]},
+                            "objectives": objectives["histogram_launches"],
+                            **{f"adult_{name}": fit["histogram_launches"]
+                               for name, fit in boosting["fits"].items()},
+                            "early_stopping": early["histogram_launches"],
+                            "warm_start": early["warm_start_launches"],
+                            "gates": gates["histogram_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern["histogram"]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],

@@ -6,7 +6,9 @@ Every kernel the JAX package wrote in Pallas for the TPU is a kernel written
 by hand for Hopper in `csrc/`. Entry points run on the card (`device="cuda"`)
 unless the caller asks for the CPU.
 
-Ported so far: binary GBDT fit and score (`gbdt`), DNN serving through
+Ported so far: GBDT fit and score (`gbdt`: every objective, multiclass,
+gbdt / goss / rf / dart, bagging, early stopping, warm start), random
+draws equal to `jax.random`'s (`core.prng`), DNN serving through
 `DeepModelTransformer` with the flash-attention forward (`nn`), the
 pipeline core and async data plane (`core`), host native kernels
 (`native`) and classification metrics (`automl`). ROADMAP.md lists what

@@ -16,11 +16,15 @@ same walk), or the host walk (`_predict_raw_host`, native C++ with a numpy
 path) for small batches; all add the trees' values in tree order in
 float32, so they agree bit for bit.
 
-This slice ports the plain `gbdt` fit of every objective, multiclass
-included, on one device. Options outside it raise NotImplementedError
-naming the ROADMAP item that ports them. The JSON model format (`to_text`/`from_text`) is the JAX
-package's, field for field, so models move between the two packages; the
-torch device is not part of it.
+The fit covers every objective, multiclass included, on one device, under
+gbdt, goss, rf and dart, with bagging, feature sampling, early stopping on
+validation data and warm start from `init_model`; its random draws are
+`jax.random`'s bits (core/prng.py), so a seeded fit grows the JAX
+package's trees. Categorical splits, checkpoints, the mesh and voting
+raise NotImplementedError naming the ROADMAP item that ports them. The
+JSON model format (`to_text`/`from_text`) is the JAX package's, field for
+field, so models move between the two packages; the torch device is not
+part of it.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch
 from ..core.kernels import resolve_device
 from .binning import BinMapper, bin_on_device
 from .engine import GrowConfig
-from .objectives import get_leaf_renewal, get_objective, init_raw_score
+from .objectives import get_leaf_renewal, get_objective, get_validation_loss, init_raw_score
 
 __all__ = ["Booster", "TrainOptions", "booster_from_arrays"]
 
@@ -59,7 +63,7 @@ class TrainOptions:
     package's TrainOptions plus `device`."""
 
     objective: str = "regression"
-    boosting_type: str = "gbdt"       # gbdt (rf | dart | goss not ported yet)
+    boosting_type: str = "gbdt"       # gbdt | rf | dart | goss
     tree_learner: str = "data_parallel"
     top_k: int = 20
     num_iterations: int = 100
@@ -106,8 +110,8 @@ class TrainOptions:
     device: str = "cuda"
 
 
-def _check_supported(opts: TrainOptions, valid, mesh) -> None:
-    """Reject every option this slice does not port, before any work."""
+def _check_supported(opts: TrainOptions, mesh) -> None:
+    """Reject every option the port does not run yet, before any work."""
     tl = str(opts.tree_learner)
     if tl not in ("serial", "data", "data_parallel", "voting", "voting_parallel"):
         raise ValueError(
@@ -119,22 +123,18 @@ def _check_supported(opts: TrainOptions, valid, mesh) -> None:
             "use gbdt, rf, dart, or goss (LightGBMParams.scala:56-60)")
     if opts.categorical_indexes:
         raise _not_ported("categorical_indexes", "categorical splits")
-    if opts.bagging_fraction < 1.0 or opts.feature_fraction < 1.0:
-        raise _not_ported("bagging_fraction/feature_fraction < 1",
-                          "threefry-compatible random draws")
-    if opts.boosting_type != "gbdt":
-        raise _not_ported(f"boosting_type={opts.boosting_type!r}",
-                          "other boosting types")
-    if opts.early_stopping_round > 0 or valid is not None:
-        raise _not_ported("early stopping and validation data",
-                          "early stopping, leaf renewal, warm start, checkpoints")
-    if opts.init_model is not None or opts.checkpoint_dir:
-        raise _not_ported("init_model / checkpoint_dir",
-                          "early stopping, leaf renewal, warm start, checkpoints")
+    if opts.checkpoint_dir:
+        raise _not_ported("checkpoint_dir", "checkpoints")
     if mesh is not None or tl.startswith("voting"):
         raise _not_ported("mesh and voting-parallel training", "distributed GBDT")
     if opts.bin_dtype not in ("int32", "uint8"):
         raise ValueError(f"bin_dtype must be 'int32' or 'uint8', got {opts.bin_dtype!r}")
+
+
+def _scale_tree(t: dict[str, np.ndarray], scale: float) -> dict[str, np.ndarray]:
+    """The tree with its leaf values times `scale` (float32 values, the
+    scale rounded to float32, as numpy multiplies them)."""
+    return {**t, "value": np.asarray(t["value"]) * scale}
 
 
 def _threshold_values(mapper: BinMapper, feature, thr_bin, is_cat) -> np.ndarray:
@@ -190,10 +190,10 @@ class Booster:
         feature_names: list[str] | None = None,
         log: Callable[[str], None] | None = None,
     ) -> "Booster":
-        from .fused import FusedTrainSpec, make_fused_train_fn
+        from .fused import FusedTrainSpec, make_fused_dart_fn, make_fused_train_fn
         from .sparse import as_features, is_sparse
 
-        _check_supported(opts, valid, mesh)
+        _check_supported(opts, mesh)
         obj_fn = get_objective(opts.objective, alpha=opts.alpha,
                                tweedie_variance_power=opts.tweedie_variance_power,
                                fair_c=opts.fair_c)
@@ -202,10 +202,15 @@ class Booster:
         y = np.asarray(y, dtype=np.float64)
         n, f = x.shape
         k = opts.num_class if opts.objective == "multiclass" else 1
-        mapper = BinMapper(
-            max_bin=opts.max_bin,
-            bin_construct_sample_cnt=opts.bin_construct_sample_cnt,
-        ).fit(x)
+        # warm start: the warm model's bins, and its scores on this device
+        warm = None if opts.init_model is None else opts.init_model.to(device)
+        if warm is not None:
+            mapper = warm.bin_mapper
+        else:
+            mapper = BinMapper(
+                max_bin=opts.max_bin,
+                bin_construct_sample_cnt=opts.bin_construct_sample_cnt,
+            ).fit(x)
         num_bins = max(int(mapper.num_bins.max(initial=2)), 2)
         if num_bins > 256:
             raise NotImplementedError(
@@ -234,6 +239,7 @@ class Booster:
             w = np.where(y == 1, w * nneg / npos, w)
         base_mask = torch.as_tensor(w.astype(np.float32), device=device)
 
+        rf = opts.boosting_type == "rf"
         cfg = GrowConfig(
             num_leaves=opts.num_leaves,
             max_depth=opts.max_depth,
@@ -243,7 +249,7 @@ class Booster:
             lambda_l1=opts.lambda_l1,
             lambda_l2=opts.lambda_l2,
             min_gain_to_split=opts.min_gain_to_split,
-            learning_rate=opts.learning_rate,
+            learning_rate=1.0 if rf else opts.learning_rate,
             deterministic=opts.deterministic,
         )
         renewal = get_leaf_renewal(opts.objective, alpha=opts.alpha)
@@ -253,29 +259,124 @@ class Booster:
             y_fit = np.eye(k)[y.astype(int)]                        # (n, K)
             pred0 = torch.zeros((n, k), dtype=torch.float32, device=device)
         else:
-            init = init_raw_score(opts.objective, y, w, opts.boost_from_average, opts.alpha)
+            init = (warm.init_score if warm is not None else
+                    init_raw_score(opts.objective, y, w, opts.boost_from_average, opts.alpha))
             y_fit = y
             pred0 = torch.full((n,), init, dtype=torch.float32, device=device)
         trees: list[dict[str, np.ndarray]] = []
         tree_classes: list[int] = []
-        if opts.num_iterations > 0:
-            spec = FusedTrainSpec(num_rounds=opts.num_iterations, num_class=k,
-                                  renew_alpha=renew_alpha, renew_weighted=renew_weighted)
-            fused = make_fused_train_fn(f, num_bins, cfg, mapper.num_bins, np.zeros(f, bool),
-                                        obj_fn, spec, device=device)
+        if warm is not None:
+            tree_classes = [int(c) for c in warm.tree_class]
+            if rf:
+                # rf trees are independent of pred: keep pred at init, and
+                # undo the 1/T_prev scale of the saved trees so that the
+                # final 1/T_total rescale is right (reference :322-329)
+                n_prev = max(warm.num_trees // k, 1)
+                trees = [_scale_tree(warm._tree_dict(t), float(n_prev))
+                         for t in range(warm.num_trees)]
+            else:
+                raw = warm.predict_raw(x)
+                pred0 = torch.as_tensor(raw, dtype=torch.float32, device=device).reshape(
+                    pred0.shape)
+                trees = [warm._tree_dict(t) for t in range(warm.num_trees)]
+        start_iter = len(trees) // k
+
+        # a nonzero master `seed` derives the per-purpose seeds (LightGBM's
+        # Config; reference :338-350)
+        bag_seed, feat_seed, drop_seed = (
+            opts.bagging_seed, opts.feature_fraction_seed, opts.drop_seed)
+        if opts.seed:
+            dr = np.random.default_rng(opts.seed)
+            bag_seed, feat_seed, drop_seed = (int(dr.integers(2**31)) for _ in range(3))
+
+        # early stopping: rf trees are independent, and single-class dart
+        # rescales its trees after the fit, so neither stops early
+        single_dart = opts.boosting_type == "dart" and k == 1
+        es_asked = valid is not None and opts.early_stopping_round > 0
+        es_active = es_asked and not (rf or single_dart)
+        if es_asked and not es_active and log:
+            log(f"early stopping is not supported for boosting_type={opts.boosting_type}; ignored")
+        val, val_loss_fn, best_iter = None, None, -1
+        if es_active:
+            xv = as_features(valid[0])
+            yv = np.asarray(valid[1], np.float64)
+            val_bins = torch.as_tensor(mapper.transform(xv).astype(np.int32), device=device)
+            if warm is not None:
+                # the validation margins start from the warm model's trees
+                val_raw = torch.as_tensor(warm.predict_raw(xv), dtype=torch.float32,
+                                          device=device)
+            elif k > 1:
+                val_raw = torch.zeros((len(yv), k), dtype=torch.float32, device=device)
+            else:
+                val_raw = torch.full((len(yv),), init, dtype=torch.float32, device=device)
+            y_val = (torch.as_tensor(yv.astype(np.int64), device=device) if k > 1
+                     else torch.as_tensor(yv, dtype=torch.float32, device=device))
+            val = (val_bins, y_val, val_raw)
+            val_loss_fn = get_validation_loss(
+                opts.objective, alpha=opts.alpha,
+                tweedie_variance_power=opts.tweedie_variance_power)
+
+        # the round index restarts at 0 after a warm start (no checkpoints)
+        num_rounds = opts.num_iterations - start_iter
+        if num_rounds > 0:
+            spec = FusedTrainSpec(
+                num_rounds=num_rounds, num_class=k,
+                # multiclass dart runs the gbdt loop: its drop algebra is
+                # single-model (reference :396-397, :432-435)
+                boosting_type="gbdt" if opts.boosting_type == "dart" and k > 1
+                else opts.boosting_type,
+                bagging_fraction=opts.bagging_fraction, bagging_freq=opts.bagging_freq,
+                feature_fraction=opts.feature_fraction, top_rate=opts.top_rate,
+                other_rate=opts.other_rate,
+                early_stopping_round=opts.early_stopping_round if es_active else 0,
+                drop_rate=opts.drop_rate, renew_alpha=renew_alpha,
+                renew_weighted=renew_weighted)
+            y_dev = torch.as_tensor(y_fit, dtype=torch.float32, device=device)
             if log:
-                log(f"boosting: {opts.num_iterations} rounds x {k} class(es) on {device}")
-            t_stack, _ = fused(bins_dev, torch.as_tensor(y_fit, dtype=torch.float32,
-                                                         device=device), base_mask, pred0)
+                log(f"boosting: {num_rounds} rounds x {k} class(es) of "
+                    f"{opts.boosting_type} on {device}")
+            if single_dart:
+                fused = make_fused_dart_fn(f, num_bins, cfg, mapper.num_bins, np.zeros(f, bool),
+                                           obj_fn, spec, device=device)
+                t_stack, w_dev, _ = fused(bins_dev, y_dev, base_mask, pred0,
+                                          drop_seed, bag_seed, feat_seed)
+                tree_weights = w_dev.cpu().numpy().astype(np.float64)
+                kept = num_rounds
+            else:
+                fused = make_fused_train_fn(f, num_bins, cfg, mapper.num_bins, np.zeros(f, bool),
+                                            obj_fn, spec, device=device,
+                                            val_loss_fn=val_loss_fn)
+                # one key for every draw (reference :462)
+                seed = opts.seed if opts.seed else opts.bagging_seed
+                t_stack, _, (best_dev, stopped_dev) = fused(bins_dev, y_dev, base_mask, pred0,
+                                                             seed, val)
+                tree_weights = None
+                kept = int(t_stack.feature.shape[0])
+                if es_active:
+                    r_best = int(best_dev)
+                    if bool(stopped_dev) and r_best >= 0:
+                        kept = r_best + 1
+                        if log:
+                            log(f"early stop after round {r_best + start_iter} "
+                                f"(kept {kept}/{num_rounds} rounds)")
+                    best_iter = start_iter + r_best if r_best >= 0 else -1
             t_host = {name: getattr(t_stack, name).cpu().numpy() for name in _TREE_FIELDS}
-            for r in range(opts.num_iterations):
+            for r in range(kept):
                 for cls in range(k):
                     idx = (r, cls) if k > 1 else (r,)
-                    trees.append({name: t_host[name][idx] for name in _TREE_FIELDS})
+                    tree = {name: t_host[name][idx] for name in _TREE_FIELDS}
+                    if tree_weights is not None:
+                        tree = _scale_tree(tree, float(tree_weights[r]))
+                    trees.append(tree)
                     tree_classes.append(cls)
-        return Booster._from_tree_dicts(
+        if rf and trees:
+            scale = 1.0 / max(len(trees) // k, 1)   # rf averages its trees
+            trees = [_scale_tree(t, scale) for t in trees]
+        out = Booster._from_tree_dicts(
             trees, tree_classes, mapper, opts, init, feature_names or [],
             device=str(device))
+        out.best_iteration = best_iter
+        return out
 
     # ------------------------------------------------------------------ #
     # construction helpers                                               #

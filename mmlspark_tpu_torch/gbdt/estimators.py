@@ -5,8 +5,12 @@ src/lightgbm/src/main/scala/LightGBMClassifier.scala:27-158,
 LightGBMRegressor.scala:38-156 and LightGBMParams.scala:11-149 (shared
 params). The Params keep the JAX package's names (the reference's
 spelling) and gain `device`, the torch device of the fit, "cuda" by
-default. A Param value outside this slice (see booster.py) raises
-NotImplementedError at fit time naming the ROADMAP item that ports it.
+default. `model_string` warm-starts from a model's JSON text, and
+`validation_fraction` with `early_stopping_round` holds out a seeded share
+of the rows for early stopping. A Param value the port does not run yet
+(checkpoints, the mesh, elastic workers, categorical slots; see
+booster.py) raises NotImplementedError at fit time naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -92,14 +96,11 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCol):
     device = Param("cuda", "torch device of the fit: cuda | cpu", ptype=str)
 
     def _train_options(self, objective: str, num_class: int = 1) -> TrainOptions:
-        if self.get("model_string"):
-            raise _not_ported("model_string (warm start)",
-                              "early stopping, leaf renewal, warm start, checkpoints")
-        if self.get("validation_fraction"):
-            raise _not_ported("validation_fraction",
-                              "early stopping, leaf renewal, warm start, checkpoints")
         if self.get("use_mesh") or int(self.get("elastic_workers") or 0) > 0:
             raise _not_ported("use_mesh / elastic_workers", "distributed GBDT")
+        init_model = None
+        if self.get("model_string"):
+            init_model = Booster.from_text(self.get("model_string"), device=self.get("device"))
         return TrainOptions(
             objective=objective,
             boosting_type=self.get("boosting_type"),
@@ -130,6 +131,7 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCol):
             deterministic=self.get("deterministic"),
             num_class=num_class,
             boost_from_average=self.get("boost_from_average"),
+            init_model=init_model,
             checkpoint_dir=self.get("checkpoint_dir"),
             checkpoint_every_n=self.get("checkpoint_every_n"),
             seed=self.get("seed"),
@@ -145,7 +147,19 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCol):
         wc = self.get("weight_col")
         if wc:
             w = np.asarray(table[wc], dtype=np.float64)
-        return x, y, w
+        valid = None
+        vf = self.get("validation_fraction") or 0.0
+        if vf > 0 and self.get("early_stopping_round"):
+            # the held-out rows: a permutation from the master seed
+            # (reference estimators.py:197-209)
+            perm = np.random.default_rng(self.get("seed")).permutation(len(x))
+            cut = int(round(vf * len(x)))
+            vi, ti = perm[:cut], perm[cut:]
+            valid = (x[vi], y[vi])
+            x, y = x[ti], y[ti]
+            if w is not None:
+                w = w[ti]
+        return x, y, w, valid
 
     def _log(self):
         if self.get("verbosity") and self.get("verbosity") > 0:
@@ -190,9 +204,13 @@ class GBDTClassifier(_GBDTParams, Estimator):
     objective = Param("binary", "binary|multiclass (auto-upgraded by label arity)", ptype=str)
 
     def _fit(self, table: Table) -> "GBDTClassificationModel":
-        x, y, w = self._fit_arrays(table)
-        classes = np.unique(y)
+        x, y, w, valid = self._fit_arrays(table)
+        # the class set spans the training and the held-out labels, so a
+        # class seen only in the held-out rows still gets its own index
+        classes = np.unique(y if valid is None else np.concatenate([y, valid[1]]))
         y_idx = np.searchsorted(classes, y).astype(np.float64)
+        if valid is not None:
+            valid = (valid[0], np.searchsorted(classes, valid[1]).astype(np.float64))
         num_class = len(classes)
         if self.is_set("objective"):
             objective = self.get("objective")
@@ -202,7 +220,7 @@ class GBDTClassifier(_GBDTParams, Estimator):
             objective = "binary" if num_class <= 2 else "multiclass"
         opts = self._train_options(objective, num_class=num_class)
         opts.is_unbalance = self.get("is_unbalance")
-        booster = Booster.train(x, y_idx, opts, weights=w, log=self._log())
+        booster = Booster.train(x, y_idx, opts, weights=w, valid=valid, log=self._log())
         booster.class_labels = [float(c) for c in classes]
         model = GBDTClassificationModel(
             features_col=self.get("features_col"),
@@ -298,12 +316,12 @@ class GBDTRegressor(_GBDTParams, Estimator):
     fair_c = Param(1.0, "fair-loss c", ptype=float)
 
     def _fit(self, table: Table) -> "GBDTRegressionModel":
-        x, y, w = self._fit_arrays(table)
+        x, y, w, valid = self._fit_arrays(table)
         opts = self._train_options(self.get("objective"))
         opts.alpha = self.get("alpha")
         opts.tweedie_variance_power = self.get("tweedie_variance_power")
         opts.fair_c = self.get("fair_c")
-        booster = Booster.train(x, y, opts, weights=w, log=self._log())
+        booster = Booster.train(x, y, opts, weights=w, valid=valid, log=self._log())
         model = GBDTRegressionModel(
             features_col=self.get("features_col"),
             prediction_col=self.get("prediction_col"),

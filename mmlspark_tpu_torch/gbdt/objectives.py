@@ -9,8 +9,8 @@ is an elementwise torch function of (label, raw_score) on the fit's device
 and returns (grad, hess) of the loss with respect to the raw (margin)
 score, in float32 as the JAX package computes them.
 
-The early-stopping validation losses (`get_validation_loss`) come with
-ROADMAP Queue 1's early-stopping item.
+`get_validation_loss` gives early stopping's validation loss on each
+objective's own scale, in float32.
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["get_objective", "get_leaf_renewal", "sigmoid", "softmax",
-           "init_raw_score", "OBJECTIVES"]
+__all__ = ["get_objective", "get_leaf_renewal", "get_validation_loss", "sigmoid",
+           "softmax", "init_raw_score", "OBJECTIVES"]
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -194,3 +194,43 @@ def init_raw_score(
     if key in ("poisson", "gamma", "tweedie"):
         return float(np.log(max(mean, 1e-12)))
     return 0.0
+
+
+def get_validation_loss(objective: str, alpha: float = 0.9,
+                        tweedie_variance_power: float = 1.5) -> Callable:
+    """Early stopping's validation loss fn(raw, y) -> 0-d f32 tensor, on the
+    scale the objective optimizes (reference objectives.py:208): binary
+    log-loss, multiclass cross-entropy over class indexes y, the
+    poisson / gamma / tweedie negative log-likelihoods of a log-space
+    margin, the pinball loss for quantile, mean |raw - y| for the L1
+    family, the 1/max(|y|, 1)-weighted one for mape, else the mean squared
+    error (huber, fair and the name "mean_absolute_error" included, as in
+    the reference)."""
+    obj = objective.lower()
+    rho = tweedie_variance_power
+
+    def loss(raw, y):
+        if obj == "binary":
+            p = torch.sigmoid(raw)
+            eps = 1e-7
+            return -torch.mean(y * torch.log(p + eps) + (1 - y) * torch.log(1 - p + eps))
+        if obj == "multiclass":
+            logp = torch.log_softmax(raw, dim=-1)
+            return -torch.mean(logp.gather(1, y.long()[:, None])[:, 0])
+        if obj == "poisson" or (obj == "tweedie" and abs(rho - 1.0) < 1e-9):
+            return torch.mean(torch.exp(raw) - y * raw)
+        if obj == "gamma" or (obj == "tweedie" and abs(rho - 2.0) < 1e-9):
+            return torch.mean(raw + y * torch.exp(-raw))
+        if obj == "tweedie":
+            return torch.mean(-y * torch.exp((1 - rho) * raw) / (1 - rho)
+                              + torch.exp((2 - rho) * raw) / (2 - rho))
+        if obj == "quantile":
+            d = y - raw
+            return torch.mean(torch.maximum(alpha * d, (alpha - 1) * d))
+        if obj in ("l1", "mae", "regression_l1"):   # not "mean_absolute_error", as there
+            return torch.mean(torch.abs(raw - y))
+        if obj == "mape":
+            return torch.mean(torch.abs(raw - y) / torch.clamp(torch.abs(y), min=1.0))
+        return torch.mean((raw - y) ** 2)
+
+    return loss

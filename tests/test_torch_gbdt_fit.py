@@ -115,13 +115,7 @@ def test_cuda_without_a_card_raises(data, monkeypatch):
 
 
 @pytest.mark.parametrize("opts", [
-    dict(boosting_type="goss"),
-    dict(boosting_type="dart"),
-    dict(boosting_type="rf"),
-    dict(bagging_fraction=0.5, bagging_freq=1),
-    dict(feature_fraction=0.5),
     dict(categorical_indexes=(1,)),
-    dict(early_stopping_round=5),
     dict(checkpoint_dir="ckpt", checkpoint_every_n=2),
     dict(tree_learner="voting_parallel"),
 ], ids=lambda d: ",".join(d))
@@ -133,8 +127,6 @@ def test_options_outside_the_slice_raise(data, opts):
 
 
 @pytest.mark.parametrize("params", [
-    dict(model_string="{}"),
-    dict(validation_fraction=0.2, early_stopping_round=3),
     dict(use_mesh=True),
     dict(elastic_workers=2),
     dict(categorical_slot_indexes=[0]),

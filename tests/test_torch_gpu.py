@@ -199,6 +199,34 @@ def test_one_tree_on_the_card_equals_the_cpu_tree_bit_for_bit(cuda):
     assert int(cpu[0].is_leaf.sum()) == cfg.num_leaves
 
 
+@pytest.mark.parametrize("n", [14, 32768, 1 << 20])
+def test_draws_on_the_card_equal_the_cpus_bit_for_bit(cuda, n):
+    from mmlspark_tpu_torch.core import prng
+
+    for seed in (0, 3, 42, 2**31 - 1):
+        for it in (0, 7):
+            for purpose in (1, 2, 100):
+                key = prng.fold_in(prng.fold_in(prng.prng_key(seed), it), purpose)
+                card = prng.uniform(key, (n,), cuda)
+                assert card.device.type == "cuda"
+                assert torch.equal(card.cpu().view(torch.int32),
+                                   prng.uniform(key, (n,), "cpu").view(torch.int32))
+
+
+def test_bagged_goss_rf_and_dart_rounds_read_nothing_back(cuda):
+    # chip_smoke's check: two rounds of each loop under sync debug mode
+    # "error" (the bag carried into the second round, GOSS's bar gathered
+    # on the card, dart's drops and weights on the card)
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    x, y = chip_smoke.make_dataset(4096, 14)
+    assert chip_smoke._rounds_without_sync(x, y) == ["gbdt_bagged", "goss", "rf", "dart"]
+
+
 # K2 against its plain version, with chip_smoke.py's gates: f32 the
 # reference's (tests/test_attention.py:56); bf16 two ulps of the output
 # (rtol 2**-7) plus 2e-3 for outputs near 0, since p is rounded to bf16 at
