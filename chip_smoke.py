@@ -15,7 +15,9 @@ ComputeModelStatistics, the Higgs-shaped fit binned on the card and scored
 by the fused bin -> traverse program, a 10-class fit on digits, the
 regression objectives' quality gate through GBDTRegressor, the Adult fit
 under bagged gbdt, goss, rf and dart, an early-stopped fit and its warm
-start, and the classifier and regressor quality gates; and
+start, the classifier and regressor quality gates, categorical fits at
+the UCI Adult schema and at the Amazon Employee Access schema (max_bin
+1023, K1 at 1,024 bins); and
 DeepModelTransformer serving 1,024 rows x 512 token ids through bench.py's
 accelerator transformer (8 layers, d_model 512, 8 heads, vocab 16,384) with
 attention_impl="flash", in bf16 and in f32, through two small bf16
@@ -77,7 +79,11 @@ ran on its kernel. It prints one JSON line per phase:
                to the first parting tree; the card's trees meet
                compare_fits at 1e-5 through the CPU's row-order histogram
                and at 1e-4 through K1; a draw's host microseconds and
-               device ms at both sizes
+               device ms at both sizes; then the same two rules for l1,
+               quantile and mape under bagged gbdt, goss and dart (10
+               rounds on airfoil_like), early stopping of a multiclass and
+               a regression fit (the same best round on both devices), and
+               an rf warm start
   slice_early_stopping  GBDTClassifier on the Adult shape with
                validation_fraction 0.1, early_stopping_round 5, learning
                rate 0.5: best_iteration + 1 trees kept, the held-out loss
@@ -87,7 +93,20 @@ ran on its kernel. It prints one JSON line per phase:
   slice_gates  tests/benchmarks/test_gbdt_benchmarks.py:41-84 on the card:
                16 classifier and 12 regressor fits (gbdt, rf, dart, goss;
                bagging 0.85, seed 42), each within its precision of the
-               committed CSVs (21,600 launches)
+               committed CSVs (21,600 launches); the same fits on the CPU,
+               their trees and the card's by compare_fits at 1e-4
+  slice_categorical  UCI Adult's schema (6 numeric columns, 8 categorical
+               at adult.names's cardinalities, "?" as NaN): 32,768 rows
+               through GBDTClassifier(categorical_slot_indexes=...), 100
+               rounds of 31 leaves (3,100 launches), held-out AUC > 0.75,
+               accuracy > 0.7, card scores = the host walk, category
+               subsets of many; sync-free rounds; 10 rounds CPU against card
+  slice_high_cardinality  the Amazon Employee Access schema (9
+               categorical columns, up to 7,518 categories): max_bin 1023
+               with uint8 asked for (the reference's warning, int32 bins),
+               K1 at 1,024 bins (3,100 launches), held-out AUC above a
+               constant's, card = host walk; 10 rounds CPU against card,
+               and the numeric Adult shape at max_bin 511 likewise
   slice_transformer  the DNN path: tokens/s, K2 launches (must be 128,
                on "wgmma"), finite logits, probabilities summing to 1; the
                same 1,024 x 512 tokens served in f32 (128 launches on
@@ -165,6 +184,88 @@ def make_dataset_wide(n: int, f: int, seed: int = 9):
     logits = x[:, 0] - 0.6 * x[:, 1] + 0.3 * x[:, 2] * x[:, 3] + 0.2 * x[:, 4]
     y = (logits + rng.normal(scale=0.9, size=n) > 0).astype(np.float64)
     return x.astype(np.float64), y
+
+
+# UCI Adult (adult.names): the 14 columns of adult.data in its order, the
+# 8 categorical ones with their published cardinalities
+ADULT_COLUMNS = ("age", "workclass", "fnlwgt", "education", "education-num", "marital-status",
+                 "occupation", "relationship", "race", "sex", "capital-gain", "capital-loss",
+                 "hours-per-week", "native-country")
+ADULT_CATEGORIES = {"workclass": 8, "education": 16, "marital-status": 7, "occupation": 14,
+                    "relationship": 6, "race": 5, "sex": 2, "native-country": 41}
+ADULT_CATEGORICAL = tuple(ADULT_COLUMNS.index(c) for c in ADULT_CATEGORIES)
+
+
+def _zipf_codes(rng, n: int, k: int, s: float) -> np.ndarray:
+    """n rows of k categories: each category once (where n >= k, so the
+    column has its full cardinality), the other rows Zipf-like (weight of
+    rank r is 1 / r**s); ranks shuffled over the category ids 0..k-1."""
+    p = 1.0 / np.arange(1, k + 1) ** s
+    ranks = np.concatenate([np.arange(min(k, n)),
+                            rng.choice(k, size=n - min(k, n), p=p / p.sum())])
+    return rng.permutation(k)[rng.permutation(ranks)]
+
+
+def make_adult_categorical(n: int, seed: int = 17):
+    """A seeded stand-in for UCI Adult at its schema: age, fnlwgt,
+    education-num, capital-gain, capital-loss and hours-per-week numeric,
+    the 8 ADULT_CATEGORIES columns as category codes 0..k-1 (education-num
+    follows education, as in the file), "?" (workclass, occupation,
+    native-country) as NaN as the published file has them. Labels: a
+    seeded logistic of numeric terms plus a per-category effect, ~24%
+    positive as in the file."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n, len(ADULT_COLUMNS)))
+    col = ADULT_COLUMNS.index
+    logit = np.zeros(n)
+    for name, k in ADULT_CATEGORIES.items():
+        codes = _zipf_codes(rng, n, k, 1.2)
+        x[:, col(name)] = codes
+        logit += rng.normal(scale=0.8, size=k)[codes]
+    x[:, col("age")] = np.clip(np.round(rng.normal(38.6, 13.6, n)), 17, 90)
+    x[:, col("fnlwgt")] = np.round(np.exp(rng.normal(np.log(178000.0), 0.5, n)))
+    x[:, col("education-num")] = x[:, col("education")] + 1
+    x[:, col("capital-gain")] = np.where(rng.random(n) < 0.08,
+                                         np.round(np.exp(rng.normal(8.5, 1.0, n))), 0.0)
+    x[:, col("capital-loss")] = np.where(rng.random(n) < 0.05,
+                                         np.round(rng.normal(1870, 360, n)), 0.0)
+    x[:, col("hours-per-week")] = np.clip(np.round(rng.normal(40.4, 12.3, n)), 1, 99)
+    logit += (0.04 * (x[:, col("age")] - 38.6) + 0.3 * (x[:, col("education-num")] - 8.5)
+              + 0.03 * (x[:, col("hours-per-week")] - 40.4)
+              + 2.0 * (x[:, col("capital-gain")] > 0) + 1.0 * (x[:, col("capital-loss")] > 0))
+    for name, share in (("workclass", 0.056), ("occupation", 0.057), ("native-country", 0.018)):
+        x[rng.random(n) < share, col(name)] = np.nan
+    z = logit + rng.logistic(size=n)
+    y = (z > np.quantile(z, 0.76)).astype(np.float64)
+    return x, y
+
+
+# The Amazon Employee Access Challenge (Kaggle 2013) train.csv: 9
+# categorical columns in its order and their published cardinalities
+AMAZON_CATEGORIES = {"RESOURCE": 7518, "MGR_ID": 4243, "ROLE_ROLLUP_1": 128,
+                     "ROLE_ROLLUP_2": 177, "ROLE_DEPTNAME": 449, "ROLE_TITLE": 343,
+                     "ROLE_FAMILY_DESC": 2358, "ROLE_FAMILY": 67, "ROLE_CODE": 343}
+AMAZON_ROWS = 32769
+
+
+def make_amazon_access(n: int, seed: int = 19):
+    """A seeded stand-in for the Amazon Employee Access Challenge's
+    train.csv: the 9 AMAZON_CATEGORIES columns as large integer ids with
+    Zipf-like frequencies (ROLE_CODE one to one with ROLE_TITLE, as in the
+    file), and ACTION ~94% 1 from per-category effects."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n, len(AMAZON_CATEGORIES)))
+    logit = np.zeros(n)
+    codes_of = {}
+    for j, (name, k) in enumerate(AMAZON_CATEGORIES.items()):
+        codes = codes_of["ROLE_TITLE"] if name == "ROLE_CODE" else _zipf_codes(rng, n, k, 1.05)
+        codes_of[name] = codes
+        x[:, j] = rng.choice(np.arange(1000, 400000), size=k, replace=False)[codes]
+        if name != "ROLE_CODE":
+            logit += rng.normal(scale=1.0, size=k)[codes]
+    z = logit + rng.logistic(size=n)
+    y = (z > np.quantile(z, 0.058)).astype(np.float64)
+    return x, y
 
 
 def median_ms(fn, reps: int = 30, warmup: int = 5, before=None) -> float:
@@ -332,7 +433,13 @@ def _hist_f64(bins: torch.Tensor, stats: torch.Tensor, num_bins: int = HIST_BINS
 # block along the rows (n 1 and 31, and 50 rows in feature groups), B = 2
 # and 64, one histogram copy of 17 warps, a tile under 256 rows without a
 # feature split (F = 48 int32), feature groups along grid_y (F = 100), and
-# the Higgs grid with gathered rows (3% kept)
+# the Higgs grid with gathered rows (3% kept). Above 256 bins (int32 bins;
+# max_bin 511 gives 512, 1023 gives 1024): the Adult shape at B 512 (one
+# copy of 14 warps, "rows"), 1024 ("split", 2 groups of 7) and 4096 (the
+# widest "split", 5 groups of 3, 64-row tiles), a ragged n at 1024, the
+# Amazon-access shape slice_high_cardinality fits (32,769 x 9 at 1024:
+# "rows", one copy of 9 warps, fewer threads than 1.5 tiles' stats) and
+# the Higgs shape at 1024 ("split", 3 groups of 10)
 HIST_SHAPES = [
     ("adult_int32", 32768, 14, torch.int32, 1.0, 256),
     ("adult_uint8", 32768, 14, torch.uint8, 1.0, 256),
@@ -349,8 +456,15 @@ HIST_SHAPES = [
     ("split_f100_int32", 50000, 100, torch.int32, 1.0, 256),
     ("split_f100_uint8", 50000, 100, torch.uint8, 1.0, 256),
     ("split_f100_one_block", 50, 100, torch.int32, 1.0, 256),
+    ("adult_int32_b512", 32768, 14, torch.int32, 1.0, 512),
+    ("adult_int32_b1024", 32768, 14, torch.int32, 1.0, 1024),
+    ("ragged_int32_b1024", 10007, 14, torch.int32, 1.0, 1024),
+    ("amazon_int32_b1024", 32769, 9, torch.int32, 1.0, 1024),
+    ("higgs_int32_b1024", 1 << 20, 28, torch.int32, 1.0, 1024),
+    ("adult_int32_b4096", 32768, 14, torch.int32, 1.0, 4096),
 ]
 HIST_BRANCHES = ("rows", "capped", "one_block", "small_tile", "split")   # LaunchPlan.branch
+HIST_WIDE_BRANCHES = ("rows", "split")        # the branches taken above 256 bins
 
 
 def histogram_rows() -> list:
@@ -421,6 +535,8 @@ def histogram_rows() -> list:
         del bins, stats, first, again, plain, ids, data, out, fstats
     missing = set(HIST_BRANCHES) - {r["branch"] for r in rows}
     assert not missing, f"no K1 shape took the launch branches {sorted(missing)}"
+    missing = set(HIST_WIDE_BRANCHES) - {r["branch"] for r in rows if r["bins"] > 256}
+    assert not missing, f"no K1 shape above 256 bins took the branches {sorted(missing)}"
     return rows
 
 
@@ -743,19 +859,35 @@ def phase_profile_adult() -> dict:
     return doc
 
 
+def _goes_left(booster, t, node, col):
+    """Whether rows at nodes `node` of tree t with bins `col` go left: by
+    the node's bitset at a categorical node, else by `<=` its threshold."""
+    bitset = booster.cat_bitset[t]
+    return np.where(booster.is_categorical[t][node],
+                    bitset[node, np.minimum(col, bitset.shape[-1] - 1)],
+                    col <= booster.threshold_bin[t][node])
+
+
 def _rows_at(booster, t, node, bins):
     """Rows whose walk through tree t passes `node`."""
     at = np.zeros(len(bins), np.int64)
     seen = at == node
     for _ in range(booster.feature.shape[1]):
         f = booster.feature[t][at]
-        go_left = bins[np.arange(len(bins)), np.maximum(f, 0)] <= booster.threshold_bin[t][at]
+        go_left = _goes_left(booster, t, at, bins[np.arange(len(bins)), np.maximum(f, 0)])
         at = np.where(f < 0, at, np.where(go_left, booster.left[t][at], booster.right[t][at]))
         seen |= at == node
     return seen
 
 
-def compare_fits(cpu, card, bins=None, tol: float = 1e-5) -> dict:
+def _node_bitsets(booster, t, width: int):
+    """Tree t's (M, width) category bitsets, zero-padded to `width`."""
+    b = booster.cat_bitset[t]
+    return np.pad(b, ((0, 0), (0, width - b.shape[-1])))
+
+
+def compare_fits(cpu, card, bins=None, tol: float = 1e-5, gain_floor: float = 0.0,
+                 order_ties: bool = False) -> dict:
     """CPU and card trees of one fit (or any two fits of one data set).
     Where they part, the two splits' gains must be a near-tie (within `tol`
     relative). A tie whose two splits send every training row of the
@@ -769,11 +901,27 @@ def compare_fits(cpu, card, bins=None, tol: float = 1e-5) -> dict:
     itself: its absolute error scales with the tree's values. The default
     1e-5 holds two fits whose histograms add rows in the same order (the
     port against the JAX package; a card fit through the CPU's histogram);
-    K1 adds them in another (slice_boosting_parity)."""
+    K1 adds them in another (slice_boosting_parity). A categorical node
+    parts where its flag or its bitset differs (the order of two categories
+    whose grad/hess ratios differ by rounding flips across the prefix's
+    end), and routes its rows by its bitset. `gain_floor`: a gap within
+    gain_floor times the tree's largest gain is a tie too (a node of one
+    class's rows has only splits of zero gain in exact arithmetic, whose
+    f32 values, ~1e-6, no order ranks; and where a gain is a small
+    difference of a node's large objective terms, the terms' rounding
+    moves it by more than `tol` of itself). `order_ties`: a categorical
+    node that splits the same feature with another bitset is a tie too,
+    whatever its gain: categories whose grad/hess ratios are equal in
+    exact arithmetic (rows of equal margins and counts) are ordered by
+    the last bits of their sums, so the two fits scan other prefixes."""
     ties, upto = [], cpu.num_trees
+    width = max(cpu.cat_bitset.shape[-1], card.cat_bitset.shape[-1])
     for t in range(cpu.num_trees):
-        parted = {int(m) for name in ("feature", "threshold_bin", "left", "right")
+        parted = {int(m) for name in ("feature", "threshold_bin", "left", "right",
+                                      "is_categorical")
                   for m in np.nonzero(getattr(cpu, name)[t] != getattr(card, name)[t])[0]}
+        parted |= {int(m) for m in np.nonzero(
+            (_node_bitsets(cpu, t, width) != _node_bitsets(card, t, width)).any(-1))[0]}
         # in split order (a node's children are numbered when it splits):
         # the first tie that routes rows differently makes the later ones
         for m in sorted(parted, key=lambda m: min(
@@ -782,15 +930,24 @@ def compare_fits(cpu, card, bins=None, tol: float = 1e-5) -> dict:
             rel = abs(g_cpu - g_card) / max(abs(g_cpu), abs(g_card), 1e-30)
             tie = {"tree": t, "node": m, "cpu_gain": g_cpu, "cuda_gain": g_card,
                    "relative_gap": rel}
-            assert rel <= tol, f"trees part at tree {t} node {m} without a near-tie: {tie}"
+            floor = gain_floor * float(np.max(np.abs(cpu.gain[t])))
+            if (order_ties and cpu.is_categorical[t, m] and card.is_categorical[t, m]
+                    and cpu.feature[t, m] == card.feature[t, m]):
+                left_cpu, left_card = (_node_bitsets(b, t, width)[m] for b in (cpu, card))
+                tie["order_tie"] = True
+                tie["categories_only_cpu"] = int((left_cpu & ~left_card).sum())
+                tie["categories_only_cuda"] = int((left_card & ~left_cpu).sum())
+            assert rel <= tol or abs(g_cpu - g_card) <= floor or tie.get("order_tie"), \
+                f"trees part at tree {t} node {m} without a near-tie: {tie}"
             tie["routes_alike"] = False
             if (bins is not None and cpu.feature[t, m] >= 0 and card.feature[t, m] >= 0
                     and cpu.left[t, m] == card.left[t, m]
                     and cpu.right[t, m] == card.right[t, m]):
                 rows = bins[_rows_at(cpu, t, m, bins)]
+                at = np.full(len(rows), m)
                 tie["routes_alike"] = bool(np.array_equal(
-                    rows[:, cpu.feature[t, m]] <= cpu.threshold_bin[t, m],
-                    rows[:, card.feature[t, m]] <= card.threshold_bin[t, m]))
+                    _goes_left(cpu, t, at, rows[:, cpu.feature[t, m]]),
+                    _goes_left(card, t, at, rows[:, card.feature[t, m]])))
             ties.append(tie)
             if not tie["routes_alike"]:
                 upto = t
@@ -1123,7 +1280,7 @@ def _baselines(suite: str) -> dict:
                 for r in csv.DictReader(fh)}
 
 
-def boosting_gate(suite: str, device: str, datasets=None) -> list:
+def boosting_gate(suite: str, device: str, datasets=None, models=None) -> list:
     """tests/benchmarks/test_gbdt_benchmarks.py:41-84 through the port on
     `device`: for each data set of the suite (all, or the names in
     `datasets`) and each boosting type, GBDTClassifier (held-out accuracy)
@@ -1131,7 +1288,8 @@ def boosting_gate(suite: str, device: str, datasets=None) -> list:
     bagging_fraction 0.85 every round and seed 42, fitted on the first 75%
     of the rows. Each row holds its value beside
     tests/benchmarks/benchmarks_<suite>.csv's baseline and precision; the
-    committed files are read, nothing is written."""
+    committed files are read, nothing is written. `models`, a dict, gets
+    each row's (booster, fitted rows) under its name."""
     from mmlspark_tpu_torch.core import Table
     from mmlspark_tpu_torch.gbdt import GBDTClassifier, GBDTRegressor
 
@@ -1152,6 +1310,8 @@ def boosting_gate(suite: str, device: str, datasets=None) -> list:
             value = (float((pred == y[cut:]).mean()) if suite == "classifier"
                      else float(np.sqrt(np.mean((pred - y[cut:]) ** 2))))
             ref, precision = base[f"{name}_{boosting}"]
+            if models is not None:
+                models[f"{name}_{boosting}"] = (model.booster, x[:cut])
             rows.append({"name": f"{name}_{boosting}", "value": value, "baseline": ref,
                          "precision": precision, "within": abs(value - ref) <= precision})
     if datasets is None:
@@ -1226,25 +1386,27 @@ BOOSTING_FITS = {
 }
 
 
-def _rounds_without_sync(x, y) -> list:
+def _rounds_without_sync(x, y, categorical_indexes=(), max_bin: int = 255) -> list:
     """Two rounds of each boosting type's loop on the card under sync debug
     mode "error": bagging with feature sampling (the second round carries
-    the first one's bag), goss with feature sampling, rf and dart. No round
-    may read anything back to the host."""
+    the first one's bag), goss with feature sampling, rf and dart, with
+    the given categorical features and max_bin. No round may read anything
+    back to the host."""
     from mmlspark_tpu_torch.gbdt.binning import BinMapper
     from mmlspark_tpu_torch.gbdt.engine import GrowConfig
     from mmlspark_tpu_torch.gbdt.fused import (FusedTrainSpec, make_fused_dart_fn,
                                                make_fused_train_fn)
     from mmlspark_tpu_torch.gbdt.objectives import get_objective
 
-    mapper = BinMapper(max_bin=255).fit(x)
+    mapper = BinMapper(max_bin=max_bin, categorical_indexes=tuple(categorical_indexes)).fit(x)
     bins = torch.as_tensor(mapper.transform(x), device="cuda")
     nb = max(int(mapper.num_bins.max()), 2)
     yt = torch.as_tensor(y, dtype=torch.float32, device="cuda")
     w = torch.ones_like(yt)
     pred0 = torch.zeros_like(yt)
-    args = (x.shape[1], nb, GrowConfig(num_leaves=31), mapper.num_bins,
-            np.zeros(x.shape[1], bool), get_objective("binary"))
+    cat_mask = np.isin(np.arange(x.shape[1]), list(categorical_indexes))
+    args = (x.shape[1], nb, GrowConfig(num_leaves=31), mapper.num_bins, cat_mask,
+            get_objective("binary"))
     specs = {
         "gbdt_bagged": FusedTrainSpec(num_rounds=2, bagging_fraction=0.8, bagging_freq=2,
                                       feature_fraction=0.8),
@@ -1321,10 +1483,11 @@ def _row_order_histogram(bins, stats, num_bins):
 
 
 def _fit_with_draws(x, y, kw: dict, rounds: int, device: str, row_order: bool = False):
-    """An Adult fit of `rounds` rounds and, through fused.round_hook, each
-    tree's random parts as the loop used them: (grow mask, feature mask,
-    drop set or None), on the CPU. `row_order`: the card's histograms come
-    from `_row_order_histogram` in place of K1."""
+    """A fit of `rounds` rounds with the options `kw` (binary, 31 leaves
+    unless `kw` says otherwise) and, through fused.round_hook, each tree's random parts as the loop
+    used them: (grow mask, feature mask, drop set or None), on the CPU.
+    `row_order`: the card's histograms come from `_row_order_histogram` in
+    place of K1."""
     from unittest import mock
 
     from mmlspark_tpu_torch.gbdt import engine, fused
@@ -1337,12 +1500,32 @@ def _fit_with_draws(x, y, kw: dict, rounds: int, device: str, row_order: bool = 
         with mock.patch.object(engine, "histogram",
                                _row_order_histogram if row_order else engine.histogram):
             t0 = time.perf_counter()
-            booster = Booster.train(x, y, TrainOptions(
-                objective="binary", num_iterations=rounds, num_leaves=31, device=device, **kw))
+            booster = Booster.train(x, y, TrainOptions(**{
+                "objective": "binary", "num_leaves": 31, **kw, "num_iterations": rounds,
+                "device": device}))
             seconds = time.perf_counter() - t0
     finally:
         fused.round_hook = None
     return booster, parts, seconds
+
+
+def cpu_card_parity(x, y, kw: dict, rounds: int = 10, ties: "dict | None" = None) -> dict:
+    """The data fitted on "cpu" and on "cuda" (`_fit_with_draws`): the card
+    fit through the CPU's row-order histogram in K1's place meets
+    compare_fits at 1e-5 (the devices' other steps agree), the card fit
+    through K1 at 1e-4 (its block-order sums), with compare_fits's other
+    tie rules `ties` where given. Returns both comparisons with the fit
+    seconds, and the two fits' random parts."""
+    cpu, cpu_parts, cpu_s = _fit_with_draws(x, y, kw, rounds, "cpu")
+    card, card_parts, card_s = _fit_with_draws(x, y, kw, rounds, "cuda")
+    rows, _, rows_s = _fit_with_draws(x, y, kw, rounds, "cuda", row_order=True)
+    bins = cpu.bin_mapper.transform(x)
+    keys = ("trees_equal", "trees_compared", "near_ties", "max_value_err_over_tree_max")
+    witness = compare_fits(cpu, rows, bins)
+    k1 = compare_fits(cpu, card, bins, tol=1e-4, **(ties or {}))
+    return ({"k1": {k: k1[k] for k in keys}, "row_order": {k: witness[k] for k in keys},
+             "cpu_fit_seconds": cpu_s, "cuda_fit_seconds": card_s,
+             "cuda_row_order_fit_seconds": rows_s}, (cpu_parts, card_parts))
 
 
 def phase_slice_boosting_parity() -> dict:
@@ -1357,7 +1540,9 @@ def phase_slice_boosting_parity() -> dict:
     meets compare_fits's 1e-5 rules, so the devices' other steps agree;
     the card fit through K1 meets them at 1e-4, K1 adding a node's rows in
     block order (runs DE, DF: gain gaps at a parting up to 2.3e-5, leaf
-    gaps up to 3.6e-5 of a tree's largest)."""
+    gaps up to 3.6e-5 of a tree's largest). Last, `boosting_paths_cpu_card`:
+    the renewed objectives, early stopping and an rf warm start, each on
+    both devices."""
     from mmlspark_tpu_torch.core import prng
 
     key, drop_key = prng.prng_key(3), prng.prng_key(4)
@@ -1385,12 +1570,8 @@ def phase_slice_boosting_parity() -> dict:
     x, y = make_dataset(32768, 14)
     fits = {}
     for name, kw in BOOSTING_FITS.items():
-        cpu, cpu_parts, cpu_s = _fit_with_draws(x, y, kw, rounds, "cpu")
-        card, card_parts, card_s = _fit_with_draws(x, y, kw, rounds, "cuda")
-        rows, _, rows_s = _fit_with_draws(x, y, kw, rounds, "cuda", row_order=True)
-        bins = cpu.bin_mapper.transform(x)
-        witness = compare_fits(cpu, rows, bins)
-        k1 = compare_fits(cpu, card, bins, tol=1e-4)
+        parity, (cpu_parts, card_parts) = cpu_card_parity(x, y, kw, rounds)
+        k1 = parity["k1"]
         parted = k1["near_ties"][0]["tree"] if k1["near_ties"] else rounds
         assert len(cpu_parts) == len(card_parts) == rounds, (len(cpu_parts), len(card_parts))
         goss_equal = 0
@@ -1406,19 +1587,71 @@ def phase_slice_boosting_parity() -> dict:
                 assert r > parted, f"goss: round {r}'s row weights differ before tree {parted}"
         fits[name] = {
             "random_parts_equal_rounds": goss_equal if name == "goss" else rounds,
-            "card_first_parting_tree": parted if parted < rounds else None,
-            "k1": {key: k1[key] for key in ("trees_equal", "trees_compared", "near_ties",
-                                           "max_value_err_over_tree_max")},
-            "row_order": {key: witness[key] for key in ("trees_equal", "trees_compared",
-                                                        "near_ties",
-                                                        "max_value_err_over_tree_max")},
-            "cpu_fit_seconds": cpu_s, "cuda_fit_seconds": card_s,
-            "cuda_row_order_fit_seconds": rows_s}
+            "card_first_parting_tree": parted if parted < rounds else None, **parity}
     doc = {"phase": "slice_boosting_parity", "draws_equal": draws,
            "draw_rows": [32768, 1 << 20], "draw_cost": draw_cost, "rounds": rounds,
-           "fits": fits}
+           "fits": fits, **boosting_paths_cpu_card()}
     emit(doc)
     return doc
+
+
+def boosting_paths_cpu_card() -> dict:
+    """Paths of the boosting loop held on the card against the CPU: the
+    renewed objectives (l1, quantile, mape) under bagged gbdt, goss and dart
+    on airfoil_like, 10 rounds of 15 leaves each (cpu_card_parity); early
+    stopping for multiclass (make_classification's 4 classes) and
+    regression (airfoil_like), patience 5 at learning rate 0.5: the same
+    best iteration on both devices, best + 1 rounds kept, launches of
+    exactly the rounds run, trees by compare_fits at 1e-4; and an rf warm
+    start (5 rounds, then 5 more from that model) on both devices."""
+    from mmlspark_tpu_torch.gbdt.booster import Booster, TrainOptions
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+
+    xa, ya = airfoil_like()
+    renewal = {f"{objective}_{name}": cpu_card_parity(
+        xa, ya, {**BOOSTING_FITS[name], "objective": objective, "num_leaves": 15})[0]
+        for objective in ("l1", "quantile", "mape") for name in ("gbdt_bagged", "goss", "dart")}
+
+    xc, yc = make_classification(classes=4)
+    stopping = {}
+    for label, x, y, kw in (
+            ("multiclass", xc, yc, dict(objective="multiclass", num_class=4)),
+            ("regression", xa, ya, dict(objective="regression"))):
+        cut = int(len(x) * 0.75)
+        opts = dict(num_iterations=100, num_leaves=15, learning_rate=0.5,
+                    early_stopping_round=5, **kw)
+        fits, launches = {}, 0
+        for dev in ("cpu", "cuda"):
+            before = histogram.launches
+            fits[dev] = Booster.train(x[:cut], y[:cut], TrainOptions(device=dev, **opts),
+                                      valid=(x[cut:], y[cut:]))
+            launches = histogram.launches - before
+        cpu, card = fits["cpu"], fits["cuda"]
+        k = kw.get("num_class", 1)
+        best = card.best_iteration
+        assert 0 <= best < 100 - 5 and best == cpu.best_iteration, (label, best,
+                                                                     cpu.best_iteration)
+        assert card.num_trees == cpu.num_trees == (best + 1) * k
+        assert launches == (best + 1 + 5) * k * 15, (label, launches)
+        out = compare_fits(cpu, card, cpu.bin_mapper.transform(x[:cut]), tol=1e-4)
+        stopping[label] = {"best_iteration": best, "trees": card.num_trees,
+                           "histogram_launches": launches,
+                           **{key: out[key] for key in ("trees_equal", "trees_compared")}}
+
+    xb, yb = make_classification()
+    rf = dict(objective="binary", boosting_type="rf", num_leaves=15)
+    warm = {}
+    for dev in ("cpu", "cuda"):
+        first = Booster.train(xb, yb, TrainOptions(num_iterations=5, device=dev, **rf))
+        warm[dev] = Booster.train(xb, yb, TrainOptions(num_iterations=10, init_model=first,
+                                                       device=dev, **rf))
+        assert warm[dev].num_trees == 10
+        for name in ("feature", "threshold_bin", "left", "right"):
+            assert np.array_equal(getattr(warm[dev], name)[:5], getattr(first, name)), name
+    out = compare_fits(warm["cpu"], warm["cuda"], warm["cpu"].bin_mapper.transform(xb), tol=1e-4)
+    return {"renewal": renewal, "early_stopping": stopping,
+            "rf_warm_start": {key: out[key] for key in ("trees_equal", "trees_compared",
+                                                        "max_value_err_over_tree_max")}}
 
 
 def phase_slice_early_stopping() -> dict:
@@ -1477,13 +1710,17 @@ def phase_slice_early_stopping() -> dict:
 
 def phase_slice_gates() -> dict:
     """tests/benchmarks/test_gbdt_benchmarks.py:41-84 on the card: 16
-    classifier and 12 regressor fits, each row within its precision."""
+    classifier and 12 regressor fits, each row within its precision; then
+    the same fits on the CPU, whose trees the card's meet by compare_fits
+    at 1e-4."""
     from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
 
+    card = {}
     torch.cuda.synchronize()
     histogram.launches = 0
     t0 = time.perf_counter()
-    rows = boosting_gate("classifier", "cuda") + boosting_gate("regressor", "cuda")
+    rows = (boosting_gate("classifier", "cuda", models=card)
+            + boosting_gate("regressor", "cuda", models=card))
     seconds = time.perf_counter() - t0
     launches = histogram.launches
     # 30 rounds of 15 leaves, BreastTissue's 6 trees a round, one elsewhere
@@ -1491,8 +1728,147 @@ def phase_slice_gates() -> dict:
     assert launches == want, f"histogram launched {launches} times, want {want}"
     bad = [r for r in rows if not r["within"]]
     assert len(rows) == 28 and not bad, f"gate rows outside their precision: {bad}"
+    # the same 28 fits on the CPU: the card's trees by compare_fits at 1e-4
+    # (K1's block-order sums); a node of one class's rows has splits whose
+    # gains are f32 noise (gain_floor)
+    cpu = {}
+    t0 = time.perf_counter()
+    boosting_gate("classifier", "cpu", models=cpu)
+    boosting_gate("regressor", "cpu", models=cpu)
+    cpu_seconds = time.perf_counter() - t0
+    trees = {}
+    for name, (booster, x) in cpu.items():
+        out = compare_fits(booster, card[name][0], booster.bin_mapper.transform(x), tol=1e-4,
+                           gain_floor=1e-5)
+        trees[name] = {k: out[k] for k in ("trees_equal", "trees_compared", "near_ties",
+                                           "max_value_err_over_tree_max")}
+        trees[name]["trees"] = booster.num_trees
     doc = {"phase": "slice_gates", "fits": len(rows), "rounds": 30, "num_leaves": 15,
-           "seconds": seconds, "histogram_launches": launches, "gate": rows}
+           "seconds": seconds, "histogram_launches": launches, "gate": rows,
+           "cpu_seconds": cpu_seconds, "cpu_card_trees": trees}
+    emit(doc)
+    return doc
+
+
+# compare_fits's rules for K1 against the CPU on the categorical fits: a
+# gain gap within 1e-4 of the tree's largest gain (their nodes' gains are
+# small differences of large terms: 6.2e-4 of a 44.5 gain at Adult's tree
+# 1, 2.9e3 at its root), and category order ties
+CATEGORICAL_TIES = dict(gain_floor=1e-4, order_ties=True)
+
+
+def _categorical_fit(x, y, xv, yv, params: dict, rounds: int = 100, leaves: int = 31):
+    """GBDTClassifier on the card with `params`: a 2-round warm-up, then the
+    counted fit of `rounds` rounds (exactly rounds x leaves K1 launches),
+    held-out metrics, the card's scores against the host walk, and the
+    bin dtypes and widths K1 saw (a pass-through spy on the engine's
+    histogram) with the fit's warnings."""
+    import warnings
+    from unittest import mock
+
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier, engine
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+
+    GBDTClassifier(num_iterations=2, num_leaves=leaves, device="cuda", **params).fit(_table(x, y))
+    seen = set()
+
+    def spy(bins, stats, num_bins):
+        seen.add((str(bins.dtype).replace("torch.", ""), num_bins))
+        return histogram(bins, stats, num_bins)
+
+    torch.cuda.synchronize()
+    histogram.launches = 0
+    with mock.patch.object(engine, "histogram", spy), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        model = GBDTClassifier(num_iterations=rounds, num_leaves=leaves, device="cuda",
+                               **params).fit(_table(x, y))
+        fit_s = time.perf_counter() - t0
+    launches = histogram.launches
+    assert launches == rounds * leaves, f"histogram launched {launches} times, want {rounds * leaves}"
+    booster = model.booster
+    valid = _metrics(model.transform(_table(xv, yv)))
+    raw_card = booster.predict_raw(xv, device="device")
+    assert raw_card.shape == (len(xv),) and np.isfinite(raw_card).all()
+    assert np.array_equal(raw_card, booster.predict_raw(xv, device="host")), \
+        "card traversal differs from the host walk"
+    split_cat = booster.is_categorical & (booster.feature >= 0)
+    sizes = booster.cat_bitset[split_cat].sum(-1)
+    return booster, {
+        "fit_seconds": fit_s, "histogram_launches": launches, "valid_auc": valid["auc"],
+        "valid_accuracy": valid["accuracy"], "card_equals_host_walk": True,
+        "num_bins": [int(b) for b in booster.bin_mapper.num_bins],
+        "k1_bins_seen": sorted(seen), "warnings": sorted({str(w.message) for w in caught}),
+        "categorical_nodes": int(split_cat.sum()),
+        "categorical_nodes_of_many": int((sizes > 1).sum()),
+        "largest_subset": int(sizes.max(initial=0))}
+
+
+def phase_slice_categorical() -> dict:
+    """UCI Adult's schema (make_adult_categorical: 6 numeric columns and
+    the 8 categorical ones at adult.names's cardinalities, "?" as NaN), on
+    32,768 rows fitted and 8,192 held out, through
+    GBDTClassifier(categorical_slot_indexes=...): 100 rounds of 31 leaves
+    at max_bin 255, so 3,100 K1 launches; held-out AUC > 0.75 and accuracy
+    > 0.7 (bench.py's canaries); card scores equal to the host walk; at
+    least one categorical node with a subset of more than one category;
+    two rounds of each loop under sync debug mode "error"; and 10 rounds
+    fitted on "cpu" and "cuda" (cpu_card_parity, K1 with
+    CATEGORICAL_TIES)."""
+    n, n_valid = 32768, 8192
+    x_all, y_all = make_adult_categorical(n + n_valid)
+    x, y, xv, yv = x_all[:n], y_all[:n], x_all[n:], y_all[n:]
+    cats = list(ADULT_CATEGORICAL)
+    sync_free = _rounds_without_sync(x, y, cats)
+    booster, fit = _categorical_fit(x, y, xv, yv, dict(categorical_slot_indexes=cats))
+    assert fit["valid_auc"] > 0.75 and fit["valid_accuracy"] > 0.7, fit
+    assert fit["categorical_nodes_of_many"] > 0, "no categorical node with a subset of many"
+    assert fit["k1_bins_seen"] == [("int32", 256)], fit["k1_bins_seen"]
+    parity = cpu_card_parity(x, y, dict(categorical_indexes=cats), ties=CATEGORICAL_TIES)[0]
+    doc = {"phase": "slice_categorical", "rows": n, "held_out_rows": n_valid,
+           "features": x.shape[1], "categorical_slots": cats, "rounds": 100, "num_leaves": 31,
+           "max_bin": 255, "sync_free_rounds": sync_free, **fit, "parity_10_rounds": parity}
+    emit(doc)
+    return doc
+
+
+def phase_slice_high_cardinality() -> dict:
+    """The Amazon Employee Access Challenge's schema (make_amazon_access:
+    9 categorical columns at train.csv's cardinalities, ~94% ACTION 1) on
+    its 32,769 rows, 8,192 more held out, through GBDTClassifier with
+    max_bin 1023 and bin_dtype "uint8" asked for: the reference's warning
+    and int32 bins; the three widest columns keep their 1,023 most frequent
+    categories, so K1 runs at B 1024 ("rows": one copy of 9 warps), 3,100
+    launches; held-out AUC above a constant predictor's; card scores equal
+    to the host walk; two rounds of each loop under sync debug mode
+    "error"; 10 rounds on "cpu" and "cuda" (cpu_card_parity, K1 with
+    CATEGORICAL_TIES), and the same for the numeric Adult shape
+    (make_dataset) at max_bin 511 with compare_fits's plain rules."""
+    from mmlspark_tpu_torch.gbdt.hist_kernel import _num_sms, launch_plan
+
+    n, n_valid = AMAZON_ROWS, 8192
+    x_all, y_all = make_amazon_access(n + n_valid)
+    x, y, xv, yv = x_all[:n], y_all[:n], x_all[n:], y_all[n:]
+    cats = list(range(x.shape[1]))
+    sync_free = _rounds_without_sync(x, y, cats, max_bin=1023)
+    booster, fit = _categorical_fit(x, y, xv, yv, dict(
+        categorical_slot_indexes=cats, max_bin=1023, bin_dtype="uint8"))
+    assert fit["valid_auc"] > 0.5, fit
+    assert any("storing bins as int32" in w for w in fit["warnings"]), fit["warnings"]
+    assert fit["k1_bins_seen"] == [("int32", 1024)], fit["k1_bins_seen"]
+    widest = sorted(fit["num_bins"])[-3:]
+    assert widest == [1024] * 3, fit["num_bins"]
+    plan = launch_plan(n, x.shape[1], 1024, 4, _num_sms(0))
+    parity = cpu_card_parity(x, y, dict(categorical_indexes=cats, max_bin=1023),
+                             ties=CATEGORICAL_TIES)[0]
+    xn, yn = make_dataset(32768, 14)
+    numeric = cpu_card_parity(xn, yn, dict(max_bin=511))[0]
+    doc = {"phase": "slice_high_cardinality", "rows": n, "held_out_rows": n_valid,
+           "features": x.shape[1], "positive_share": float(y.mean()), "rounds": 100,
+           "num_leaves": 31, "max_bin": 1023, "bin_dtype_asked": "uint8", "k1_plan": plan.branch,
+           "sync_free_rounds": sync_free, **fit, "parity_10_rounds": parity,
+           "adult_numeric_max_bin_511_parity_10_rounds": numeric}
     emit(doc)
     return doc
 
@@ -1906,6 +2282,8 @@ def main() -> int:
     phase_slice_boosting_parity()
     early = phase_slice_early_stopping()
     gates = phase_slice_gates()
+    categorical = phase_slice_categorical()
+    wide_bins = phase_slice_high_cardinality()
     dnn = phase_slice_transformer()
     small = phase_small_transformer()
     wide = phase_serve_wide()
@@ -1931,11 +2309,13 @@ def main() -> int:
         "replaces": "mmlspark_tpu/gbdt/hist_kernel.py:227",
         # every fit of the main path: Adult, Higgs, digits multiclass, the
         # five objectives, the Adult fits under each boosting type, the
-        # early-stopped fit and its warm start, and the 28 gate fits
+        # early-stopped fit and its warm start, the 28 gate fits, and the
+        # categorical Adult and Amazon-access fits (B 256 and 1024)
         "launches": (adult["histogram_launches"] + higgs["histogram_launches"]
                      + multiclass["histogram_launches"] + objectives["histogram_launches"]
                      + boosting["histogram_launches"] + early["histogram_launches"]
-                     + early["warm_start_launches"] + gates["histogram_launches"]),
+                     + early["warm_start_launches"] + gates["histogram_launches"]
+                     + categorical["histogram_launches"] + wide_bins["histogram_launches"]),
         "launches_by_fit": {"adult": adult["histogram_launches"],
                             "higgs": higgs["histogram_launches"],
                             "multiclass": multiclass["histogram_launches"],
@@ -1944,7 +2324,9 @@ def main() -> int:
                                for name, fit in boosting["fits"].items()},
                             "early_stopping": early["histogram_launches"],
                             "warm_start": early["warm_start_launches"],
-                            "gates": gates["histogram_launches"]},
+                            "gates": gates["histogram_launches"],
+                            "categorical": categorical["histogram_launches"],
+                            "high_cardinality": wide_bins["histogram_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern["histogram"]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],

@@ -52,6 +52,12 @@
 //     the partials, 1.8 us of barrier, 3.6 us to stage and sum.
 //     With one block along the rows it writes the output directly and
 //     launches plainly, without the barrier.
+//   - Any B whose histogram fits: above 256 bins a block holds one copy of
+//     its group's features (F warps, fewer threads than 1.5 R rows' stats,
+//     which the block then reads in two parts), and where one copy of all
+//     features does not fit, feature groups along grid_y. The wrapper's
+//     `launch_plan` raises where not even one feature fits (about 14,000
+//     bins).
 // The same inputs and launch plan give the same bits on every launch.
 //
 // The kernel allocates nothing: the caller passes the (grid_x, F, B, 3)
@@ -60,8 +66,7 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through the C interface at the bottom (ctypes). ptxas (nvcc
 // -Xptxas -v, tools/torch_hist_turns.py ptxas): 64 registers (the cap of
-// 1,024-thread blocks) in both instantiations, spilling 8 bytes (int32
-// bins) and 4 bytes (uint8).
+// 1,024-thread blocks) in both instantiations, spilling 4 bytes each.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -88,7 +93,7 @@ struct Params {
     int feats_per_group;       // features of one blockIdx.y (the last group may have fewer)
     int warps_per_copy;        // W
     int copies;                // C
-    int tile_rows;             // R, a multiple of 32, at most 256
+    int tile_rows;             // R, a multiple of 32, at most 256 and at most the threads
     int tiles_per_block;       // tiles of one blockIdx.x
     int bins_buf_bytes;        // one of the two bin staging buffers
     int gather_pitch;          // bytes of one gathered row in a buffer
@@ -166,12 +171,19 @@ __device__ __forceinline__ void prefetch_stats(const Params& p, int64_t r0, int6
     }
 }
 
-__device__ __forceinline__ void store_stats(const Params& p, const Smem& s, const float (&pre)[2]) {
+// The stats of the tile of `rows` rows at r0 into s.stage: the two floats
+// each thread prefetched, then, in a block of fewer than 1.5R threads (one
+// copy of a few warps, at wide bins), the floats past them, read here.
+__device__ __forceinline__ void store_stats(const Params& p, const Smem& s, const float (&pre)[2],
+                                            int64_t r0, int64_t rows) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
         const int i = threadIdx.x + j * blockDim.x;
         if (i < 3 * p.tile_rows) s.stage[i] = pre[j];
     }
+    const int64_t lim = rows * kChannels;
+    for (int i = threadIdx.x + 2 * blockDim.x; i < 3 * p.tile_rows; i += blockDim.x)
+        s.stage[i] = i < lim ? __ldg(p.stats + r0 * kChannels + i) : 0.0f;
 }
 
 // Compacts the kept rows of the tile at r0 (stats already in s.stage) into
@@ -314,7 +326,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) hist_kernel(const Params p) {
 
     float pre[2];
     prefetch_stats(p, row_begin, rows_of_tile(row_begin, row_end, R, 0), pre);
-    store_stats(p, s, pre);
+    store_stats(p, s, pre, row_begin, rows_of_tile(row_begin, row_end, R, 0));
     __syncthreads();
     compact<BinT>(p, s, row_begin, rows_of_tile(row_begin, row_end, R, 0), 0, f0, fg);
     if (tiles > 1)
@@ -322,10 +334,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) hist_kernel(const Params p) {
     for (int t = 0; t < tiles; ++t) {
         const int buf = t & 1;
         if (t + 1 < tiles) {
-            store_stats(p, s, pre);
+            const int64_t next = row_begin + static_cast<int64_t>(t + 1) * R;
+            store_stats(p, s, pre, next, rows_of_tile(row_begin, row_end, R, t + 1));
             __syncthreads();
-            compact<BinT>(p, s, row_begin + static_cast<int64_t>(t + 1) * R,
-                          rows_of_tile(row_begin, row_end, R, t + 1), buf ^ 1, f0, fg);
+            compact<BinT>(p, s, next, rows_of_tile(row_begin, row_end, R, t + 1), buf ^ 1, f0, fg);
             if (t + 2 < tiles)
                 prefetch_stats(p, row_begin + static_cast<int64_t>(t + 2) * R,
                                rows_of_tile(row_begin, row_end, R, t + 2), pre);
@@ -345,7 +357,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) hist_kernel(const Params p) {
     float* dst = (gridDim.x == 1 ? p.out : p.partials + static_cast<int64_t>(blockIdx.x) * size) +
                  f0 * B * kChannels;
     if ((size | group_floats | copy_floats | (f0 * B * kChannels)) % 4 == 0) {
-        // four floats at a time (B = 256 always), added as the scalars are
+        // four floats at a time where every offset is a whole float4 (F x B
+        // a multiple of 4, as at B = 256, 512, 1024), added as the scalars are
         const float4* h4 = reinterpret_cast<const float4*>(s.hist);
         for (int i = tid; i < group_floats / 4; i += threads) {
             float4 acc = h4[i];
@@ -373,10 +386,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1) hist_kernel(const Params p) {
     // in block order: the partials' slices are staged in shared memory by
     // asynchronous copies, all in flight at once; slot (run, j) adds up run
     // `run` of consecutive partials at output j; then the runs' sums are
-    // added in run order. (len * 2 fits: a block's slice is at most half
-    // of one feature group's histogram when gridDim.x > 1.) Slices are
-    // copied 16 bytes at a time where the output is whole float4s (B = 256
-    // always), else 4.
+    // added in run order. (len * 2 fits at any B: with gridDim.x > 1 a
+    // block's slice is at most half of one feature group's histogram plus
+    // a float4, and the block's shared memory holds that histogram and a
+    // warp's B lane masks.) Slices are copied 16 bytes at a time where the
+    // output is whole float4s (F x B x 3 a multiple of 4), else 4.
     const int blocks = gridDim.x * gridDim.y;
     const int L = blockIdx.y * gridDim.x + blockIdx.x;
     const int width = size % 4 == 0 ? 4 : 1;
@@ -481,7 +495,7 @@ int mmlspark_hist_build(const void* bins, int bin_bytes, const float* stats, int
                         int smem_bytes, float* partials, float* out, int device, void* stream) {
     const int threads = kWarp * warps_per_copy * copies;
     if (threads > kMaxThreads || tile_rows % kWarp || tile_rows > kMaxTileWarps * kWarp ||
-        3 * tile_rows > 2 * threads || warps_per_copy < 1 || copies < 1 ||
+        tile_rows > threads || warps_per_copy < 1 || copies < 1 ||
         smem_bytes != smem_bytes_of(copies, feats_per_group, num_bins, warps_per_copy * copies,
                                     tile_rows, bins_buf_bytes) ||
         smem_bytes > kMaxSmem || bins_buf_bytes % 16 || gather_pitch % 4)

@@ -18,9 +18,11 @@ float32, so they agree bit for bit.
 
 The fit covers every objective, multiclass included, on one device, under
 gbdt, goss, rf and dart, with bagging, feature sampling, early stopping on
-validation data and warm start from `init_model`; its random draws are
-`jax.random`'s bits (core/prng.py), so a seeded fit grows the JAX
-package's trees. Categorical splits, checkpoints, the mesh and voting
+validation data, warm start from `init_model`, categorical features
+(`categorical_indexes`: many-vs-many subset splits) and any `max_bin`
+(bins stored as int32 where uint8 cannot hold them, with the reference's
+warning); its random draws are `jax.random`'s bits (core/prng.py), so a
+seeded fit grows the JAX package's trees. Checkpoints, the mesh and voting
 raise NotImplementedError naming the ROADMAP item that ports them. The
 JSON model format (`to_text`/`from_text`) is the JAX package's, field for
 field, so models move between the two packages; the torch device is not
@@ -32,6 +34,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -121,8 +124,6 @@ def _check_supported(opts: TrainOptions, mesh) -> None:
         raise ValueError(
             f"boosting_type={opts.boosting_type!r} is not supported; "
             "use gbdt, rf, dart, or goss (LightGBMParams.scala:56-60)")
-    if opts.categorical_indexes:
-        raise _not_ported("categorical_indexes", "categorical splits")
     if opts.checkpoint_dir:
         raise _not_ported("checkpoint_dir", "checkpoints")
     if mesh is not None or tl.startswith("voting"):
@@ -209,14 +210,22 @@ class Booster:
         else:
             mapper = BinMapper(
                 max_bin=opts.max_bin,
+                categorical_indexes=tuple(opts.categorical_indexes),
                 bin_construct_sample_cnt=opts.bin_construct_sample_cnt,
             ).fit(x)
         num_bins = max(int(mapper.num_bins.max(initial=2)), 2)
-        if num_bins > 256:
-            raise NotImplementedError(
-                f"max_bin={opts.max_bin} gives {num_bins} bins; the histogram "
-                "kernel takes at most 256 (max_bin <= 255)")
         use_u8 = opts.bin_dtype == "uint8"
+        if use_u8 and num_bins > 256:
+            # before either binning branch narrows, which would wrap; the
+            # reference's warning and int32 storage (booster.py:231-245)
+            warnings.warn(
+                f"bin_dtype='uint8' requested but the bin mapper produces "
+                f"{num_bins} bins (> 256); storing bins as int32",
+                stacklevel=2,
+            )
+            if log:
+                log(f"bin_dtype='uint8' unavailable at {num_bins} bins; using int32")
+            use_u8 = False
         if opts.device_binning and not mapper.category_maps and not is_sparse(x):
             # the device compares in f32: snap a copy of the boundaries
             # through f32 first, so that scoring (host f64 searchsorted)
@@ -251,7 +260,12 @@ class Booster:
             min_gain_to_split=opts.min_gain_to_split,
             learning_rate=1.0 if rf else opts.learning_rate,
             deterministic=opts.deterministic,
+            cat_smooth=opts.cat_smooth,
+            cat_l2=opts.cat_l2,
+            max_cat_threshold=opts.max_cat_threshold,
         )
+        cat_mask = np.zeros(f, bool)
+        cat_mask[[int(i) for i in opts.categorical_indexes]] = True
         renewal = get_leaf_renewal(opts.objective, alpha=opts.alpha)
         renew_alpha, renew_weighted = renewal if renewal else (None, False)
         if k > 1:
@@ -336,14 +350,14 @@ class Booster:
                 log(f"boosting: {num_rounds} rounds x {k} class(es) of "
                     f"{opts.boosting_type} on {device}")
             if single_dart:
-                fused = make_fused_dart_fn(f, num_bins, cfg, mapper.num_bins, np.zeros(f, bool),
+                fused = make_fused_dart_fn(f, num_bins, cfg, mapper.num_bins, cat_mask,
                                            obj_fn, spec, device=device)
                 t_stack, w_dev, _ = fused(bins_dev, y_dev, base_mask, pred0,
                                           drop_seed, bag_seed, feat_seed)
                 tree_weights = w_dev.cpu().numpy().astype(np.float64)
                 kept = num_rounds
             else:
-                fused = make_fused_train_fn(f, num_bins, cfg, mapper.num_bins, np.zeros(f, bool),
+                fused = make_fused_train_fn(f, num_bins, cfg, mapper.num_bins, cat_mask,
                                             obj_fn, spec, device=device,
                                             val_loss_fn=val_loss_fn)
                 # one key for every draw (reference :462)

@@ -21,9 +21,16 @@ Each step launches the histogram kernel once, for the new left child; the
 right child is the parent minus the left. With the root that is num_leaves
 launches per tree.
 
-This slice ports numeric splits on one device. Categorical splits, the
-voting-parallel learner and the data-parallel histogram all-reduce raise
-NotImplementedError until their ROADMAP items land.
+Categorical splits are LightGBM's many-vs-many sorted-subset search, as in
+the JAX package (engine.py:23-32): at each node a categorical feature's
+bins are ordered by grad / (hess + cat_smooth) (`torch.argsort(stable=True)`,
+the order `jnp.argsort` gives), its split positions are the prefixes of
+that order, scored with cat_l2 added to lambda_l2 and capped by
+max_cat_threshold on the smaller side, and the winning prefix becomes the
+node's bitset over bins, which routes rows. Bin 0 (other, unseen, NaN),
+empty bins and bins past the feature's count sort last and always go
+right. The voting-parallel learner and the data-parallel histogram
+all-reduce raise NotImplementedError until their ROADMAP item lands.
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ class TreeArrays(NamedTuple):
     """SoA tree layout (M = 2*num_leaves - 1 nodes, fixed)."""
 
     feature: torch.Tensor        # (M,) int32, -1 on leaves
-    threshold_bin: torch.Tensor  # (M,) int32 (numeric: <= goes left)
+    threshold_bin: torch.Tensor  # (M,) int32 (numeric: <= goes left;
+                                 #  categorical: sorted-prefix length - 1)
     is_categorical: torch.Tensor # (M,) bool
     left: torch.Tensor           # (M,) int32, -1 on leaves
     right: torch.Tensor          # (M,) int32
@@ -52,7 +60,7 @@ class TreeArrays(NamedTuple):
     is_leaf: torch.Tensor        # (M,) bool
     gain: torch.Tensor           # (M,) float32 split gain
     cat_bitset: torch.Tensor     # (M, B) bool — bins routed LEFT at a
-                                 # categorical node; all-False here
+                                 # categorical node; all-False elsewhere
 
 
 class GrowConfig(NamedTuple):
@@ -121,11 +129,9 @@ def make_grow_fn(
     Returns fn(bins (n, F) uint8/int32, grad (n,) f32, hess (n,) f32,
                sample_mask (n,) f32, feature_mask (F,) f32)
             -> (TreeArrays, per_row_value (n,) f32, node_of_row (n,) int32)
-    """
-    if np.asarray(categorical_mask, bool).any():
-        raise NotImplementedError(
-            "categorical splits are not ported yet; see ROADMAP.md Queue 1, "
-            "'categorical splits'")
+
+    `categorical_mask` (F,) bool marks the features split as category
+    subsets."""
     if mesh is not None or cfg.voting_top_k > 0:
         raise NotImplementedError(
             "mesh and voting-parallel training are not ported yet; see "
@@ -135,15 +141,37 @@ def make_grow_fn(
     m = 2 * nl - 1
     max_depth = cfg.max_depth if cfg.max_depth and cfg.max_depth > 0 else nl + 1
     l1, l2 = cfg.lambda_l1, cfg.lambda_l2
-    # numeric: can split at any bin except the last real one
+    l2c = cfg.lambda_l2 + cfg.cat_l2
+    # static split-position masks (engine.py:205-219): numeric features
+    # split at any bin but the last real one; a categorical prefix of k+1
+    # categories leaves one on the right, its smaller side at most
+    # max_cat_threshold
     fbins = np.asarray(feature_num_bins, np.int64)
-    valid_num = torch.as_tensor(
-        np.arange(num_bins)[None, :] < (fbins[:, None] - 1), device=device)
+    is_cat_np = np.asarray(categorical_mask, bool)
+    cat_any = bool(is_cat_np.any())
+    pos = np.arange(num_bins)[None, :]
+    n_cats = fbins[:, None] - 1                          # bin 0 excluded
+    kp1 = pos + 1
+    valid_cat = (kp1 <= n_cats - 1) & (np.minimum(kp1, n_cats - kp1) <= cfg.max_cat_threshold)
+    valid_base = torch.as_tensor(
+        np.where(is_cat_np[:, None], valid_cat, pos < (fbins[:, None] - 1)), device=device)
+    is_cat_f = torch.as_tensor(is_cat_np, device=device)
+    fbins_t = torch.as_tensor(fbins, device=device)
+    bin_pos = torch.arange(num_bins, device=device)
+
+    def cat_order(h, fb):
+        """h (..., B, 3), fb (...) -> (..., B): a node's bins ordered by
+        grad / (hess + cat_smooth), bin 0, empty bins and bins past the
+        feature's count last (engine.py:221-234). The sort is stable, so
+        the split step recomputes the gain scan's order bit for bit."""
+        ratio = h[..., 0] / (h[..., 1] + cfg.cat_smooth)
+        pushed = (bin_pos == 0) | (h[..., 2] <= 0) | (bin_pos >= fb[..., None])
+        return torch.argsort(torch.where(pushed, float("inf"), ratio), dim=-1, stable=True)
 
     def grow(bins, grad, hess, sample_mask, feature_mask):
         n = bins.shape[0]
         dev = bins.device
-        valid_bin = valid_num & (feature_mask[:, None] > 0)          # (F, B)
+        valid_bin = valid_base & (feature_mask[:, None] > 0)         # (F, B)
         node_ids = torch.arange(m, device=dev)
 
         def hist_for(mask):
@@ -159,9 +187,16 @@ def make_grow_fn(
             return h[:, 0].sum(dim=1)                               # (k, 3)
 
         def best_splits(h, tot):
-            """h (k, F, B, 3), tot (k, 3) -> per node (gain, feature, bin)."""
+            """h (k, F, B, 3), tot (k, 3) -> per node (gain, feature, bin).
+            Numeric position b: bins <= b go left; categorical position b:
+            the first b + 1 bins of the node's order (engine.py:243-287)."""
             k = h.shape[0]
-            gl, hl, cl = torch.cumsum(h, dim=2).unbind(-1)          # (k, F, B)
+            left = torch.cumsum(h, dim=2)
+            if cat_any:
+                order = cat_order(h, fbins_t)                       # (k, F, B)
+                sorted_h = h.gather(2, order[..., None].expand(h.shape))
+                left = torch.where(is_cat_f[:, None, None], torch.cumsum(sorted_h, dim=2), left)
+            gl, hl, cl = left.unbind(-1)                            # (k, F, B)
             ng, nh, nc = (tot[:, c, None, None] for c in range(3))
             gr, hr, cr = ng - gl, nh - hl, nc - cl
             ok = (
@@ -174,6 +209,10 @@ def make_grow_fn(
             parent = _leaf_objective(ng, nh, l1, l2)
             gain = (_leaf_objective(gl, hl, l1, l2)
                     + _leaf_objective(gr, hr, l1, l2) - parent)
+            if cat_any:
+                gain_cat = (_leaf_objective(gl, hl, l1, l2c) + _leaf_objective(gr, hr, l1, l2c)
+                            - _leaf_objective(ng, nh, l1, l2c))
+                gain = torch.where(is_cat_f[:, None], gain_cat, gain)
             gain = torch.where(ok, gain, _NEG_INF).reshape(k, -1)
             flat = gain.argmax(dim=1)          # first index on ties, like JAX
             return (gain.gather(1, flat[:, None])[:, 0],
@@ -184,6 +223,8 @@ def make_grow_fn(
         thr = torch.zeros(m, dtype=torch.long, device=dev)
         left = torch.full((m,), -1, dtype=torch.long, device=dev)
         right = torch.full((m,), -1, dtype=torch.long, device=dev)
+        is_cat = torch.zeros(m, dtype=torch.bool, device=dev)
+        cat_bitset = torch.zeros((m, num_bins), dtype=torch.bool, device=dev)
         is_leaf = node_ids == 0
         gain = torch.zeros(m, dtype=torch.float32, device=dev)
         depth = torch.zeros(m, dtype=torch.long, device=dev)
@@ -214,7 +255,19 @@ def make_grow_fn(
             # has no rows yet when active, and all writes are gated when not
             nl_id = num_nodes.clamp(max=m - 2)
             nr_id = nl_id + 1
-            go_left = bins.index_select(1, f)[:, 0] <= b
+            col = bins.index_select(1, f)[:, 0]
+            if cat_any:
+                # the winning prefix of the node's order as a bitset over
+                # bins: cat_order on the stored node histogram gives the
+                # gain scan's order (engine.py:409-423)
+                cat = is_cat_f.index_select(0, f)                   # (1,)
+                h_pf = hists.index_select(0, p)[0].index_select(0, f)[0]    # (B, 3)
+                order_f = cat_order(h_pf, fbins_t.index_select(0, f)[0])
+                bitset = torch.zeros(num_bins, dtype=torch.bool, device=dev).scatter(
+                    0, order_f, bin_pos <= b) & cat
+                go_left = torch.where(cat, bitset.gather(0, col.long()), col <= b)
+            else:
+                go_left = col <= b
             in_p = (node_of_row == p) & act
             node_of_row = torch.where(
                 in_p, torch.where(go_left, nl_id, nr_id), node_of_row)
@@ -229,6 +282,9 @@ def make_grow_fn(
             at_r = (node_ids == nr_id) & act
             feature = torch.where(at_p, f, feature)
             thr = torch.where(at_p, b, thr)
+            if cat_any:
+                is_cat = torch.where(at_p, cat, is_cat)
+                cat_bitset = torch.where(at_p[:, None], bitset, cat_bitset)
             left = torch.where(at_p, nl_id, left)
             right = torch.where(at_p, nr_id, right)
             is_leaf = (is_leaf & ~at_p) | at_l | at_r
@@ -250,13 +306,13 @@ def make_grow_fn(
         tree = TreeArrays(
             feature=feature.int(),
             threshold_bin=thr.int(),
-            is_categorical=torch.zeros(m, dtype=torch.bool, device=dev),
+            is_categorical=is_cat,
             left=left.int(),
             right=right.int(),
             value=leaf_val.to(torch.float32),
             is_leaf=is_leaf,
             gain=gain,
-            cat_bitset=torch.zeros((m, num_bins), dtype=torch.bool, device=dev),
+            cat_bitset=cat_bitset,
         )
         return tree, leaf_val.gather(0, node_of_row), node_of_row.int()
 

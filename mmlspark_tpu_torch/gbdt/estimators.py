@@ -7,10 +7,10 @@ params). The Params keep the JAX package's names (the reference's
 spelling) and gain `device`, the torch device of the fit, "cuda" by
 default. `model_string` warm-starts from a model's JSON text, and
 `validation_fraction` with `early_stopping_round` holds out a seeded share
-of the rows for early stopping. A Param value the port does not run yet
-(checkpoints, the mesh, elastic workers, categorical slots; see
-booster.py) raises NotImplementedError at fit time naming the ROADMAP
-item that ports it.
+of the rows for early stopping, and `categorical_slot_indexes` names the
+feature slots split as category subsets. A Param value the port does not
+run yet (checkpoints, the mesh, elastic workers; see booster.py) raises
+NotImplementedError at fit time naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations

@@ -31,7 +31,7 @@ import torch
 
 from ..core import kernels
 
-__all__ = ["histogram", "histogram_torch", "launch_plan", "LaunchPlan"]
+__all__ = ["histogram", "histogram_torch", "launch_plan", "LaunchPlan", "max_bins"]
 
 _CHANNELS = 3
 _SMEM_MAX = 232448        # bytes of shared memory a block may use on sm_90
@@ -85,17 +85,10 @@ def _smem_bytes(copies: int, feats: int, num_bins: int, warps: int, tile_rows: i
 
 
 @functools.lru_cache(maxsize=256)
-def launch_plan(n: int, num_features: int, num_bins: int, bin_bytes: int,
-                num_sms: int) -> LaunchPlan:
-    """The launch for n rows of F features: all features in one block if
-    their histograms fit in shared memory, else feature groups along
-    grid_y; the largest row tile that fits; W = min(features, 32) warps per
-    histogram copy and as many copies as fill 32 warps; the rows spread
-    over as many blocks as the SMs take, at most one block an SM (the grid
-    barrier needs every block resident), or one block along the rows
-    where the groups alone fill the card. (Two tiles a block at least, 64
-    blocks at the Adult shape in place of 128, took 14.4 us of device time
-    against 12.1: PERF.md, K1's versions.)"""
+def _block(num_features: int, num_bins: int, bin_bytes: int):
+    """The block of `launch_plan`: (groups, features a group, warps a copy,
+    copies, tile rows, bin buffer bytes, gather pitch, shared memory bytes),
+    or None where not even one feature's histogram fits."""
     f = num_features
     for groups in range(1, f + 1):
         fg = -(-f // groups)
@@ -113,15 +106,51 @@ def launch_plan(n: int, num_features: int, num_bins: int, bin_bytes: int,
                    else max(rows * f * bin_bytes + 32, rows // 4 * pitch))
             buf = _round_up(buf, 16)
             for copies in range(max(1, 32 // warps), 0, -1):
+                if 32 * warps * copies < rows:   # a tile's rows are one a thread
+                    break
                 smem = _smem_bytes(copies, fg, num_bins, copies * warps, rows, buf)
                 if smem <= _SMEM_MAX:
-                    tiles = -(-n // rows)
-                    grid_x_max = num_sms // groups
-                    per = -(-tiles // grid_x_max) if grid_x_max >= 2 else tiles
-                    grid_x = -(-tiles // per)
-                    return LaunchPlan(grid_x, groups, fg, warps, copies, rows, per, buf,
-                                      pitch, smem)
-    raise ValueError(f"no launch fits {num_features} features of {num_bins} bins")
+                    return groups, fg, warps, copies, rows, buf, pitch, smem
+    return None
+
+
+def max_bins(num_features: int, bin_bytes: int) -> int:
+    """The most bins a launch fits for F features of `bin_bytes` bytes: one
+    feature's histogram (12 bytes a bin), its warp's lane masks (4 bytes a
+    bin) and a tile's buffers in a block's shared memory."""
+    lo, hi = 1, _SMEM_MAX // 16 + 1      # lo fits, hi does not
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if _block(num_features, mid, bin_bytes) else (lo, mid)
+    return lo
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(n: int, num_features: int, num_bins: int, bin_bytes: int,
+                num_sms: int) -> LaunchPlan:
+    """The launch for n rows of F features: all features in one block if
+    their histograms fit in shared memory, else feature groups along
+    grid_y; the largest row tile that fits, at most one row a thread;
+    W = min(features, 32) warps per histogram copy and as many copies as
+    fill 32 warps; the rows spread over as many blocks as the SMs take, at
+    most one block an SM (the grid barrier needs every block resident), or
+    one block along the rows where the groups alone fill the card. (Two
+    tiles a block at least, 64 blocks at the Adult shape in place of 128,
+    took 14.4 us of device time against 12.1: PERF.md, K1's versions.)
+    Raises ValueError past `max_bins`: the CUDA kernel has no other route."""
+    block = _block(num_features, num_bins, bin_bytes)
+    if block is None:
+        raise ValueError(
+            f"no launch fits {num_features} features of {num_bins} bins: one "
+            f"feature's histogram, lane masks and tile buffers must fit the "
+            f"{_SMEM_MAX} bytes of shared memory a block has on sm_90, which "
+            f"holds at most {max_bins(num_features, bin_bytes)} bins here")
+    groups, fg, warps, copies, rows, buf, pitch, smem = block
+    tiles = -(-n // rows)
+    grid_x_max = num_sms // groups
+    per = -(-tiles // grid_x_max) if grid_x_max >= 2 else tiles
+    grid_x = -(-tiles // per)
+    return LaunchPlan(grid_x, groups, fg, warps, copies, rows, per, buf, pitch, smem)
 
 
 def histogram_torch(bins: torch.Tensor, stats: torch.Tensor,
@@ -149,8 +178,8 @@ def _check(bins: torch.Tensor, stats: torch.Tensor, num_bins: int) -> None:
         raise ValueError(f"bins on {bins.device} but stats on {stats.device}")
     if not (bins.is_contiguous() and stats.is_contiguous()):
         raise ValueError("bins and stats must be contiguous")
-    if not 1 <= int(num_bins) <= 256:
-        raise ValueError(f"num_bins must be in [1, 256], got {num_bins}")
+    if int(num_bins) < 1:
+        raise ValueError(f"num_bins must be at least 1, got {num_bins}")
 
 
 def _lib() -> ctypes.CDLL:
@@ -193,12 +222,14 @@ def _partials(device: torch.device, stream: int, floats: int) -> torch.Tensor:
 
 
 def histogram(bins: torch.Tensor, stats: torch.Tensor, num_bins: int) -> torch.Tensor:
-    """bins (n, F) uint8/int32 with values < num_bins <= 256; stats (n, 3)
-    f32 (grad*mask, hess*mask, mask>0). Returns (F, B, 3) f32, a new tensor
-    on every call.
+    """bins (n, F) uint8/int32 with values < num_bins; stats (n, 3) f32
+    (grad*mask, hess*mask, mask>0). Returns (F, B, 3) f32, a new tensor on
+    every call.
 
-    A CPU tensor runs `histogram_torch`. A CUDA tensor launches the kernel
-    once (the same bits on every launch) or raises; bins outside
+    A CPU tensor runs `histogram_torch`, at any num_bins. A CUDA tensor
+    launches the kernel once (the same bits on every launch) or raises:
+    past `max_bins` (about 14,000 bins) no launch fits shared memory, and
+    `launch_plan` raises ValueError naming the limit. Bins outside
     [0, num_bins) are dropped by the kernel. The call neither syncs nor
     allocates beyond the output once its scratch exists, so it can be
     captured in a CUDA graph."""

@@ -107,12 +107,12 @@ def test_tree_apply_matches_jax():
 
 
 def test_categorical_and_mesh_options_raise():
+    # categorical features grow (tests/test_torch_gbdt_categorical.py); the
+    # mesh and voting-parallel learners still raise
     cfg = engine.GrowConfig(num_leaves=4)
     nbins = np.full(F, B, np.int32)
-    cat = np.zeros(F, bool)
-    cat[2] = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.make_grow_fn(F, B, cfg, nbins, cat, device="cpu")
+        engine.make_grow_fn(F, B, cfg, nbins, np.zeros(F, bool), device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.make_grow_fn(F, B, cfg._replace(voting_top_k=2), nbins,
                             np.zeros(F, bool), device="cpu")

@@ -115,7 +115,6 @@ def test_cuda_without_a_card_raises(data, monkeypatch):
 
 
 @pytest.mark.parametrize("opts", [
-    dict(categorical_indexes=(1,)),
     dict(checkpoint_dir="ckpt", checkpoint_every_n=2),
     dict(tree_learner="voting_parallel"),
 ], ids=lambda d: ",".join(d))
@@ -129,7 +128,6 @@ def test_options_outside_the_slice_raise(data, opts):
 @pytest.mark.parametrize("params", [
     dict(use_mesh=True),
     dict(elastic_workers=2),
-    dict(categorical_slot_indexes=[0]),
 ], ids=lambda d: ",".join(d))
 def test_estimator_options_outside_the_slice_raise(data, params):
     x, y = data

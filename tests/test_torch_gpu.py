@@ -36,8 +36,11 @@ def cuda():
 # block along the rows (n = 1, n = 31, a feature split of 50 rows), which
 # writes the output directly without the grid barrier; B = 2 and 64; a tile
 # under 256 rows without a feature split (F = 48 int32); feature groups
-# along grid_y (F = 100, int32 and uint8). Each shape runs with every row
-# kept (dense tiles) and with 3% kept (gathered rows), except where noted
+# along grid_y (F = 100, int32 and uint8); above 256 bins, one copy of F
+# warps (B 512 at Adult; 32,769 x 9 at B 1024, fewer threads than a tile's
+# stats) and feature groups (B 1024 at Adult and at Higgs, B 4096 at
+# Adult). Each shape runs with every row kept (dense tiles) and with 3%
+# kept (gathered rows), except where noted
 HIST_CASES = [
     ("adult", 32768, 14, 256, np.int32, "rows"),
     ("adult_u8", 32768, 14, 256, np.uint8, "rows"),
@@ -51,6 +54,11 @@ HIST_CASES = [
     ("split_i32", 50000, 100, 256, np.int32, "split"),
     ("split_u8", 50000, 100, 256, np.uint8, "split"),
     ("split_one_block", 50, 100, 256, np.int32, "one_block"),
+    ("adult_b512", 32768, 14, 512, np.int32, "rows"),
+    ("adult_b1024", 32768, 14, 1024, np.int32, "split"),
+    ("amazon_b1024", 32769, 9, 1024, np.int32, "rows"),
+    ("higgs_b1024", 1 << 20, 28, 1024, np.int32, "split"),
+    ("adult_b4096", 32768, 14, 4096, np.int32, "split"),
 ]
 
 
@@ -121,24 +129,25 @@ def test_cuda_kernel_drops_out_of_range_bins_and_reads_unaligned_rows(cuda):
         assert torch.equal(got, hk.histogram(bins, stats, b))
 
 
-@pytest.mark.parametrize("n", [32768, 31], ids=["grid_barrier", "one_block"])
-def test_histogram_in_a_cuda_graph_replays_the_eager_result(cuda, n):
+@pytest.mark.parametrize("n,b", [(32768, 256), (31, 256), (32768, 1024)],
+                         ids=["grid_barrier", "one_block", "grid_barrier_b1024_split"])
+def test_histogram_in_a_cuda_graph_replays_the_eager_result(cuda, n, b):
     rng = np.random.default_rng(6)
-    bins = torch.from_numpy(rng.integers(0, 256, size=(n, 14)).astype(np.int32)).to(cuda)
+    bins = torch.from_numpy(rng.integers(0, b, size=(n, 14)).astype(np.int32)).to(cuda)
     stats = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(cuda)
-    hk.histogram(bins, stats, 256)                 # warm-up: build, load, scratch
+    hk.histogram(bins, stats, b)                   # warm-up: build, load, scratch
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     before = hk.histogram.launches
     with torch.cuda.graph(graph):
-        captured = hk.histogram(bins, stats, 256)
+        captured = hk.histogram(bins, stats, b)
     for seed in (7, 8):
         # new stats in the captured input: the replay must recompute
         stats.copy_(torch.from_numpy(
             np.random.default_rng(seed).normal(size=(n, 3)).astype(np.float32)))
         graph.replay()
         torch.cuda.synchronize()
-        assert torch.equal(captured, hk.histogram(bins, stats, 256))
+        assert torch.equal(captured, hk.histogram(bins, stats, b))
     assert hk.histogram.launches == before + 3
 
 
@@ -163,7 +172,10 @@ def test_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda):
     ts = torch.zeros((64, 3), dtype=torch.float32, device=cuda)
     before = hk.histogram.launches
     with pytest.raises(ValueError, match="num_bins"):
-        hk.histogram(tb, ts, 300)
+        hk.histogram(tb, ts, 0)
+    # past the bins a block's shared memory holds: the limit is named
+    with pytest.raises(ValueError, match=f"at most {hk.max_bins(4, 4)} bins"):
+        hk.histogram(tb, ts, 16384)
     with pytest.raises(ValueError, match="contiguous"):
         hk.histogram(tb.t().contiguous().t(), ts, 16)
     with pytest.raises(ValueError, match="bins on"):
@@ -197,6 +209,45 @@ def test_one_tree_on_the_card_equals_the_cpu_tree_bit_for_bit(cuda):
         assert torch.equal(getattr(cpu[0], name), getattr(card[0], name).cpu()), name
     assert torch.equal(cpu[1], card[1]) and torch.equal(cpu[2], card[2])
     assert int(cpu[0].is_leaf.sum()) == cfg.num_leaves
+
+
+@pytest.mark.parametrize("b", [32, 1024])
+def test_categorical_tree_on_the_card_equals_the_cpu_tree_and_reads_nothing_back(cuda, b):
+    # two categorical features (one of b - 1 categories) beside numeric
+    # ones, sums exact on a 2**-10 grid: the grad/hess orders, the subsets
+    # and every tree field equal the CPU's, and the card's split loop runs
+    # under sync debug mode "error"
+    n, f = 4000, 5
+    rng = np.random.default_rng(8)
+    bins = rng.integers(1, 32, size=(n, f)).astype(np.int32)
+    bins[:, 3] = rng.integers(0, b, size=n)
+    effect = rng.normal(size=b)
+    signal = effect[bins[:, 3]] + 0.5 * np.isin(bins[:, 1], [2, 5, 9, 17]) + 0.02 * bins[:, 0]
+    grad = np.round(np.tanh(signal + 0.3 * rng.normal(size=n)) * 1024) / 1024
+    hess = np.round((0.05 + 0.2 * rng.random(n)) * 1024) / 1024
+    args = [bins, grad.astype(np.float32), hess.astype(np.float32),
+            np.ones(n, np.float32), np.ones(f, np.float32)]
+    nbins = np.array([32, 32, 32, b, 32])
+    cat = np.array([False, True, False, True, False])
+    cfg = engine.GrowConfig(num_leaves=15, min_data_in_leaf=10.0)
+    out = {}
+    for dev in ("cpu", cuda):
+        grow = engine.make_grow_fn(f, b, cfg, nbins, cat, device=dev)
+        tensors = [torch.from_numpy(a).to(dev) for a in args]
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out[str(dev)] = grow(*tensors)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    cpu, card = out["cpu"], out[str(cuda)]
+    for name in engine.TreeArrays._fields:
+        assert torch.equal(getattr(cpu[0], name), getattr(card[0], name).cpu()), name
+    assert torch.equal(cpu[1], card[1].cpu()) and torch.equal(cpu[2], card[2].cpu())
+    split = cpu[0].feature >= 0
+    assert bool((cpu[0].is_categorical & split).any())
+    assert int(cpu[0].cat_bitset[cpu[0].is_categorical].sum(-1).max()) > 1
 
 
 @pytest.mark.parametrize("n", [14, 32768, 1 << 20])

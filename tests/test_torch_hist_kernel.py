@@ -53,6 +53,21 @@ def test_matches_jax_variants(shape, dtype):
                                rtol=1e-5, atol=1e-5)
 
 
+# above 256 bins (max_bin 511 and 1023 give 512 and 1024): the Adult width
+# and the Amazon-access width; the JAX package's XLA histogram takes any B
+WIDE_SHAPES = [(700, 14, 512), (900, 9, 1024)]
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_matches_jax_above_256_bins(shape):
+    n, f, b = shape
+    bins, stats = _inputs(n, f, b, seed=4)
+    got = _port(bins, stats, b)
+    assert got.shape == (f, b, 3)
+    np.testing.assert_allclose(got, np.asarray(histogram_xla(jnp.asarray(bins), jnp.asarray(stats), b)),
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_uint8_and_int32_give_equal_bits(shape):
     n, f, b = shape
@@ -74,7 +89,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     bins, stats = _inputs(64, 4, 16)
     tb, ts = torch.from_numpy(bins), torch.from_numpy(stats)
     with pytest.raises(ValueError, match="num_bins"):
-        hk.histogram(tb, ts, 257)
+        hk.histogram(tb, ts, 0)
     with pytest.raises(ValueError, match="contiguous"):
         hk.histogram(torch.from_numpy(np.asfortranarray(bins)), ts, 16)
     with pytest.raises(ValueError, match="contiguous"):
@@ -148,3 +163,40 @@ def test_launch_plans_take_each_branch():
     assert split.grid_y == 2 and split.grid_x * 2 <= sms and split.branch == "split"
     wide = hk.launch_plan(100000, 10000, 256, 4, sms)
     assert wide.grid_y > sms and wide.grid_x == 1
+
+
+# (n, F, B, the plan's branch, groups): above 256 bins a block holds one
+# histogram copy of F warps ("rows") or feature groups ("split"); the Adult
+# shape at B 512, 1024 and 4096 (the widest split), the Amazon-access shape
+# and the Higgs shape at 1024
+WIDE_PLANS = [(32768, 14, 512, "rows", 1), (32768, 14, 1024, "split", 2),
+              (32769, 9, 1024, "rows", 1), (1 << 20, 28, 1024, "split", 3),
+              (32768, 14, 4096, "split", 5)]
+
+
+@pytest.mark.parametrize("n,f,b,branch,groups", WIDE_PLANS)
+def test_plans_above_256_bins_fit_shared_memory(n, f, b, branch, groups):
+    sms = 132
+    plan = hk.launch_plan(n, f, b, 4, sms)
+    assert (plan.branch, plan.grid_y, plan.copies) == (branch, groups, 1)
+    assert plan.warps_per_copy == plan.feats_per_group == -(-f // groups)
+    # one copy's histograms and lane masks, a tile and its buffers
+    assert plan.feats_per_group * b * 16 < plan.smem_bytes <= 232448
+    # a tile's rows are one a thread (its stats may take two reads a thread)
+    assert plan.tile_rows % 32 == 0 and plan.tile_rows <= plan.threads
+    rows = plan.tile_rows * plan.tiles_per_block
+    assert rows * plan.grid_x >= n > rows * (plan.grid_x - 1)
+    assert plan.grid_x * plan.grid_y <= sms
+
+
+def test_no_launch_past_the_bins_shared_memory_holds():
+    limit = hk.max_bins(14, 4)
+    # one feature a block: 16 bytes a bin (histogram and lane masks) and a
+    # tile's buffers
+    assert 14000 < limit < 232448 // 16
+    assert hk.launch_plan(32768, 14, limit, 4, 132).feats_per_group == 1
+    with pytest.raises(ValueError, match=f"no launch fits 14 features of 16384 bins.*at most {limit}"):
+        hk.launch_plan(32768, 14, 16384, 4, 132)
+    # the CPU's plain version has no such limit
+    bins, stats = _inputs(50, 2, 16384, seed=5)
+    assert _port(bins, stats, 16384).shape == (2, 16384, 3)
