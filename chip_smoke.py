@@ -17,7 +17,8 @@ regression objectives' quality gate through GBDTRegressor, the Adult fit
 under bagged gbdt, goss, rf and dart, an early-stopped fit and its warm
 start, the classifier and regressor quality gates, categorical fits at
 the UCI Adult schema and at the Amazon Employee Access schema (max_bin
-1023, K1 at 1,024 bins); and
+1023, K1 at 1,024 bins), the numeric Adult fit at max_bin 16383 (K1 at
+16,384 bins); and
 DeepModelTransformer serving 1,024 rows x 512 token ids through bench.py's
 accelerator transformer (8 layers, d_model 512, 8 heads, vocab 16,384) with
 attention_impl="flash", in bf16 and in f32, through two small bf16
@@ -107,6 +108,10 @@ ran on its kernel. It prints one JSON line per phase:
                K1 at 1,024 bins (3,100 launches), held-out AUC above a
                constant's, card = host walk; 10 rounds CPU against card,
                and the numeric Adult shape at max_bin 511 likewise
+  slice_max_bin_16383  the numeric Adult shape at max_bin 16383: K1 at
+               16,384 bins in bin ranges (3,100 launches), held-out AUC >
+               0.75, accuracy > 0.7, card = host walk; 10 rounds CPU
+               against card
   slice_transformer  the DNN path: tokens/s, K2 launches (must be 128,
                on "wgmma"), finite logits, probabilities summing to 1; the
                same 1,024 x 512 tokens served in f32 (128 launches on
@@ -434,12 +439,13 @@ def _hist_f64(bins: torch.Tensor, stats: torch.Tensor, num_bins: int = HIST_BINS
 # and 64, one histogram copy of 17 warps, a tile under 256 rows without a
 # feature split (F = 48 int32), feature groups along grid_y (F = 100), and
 # the Higgs grid with gathered rows (3% kept). Above 256 bins (int32 bins;
-# max_bin 511 gives 512, 1023 gives 1024): the Adult shape at B 512 (one
-# copy of 14 warps, "rows"), 1024 ("split", 2 groups of 7) and 4096 (the
-# widest "split", 5 groups of 3, 64-row tiles), a ragged n at 1024, the
-# Amazon-access shape slice_high_cardinality fits (32,769 x 9 at 1024:
-# "rows", one copy of 9 warps, fewer threads than 1.5 tiles' stats) and
-# the Higgs shape at 1024 ("split", 3 groups of 10)
+# max_bin 511 gives 512, 1023 gives 1024, 16383 gives 16,384): the Adult
+# shape at B 512, 1024 and 4096 (with every row kept and 3%), a ragged n at
+# 1024, the Amazon-access shape slice_high_cardinality fits (32,769 x 9 at
+# 1024) and the Higgs shape at 1024, whose blocks own a feature group and
+# all its bins ("split"); the Adult shape at 16,384 (slice_max_bin_16383's
+# calls), whose blocks own a range of them ("ranges"), and at 65,536, one
+# block along the rows of each range ("one_block")
 HIST_SHAPES = [
     ("adult_int32", 32768, 14, torch.int32, 1.0, 256),
     ("adult_uint8", 32768, 14, torch.uint8, 1.0, 256),
@@ -462,19 +468,22 @@ HIST_SHAPES = [
     ("amazon_int32_b1024", 32769, 9, torch.int32, 1.0, 1024),
     ("higgs_int32_b1024", 1 << 20, 28, torch.int32, 1.0, 1024),
     ("adult_int32_b4096", 32768, 14, torch.int32, 1.0, 4096),
+    ("adult_int32_b4096_masked3pct", 32768, 14, torch.int32, 0.03, 4096),
+    ("adult_int32_b16384", 32768, 14, torch.int32, 1.0, 16384),
+    ("adult_int32_b65536", 32768, 14, torch.int32, 1.0, 65536),
 ]
 HIST_BRANCHES = ("rows", "capped", "one_block", "small_tile", "split")   # LaunchPlan.branch
-HIST_WIDE_BRANCHES = ("rows", "split")        # the branches taken above 256 bins
+HIST_WIDE_BRANCHES = ("split", "ranges", "one_block")   # the branches taken above 256 bins
+HIST_GRAPH_SHAPE = "adult_int32_b16384"       # replayed in a CUDA graph too
 
 
 def histogram_rows() -> list:
-    from mmlspark_tpu_torch.gbdt.hist_kernel import (_num_sms, histogram, histogram_torch,
-                                                     launch_plan)
+    from mmlspark_tpu_torch.gbdt.hist_kernel import device_plan, histogram, histogram_torch
 
     rows = []
     for i, (name, n, f, dt, frac, nb) in enumerate(HIST_SHAPES):
         bins, stats = _hist_inputs(n, f, dt, frac, seed=100 + i, num_bins=nb)
-        plan = launch_plan(n, f, nb, bins.element_size(), _num_sms(0))
+        plan = device_plan(n, f, nb, bins.element_size(), 0)
         first = histogram(bins, stats, nb)
         again = histogram(bins, stats, nb)
         plain = histogram_torch(bins, stats, nb)
@@ -532,12 +541,38 @@ def histogram_rows() -> list:
             "bound_us": max(bytes_ms, ops_ms) * 1e3,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         })
+        if name == HIST_GRAPH_SHAPE:
+            rows[-1]["graph_replays_eager_bits"] = _hist_graph_replays(bins, stats, nb)
         del bins, stats, first, again, plain, ids, data, out, fstats
+    assert any(r.get("graph_replays_eager_bits") for r in rows), "no K1 shape replayed in a graph"
     missing = set(HIST_BRANCHES) - {r["branch"] for r in rows}
     assert not missing, f"no K1 shape took the launch branches {sorted(missing)}"
     missing = set(HIST_WIDE_BRANCHES) - {r["branch"] for r in rows if r["bins"] > 256}
     assert not missing, f"no K1 shape above 256 bins took the branches {sorted(missing)}"
     return rows
+
+
+def _hist_graph_replays(bins: torch.Tensor, stats: torch.Tensor, nb: int) -> bool:
+    """K1 captured in a CUDA graph, then replayed on new stats written into
+    the captured input: each replay gives the eager call's bits."""
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+
+    stats = stats.clone()
+    histogram(bins, stats, nb)                     # warm-up: scratch on this stream
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = histogram(bins, stats, nb)
+    equal = True
+    for seed in (1, 2):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        fresh = torch.rand(stats.shape, generator=g, device="cuda") * 2 - 1
+        stats.copy_(torch.round(fresh * 1024) / 1024)
+        graph.replay()
+        torch.cuda.synchronize()
+        equal = equal and torch.equal(captured, histogram(bins, stats, nb))
+    assert equal, "K1 replayed in a CUDA graph differs from the eager call"
+    return equal
 
 
 def hist_empty_launch_ms() -> dict:
@@ -1757,7 +1792,7 @@ def phase_slice_gates() -> dict:
 CATEGORICAL_TIES = dict(gain_floor=1e-4, order_ties=True)
 
 
-def _categorical_fit(x, y, xv, yv, params: dict, rounds: int = 100, leaves: int = 31):
+def _card_fit(x, y, xv, yv, params: dict, rounds: int = 100, leaves: int = 31):
     """GBDTClassifier on the card with `params`: a 2-round warm-up, then the
     counted fit of `rounds` rounds (exactly rounds x leaves K1 launches),
     held-out metrics, the card's scores against the host walk, and the
@@ -1821,7 +1856,7 @@ def phase_slice_categorical() -> dict:
     x, y, xv, yv = x_all[:n], y_all[:n], x_all[n:], y_all[n:]
     cats = list(ADULT_CATEGORICAL)
     sync_free = _rounds_without_sync(x, y, cats)
-    booster, fit = _categorical_fit(x, y, xv, yv, dict(categorical_slot_indexes=cats))
+    booster, fit = _card_fit(x, y, xv, yv, dict(categorical_slot_indexes=cats))
     assert fit["valid_auc"] > 0.75 and fit["valid_accuracy"] > 0.7, fit
     assert fit["categorical_nodes_of_many"] > 0, "no categorical node with a subset of many"
     assert fit["k1_bins_seen"] == [("int32", 256)], fit["k1_bins_seen"]
@@ -1845,21 +1880,21 @@ def phase_slice_high_cardinality() -> dict:
     "error"; 10 rounds on "cpu" and "cuda" (cpu_card_parity, K1 with
     CATEGORICAL_TIES), and the same for the numeric Adult shape
     (make_dataset) at max_bin 511 with compare_fits's plain rules."""
-    from mmlspark_tpu_torch.gbdt.hist_kernel import _num_sms, launch_plan
+    from mmlspark_tpu_torch.gbdt.hist_kernel import device_plan
 
     n, n_valid = AMAZON_ROWS, 8192
     x_all, y_all = make_amazon_access(n + n_valid)
     x, y, xv, yv = x_all[:n], y_all[:n], x_all[n:], y_all[n:]
     cats = list(range(x.shape[1]))
     sync_free = _rounds_without_sync(x, y, cats, max_bin=1023)
-    booster, fit = _categorical_fit(x, y, xv, yv, dict(
+    booster, fit = _card_fit(x, y, xv, yv, dict(
         categorical_slot_indexes=cats, max_bin=1023, bin_dtype="uint8"))
     assert fit["valid_auc"] > 0.5, fit
     assert any("storing bins as int32" in w for w in fit["warnings"]), fit["warnings"]
     assert fit["k1_bins_seen"] == [("int32", 1024)], fit["k1_bins_seen"]
     widest = sorted(fit["num_bins"])[-3:]
     assert widest == [1024] * 3, fit["num_bins"]
-    plan = launch_plan(n, x.shape[1], 1024, 4, _num_sms(0))
+    plan = device_plan(n, x.shape[1], 1024, 4, 0)
     parity = cpu_card_parity(x, y, dict(categorical_indexes=cats, max_bin=1023),
                              ties=CATEGORICAL_TIES)[0]
     xn, yn = make_dataset(32768, 14)
@@ -1869,6 +1904,36 @@ def phase_slice_high_cardinality() -> dict:
            "num_leaves": 31, "max_bin": 1023, "bin_dtype_asked": "uint8", "k1_plan": plan.branch,
            "sync_free_rounds": sync_free, **fit, "parity_10_rounds": parity,
            "adult_numeric_max_bin_511_parity_10_rounds": numeric}
+    emit(doc)
+    return doc
+
+
+def phase_slice_max_bin_16383() -> dict:
+    """The numeric Adult shape (make_dataset: 32,768 rows fitted, 8,192 held
+    out) through GBDTClassifier(max_bin=16383): its 12 continuous columns
+    take 16,384 bins, past the ~14,000 of one feature a block that K1 held
+    before bin ranges; 100 rounds of 31 leaves, so 3,100 launches, all at
+    B 16,384 int32; held-out AUC > 0.75 and accuracy > 0.7 (bench.py's
+    canaries); card scores equal to the host walk; 10 rounds on "cpu" and
+    "cuda" (cpu_card_parity: the row-order witness at 1e-5, K1 at 1e-4)."""
+    from mmlspark_tpu_torch.gbdt.hist_kernel import device_plan
+
+    n, n_valid, f = 32768, 8192, 14
+    x_all, y_all = make_dataset(n + n_valid, f)
+    x, y, xv, yv = x_all[:n], y_all[:n], x_all[n:], y_all[n:]
+    booster, fit = _card_fit(x, y, xv, yv, dict(max_bin=16383))
+    assert fit["valid_auc"] > 0.75 and fit["valid_accuracy"] > 0.7, fit
+    assert fit["k1_bins_seen"] == [("int32", 16384)], fit["k1_bins_seen"]
+    assert sorted(fit["num_bins"])[-12:] == [16384] * 12, fit["num_bins"]
+    plan = device_plan(n, f, 16384, 4, 0)
+    split = booster.feature >= 0
+    parity = cpu_card_parity(x, y, dict(max_bin=16383))[0]
+    doc = {"phase": "slice_max_bin_16383", "rows": n, "held_out_rows": n_valid, "features": f,
+           "rounds": 100, "num_leaves": 31, "max_bin": 16383, "k1_plan": plan._asdict(),
+           "k1_branch": plan.branch, **{k: v for k, v in fit.items() if "categorical" not in k
+                                        and k != "largest_subset"},
+           "splits_past_bin_14376": int((booster.threshold_bin[split] > 14376).sum()),
+           "splits": int(split.sum()), "parity_10_rounds": parity}
     emit(doc)
     return doc
 
@@ -2284,6 +2349,7 @@ def main() -> int:
     gates = phase_slice_gates()
     categorical = phase_slice_categorical()
     wide_bins = phase_slice_high_cardinality()
+    max_bin = phase_slice_max_bin_16383()
     dnn = phase_slice_transformer()
     small = phase_small_transformer()
     wide = phase_serve_wide()
@@ -2309,13 +2375,15 @@ def main() -> int:
         "replaces": "mmlspark_tpu/gbdt/hist_kernel.py:227",
         # every fit of the main path: Adult, Higgs, digits multiclass, the
         # five objectives, the Adult fits under each boosting type, the
-        # early-stopped fit and its warm start, the 28 gate fits, and the
-        # categorical Adult and Amazon-access fits (B 256 and 1024)
+        # early-stopped fit and its warm start, the 28 gate fits, the
+        # categorical Adult and Amazon-access fits (B 256 and 1024) and the
+        # numeric Adult fit at max_bin 16383 (B 16,384)
         "launches": (adult["histogram_launches"] + higgs["histogram_launches"]
                      + multiclass["histogram_launches"] + objectives["histogram_launches"]
                      + boosting["histogram_launches"] + early["histogram_launches"]
                      + early["warm_start_launches"] + gates["histogram_launches"]
-                     + categorical["histogram_launches"] + wide_bins["histogram_launches"]),
+                     + categorical["histogram_launches"] + wide_bins["histogram_launches"]
+                     + max_bin["histogram_launches"]),
         "launches_by_fit": {"adult": adult["histogram_launches"],
                             "higgs": higgs["histogram_launches"],
                             "multiclass": multiclass["histogram_launches"],
@@ -2326,7 +2394,8 @@ def main() -> int:
                             "warm_start": early["warm_start_launches"],
                             "gates": gates["histogram_launches"],
                             "categorical": categorical["histogram_launches"],
-                            "high_cardinality": wide_bins["histogram_launches"]},
+                            "high_cardinality": wide_bins["histogram_launches"],
+                            "max_bin_16383": max_bin["histogram_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern["histogram"]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],

@@ -36,11 +36,13 @@ def cuda():
 # block along the rows (n = 1, n = 31, a feature split of 50 rows), which
 # writes the output directly without the grid barrier; B = 2 and 64; a tile
 # under 256 rows without a feature split (F = 48 int32); feature groups
-# along grid_y (F = 100, int32 and uint8); above 256 bins, one copy of F
-# warps (B 512 at Adult; 32,769 x 9 at B 1024, fewer threads than a tile's
-# stats) and feature groups (B 1024 at Adult and at Higgs, B 4096 at
-# Adult). Each shape runs with every row kept (dense tiles) and with 3%
-# kept (gathered rows), except where noted
+# along grid_y (F = 100, int32 and uint8); above 256 bins, blocks that own
+# a feature group and all its bins ("split": B 512 to 4096 at Adult, the
+# Amazon-access and Higgs shapes at 1024), a range of them ("ranges": B
+# 16,384, max_bin 16383's), and one block along the rows of a range (B
+# 65,536; and 31 rows at 2**20 bins, more (group, range) blocks than the
+# SMs hold at once). Each shape runs with every row kept (dense tiles) and
+# with 3% kept (gathered rows)
 HIST_CASES = [
     ("adult", 32768, 14, 256, np.int32, "rows"),
     ("adult_u8", 32768, 14, 256, np.uint8, "rows"),
@@ -54,11 +56,14 @@ HIST_CASES = [
     ("split_i32", 50000, 100, 256, np.int32, "split"),
     ("split_u8", 50000, 100, 256, np.uint8, "split"),
     ("split_one_block", 50, 100, 256, np.int32, "one_block"),
-    ("adult_b512", 32768, 14, 512, np.int32, "rows"),
+    ("adult_b512", 32768, 14, 512, np.int32, "split"),
     ("adult_b1024", 32768, 14, 1024, np.int32, "split"),
-    ("amazon_b1024", 32769, 9, 1024, np.int32, "rows"),
+    ("amazon_b1024", 32769, 9, 1024, np.int32, "split"),
     ("higgs_b1024", 1 << 20, 28, 1024, np.int32, "split"),
     ("adult_b4096", 32768, 14, 4096, np.int32, "split"),
+    ("adult_b16384", 32768, 14, 16384, np.int32, "ranges"),
+    ("adult_b65536", 32768, 14, 65536, np.int32, "one_block"),
+    ("n31_b1m", 31, 28, 1 << 20, np.int32, "one_block"),
 ]
 
 
@@ -67,8 +72,7 @@ HIST_CASES = [
 def test_cuda_kernel_matches_plain_version_and_repeats_its_bits(cuda, name, n, f, b, dtype,
                                                                 branch, kept):
     rng = np.random.default_rng(4)
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    plan = hk.launch_plan(n, f, b, np.dtype(dtype).itemsize, sms)
+    plan = hk.device_plan(n, f, b, np.dtype(dtype).itemsize, torch.cuda.current_device())
     assert plan.branch == branch, plan
     bins = torch.from_numpy(rng.integers(0, b, size=(n, f)).astype(dtype)).to(cuda)
     stats = rng.normal(size=(n, 3)).astype(np.float32)
@@ -105,6 +109,36 @@ def test_cuda_kernel_matches_plain_version_and_repeats_its_bits(cuda, name, n, f
         assert err.max().item() <= 1e-5
 
 
+# The plans above 256 bins of the CPU tests (tests/test_torch_hist_kernel.py):
+# (n, F, B, bin bytes)
+WIDE_DEVICE_PLANS = ([(32768, 14, b, 4) for b in (512, 1024, 4096)]
+                     + [(32769, 9, 1024, 4), (1 << 20, 28, 1024, 4)]
+                     + [(n, f, b, bb) for f in (9, 14, 28) for b in (16384, 65536, 1 << 20)
+                        for n, bb in ((32768, 4), (1 << 20, 1))]
+                     + [(n, 28, 1 << 20, 4) for n in (1, 31, 64)])
+
+
+def test_cooperative_plans_fit_what_the_runtime_says_an_sm_holds(cuda):
+    # device_plan takes the blocks an SM holds from the runtime's occupancy
+    # of the kernel: each cooperative grid is co-resident by it, and the
+    # card takes every plan's launch (zero stats: an all-zero histogram)
+    dev = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n, f, b, bb in WIDE_DEVICE_PLANS:
+        plan = hk.device_plan(n, f, b, bb, dev)
+        held = hk._resident_on(dev, bb)(plan.threads, plan.smem_bytes)
+        assert held >= 1, plan
+        if plan.grid_x > 1:
+            assert plan.grid_x * plan.grid_y <= held * sms, plan
+        bins = torch.zeros((n, f), dtype=torch.int32 if bb == 4 else torch.uint8, device=cuda)
+        stats = torch.zeros((n, 3), device=cuda)
+        before = hk.histogram.launches
+        out = hk.histogram(bins, stats, b)
+        assert hk.histogram.launches == before + 1
+        assert out.shape == (f, b, 3) and not out.any().item(), plan
+        del bins, stats, out
+
+
 def test_cuda_kernel_drops_out_of_range_bins_and_reads_unaligned_rows(cuda):
     # int32 bins below 0 and at or above B add nothing; views that start
     # one row into their tensors put the rows off every 16-byte boundary.
@@ -129,8 +163,9 @@ def test_cuda_kernel_drops_out_of_range_bins_and_reads_unaligned_rows(cuda):
         assert torch.equal(got, hk.histogram(bins, stats, b))
 
 
-@pytest.mark.parametrize("n,b", [(32768, 256), (31, 256), (32768, 1024)],
-                         ids=["grid_barrier", "one_block", "grid_barrier_b1024_split"])
+@pytest.mark.parametrize("n,b", [(32768, 256), (31, 256), (32768, 1024), (32768, 16384)],
+                         ids=["grid_barrier", "one_block", "grid_barrier_b1024_split",
+                              "b16384_ranges"])
 def test_histogram_in_a_cuda_graph_replays_the_eager_result(cuda, n, b):
     rng = np.random.default_rng(6)
     bins = torch.from_numpy(rng.integers(0, b, size=(n, 14)).astype(np.int32)).to(cuda)
@@ -173,9 +208,10 @@ def test_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda):
     before = hk.histogram.launches
     with pytest.raises(ValueError, match="num_bins"):
         hk.histogram(tb, ts, 0)
-    # past the bins a block's shared memory holds: the limit is named
-    with pytest.raises(ValueError, match=f"at most {hk.max_bins(4, 4)} bins"):
-        hk.histogram(tb, ts, 16384)
+    # F x B at 2**31, where the JAX package's int32 ids overflow: the one
+    # refusal, before the output is allocated
+    with pytest.raises(ValueError, match=r"2\*\*31"):
+        hk.histogram(tb, ts, 1 << 29)
     with pytest.raises(ValueError, match="contiguous"):
         hk.histogram(tb.t().contiguous().t(), ts, 16)
     with pytest.raises(ValueError, match="bins on"):
