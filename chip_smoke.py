@@ -18,7 +18,9 @@ under bagged gbdt, goss, rf and dart, an early-stopped fit and its warm
 start, the classifier and regressor quality gates, categorical fits at
 the UCI Adult schema and at the Amazon Employee Access schema (max_bin
 1023, K1 at 1,024 bins), the numeric Adult fit at max_bin 16383 (K1 at
-16,384 bins); and
+16,384 bins), checkpointed, preempted and resumed Adult fits, the
+LightGBM model.txt files of model_zoo/ scored on the card and boosters
+exported to model.txt and read back; and
 DeepModelTransformer serving 1,024 rows x 512 token ids through bench.py's
 accelerator transformer (8 layers, d_model 512, 8 heads, vocab 16,384) with
 attention_impl="flash", in bf16 and in f32, through two small bf16
@@ -112,6 +114,25 @@ ran on its kernel. It prints one JSON line per phase:
                16,384 bins in bin ranges (3,100 launches), held-out AUC >
                0.75, accuracy > 0.7, card = host walk; 10 rounds CPU
                against card
+  slice_checkpoint  the Adult shape through GBDTClassifier (seed 3,
+               bagging 0.8 every 3 rounds): uninterrupted; with
+               checkpoint_every_n 10 (chunks of 9, aligned to the bag);
+               preempted after the 5th snapshot (Preempted, exit code 75)
+               and resumed by a fresh estimator; goss with
+               checkpoint_every_n 7 and its uninterrupted twin: to_text()
+               equal byte for byte to the uninterrupted fit's, the resumed
+               fit's card scores equal bit for bit, 3,100 K1 launches a fit
+               (15,500); fit seconds, each snapshot's write seconds and
+               bytes, the resume's restore seconds
+  slice_lightgbm_import  model_zoo/gbdt_*.model (LightGBM model.txt)
+               loaded on the card by load_native_model: the adult-census
+               model's held-out AUC 0.91478 (index.json, 5 places), wdbc's
+               AUC > 0.97 and diabetes's RMSE < 62.0 on the zoo's split;
+               its fused bin -> traverse program over 1,048,576 f32 rows
+               equal to predict_raw bit for bit (rows/s end to end and
+               resident); slice_adult's and slice_categorical's boosters
+               through to_lightgbm_text -> from_lightgbm_text within rtol
+               1e-6, atol 1e-7; parse and export seconds
   slice_transformer  the DNN path: tokens/s, K2 launches (must be 128,
                on "wgmma"), finite logits, probabilities summing to 1; the
                same 1,024 x 512 tokens served in f32 (128 launches on
@@ -848,7 +869,7 @@ def phase_slice_adult() -> dict:
            "train_accuracy": train["accuracy"], "valid_auc": valid["auc"],
            "valid_accuracy": valid["accuracy"], "card_equals_host_walk": True}
     emit(doc)
-    return doc
+    return {**doc, "booster": model.booster, "x_valid": xv}
 
 
 def phase_profile_adult() -> dict:
@@ -1865,7 +1886,7 @@ def phase_slice_categorical() -> dict:
            "features": x.shape[1], "categorical_slots": cats, "rounds": 100, "num_leaves": 31,
            "max_bin": 255, "sync_free_rounds": sync_free, **fit, "parity_10_rounds": parity}
     emit(doc)
-    return doc
+    return {**doc, "booster": booster, "x_valid": xv}
 
 
 def phase_slice_high_cardinality() -> dict:
@@ -1934,6 +1955,253 @@ def phase_slice_max_bin_16383() -> dict:
                                         and k != "largest_subset"},
            "splits_past_bin_14376": int((booster.threshold_bin[split] > 14376).sum()),
            "splits": int(split.sum()), "parity_10_rounds": parity}
+    emit(doc)
+    return doc
+
+
+def phase_slice_checkpoint() -> dict:
+    """Checkpointed, preemptible fits on the card, at the Adult shape
+    (32,768 x 14, 100 rounds of 31 leaves, seed 3, bagging 0.8 every 3
+    rounds) through GBDTClassifier: (a) uninterrupted; (b) with
+    checkpoint_every_n 10, which runs chunks of 9 rounds (aligned to the
+    bag) with a snapshot after each; (c) the same under a guard that drains
+    after the 5th snapshot (Preempted, exit code 75), then resumed to the
+    end by a fresh estimator; (d) goss with checkpoint_every_n 7 against its
+    own uninterrupted fit. (b), (c) and (d) give their uninterrupted fit's
+    to_text() byte for byte, (c)'s card scores are (a)'s bit for bit, and
+    every fit launches K1 exactly 3,100 times ((c): the preempted part plus
+    the resumed part). Prints each fit's seconds, each snapshot write's
+    seconds and bytes, and the resume's restore seconds."""
+    import shutil
+    from unittest import mock
+
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.gbdt import booster as booster_mod
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+    from mmlspark_tpu_torch.resilience.elastic import (Preempted, PreemptionGuard,
+                                                       TrainingCheckpointer, set_active_guard)
+
+    class TripGuard(PreemptionGuard):
+        """Drains at its 5th poll: the step boundary after the 5th snapshot."""
+
+        polls = 0
+
+        def should_checkpoint(self) -> bool:
+            self.polls += 1
+            if self.polls >= 5:
+                self.request_drain("chip_smoke")
+            return super().should_checkpoint()
+
+    n, n_valid, f, rounds, leaves = 32768, 8192, 14, 100, 31
+    x_all, y_all = make_dataset(n + n_valid, f)
+    x, y, xv = x_all[:n], y_all[:n], x_all[n:]
+    root = ROOT / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    bagged = dict(num_iterations=rounds, num_leaves=leaves, seed=3, bagging_fraction=0.8,
+                  bagging_freq=3, device="cuda")
+    goss = dict(num_iterations=rounds, num_leaves=leaves, seed=3, boosting_type="goss",
+                device="cuda")
+    writes, restores = [], []
+    save, restore = TrainingCheckpointer.save, booster_mod._restore_snapshot
+
+    def timed_save(self, payload, *args, **kw):
+        t0 = time.perf_counter()
+        path = save(self, payload, *args, **kw)
+        writes.append({"seconds": time.perf_counter() - t0, "bytes": len(payload),
+                       "file": Path(path).name})
+        return path
+
+    def timed_restore(*args, **kw):
+        t0 = time.perf_counter()
+        out = restore(*args, **kw)
+        restores.append({"seconds": time.perf_counter() - t0,
+                         "rounds_done": None if out is None else out[1]})
+        return out
+
+    def fit(params):
+        """One counted fit: (the model or the Preempted it raised, seconds,
+        K1 launches)."""
+        torch.cuda.synchronize()
+        histogram.launches = 0
+        t0 = time.perf_counter()
+        try:
+            model = GBDTClassifier(**params).fit(_table(x, y))
+        except Preempted as e:
+            model = e
+        return model, {"seconds": time.perf_counter() - t0,
+                       "histogram_launches": histogram.launches}
+
+    def taken():
+        out = list(writes)
+        writes.clear()
+        return out
+
+    fits, snaps = {}, {}
+    c_params = {**bagged, "checkpoint_dir": str(root / "c"), "checkpoint_every_n": 10}
+    with mock.patch.object(TrainingCheckpointer, "save", timed_save), \
+            mock.patch.object(booster_mod, "_restore_snapshot", timed_restore):
+        a, fits["a_uninterrupted"] = fit(bagged)
+        b, fits["b_chunked"] = fit({**bagged, "checkpoint_dir": str(root / "b"),
+                                    "checkpoint_every_n": 10})
+        snaps["b"] = taken()
+        set_active_guard(TripGuard(install=False))
+        try:
+            preempted, c_pre = fit(c_params)
+        finally:
+            set_active_guard(None)
+        snaps["c_preempted"] = taken()
+        c, fits["c_resumed"] = fit(c_params)
+        snaps["c_resumed"] = taken()
+        d_ref, fits["d_goss_uninterrupted"] = fit(goss)
+        d, fits["d_goss_chunked"] = fit({**goss, "checkpoint_dir": str(root / "d"),
+                                         "checkpoint_every_n": 7})
+        snaps["d"] = taken()
+    shutil.rmtree(root, ignore_errors=True)
+
+    assert isinstance(preempted, Exception), "the guard drained, but the fit was not preempted"
+    assert preempted.exit_code == 75, preempted.exit_code
+    assert preempted.checkpoint_path and Path(preempted.checkpoint_path).name == \
+        "ckpt-00000004-round-000045.bin", preempted.checkpoint_path
+    assert snaps["c_preempted"][-1]["file"] == Path(preempted.checkpoint_path).name
+    counts = {k: len(v) for k, v in snaps.items()}
+    assert counts == {"b": 12, "c_preempted": 5, "c_resumed": 7, "d": 15}, counts
+    assert [r["rounds_done"] for r in restores] == [None, None, 45, None], restores
+    fits["c_resumed"].update(preempted_seconds=c_pre["seconds"],
+                             preempted_launches=c_pre["histogram_launches"],
+                             resumed_launches=fits["c_resumed"]["histogram_launches"])
+    fits["c_resumed"]["histogram_launches"] += c_pre["histogram_launches"]
+    for name, doc in fits.items():
+        assert doc["histogram_launches"] == rounds * leaves, (name, doc)
+    for model in (a, b, c, d_ref, d):
+        assert model.booster.device.startswith("cuda"), model.booster.device
+    a_text = a.booster.to_text()
+    assert b.booster.to_text() == a_text, "the chunked fit differs from the uninterrupted one"
+    assert c.booster.to_text() == a_text, "the resumed fit differs from the uninterrupted one"
+    assert d.booster.to_text() == d_ref.booster.to_text(), "chunked goss differs"
+    assert np.array_equal(c.booster.predict_raw(xv, device="device"),
+                          a.booster.predict_raw(xv, device="device")), \
+        "the resumed fit's card scores differ from the uninterrupted fit's"
+    every_write = [w for v in snaps.values() for w in v]
+    doc = {"phase": "slice_checkpoint", "rows": n, "features": f, "rounds": rounds,
+           "num_leaves": leaves, "fits": fits, "b_chunk_rounds": 9, "d_chunk_rounds": 7,
+           "snapshot_writes": snaps,
+           "snapshot_write_seconds_median": float(np.median([w["seconds"] for w in every_write])),
+           "snapshot_write_seconds_max": max(w["seconds"] for w in every_write),
+           "snapshot_bytes_last_b": snaps["b"][-1]["bytes"],
+           "restore_seconds": next(r["seconds"] for r in restores if r["rounds_done"]),
+           "preempted_exit_code": preempted.exit_code,
+           "preempted_checkpoint": Path(preempted.checkpoint_path).name,
+           "to_text_equal": True, "resumed_scores_equal": True,
+           "histogram_launches": sum(d["histogram_launches"] for d in fits.values())}
+    emit(doc)
+    return doc
+
+
+def load_label_csv(name: str):
+    """A vendored benchmark CSV (tests/benchmarks/data/<name>.csv: feature
+    columns and 'Label') as (x, y) float64, as utils/datagen.py reads it."""
+    with open(ROOT / "tests" / "benchmarks" / "data" / f"{name}.csv", newline="") as fh:
+        rows = list(csv.reader(fh))
+    header, body = rows[0], np.asarray(rows[1:], dtype=np.float64)
+    label = header.index("Label")
+    return np.delete(body, label, axis=1), body[:, label]
+
+
+def holdout_split(n: int, seed: int = 0, frac: float = 0.8):
+    """The stocked zoo's train/holdout split (copy of
+    mmlspark_tpu/utils/datagen.py holdout_split)."""
+    order = np.random.default_rng(seed).permutation(n)
+    cut = int(frac * n)
+    return order[:cut], order[cut:]
+
+
+ZOO_ADULT_AUC = 0.91478     # model_zoo/index.json, gbdt_adult_census_synthetic
+
+
+def phase_slice_lightgbm_import(adult: dict, categorical: dict) -> dict:
+    """LightGBM model.txt on the card: the three model_zoo/gbdt_*.model
+    files through the port's Booster.load_native_model (device "cuda").
+    The adult-census model scores tools/build_zoo.py's held-out set
+    (make_dataset(8,192, 28, seed=8), tools/build_zoo.py:99-100) at
+    index.json's AUC 0.91478 (5 places); wdbc and diabetes on the zoo's
+    split reach tests/test_zoo_content.py's gates (AUC > 0.97, RMSE < 62.0);
+    the adult-census model's fused bin -> traverse program over
+    make_dataset(1,048,576, 28) in f32 equals predict_raw on the same rows
+    bit for bit (rows/s end to end and resident). Export: slice_adult's
+    booster goes through to_lightgbm_text -> from_lightgbm_text on the card
+    and scores within tests/test_external_truth.py:483-486's rtol 1e-6,
+    atol 1e-7; slice_categorical's the same through the host walk (device
+    predict refuses categorical models). Prints parse and export seconds."""
+    from mmlspark_tpu_torch.automl.metrics import auc
+    from mmlspark_tpu_torch.gbdt.booster import Booster
+
+    zoo, parse_s = {}, {}
+    for name in ("gbdt_adult_census_synthetic", "gbdt_wdbc", "gbdt_diabetes"):
+        t0 = time.perf_counter()
+        zoo[name] = Booster.load_native_model(str(ROOT / "model_zoo" / f"{name}.model"))
+        parse_s[name] = time.perf_counter() - t0
+        assert zoo[name].device.startswith("cuda"), zoo[name].device
+    census = zoo["gbdt_adult_census_synthetic"]
+    xh, yh = make_dataset(8192, 28, seed=8)
+    census_auc = auc(yh, census.predict(xh, device="device"))
+    assert round(census_auc, 5) == ZOO_ADULT_AUC, census_auc
+    x, y = load_label_csv("breast_cancer_wdbc")
+    _, te = holdout_split(len(y))
+    wdbc_auc = auc(y[te], zoo["gbdt_wdbc"].predict(x[te], device="device"))
+    assert wdbc_auc > 0.97, wdbc_auc
+    x, y = load_label_csv("diabetes")
+    _, te = holdout_split(len(y))
+    rmse = float(np.sqrt(np.mean((zoo["gbdt_diabetes"].predict(x[te], device="device")
+                                  - y[te]) ** 2)))
+    assert rmse < 62.0, rmse
+
+    # the fused program: its adjusted f32 keys give the host's f64 bins on
+    # f32 values, so the rows are cast first; under 256 bins a feature
+    assert int(census.bin_mapper.num_bins.max()) <= 256, census.bin_mapper.num_bins.max()
+    x32 = np.ascontiguousarray(make_dataset(1_048_576, 28)[0], dtype=np.float32)
+    params, fn = census.device_predict_fn()
+    fn(params, x32[:4096]).cpu()
+    t0 = time.perf_counter()
+    margins = fn(params, x32).cpu().numpy()
+    e2e_s = time.perf_counter() - t0
+    xd = torch.as_tensor(x32, device="cuda")
+    fn(params, xd)
+    resident = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(params, xd)
+        torch.cuda.synchronize()
+        resident.append(time.perf_counter() - t0)
+    resident_s = float(np.median(resident))
+    staged = census.predict_raw(x32, device="device")
+    assert margins.shape == (len(x32),) and np.isfinite(margins).all()
+    assert np.array_equal(margins, staged), "the fused program differs from predict_raw"
+
+    export = {}
+    for name, src, route in (("adult", adult, "device"), ("categorical", categorical, "host")):
+        booster, xv = src["booster"], src["x_valid"]
+        t0 = time.perf_counter()
+        txt = booster.to_lightgbm_text()
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = Booster.from_lightgbm_text(txt)
+        import_s = time.perf_counter() - t0
+        assert again.device.startswith("cuda") and again.num_trees == booster.num_trees
+        want, got = booster.predict(xv, device=route), again.predict(xv, device=route)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+        export[name] = {"route": route, "trees": booster.num_trees, "text_bytes": len(txt),
+                        "export_seconds": export_s, "import_seconds": import_s,
+                        "max_abs_gap": float(np.abs(got - want).max())}
+    doc = {"phase": "slice_lightgbm_import", "parse_seconds": parse_s,
+           "adult_census_trees": census.num_trees,
+           "adult_census_holdout_auc": census_auc, "wdbc_holdout_auc": wdbc_auc,
+           "diabetes_holdout_rmse": rmse,
+           "fused_rows": len(x32), "fused_end_to_end_seconds": e2e_s,
+           "fused_end_to_end_rows_per_s": len(x32) / e2e_s,
+           "fused_resident_seconds": resident_s,
+           "fused_resident_rows_per_s": len(x32) / resident_s,
+           "fused_equals_predict_raw": True, "export": export}
     emit(doc)
     return doc
 
@@ -2350,6 +2618,8 @@ def main() -> int:
     categorical = phase_slice_categorical()
     wide_bins = phase_slice_high_cardinality()
     max_bin = phase_slice_max_bin_16383()
+    checkpoint = phase_slice_checkpoint()
+    phase_slice_lightgbm_import(adult, categorical)
     dnn = phase_slice_transformer()
     small = phase_small_transformer()
     wide = phase_serve_wide()
@@ -2376,14 +2646,16 @@ def main() -> int:
         # every fit of the main path: Adult, Higgs, digits multiclass, the
         # five objectives, the Adult fits under each boosting type, the
         # early-stopped fit and its warm start, the 28 gate fits, the
-        # categorical Adult and Amazon-access fits (B 256 and 1024) and the
-        # numeric Adult fit at max_bin 16383 (B 16,384)
+        # categorical Adult and Amazon-access fits (B 256 and 1024), the
+        # numeric Adult fit at max_bin 16383 (B 16,384) and the five
+        # checkpoint fits (uninterrupted, chunked, preempted and resumed,
+        # goss and its chunked twin)
         "launches": (adult["histogram_launches"] + higgs["histogram_launches"]
                      + multiclass["histogram_launches"] + objectives["histogram_launches"]
                      + boosting["histogram_launches"] + early["histogram_launches"]
                      + early["warm_start_launches"] + gates["histogram_launches"]
                      + categorical["histogram_launches"] + wide_bins["histogram_launches"]
-                     + max_bin["histogram_launches"]),
+                     + max_bin["histogram_launches"] + checkpoint["histogram_launches"]),
         "launches_by_fit": {"adult": adult["histogram_launches"],
                             "higgs": higgs["histogram_launches"],
                             "multiclass": multiclass["histogram_launches"],
@@ -2395,7 +2667,9 @@ def main() -> int:
                             "gates": gates["histogram_launches"],
                             "categorical": categorical["histogram_launches"],
                             "high_cardinality": wide_bins["histogram_launches"],
-                            "max_bin_16383": max_bin["histogram_launches"]},
+                            "max_bin_16383": max_bin["histogram_launches"],
+                            **{f"checkpoint_{name}": fit["histogram_launches"]
+                               for name, fit in checkpoint["fits"].items()}},
         "max_abs_err": max(r["max_abs_err"] for r in kern["histogram"]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],

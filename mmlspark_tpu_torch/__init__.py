@@ -7,10 +7,12 @@ by hand for Hopper in `csrc/`. Entry points run on the card (`device="cuda"`)
 unless the caller asks for the CPU.
 
 Ported so far: GBDT fit and score (`gbdt`: every objective, multiclass,
-gbdt / goss / rf / dart, bagging, early stopping, warm start), random
+gbdt / goss / rf / dart, bagging, early stopping, warm start, checkpointed
+and preemptible fits, LightGBM model.txt import and export), random
 draws equal to `jax.random`'s (`core.prng`), DNN serving through
 `DeepModelTransformer` with the flash-attention forward (`nn`), the
-pipeline core and async data plane (`core`), host native kernels
+pipeline core and async data plane (`core`), the checkpointer and its
+host chain (`resilience`, `observability`, `utils`), host native kernels
 (`native`) and classification metrics (`automl`). ROADMAP.md lists what
 is still to come.
 """
@@ -24,7 +26,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("core", "gbdt", "automl", "native", "nn")
+_SUBPACKAGES = ("core", "gbdt", "automl", "native", "nn", "observability", "resilience",
+                "utils")
 
 
 def __getattr__(name):

@@ -22,11 +22,16 @@ validation data, warm start from `init_model`, categorical features
 (`categorical_indexes`: many-vs-many subset splits) and any `max_bin`
 (bins stored as int32 where uint8 cannot hold them, with the reference's
 warning); its random draws are `jax.random`'s bits (core/prng.py), so a
-seeded fit grows the JAX package's trees. Checkpoints, the mesh and voting
-raise NotImplementedError naming the ROADMAP item that ports them. The
-JSON model format (`to_text`/`from_text`) is the JAX package's, field for
-field, so models move between the two packages; the torch device is not
-part of it.
+seeded fit grows the JAX package's trees. With `checkpoint_dir` and
+`checkpoint_every_n` the loop runs in chunks of rounds with a snapshot
+after each (resilience/elastic.py), and a fit resumes at the newest
+verified snapshot with the trees an uninterrupted fit grows, byte for
+byte. The mesh and voting raise NotImplementedError naming the ROADMAP
+item that ports them. The JSON model format (`to_text`/`from_text`) is
+the JAX package's, field for field, so models move between the two
+packages; the torch device is not part of it. LightGBM's own model.txt
+is read (`from_lightgbm_text`) and written (`to_lightgbm_text`) as the
+JAX package reads and writes it.
 """
 
 from __future__ import annotations
@@ -124,8 +129,6 @@ def _check_supported(opts: TrainOptions, mesh) -> None:
         raise ValueError(
             f"boosting_type={opts.boosting_type!r} is not supported; "
             "use gbdt, rf, dart, or goss (LightGBMParams.scala:56-60)")
-    if opts.checkpoint_dir:
-        raise _not_ported("checkpoint_dir", "checkpoints")
     if mesh is not None or tl.startswith("voting"):
         raise _not_ported("mesh and voting-parallel training", "distributed GBDT")
     if opts.bin_dtype not in ("int32", "uint8"):
@@ -330,41 +333,81 @@ class Booster:
                 opts.objective, alpha=opts.alpha,
                 tweedie_variance_power=opts.tweedie_variance_power)
 
-        # the round index restarts at 0 after a warm start (no checkpoints)
+        # the round index restarts at 0 after a warm start; a checkpointed
+        # fit passes the rounds already done as the loop's round_offset
         num_rounds = opts.num_iterations - start_iter
-        if num_rounds > 0:
-            spec = FusedTrainSpec(
-                num_rounds=num_rounds, num_class=k,
-                # multiclass dart runs the gbdt loop: its drop algebra is
-                # single-model (reference :396-397, :432-435)
-                boosting_type="gbdt" if opts.boosting_type == "dart" and k > 1
-                else opts.boosting_type,
-                bagging_fraction=opts.bagging_fraction, bagging_freq=opts.bagging_freq,
-                feature_fraction=opts.feature_fraction, top_rate=opts.top_rate,
-                other_rate=opts.other_rate,
-                early_stopping_round=opts.early_stopping_round if es_active else 0,
-                drop_rate=opts.drop_rate, renew_alpha=renew_alpha,
-                renew_weighted=renew_weighted)
+        # multiclass dart runs the gbdt loop: its drop algebra is
+        # single-model (reference :396-397, :432-435)
+        spec_boosting = "gbdt" if opts.boosting_type == "dart" else opts.boosting_type
+        ckpt = None
+        ck_every = int(opts.checkpoint_every_n or 0)
+        # single-class dart has no checkpoints, as in the reference (:543-590)
+        if opts.checkpoint_dir and ck_every > 0 and num_rounds > 0 and not single_dart:
+            if es_active:
+                if log:
+                    log("checkpointing disabled: early stopping carries cross-round "
+                        "state inside the boosting loop")
+            else:
+                from ..resilience.elastic import TrainingCheckpointer
+
+                ckpt = TrainingCheckpointer(opts.checkpoint_dir)
+        fit_done = 0
+        if ckpt is not None:
+            restored = _restore_snapshot(ckpt, opts, k, start_iter, log)
+            if restored is not None:
+                snap, fit_done = restored
+                fit_done = min(fit_done, num_rounds)
+                trees = [snap._tree_dict(t) for t in range(snap.num_trees)]
+                tree_classes = [int(c) for c in snap.tree_class]
+                if not rf and fit_done > 0:
+                    # the carry again: predict_raw adds init and then each
+                    # tree's f32 value in tree order, as the loop's
+                    # `pred + rowvals` did, so the margins are the same bits
+                    raw = snap.predict_raw(x)
+                    pred0 = torch.as_tensor(raw, dtype=torch.float32, device=device).reshape(
+                        pred0.shape)
+
+        def append_round_trees(t_stack, rounds, tree_weights=None):
+            t_host = {name: getattr(t_stack, name).cpu().numpy() for name in _TREE_FIELDS}
+            for r in range(rounds):
+                for cls in range(k):
+                    idx = (r, cls) if k > 1 else (r,)
+                    tree = {name: t_host[name][idx] for name in _TREE_FIELDS}
+                    if tree_weights is not None:
+                        tree = _scale_tree(tree, float(tree_weights[r]))
+                    trees.append(tree)
+                    tree_classes.append(cls)
+
+        if fit_done < num_rounds:
+            def build(rounds):
+                spec = FusedTrainSpec(
+                    num_rounds=rounds, num_class=k, boosting_type=spec_boosting,
+                    bagging_fraction=opts.bagging_fraction, bagging_freq=opts.bagging_freq,
+                    feature_fraction=opts.feature_fraction, top_rate=opts.top_rate,
+                    other_rate=opts.other_rate,
+                    early_stopping_round=opts.early_stopping_round if es_active else 0,
+                    drop_rate=opts.drop_rate, renew_alpha=renew_alpha,
+                    renew_weighted=renew_weighted)
+                if single_dart:
+                    return make_fused_dart_fn(f, num_bins, cfg, mapper.num_bins, cat_mask,
+                                              obj_fn, spec, device=device)
+                return make_fused_train_fn(f, num_bins, cfg, mapper.num_bins, cat_mask,
+                                           obj_fn, spec, device=device,
+                                           val_loss_fn=val_loss_fn)
+
             y_dev = torch.as_tensor(y_fit, dtype=torch.float32, device=device)
+            # one key for every draw (reference :462)
+            seed = opts.seed if opts.seed else opts.bagging_seed
             if log:
                 log(f"boosting: {num_rounds} rounds x {k} class(es) of "
                     f"{opts.boosting_type} on {device}")
             if single_dart:
-                fused = make_fused_dart_fn(f, num_bins, cfg, mapper.num_bins, cat_mask,
-                                           obj_fn, spec, device=device)
-                t_stack, w_dev, _ = fused(bins_dev, y_dev, base_mask, pred0,
-                                          drop_seed, bag_seed, feat_seed)
-                tree_weights = w_dev.cpu().numpy().astype(np.float64)
-                kept = num_rounds
-            else:
-                fused = make_fused_train_fn(f, num_bins, cfg, mapper.num_bins, cat_mask,
-                                            obj_fn, spec, device=device,
-                                            val_loss_fn=val_loss_fn)
-                # one key for every draw (reference :462)
-                seed = opts.seed if opts.seed else opts.bagging_seed
-                t_stack, _, (best_dev, stopped_dev) = fused(bins_dev, y_dev, base_mask, pred0,
-                                                             seed, val)
-                tree_weights = None
+                t_stack, w_dev, _ = build(num_rounds)(bins_dev, y_dev, base_mask, pred0,
+                                                      drop_seed, bag_seed, feat_seed)
+                append_round_trees(t_stack, num_rounds, w_dev.cpu().numpy().astype(np.float64))
+            elif ckpt is None:
+                t_stack, _, (best_dev, stopped_dev) = build(num_rounds)(
+                    bins_dev, y_dev, base_mask, pred0, seed, val)
                 kept = int(t_stack.feature.shape[0])
                 if es_active:
                     r_best = int(best_dev)
@@ -374,15 +417,33 @@ class Booster:
                             log(f"early stop after round {r_best + start_iter} "
                                 f"(kept {kept}/{num_rounds} rounds)")
                     best_iter = start_iter + r_best if r_best >= 0 else -1
-            t_host = {name: getattr(t_stack, name).cpu().numpy() for name in _TREE_FIELDS}
-            for r in range(kept):
-                for cls in range(k):
-                    idx = (r, cls) if k > 1 else (r,)
-                    tree = {name: t_host[name][idx] for name in _TREE_FIELDS}
-                    if tree_weights is not None:
-                        tree = _scale_tree(tree, float(tree_weights[r]))
-                    trees.append(tree)
-                    tree_classes.append(cls)
+                append_round_trees(t_stack, kept)
+            else:
+                from ..resilience.elastic import preempt_now
+
+                # chunks start on bagging-period edges: the gbdt bag
+                # refreshes when it % bagging_freq == 0 and is carried
+                # otherwise, and the carried bag lives only on the device
+                # (rf and goss draw afresh every round, so any edge works)
+                gbdt_bagging = (spec_boosting == "gbdt" and opts.bagging_fraction < 1.0
+                                and opts.bagging_freq > 0)
+                align = opts.bagging_freq if gbdt_bagging else 1
+                chunk = max((ck_every // align) * align, align)
+                if log:
+                    log(f"checkpoint every {chunk} rounds"
+                        + (f" (resumed at round {start_iter + fit_done})" if fit_done else ""))
+                pred, fused, built = pred0, None, -1
+                while fit_done < num_rounds:
+                    rounds = min(chunk, num_rounds - fit_done)
+                    if rounds != built:
+                        fused, built = build(rounds), rounds
+                    t_stack, pred, _ = fused(bins_dev, y_dev, base_mask, pred, seed,
+                                             round_offset=fit_done)
+                    append_round_trees(t_stack, rounds)
+                    fit_done += rounds
+                    path = _write_snapshot(ckpt, trees, tree_classes, mapper, opts, init,
+                                           feature_names, fit_done, start_iter, k)
+                    preempt_now(None, lambda: path, "gbdt-train")
         if rf and trees:
             scale = 1.0 / max(len(trees) // k, 1)   # rf averages its trees
             trees = [_scale_tree(t, scale) for t in trees]
@@ -837,24 +898,412 @@ class Booster:
         )
 
     def save_native_model(self, path: str, format: str = "json") -> None:
-        """Write the model to disk in the JSON format. LightGBM's model.txt
-        (`format="lightgbm"`) is a later slice."""
-        if format == "lightgbm":
-            raise _not_ported("LightGBM text export", "LightGBM text import and export")
-        if format != "json":
+        """Write the model to disk: the JSON format (default) or LightGBM's
+        own model.txt (`format="lightgbm"`), the reference's
+        saveNativeModel surface (LightGBMClassifier.py shim)."""
+        if format not in ("json", "lightgbm"):
             raise ValueError(f"format must be 'json' or 'lightgbm', got {format!r}")
+        text = self.to_text() if format == "json" else self.to_lightgbm_text()
         with open(path, "w") as fh:
-            fh.write(self.to_text())
+            fh.write(text)
 
     @staticmethod
     def load_native_model(path: str, device: str = "cuda") -> "Booster":
-        """Load a model saved in the JSON format. LightGBM model.txt files
-        are a later slice."""
+        """Load a saved model, the JSON format or a LightGBM `model.txt`
+        (told apart by the first character), to score on `device` — the
+        reference's loadNativeModelFromFile (LightGBMBooster.scala:115-124)."""
         with open(path) as fh:
             text = fh.read()
-        if not text.lstrip().startswith("{"):
-            raise _not_ported("LightGBM text import", "LightGBM text import and export")
-        return Booster.from_text(text, device=device)
+        if text.lstrip().startswith("{"):
+            return Booster.from_text(text, device=device)
+        return Booster.from_lightgbm_text(text, device=device)
+
+    # our objective name -> the name LightGBM writes/reads in model files
+    # (these all share the identity-or-documented output transform on both
+    # sides, so a roundtrip applies the same exp/sigmoid/softmax)
+    _TO_LGBM = {
+        "regression": "regression", "l2": "regression",
+        "l1": "regression_l1", "huber": "huber", "fair": "fair",
+        "poisson": "poisson", "quantile": "quantile", "mape": "mape",
+        "gamma": "gamma", "tweedie": "tweedie",
+    }
+
+    def to_lightgbm_text(self) -> str:
+        """Serialize in LightGBM's OWN model.txt format (the reference's
+        saveNativeModel artifact, LightGBMBooster.scala:115-124) — the
+        emitted file is loadable by actual LightGBM and by
+        `from_lightgbm_text`, with identical predictions.
+
+        The traversal semantics map exactly for numeric splits: node
+        thresholds come from `threshold_value` (raw space), missing
+        handling is encoded as missing_type=NaN + default_left
+        (decision_type=10), matching this booster's NaN->missing-bin->left
+        rule. ±inf inputs bin by comparison on both sides (-inf left of
+        every threshold, +inf right), so they predict identically under
+        real LightGBM and this booster; only NaN takes the missing path.
+        `init_score` is folded into tree 0's leaf values (LightGBM
+        files carry no separate init; every row hits exactly one leaf per
+        tree, so the sum is unchanged).
+
+        Categorical subset splits use LightGBM's own on-file encoding:
+        decision_type bit 0 set, threshold = index into this tree's
+        cat_boundaries, and cat_threshold packing the LEFT category VALUES
+        as uint32 bitset words (bit v set -> raw category v goes left).
+        Values outside any bitset route right on both sides (this
+        booster's other-bin, LightGBM's unseen-category rule). Requires
+        integer-valued non-negative categories — anything else has no
+        LightGBM file representation and is refused."""
+        # bin -> raw category value per categorical feature (for export)
+        cat_inv: dict[int, dict[int, int]] = {}
+        if bool(np.any(self.is_categorical[self.feature >= 0])):
+            for j, cmap in self.bin_mapper.category_maps.items():
+                inv = {}
+                for v, b in cmap.items():
+                    if not (float(v).is_integer() and v >= 0 and v < 2**31):
+                        raise ValueError(
+                            f"feature {j} has non-integer/negative category "
+                            f"value {v!r}; LightGBM's categorical bitset "
+                            "encoding cannot represent it"
+                        )
+                    inv[int(b)] = int(v)
+                cat_inv[int(j)] = inv
+        if self.objective not in ("binary", "multiclass") and \
+                self.objective not in self._TO_LGBM:
+            raise ValueError(
+                f"objective {self.objective!r} has no LightGBM file-format "
+                "name; export would lose the output transform"
+            )
+        k = self.num_class
+        names = self.feature_names or [
+            f"Column_{j}" for j in range(self.num_features)
+        ]
+        out = [
+            "tree",
+            "version=v3",
+            f"num_class={k}",
+            f"num_tree_per_iteration={k if self.objective == 'multiclass' else 1}",
+            "label_index=0",
+            f"max_feature_idx={self.num_features - 1}",
+            ("objective=binary sigmoid:1" if self.objective == "binary"
+             else f"objective=multiclass num_class:{k}"
+             if self.objective == "multiclass"
+             else f"objective={self._TO_LGBM[self.objective]}"),
+            "feature_names=" + " ".join(names),
+            "feature_infos=" + " ".join(["none"] * self.num_features),
+            "",
+        ]
+        for t in range(self.num_trees):
+            feature, left, right = self.feature[t], self.left[t], self.right[t]
+            # renumber reachable nodes into LightGBM convention: internal
+            # nodes 0..L-2 in preorder, leaf l -> child id -(l+1)
+            internal: list[int] = []
+            leaves: list[int] = []
+            stack = [0]
+            while stack:
+                n = stack.pop()
+                if feature[n] < 0:
+                    leaves.append(n)
+                else:
+                    internal.append(n)
+                    stack.append(int(right[n]))
+                    stack.append(int(left[n]))
+            imap = {n: i for i, n in enumerate(internal)}
+            lmap = {n: i for i, n in enumerate(leaves)}
+
+            def child(n: int) -> int:
+                return imap[n] if feature[n] >= 0 else -(lmap[n] + 1)
+
+            leaf_vals = [float(self.value[t][n]) for n in leaves]
+            if t == 0 and self.objective != "multiclass" and self.init_score:
+                leaf_vals = [v + float(self.init_score) for v in leaf_vals]
+            # categorical nodes: threshold = per-tree cat split index;
+            # bitset words pack the LEFT category values
+            thresholds: list[str] = []
+            decisions: list[str] = []
+            cat_bounds = [0]
+            cat_words: list[int] = []
+            for n in internal:
+                if bool(self.is_categorical[t][n]):
+                    j = int(feature[n])
+                    vals = [cat_inv[j][int(b)]
+                            for b in np.nonzero(self.cat_bitset[t][n])[0]
+                            if int(b) in cat_inv.get(j, {})]
+                    if not vals or bool(self.cat_bitset[t][n][0]):
+                        raise ValueError(
+                            f"tree {t} node {n}: categorical left set routes "
+                            "the other/unseen bin left — LightGBM's finite "
+                            "bitset cannot express 'unseen goes left'"
+                        )
+                    n_words = max(v for v in vals) // 32 + 1
+                    words = [0] * n_words
+                    for v in vals:
+                        words[v // 32] |= 1 << (v % 32)
+                    thresholds.append(str(len(cat_bounds) - 1))
+                    decisions.append("1")
+                    cat_bounds.append(cat_bounds[-1] + n_words)
+                    cat_words.extend(words)
+                else:
+                    thresholds.append(repr(float(self.threshold_value[t][n])))
+                    decisions.append("10")
+            num_cat = len(cat_bounds) - 1
+            out += [f"Tree={t}", f"num_leaves={len(leaves)}",
+                    f"num_cat={num_cat}"]
+            if internal:
+                out += [
+                    "split_feature=" + " ".join(
+                        str(int(feature[n])) for n in internal),
+                    "split_gain=" + " ".join(
+                        repr(float(self.gain[t][n])) for n in internal),
+                    "threshold=" + " ".join(thresholds),
+                    "decision_type=" + " ".join(decisions),
+                    "left_child=" + " ".join(
+                        str(child(int(left[n]))) for n in internal),
+                    "right_child=" + " ".join(
+                        str(child(int(right[n]))) for n in internal),
+                ]
+                if num_cat:
+                    out += [
+                        "cat_boundaries=" + " ".join(str(b) for b in cat_bounds),
+                        "cat_threshold=" + " ".join(str(w) for w in cat_words),
+                    ]
+            out += [
+                "leaf_value=" + " ".join(repr(v) for v in leaf_vals),
+                "shrinkage=1",
+                "",
+            ]
+        out += ["end of trees", ""]
+        return "\n".join(out)
+
+    @staticmethod
+    def from_lightgbm_text(text: str, device: str = "cuda") -> "Booster":
+        """Parse LightGBM's OWN native model.txt format.
+
+        This grounds tree semantics in the reference implementation's
+        artifact: a model trained by actual LightGBM (what the reference's
+        saveNativeModel emits, LightGBMBooster.scala:115-124) loads here
+        and must reproduce its predictions (tests/test_lightgbm_format.py
+        pins this with a hand-computed fixture).
+
+        Numeric splits are `value <= threshold -> left`. The raw-space
+        thresholds become this booster's bin boundaries (one bin per
+        distinct threshold per feature), making the binned traversal
+        EXACTLY equivalent to LightGBM's raw comparisons — no precision
+        loss on finite values; ±inf also bins by comparison (-inf left,
+        +inf right of every threshold), matching LightGBM's
+        `value <= threshold` routing. Missing handling: NaN maps to this
+        framework's missing bin, which always sorts LEFT. Nodes whose
+        missing routing this booster cannot reproduce are REJECTED rather
+        than silently mispredicting: missing_type=NaN with
+        default_left=false (NaN would go right) and missing_type=Zero
+        (zero-band values route by default_left, not by comparison). With
+        missing_type=None (bits 2-3 == 0) LightGBM coerces NaN to 0.0
+        before comparing, which can also differ from missing-bin-left —
+        only relevant for NaN inputs.
+
+        Categorical splits (decision_type bit 0) load natively: each
+        node's cat_threshold bitset words decode to the raw category
+        values routed LEFT; the union per feature synthesizes the
+        category map (one bin per value), so the per-node bin bitsets
+        reproduce LightGBM's value-level routing exactly. Values absent
+        from every bitset — including unseen-at-predict categories — land
+        in the other-bin and route RIGHT, LightGBM's rule. NaN
+        categorical inputs route right here (LightGBM's missing handling
+        for categories treats them as no-match).
+
+        Still rejected: `average_output` (rf) models and linear trees —
+        both would change predictions silently if ignored. The pinned
+        hand-computed fixture lives in tests/test_external_truth.py.
+
+        The model scores on `device`, as `from_text`'s does. Its bin
+        boundaries are the file's f64 thresholds: the host walk and
+        `predict_raw` bin in f64, and the fused device program
+        (`device_predict_fn`) equals them on f32-representable values."""
+        header, tree_blocks = _parse_lightgbm_sections(text)
+        if "average_output" in header:
+            raise ValueError(
+                "average_output (rf) LightGBM models are not supported — "
+                "this booster sums leaf values; loading one would "
+                "mispredict by the tree count"
+            )
+        if header.get("linear_tree", "0") not in ("0", "") or any(
+            "leaf_const" in blk or "leaf_coeff" in blk for blk in tree_blocks
+        ):
+            raise ValueError("linear-tree LightGBM models are not supported")
+        obj_tokens = header.get("objective", "regression").split()
+        objective = obj_tokens[0]
+        # LightGBM's binary output transform is 1/(1+exp(-sigmoid*raw));
+        # this booster applies plain sigmoid (sigmoid=1). A non-unit
+        # sigmoid parameter would silently scale every probability, so
+        # reject it (reject-rather-than-mispredict policy).
+        for tok in obj_tokens[1:]:
+            if tok.startswith("sigmoid:") and float(tok.split(":", 1)[1]) != 1.0:
+                raise ValueError(
+                    f"objective parameter {tok!r} != sigmoid:1 would change "
+                    "the probability transform; refusing to load"
+                )
+        obj_map = {
+            "binary": "binary", "regression": "regression",
+            "regression_l2": "regression", "regression_l1": "l1",
+            "multiclass": "multiclass", "huber": "huber", "fair": "fair",
+            "poisson": "poisson", "quantile": "quantile",
+            "gamma": "gamma", "tweedie": "tweedie", "mape": "mape",
+        }
+        if objective not in obj_map:
+            raise ValueError(f"unsupported LightGBM objective {objective!r}")
+        objective = obj_map[objective]
+        num_class = int(header.get("num_class", 1))
+        max_feature = int(header.get("max_feature_idx", 0))
+        f = max_feature + 1
+        feature_names = header.get("feature_names", "").split()
+
+        # collect per-feature thresholds (numeric) and left-routed category
+        # values (categorical) -> synthesized bin boundaries / category maps
+        def _cat_left_values(blk, i):
+            """Decode node i's cat_threshold bitset words -> left values."""
+            bounds = blk.get("cat_boundaries", [])
+            words = blk.get("cat_threshold", [])
+            ci = int(blk["threshold"][i])
+            if not (0 <= ci < len(bounds) - 1) or bounds[ci + 1] > len(words):
+                raise ValueError(
+                    "malformed categorical split: cat_boundaries/"
+                    "cat_threshold do not cover the node's split index"
+                )
+            vals = []
+            for wi in range(bounds[ci], bounds[ci + 1]):
+                w = int(words[wi])
+                base = 32 * (wi - bounds[ci])
+                for b in range(32):
+                    if (w >> b) & 1:
+                        vals.append(base + b)
+            return vals
+
+        thresholds: dict[int, set] = {}
+        cat_vals: dict[int, set] = {}
+        for blk in tree_blocks:
+            # single-leaf (constant) trees carry no split arrays at all
+            for i, (feat, thr, dt) in enumerate(
+                zip(blk.get("split_feature", []),
+                    blk.get("threshold", []),
+                    blk.get("decision_type", []))
+            ):
+                dt = int(dt)
+                feat = int(feat)
+                if dt & 1:
+                    # categorical: union the left values; routing of any
+                    # value not in some node's set is right, our other-bin
+                    cat_vals.setdefault(feat, set()).update(
+                        _cat_left_values(blk, i)
+                    )
+                    continue
+                # decision_type bits: 0 categorical, 1 default_left,
+                # 2-3 missing_type (0 none, 1 zero, 2 nan)
+                missing_type = (dt >> 2) & 3
+                if missing_type == 2 and not (dt & 2):
+                    raise ValueError(
+                        "node routes missing (NaN) RIGHT "
+                        "(missing_type=NaN, default_left=false); this "
+                        "booster's missing bin always sorts left — refusing "
+                        "to load a model it would mispredict"
+                    )
+                if missing_type == 1:
+                    raise ValueError(
+                        "missing_type=Zero (zero_as_missing) nodes route "
+                        "the zero band by default_left, not by threshold "
+                        "comparison — refusing to load a model this "
+                        "booster would mispredict on zero values"
+                    )
+                thresholds.setdefault(feat, set()).add(float(thr))
+        mixed = set(thresholds) & set(cat_vals)
+        if mixed:
+            raise ValueError(
+                f"features {sorted(mixed)} have both numeric and categorical "
+                "splits in the same model file"
+            )
+        per_feat = {j: sorted(s) for j, s in thresholds.items()}
+        max_t = max((len(v) for v in per_feat.values()), default=0)
+        mapper = BinMapper(
+            max_bin=max(max_t + 1, 2,
+                        *(len(v) for v in cat_vals.values())) if cat_vals
+            else max(max_t + 1, 2),
+            categorical_indexes=tuple(sorted(cat_vals)),
+        )
+        mapper.num_features = f
+        bounds = np.full((f, max_t + 2), np.inf, np.float64)
+        nbins = np.full(f, 1, np.int32)
+        for j, ts in per_feat.items():
+            bounds[j, 1 : 1 + len(ts)] = ts
+            nbins[j] = len(ts) + 2       # missing bin + one per threshold + top
+        cat_maps = {
+            j: {float(v): i + 1 for i, v in enumerate(sorted(s))}
+            for j, s in cat_vals.items()
+        }
+        for j, cmap in cat_maps.items():
+            nbins[j] = len(cmap) + 1     # other-bin + one per left value
+        mapper.category_maps = cat_maps
+        mapper.upper_bounds = bounds
+        mapper.num_bins = nbins
+
+        # node-layout conversion: LightGBM internal i -> node i, leaf l ->
+        # node (L-1+l); child c >= 0 is internal, c < 0 is leaf -(c+1)
+        m = max(2 * blk["num_leaves"] - 1 for blk in tree_blocks)
+        t_count = len(tree_blocks)
+        bc = max((len(cm) + 1 for cm in cat_maps.values()), default=1)
+        feature = np.full((t_count, m), -1, np.int32)
+        thr_bin = np.zeros((t_count, m), np.int32)
+        thr_val = np.zeros((t_count, m), np.float64)
+        is_cat_arr = np.zeros((t_count, m), bool)
+        cat_bitset = np.zeros((t_count, m, bc), bool)
+        left = np.full((t_count, m), -1, np.int32)
+        right = np.full((t_count, m), -1, np.int32)
+        value = np.zeros((t_count, m), np.float32)
+        gain = np.zeros((t_count, m), np.float32)
+        for t, blk in enumerate(tree_blocks):
+            nl = blk["num_leaves"]
+
+            def node_of(c: int, nl=nl) -> int:
+                return c if c >= 0 else nl - 1 + (-c - 1)
+
+            if nl == 1:                  # single-leaf tree (constant)
+                value[t, 0] = blk["leaf_value"][0]
+                continue
+            for i in range(nl - 1):
+                j = int(blk["split_feature"][i])
+                feature[t, i] = j
+                dt = int(blk["decision_type"][i])
+                if dt & 1:
+                    is_cat_arr[t, i] = True
+                    thr_val[t, i] = np.nan
+                    cmap = cat_maps[j]
+                    for v in _cat_left_values(blk, i):
+                        cat_bitset[t, i, cmap[float(v)]] = True
+                else:
+                    thr = float(blk["threshold"][i])
+                    # bin index of threshold: 1 + position in the sorted list
+                    thr_bin[t, i] = 1 + per_feat[j].index(thr)
+                    thr_val[t, i] = thr
+                left[t, i] = node_of(int(blk["left_child"][i]))
+                right[t, i] = node_of(int(blk["right_child"][i]))
+                if blk.get("split_gain"):
+                    gain[t, i] = blk["split_gain"][i]
+            for leaf, lv in enumerate(blk["leaf_value"]):
+                value[t, nl - 1 + leaf] = lv
+
+        return Booster(
+            feature=feature, threshold_bin=thr_bin, threshold_value=thr_val,
+            is_categorical=is_cat_arr,
+            cat_bitset=cat_bitset,
+            left=left, right=right, value=value, gain=gain,
+            tree_class=np.asarray(
+                [t % num_class for t in range(t_count)], np.int32
+            ),
+            bin_mapper=mapper,
+            objective=objective,
+            num_class=num_class if objective == "multiclass" else 1,
+            init_score=0.0,              # LightGBM bakes init into leaf values
+            feature_names=feature_names,
+            class_labels=[0.0, 1.0] if objective == "binary" else None,
+            device=device,
+        )
 
 
 def booster_from_arrays(trees: dict[str, np.ndarray], bin_mapper: dict,
@@ -893,3 +1342,105 @@ def booster_from_arrays(trees: dict[str, np.ndarray], bin_mapper: dict,
         class_labels=None if labels is None else [float(c) for c in labels],
         device=device,
     )
+
+
+def _parse_lightgbm_sections(text: str):
+    """Split a LightGBM model.txt into (header dict, [tree dict, ...])."""
+    header: dict[str, str] = {}
+    tree_blocks: list[dict] = []
+    cur: dict | None = None
+    _vec_int = ("split_feature", "left_child", "right_child", "decision_type",
+                "cat_boundaries", "cat_threshold")
+    _vec_float = ("threshold", "leaf_value", "split_gain",
+                  "leaf_const", "leaf_coeff")
+    for raw in text.splitlines():
+        line = raw.strip()
+        if line.startswith("Tree="):
+            cur = {}
+            tree_blocks.append(cur)
+            continue
+        if line in ("end of trees", "") or line.startswith(("tree", "pandas_")):
+            continue
+        if "=" not in line:
+            # bare flag lines ("average_output") matter: they change
+            # prediction semantics, so record their presence
+            if cur is None and line and " " not in line:
+                header[line] = "1"
+            continue
+        key, val = line.split("=", 1)
+        if cur is None:
+            header[key] = val
+        elif key == "num_leaves":
+            cur[key] = int(val)
+        elif key in _vec_int:
+            cur[key] = [int(v) for v in val.split()] if val else []
+        elif key in _vec_float:
+            cur[key] = [float(v) for v in val.split()] if val else []
+        # other per-tree keys (leaf_weight, internal_value, shrinkage, ...)
+        # are bookkeeping the traversal doesn't need
+    if not tree_blocks:
+        raise ValueError("no Tree= sections found; not a LightGBM model file")
+    for blk in tree_blocks:
+        if "num_leaves" not in blk or "leaf_value" not in blk:
+            raise ValueError("malformed LightGBM tree block")
+    return header, tree_blocks
+
+
+# ---- preemption-tolerant chunked training (resilience/elastic.py) ---- #
+
+def _ckpt_config(opts: TrainOptions, k: int, start_iter: int) -> dict:
+    """The fit identity a snapshot must match to be resumable: a snapshot
+    from a different config would silently change the model. The JAX
+    package's fields, so either package resumes the other's snapshots."""
+    return {
+        "objective": opts.objective, "boosting_type": opts.boosting_type,
+        "num_class": int(k), "seed": int(opts.seed),
+        "bagging_seed": int(opts.bagging_seed),
+        "num_iterations": int(opts.num_iterations),
+        "num_leaves": int(opts.num_leaves),
+        "learning_rate": float(opts.learning_rate),
+        "start_iter": int(start_iter),
+    }
+
+
+def _write_snapshot(ckpt, trees, tree_classes, mapper, opts, init,
+                    feature_names, fit_done: int, start_iter: int,
+                    k: int) -> str:
+    """Snapshot the booster so far (the JSON model text round-trips f32
+    values exactly). rf trees are stored UNSCALED: the 1/T averaging
+    happens once at the end of the fit, and an unscale-rescale round trip
+    is not f32-exact."""
+    snap = Booster._from_tree_dicts(
+        trees, tree_classes, mapper, opts, init, feature_names or [])
+    doc = {"kind": "gbdt", "fit_rounds_done": int(fit_done),
+           "config": _ckpt_config(opts, k, start_iter),
+           "model": snap.to_text()}
+    return ckpt.save(json.dumps(doc).encode("utf-8"),
+                     tag=f"round-{start_iter + fit_done:06d}",
+                     meta={"rounds_done": int(fit_done),
+                           **_ckpt_config(opts, k, start_iter)})
+
+
+def _restore_snapshot(ckpt, opts, k: int, start_iter: int, log):
+    """The newest verified snapshot matching this fit's config, parsed
+    back into (booster scoring on the fit's device, rounds_done), or None
+    to start from round 0."""
+    loaded = ckpt.load_latest()
+    if loaded is None:
+        return None
+    payload, entry = loaded
+    try:
+        doc = json.loads(payload.decode("utf-8"))
+        if doc.get("kind") != "gbdt":
+            raise ValueError(f"kind {doc.get('kind')!r}")
+        if doc.get("config") != _ckpt_config(opts, k, start_iter):
+            raise ValueError("config mismatch")
+        snap = Booster.from_text(doc["model"], device=opts.device)
+        fit_done = int(doc["fit_rounds_done"])
+    except (ValueError, KeyError, TypeError) as e:
+        if log:
+            log(f"ignoring checkpoint {entry['file']}: {e}")
+        return None
+    if log:
+        log(f"resumed from {entry['file']}: {fit_done} rounds already trained")
+    return snap, fit_done

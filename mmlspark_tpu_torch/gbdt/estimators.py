@@ -8,9 +8,12 @@ spelling) and gain `device`, the torch device of the fit, "cuda" by
 default. `model_string` warm-starts from a model's JSON text, and
 `validation_fraction` with `early_stopping_round` holds out a seeded share
 of the rows for early stopping, and `categorical_slot_indexes` names the
-feature slots split as category subsets. A Param value the port does not
-run yet (checkpoints, the mesh, elastic workers; see booster.py) raises
-NotImplementedError at fit time naming the ROADMAP item that ports it.
+feature slots split as category subsets. `checkpoint_dir` with
+`checkpoint_every_n` snapshots the fit every so many rounds and resumes a
+preempted one. A Param value the port does not run yet (the mesh, elastic
+workers; see booster.py) raises NotImplementedError at fit time naming
+the ROADMAP item that ports it. `load_native_model` reads the JSON format
+and LightGBM's model.txt.
 """
 
 from __future__ import annotations
@@ -89,7 +92,7 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCol):
     )
     verbosity = Param(1, "logging verbosity", ptype=int)
     seed = Param(0, "master rng seed", ptype=int)
-    checkpoint_dir = Param(None, "snapshot directory for preemption-tolerant training (not ported yet)", ptype=str)
+    checkpoint_dir = Param(None, "snapshot directory for preemption-tolerant training", ptype=str)
     checkpoint_every_n = Param(0, "boosting rounds between snapshots (0 = off)", ptype=int)
     elastic_workers = Param(0, "fit over N elastic fleet workers (not ported yet)", ptype=int)
     elastic_num_virtual = Param(32, "virtual shards for the elastic fit", ptype=int)
@@ -289,7 +292,8 @@ class GBDTClassificationModel(_BoosterModelMixin, HasFeaturesCol, HasPredictionC
     @staticmethod
     def load_native_model(path: str, device: str = "cuda", **cols) -> "GBDTClassificationModel":
         """Reference: LightGBMClassificationModel.loadNativeModelFromFile
-        (LightGBMClassifier.scala:160-184), for the JSON format."""
+        (LightGBMClassifier.scala:160-184): the JSON format or a LightGBM
+        model.txt."""
         booster = Booster.load_native_model(path, device=device)
         model = GBDTClassificationModel(**cols)
         model.booster = booster
@@ -372,8 +376,8 @@ class GBDTRegressionModel(_BoosterModelMixin, HasFeaturesCol, HasPredictionCol, 
 
     @staticmethod
     def load_native_model(path: str, device: str = "cuda", **cols) -> "GBDTRegressionModel":
-        """Reference: LightGBMRegressionModel.loadNativeModelFromFile, for
-        the JSON format."""
+        """Reference: LightGBMRegressionModel.loadNativeModelFromFile: the
+        JSON format or a LightGBM model.txt."""
         model = GBDTRegressionModel(**cols)
         model.booster = Booster.load_native_model(path, device=device)
         return model

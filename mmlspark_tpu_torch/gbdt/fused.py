@@ -215,7 +215,8 @@ def make_fused_train_fn(
 ):
     """Build the gbdt / goss / rf loop for tensors on `device`.
 
-      fn(bins (n, F) uint8/int32, y, base_w (n,) f32, pred0, seed, val=None)
+      fn(bins (n, F) uint8/int32, y, base_w (n,) f32, pred0, seed, val=None,
+         round_offset=0)
         -> (TreeArrays stacked over rounds [x K], final_pred, (best_iter, stopped))
 
     y and pred0 are (n,) f32, or (n, K) f32 (one-hot labels, margins) for
@@ -224,6 +225,14 @@ def make_fused_train_fn(
     `kr = fold_in(key, it)`, the bag from `fold_in(kr, 1)`, class c's GOSS
     draw from `fold_in(kr, 2 + c)` and its feature mask from
     `fold_in(kr, 100 + c)` (fused.py:356-381).
+
+    `it` is the global round index: the loop runs rounds round_offset ..
+    round_offset + num_rounds - 1 (a Python int, as `fold_in` takes host
+    ints). A checkpointed fit runs its rounds in chunks, each from the
+    rounds already done, so every draw and every bag refresh
+    (it % bagging_freq == 0) lands where the uninterrupted fit has it
+    (reference fused.py:466-471). A chunk starts with a fresh bag, so under
+    bagged gbdt round_offset must be a multiple of bagging_freq.
 
     With spec.early_stopping_round > 0, `val` is (val_bins (nv, F), y_val
     (nv,) f32 or int64 class indexes, val_raw0 (nv,) or (nv, K) f32): the
@@ -255,7 +264,10 @@ def make_fused_train_fn(
         bag_frac = 0.632 if rf_mode else 1.0   # rf defaults to a bootstrap-sized bag
     bag_freq = max(spec.bagging_freq, 1)
 
-    def loop(bins, y, base_w, pred0, seed, val=None):
+    def loop(bins, y, base_w, pred0, seed, val=None, round_offset: int = 0):
+        if use_bagging and not rf_mode and round_offset % bag_freq:
+            raise ValueError(f"round_offset {round_offset} is not a multiple of "
+                             f"bagging_freq {bag_freq}: the carried bag would be lost")
         dev = bins.device
         n = bins.shape[0]
         key = prng.prng_key(seed)
@@ -269,7 +281,7 @@ def make_fused_train_fn(
             best_loss = torch.full((), float("inf"), dtype=torch.float32, device=dev)
             since = torch.zeros((), dtype=torch.long, device=dev)
         trees = []
-        for it in range(spec.num_rounds):
+        for it in range(round_offset, round_offset + spec.num_rounds):
             kr = prng.fold_in(key, it)
             # the gbdt bag refreshes every bag_freq rounds and is carried
             # between; rf draws a fresh one every round

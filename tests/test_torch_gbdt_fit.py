@@ -115,9 +115,9 @@ def test_cuda_without_a_card_raises(data, monkeypatch):
 
 
 @pytest.mark.parametrize("opts", [
-    dict(checkpoint_dir="ckpt", checkpoint_every_n=2),
+    dict(tree_learner="voting"),
     dict(tree_learner="voting_parallel"),
-], ids=lambda d: ",".join(d))
+], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
 def test_options_outside_the_slice_raise(data, opts):
     x, y = data
     kw = {**FIT, "device": "cpu", **opts}

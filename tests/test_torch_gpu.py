@@ -552,3 +552,62 @@ def test_transformer_serves_on_the_card_as_on_the_cpu(cuda):
     assert outs["cpu_launches"] == 0 and outs["cuda_launches"] == 3 * 2
     # f32 throughout, TF32 off: sums in another order only
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-4, rtol=1e-4)
+
+
+def _adult_like(n, f=14, seed=7):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, f))
+    x[:, 3] = np.round(np.abs(x[:, 3]) * 5)
+    y = (x[:, 0] - 0.7 * x[:, 1] + 0.4 * x[:, 2] * x[:, 4] + rng.normal(scale=0.8, size=n)
+         > 0).astype(np.float64)
+    return x, y
+
+
+def test_checkpointed_fit_on_the_card_equals_the_uninterrupted_fit(cuda, tmp_path):
+    # chunks of 9 (checkpoint_every_n 10 aligned to the bag's 3 rounds),
+    # then a fit preempted after its first snapshot and resumed: both
+    # byte for byte the uninterrupted fit's model, K1 launched every split
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.resilience.elastic import (Preempted, PreemptionGuard,
+                                                       set_active_guard)
+
+    x, y = _adult_like(32768)
+    tbl = Table({"features": x, "label": y})
+    kw = dict(num_iterations=20, num_leaves=31, seed=3, bagging_fraction=0.8, bagging_freq=3,
+              device="cuda")
+    before = hk.histogram.launches
+    ref = GBDTClassifier(**kw).fit(tbl)
+    assert hk.histogram.launches - before == 20 * 31
+    chunked = GBDTClassifier(checkpoint_dir=str(tmp_path / "a"), checkpoint_every_n=10,
+                             **kw).fit(tbl)
+    assert chunked.booster.to_text() == ref.booster.to_text()
+    guard = PreemptionGuard(install=False)
+    guard.request_drain("test")
+    set_active_guard(guard)
+    try:
+        with pytest.raises(Preempted):
+            GBDTClassifier(checkpoint_dir=str(tmp_path / "b"), checkpoint_every_n=10,
+                           **kw).fit(tbl)
+    finally:
+        set_active_guard(None)
+    resumed = GBDTClassifier(checkpoint_dir=str(tmp_path / "b"), checkpoint_every_n=10,
+                             **kw).fit(tbl)
+    assert resumed.booster.to_text() == ref.booster.to_text()
+    assert np.array_equal(resumed.booster.predict_raw(x[:4096], device="device"),
+                          ref.booster.predict_raw(x[:4096], device="device"))
+
+
+def test_zoo_lightgbm_model_scores_on_the_card_as_the_host_walk(cuda):
+    import os
+
+    from mmlspark_tpu_torch.gbdt import Booster
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, "model_zoo",
+                        "gbdt_adult_census_synthetic.model")
+    booster = Booster.load_native_model(path)
+    assert booster.device.startswith("cuda")
+    x = np.random.default_rng(8).normal(size=(8192, 28)).astype(np.float32).astype(np.float64)
+    host = booster.predict_raw(x, device="host")
+    assert np.array_equal(booster.predict_raw(x, device="device"), host)
+    params, fn = booster.device_predict_fn()
+    assert np.array_equal(fn(params, x).cpu().numpy(), host)
