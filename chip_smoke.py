@@ -133,6 +133,17 @@ ran on its kernel. It prints one JSON line per phase:
                resident); slice_adult's and slice_categorical's boosters
                through to_lightgbm_text -> from_lightgbm_text within rtol
                1e-6, atol 1e-7; parse and export seconds
+  slice_mesh   distributed GBDT: 4 spawned ranks on the one card over gloo
+               (parallel.RankPool), each fitting slice_adult's data on its
+               8,192 rows through GBDTClassifier(use_mesh=True) under
+               data_parallel, deterministic, voting_parallel (top_k 5) and
+               bagged gbdt: every rank's model one text, 3,100 K1 launches
+               a rank, held-out AUC > 0.75 (within 0.01 of slice_adult's
+               for the first two), data_parallel against slice_adult's
+               booster and every fit against 4 CPU ranks' 10-round fit by
+               compare_fits at 1e-4; fit seconds, collectives, bytes merged
+               and their host-timed share; then a one-rank mesh on NCCL,
+               its fit equal to slice_adult's byte for byte
   slice_transformer  the DNN path: tokens/s, K2 launches (must be 128,
                on "wgmma"), finite logits, probabilities summing to 1; the
                same 1,024 x 512 tokens served in f32 (128 launches on
@@ -169,6 +180,7 @@ import ctypes
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1972,7 +1984,6 @@ def phase_slice_checkpoint() -> dict:
     every fit launches K1 exactly 3,100 times ((c): the preempted part plus
     the resumed part). Prints each fit's seconds, each snapshot write's
     seconds and bytes, and the resume's restore seconds."""
-    import shutil
     from unittest import mock
 
     from mmlspark_tpu_torch.gbdt import GBDTClassifier
@@ -2207,6 +2218,188 @@ def phase_slice_lightgbm_import(adult: dict, categorical: dict) -> dict:
 
 
 # The serving transformer at bench.py's accelerator width (bench.py:632-645)
+MESH_RANKS = 4
+MESH_CPU_ROUNDS = 10      # the CPU ranks' fits, against the card fits' first trees
+# compare_fits' tolerance of a card fit against the CPU ranks' fit. The
+# fixed-point merge rounds each bin to 2**23 / 4 steps of its channel's
+# largest value, so where K1's block-order sums and the CPU's row-order
+# sums differ in a last bit a bin can round a whole step apart, and a
+# small leaf moves by more than f32 rounding (the gap slice_mesh reports;
+# PERF.md); the row-order witness holds the rest at 1e-5
+MESH_CPU_TOL = {"data_parallel": 1e-4, "deterministic": 5e-4, "voting": 1e-4, "bagged": 1e-4}
+# slice_mesh's four fits of the Adult stand-in over 4 ranks
+MESH_CONFIGS = {
+    "data_parallel": {},
+    "deterministic": {"deterministic": True},
+    "voting": {"tree_learner": "voting_parallel", "top_k": 5},
+    "bagged": {"bagging_fraction": 0.8, "bagging_freq": 1},
+}
+
+
+def mesh_fit_job(x, y, params: dict, device: str, rounds: int = 100,
+                 row_order: bool = False) -> dict:
+    """Run on every rank of a RankPool: GBDTClassifier(use_mesh=True) on the
+    pool's mesh (every rank of its group). Returns the rank's model text,
+    its histogram launches, its fit seconds and its collectives (calls,
+    bytes, host seconds). `row_order`: the CPU's row-order histogram in
+    K1's place (`_row_order_histogram`)."""
+    from unittest import mock
+
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier, engine
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+    from mmlspark_tpu_torch.parallel import collectives, get_mesh
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    histogram.launches = 0
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(engine, "histogram",
+                           _row_order_histogram if row_order else engine.histogram):
+        model = GBDTClassifier(num_iterations=rounds, num_leaves=31, use_mesh=True,
+                               device=device, **params).fit(_table(x, y))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"text": model.booster.to_text(), "launches": histogram.launches,
+            "seconds": time.perf_counter() - t0, "collectives": collectives.stats(),
+            "shard": get_mesh().shard_index}
+
+
+def nccl_one_rank_job(x, y) -> dict:
+    """Run on a one-rank NCCL pool: the data-parallel fit on a one-shard
+    mesh (no collective runs on one shard, as the reference's
+    mesh.shape[DATA] == 1 branch), then an all_reduce through NCCL on the
+    card, the backend a rank that owns its card runs."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+    from mmlspark_tpu_torch.parallel import get_mesh
+
+    mesh = get_mesh()
+    histogram.launches = 0
+    model = GBDTClassifier(num_iterations=100, num_leaves=31, use_mesh=True,
+                           device="cuda").fit(_table(x, y))
+    launches = histogram.launches
+    t = torch.arange(4, dtype=torch.float32, device=mesh.device)
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return {"text": model.booster.to_text(), "backend": dist.get_backend(), "launches": launches,
+            "mesh_device": str(mesh.device), "booster_device": model.booster.device,
+            "all_reduce_ok": bool(torch.equal(t.cpu(), torch.arange(4, dtype=torch.float32)))}
+
+
+def _mesh_pool_fits(pool, x, y, device: str, rounds: int, row_order: bool = False) -> dict:
+    """The four MESH_CONFIGS fitted on every rank of `pool`: the ranks'
+    models must be one text. Per config: the text, each rank's launches,
+    the slowest rank's fit seconds, rank 0's collectives."""
+    fits = {}
+    for name, params in MESH_CONFIGS.items():
+        out = pool.run(mesh_fit_job, x, y, params, device, rounds, row_order, deadline_s=600)
+        texts = {o["text"] for o in out}
+        assert len(texts) == 1, f"mesh {name} on {device}: the {len(out)} ranks hold " \
+                                f"{len(texts)} different models"
+        assert sorted(o["shard"] for o in out) == list(range(len(out)))
+        fits[name] = {"text": out[0]["text"], "launches": [o["launches"] for o in out],
+                      "seconds": max(o["seconds"] for o in out),
+                      "collectives": out[0]["collectives"]}
+    return fits
+
+
+def phase_slice_mesh(adult: dict) -> dict:
+    """Distributed GBDT: 4 ranks on the one card, joined over gloo (NCCL
+    takes one rank a card), each fitting slice_adult's data (32,768 x 14,
+    100 rounds of 31 leaves) through GBDTClassifier(use_mesh=True) on its
+    block of 8,192 rows under MESH_CONFIGS: data_parallel, deterministic
+    (the fixed-point merge), voting_parallel with top_k 5 (10 of the 14
+    features merged a tree) and bagged gbdt (per-shard draws). Every
+    rank's model is one text; each rank launches K1 3,100 times a fit.
+    data_parallel meets slice_adult's one-device card fit by compare_fits
+    at 1e-4 (the merge and K1 add in other orders); deterministic is held
+    to it by quality. The same four fits on 4 CPU ranks meet the card's by
+    compare_fits at MESH_CPU_TOL (below); the deterministic fit again on
+    the card with the CPU's row-order histogram in K1's place meets the CPU
+    ranks' at 1e-5, so only K1's order parts them. Held-out AUC > 0.75, and within 0.01 of the
+    one-device fit for data_parallel and deterministic. The CPU ranks fit
+    10 rounds, held against the card fits' first 10 trees (a tree of round
+    r depends on no later round; 100 rounds on 4 CPU ranks take ~21 s a
+    config on an 8-core host). Last, a one-rank
+    mesh on NCCL: the data-parallel fit equal to the fit without a mesh
+    byte for byte, and an all_reduce through NCCL on the card. Per fit:
+    seconds, collectives and bytes merged, and the host-timed share of the
+    fit spent in collectives (gloo copies each merge to the host and back)."""
+    from mmlspark_tpu_torch.automl.metrics import auc
+    from mmlspark_tpu_torch.gbdt import Booster
+    from mmlspark_tpu_torch.parallel import RankPool
+
+    n, n_valid, f, rounds, leaves = 32768, 8192, 14, 100, 31
+    x_all, y_all = make_dataset(n + n_valid, f)
+    x, y, xv, yv = x_all[:n], y_all[:n], x_all[n:], y_all[n:]
+    single = adult["booster"]
+    bins = single.bin_mapper.transform(x)
+    auc_single = auc(yv, single.predict(xv))
+    workdir = ROOT / "build" / "chip_smoke_mesh"
+    workdir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with RankPool(MESH_RANKS, backend="gloo", workdir=str(workdir), timeout_s=300) as pool:
+        spawn_s = time.perf_counter() - t0
+        pool.run(mesh_fit_job, x, y, {}, "cuda", 2, deadline_s=300)    # context, K1 load
+        card = _mesh_pool_fits(pool, x, y, "cuda", rounds)
+        witness = pool.run(mesh_fit_job, x, y, MESH_CONFIGS["deterministic"], "cuda",
+                           MESH_CPU_ROUNDS, True, deadline_s=600)[0]["text"]
+    with RankPool(MESH_RANKS, backend="gloo", workdir=str(workdir), timeout_s=300) as pool:
+        cpu = _mesh_pool_fits(pool, x, y, "cpu", MESH_CPU_ROUNDS)
+    with RankPool(1, backend="nccl", workdir=str(workdir), timeout_s=300) as pool:
+        nccl = pool.run(nccl_one_rank_job, x, y, deadline_s=600)[0]
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    doc = {"phase": "slice_mesh", "ranks": MESH_RANKS, "backend": "gloo", "rows": n,
+           "rows_a_rank": n // MESH_RANKS, "features": f, "rounds": rounds, "num_leaves": leaves,
+           "spawn_seconds": spawn_s, "single_device_fit_seconds": adult["fit_seconds"],
+           "single_device_valid_auc": auc_single, "fits": {}}
+    for name, fit in card.items():
+        model = Booster.from_text(fit["text"], device="cuda")
+        cpu_model = Booster.from_text(cpu[name]["text"], device="cuda")
+        assert fit["launches"] == [rounds * leaves] * MESH_RANKS, \
+            f"mesh {name}: K1 launches by rank {fit['launches']}, want {rounds * leaves} each"
+        valid_auc = auc(yv, model.predict(xv))
+        assert valid_auc > 0.75, f"mesh {name}: held-out AUC {valid_auc}"
+        if name in ("data_parallel", "deterministic"):
+            assert abs(valid_auc - auc_single) < 0.01, (name, valid_auc, auc_single)
+        keys = ("trees_equal", "trees_compared", "near_ties", "max_value_err_over_tree_max")
+        vs_cpu = compare_fits(cpu_model, model, bins, tol=MESH_CPU_TOL[name])
+        assert vs_cpu["trees_compared"] > 0, f"mesh {name}: no tree compared with the CPU ranks'"
+        col = fit["collectives"]
+        entry = {"fit_seconds": fit["seconds"],
+                 "cpu_ranks_rounds": MESH_CPU_ROUNDS, "cpu_ranks_fit_seconds": cpu[name]["seconds"],
+                 "launches_by_rank": fit["launches"], "collectives": col["calls"],
+                 "bytes_merged": col["bytes"], "collective_seconds": col["seconds"],
+                 "collective_share": col["seconds"] / fit["seconds"],
+                 "valid_auc": valid_auc, "vs_cpu_ranks_tol": MESH_CPU_TOL[name],
+                 "vs_cpu_ranks": {k: vs_cpu[k] for k in keys}}
+        if name == "data_parallel":
+            vs_single = compare_fits(single, model, bins, tol=1e-4)
+            assert vs_single["trees_compared"] > 0, "no tree compared with the one-device fit"
+            entry["vs_single_device"] = {k: vs_single[k] for k in keys}
+        if name == "deterministic":
+            rows = compare_fits(cpu_model, Booster.from_text(witness, device="cuda"), bins)
+            assert rows["trees_compared"] > 0, "no witness tree compared with the CPU ranks'"
+            entry["row_order_witness_vs_cpu_ranks"] = {k: rows[k] for k in keys}
+        doc["fits"][name] = entry
+    single_text = single.to_text()
+    assert nccl["backend"] == "nccl" and nccl["all_reduce_ok"], nccl
+    assert nccl["text"] == single_text, "the one-rank NCCL mesh fit differs from the fit " \
+                                       "without a mesh"
+    assert nccl["launches"] == rounds * leaves, nccl["launches"]
+    doc["nccl_one_rank"] = {"equal_to_no_mesh": True, "launches": nccl["launches"],
+                            "mesh_device": nccl["mesh_device"],
+                            "booster_device": nccl["booster_device"], "all_reduce_ok": True}
+    emit(doc)
+    return {**doc, "histogram_launches_by_fit": {
+        **{f"mesh_{name}": sum(fit["launches"]) for name, fit in card.items()},
+        "mesh_nccl_one_rank": nccl["launches"]}}
+
+
 SLICE_TRANSFORMER = dict(num_layers=8, d_model=512, num_heads=8, d_ff=2048,
                          vocab_size=16384, max_len=4096, num_outputs=8)
 SLICE_ROWS, SLICE_TOKENS, SLICE_BATCH = 1024, 512, 64
@@ -2532,8 +2725,6 @@ def phase_profile_transformer(stage, x) -> dict:
 def phase_stage_roundtrip(stage, x) -> dict:
     """The serving stage saved through core.serialize (the bundle as its
     base64 blob) and loaded back serves the same bits."""
-    import shutil
-
     from mmlspark_tpu_torch.core import Table
     from mmlspark_tpu_torch.core.serialize import load_stage, save_stage
 
@@ -2620,6 +2811,7 @@ def main() -> int:
     max_bin = phase_slice_max_bin_16383()
     checkpoint = phase_slice_checkpoint()
     phase_slice_lightgbm_import(adult, categorical)
+    mesh = phase_slice_mesh(adult)
     dnn = phase_slice_transformer()
     small = phase_small_transformer()
     wide = phase_serve_wide()
@@ -2647,15 +2839,17 @@ def main() -> int:
         # five objectives, the Adult fits under each boosting type, the
         # early-stopped fit and its warm start, the 28 gate fits, the
         # categorical Adult and Amazon-access fits (B 256 and 1024), the
-        # numeric Adult fit at max_bin 16383 (B 16,384) and the five
+        # numeric Adult fit at max_bin 16383 (B 16,384), the five
         # checkpoint fits (uninterrupted, chunked, preempted and resumed,
-        # goss and its chunked twin)
+        # goss and its chunked twin) and slice_mesh's four 4-rank fits
+        # (every rank's launches, counted in its own process)
         "launches": (adult["histogram_launches"] + higgs["histogram_launches"]
                      + multiclass["histogram_launches"] + objectives["histogram_launches"]
                      + boosting["histogram_launches"] + early["histogram_launches"]
                      + early["warm_start_launches"] + gates["histogram_launches"]
                      + categorical["histogram_launches"] + wide_bins["histogram_launches"]
-                     + max_bin["histogram_launches"] + checkpoint["histogram_launches"]),
+                     + max_bin["histogram_launches"] + checkpoint["histogram_launches"]
+                     + sum(mesh["histogram_launches_by_fit"].values())),
         "launches_by_fit": {"adult": adult["histogram_launches"],
                             "higgs": higgs["histogram_launches"],
                             "multiclass": multiclass["histogram_launches"],
@@ -2669,7 +2863,8 @@ def main() -> int:
                             "high_cardinality": wide_bins["histogram_launches"],
                             "max_bin_16383": max_bin["histogram_launches"],
                             **{f"checkpoint_{name}": fit["histogram_launches"]
-                               for name, fit in checkpoint["fits"].items()}},
+                               for name, fit in checkpoint["fits"].items()},
+                            **mesh["histogram_launches_by_fit"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern["histogram"]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],

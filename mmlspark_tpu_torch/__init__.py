@@ -8,8 +8,11 @@ unless the caller asks for the CPU.
 
 Ported so far: GBDT fit and score (`gbdt`: every objective, multiclass,
 gbdt / goss / rf / dart, bagging, early stopping, warm start, checkpointed
-and preemptible fits, LightGBM model.txt import and export), random
-draws equal to `jax.random`'s (`core.prng`), DNN serving through
+and preemptible fits, LightGBM model.txt import and export, data- and
+voting-parallel fits over a mesh of processes), the mesh as a
+torch.distributed process group with its collectives and the bit-exact
+fixed-point merge (`parallel`), random draws equal to `jax.random`'s
+(`core.prng`), DNN serving through
 `DeepModelTransformer` with the flash-attention forward (`nn`), the
 pipeline core and async data plane (`core`), the checkpointer and its
 host chain (`resilience`, `observability`, `utils`), host native kernels
@@ -26,8 +29,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("core", "gbdt", "automl", "native", "nn", "observability", "resilience",
-                "utils")
+_SUBPACKAGES = ("core", "gbdt", "automl", "native", "nn", "observability", "parallel",
+                "resilience", "utils")
 
 
 def __getattr__(name):

@@ -26,8 +26,12 @@ seeded fit grows the JAX package's trees. With `checkpoint_dir` and
 `checkpoint_every_n` the loop runs in chunks of rounds with a snapshot
 after each (resilience/elastic.py), and a fit resumes at the newest
 verified snapshot with the trees an uninterrupted fit grows, byte for
-byte. The mesh and voting raise NotImplementedError naming the ROADMAP
-item that ports them. The JSON model format (`to_text`/`from_text`) is
+byte. With a `mesh` of several shards (parallel/mesh.py, one process a
+shard) every rank calls `train` on the whole table, pads the rows to a
+multiple of the shards and fits on its own block of them, merging the
+histograms across the mesh; every rank returns the same model, and
+`tree_learner="voting_parallel"` runs the voting learner there. The JSON
+model format (`to_text`/`from_text`) is
 the JAX package's, field for field, so models move between the two
 packages; the torch device is not part of it. LightGBM's own model.txt
 is read (`from_lightgbm_text`) and written (`to_lightgbm_text`) as the
@@ -47,6 +51,7 @@ import numpy as np
 import torch
 
 from ..core.kernels import resolve_device
+from ..parallel.mesh import shard_bounds
 from .binning import BinMapper, bin_on_device
 from .engine import GrowConfig
 from .objectives import get_leaf_renewal, get_objective, get_validation_loss, init_raw_score
@@ -101,7 +106,9 @@ class TrainOptions:
     boost_from_average: bool = True
     is_unbalance: bool = False
     early_stopping_round: int = 0
-    deterministic: bool = False       # one device: every fit is exact already
+    # bit-exact histogram merge on a mesh (LightGBM's `deterministic`);
+    # one device is exact already
+    deterministic: bool = False
     categorical_indexes: tuple[int, ...] = ()
     cat_smooth: float = 10.0
     cat_l2: float = 10.0
@@ -118,8 +125,8 @@ class TrainOptions:
     device: str = "cuda"
 
 
-def _check_supported(opts: TrainOptions, mesh) -> None:
-    """Reject every option the port does not run yet, before any work."""
+def _check_supported(opts: TrainOptions) -> None:
+    """Reject every option the port does not run, before any work."""
     tl = str(opts.tree_learner)
     if tl not in ("serial", "data", "data_parallel", "voting", "voting_parallel"):
         raise ValueError(
@@ -129,10 +136,18 @@ def _check_supported(opts: TrainOptions, mesh) -> None:
         raise ValueError(
             f"boosting_type={opts.boosting_type!r} is not supported; "
             "use gbdt, rf, dart, or goss (LightGBMParams.scala:56-60)")
-    if mesh is not None or tl.startswith("voting"):
-        raise _not_ported("mesh and voting-parallel training", "distributed GBDT")
     if opts.bin_dtype not in ("int32", "uint8"):
         raise ValueError(f"bin_dtype must be 'int32' or 'uint8', got {opts.bin_dtype!r}")
+
+
+def _fit_device(device: str, mesh) -> torch.device:
+    """The fit's device: a mesh rank that owns a card (NCCL) fits on it
+    when the fit asks for "cuda" without an index."""
+    dev = resolve_device(device)
+    if (mesh is not None and mesh.device is not None and dev.index is None
+            and mesh.device.type == dev.type):
+        return mesh.device
+    return dev
 
 
 def _scale_tree(t: dict[str, np.ndarray], scale: float) -> dict[str, np.ndarray]:
@@ -197,11 +212,14 @@ class Booster:
         from .fused import FusedTrainSpec, make_fused_dart_fn, make_fused_train_fn
         from .sparse import as_features, is_sparse
 
-        _check_supported(opts, mesh)
+        _check_supported(opts)
+        if str(opts.tree_learner).startswith("voting") and mesh is None and log:
+            log("tree_learner=voting_parallel has no effect without a mesh "
+                "(use_mesh=True); training data_parallel")
         obj_fn = get_objective(opts.objective, alpha=opts.alpha,
                                tweedie_variance_power=opts.tweedie_variance_power,
                                fair_c=opts.fair_c)
-        device = resolve_device(opts.device)
+        device = _fit_device(opts.device, mesh)
         x = as_features(x)  # CSR stays sparse until binning (binned-dense path)
         y = np.asarray(y, dtype=np.float64)
         n, f = x.shape
@@ -229,6 +247,19 @@ class Booster:
             if log:
                 log(f"bin_dtype='uint8' unavailable at {num_bins} bins; using int32")
             use_u8 = False
+        # a mesh pads the rows to a multiple of its shards (weight 0, bin 0)
+        # and this rank fits on its block [lo, hi) of them (reference
+        # :220-225, P(DATA)); without one the block is every row
+        n_pad, lo, hi = shard_bounds(n, mesh) if mesh is not None else (n, 0, n)
+
+        def block(a: np.ndarray) -> np.ndarray:
+            """This rank's rows of a per-row host array, zero on the pad."""
+            a = np.asarray(a)
+            if n_pad != n:
+                a = np.concatenate([a, np.zeros((n_pad - n,) + a.shape[1:], a.dtype)])
+            return a[lo:hi]
+
+        bin_dtype = np.uint8 if use_u8 else np.int32
         if opts.device_binning and not mapper.category_maps and not is_sparse(x):
             # the device compares in f32: snap a copy of the boundaries
             # through f32 first, so that scoring (host f64 searchsorted)
@@ -236,12 +267,14 @@ class Booster:
             # with (booster.py:205-215 of the reference)
             mapper = copy.copy(mapper)
             mapper.upper_bounds = np.float64(np.float32(mapper.upper_bounds))
-            bins_dev = mapper.transform_device(x, device).to(
+            bins_dev = mapper.transform_device(x[lo:min(hi, n)], device).to(
                 torch.uint8 if use_u8 else torch.int32)
+            if hi > n:
+                bins_dev = torch.cat([bins_dev, bins_dev.new_zeros((hi - max(lo, n), f))])
         else:
             # narrowed on the host: a quarter of the bytes to the card
-            bins_dev = torch.as_tensor(
-                mapper.transform(x).astype(np.uint8 if use_u8 else np.int32), device=device)
+            bins_dev = torch.as_tensor(block(mapper.transform(x).astype(bin_dtype)),
+                                       device=device)
 
         w = np.ones(n, np.float64) if weights is None else np.asarray(weights, np.float64)
         if opts.is_unbalance and opts.objective == "binary":
@@ -249,7 +282,7 @@ class Booster:
             npos = max(float((y == 1).sum()), 1.0)
             nneg = max(float((y == 0).sum()), 1.0)
             w = np.where(y == 1, w * nneg / npos, w)
-        base_mask = torch.as_tensor(w.astype(np.float32), device=device)
+        base_mask = torch.as_tensor(block(w.astype(np.float32)), device=device)
 
         rf = opts.boosting_type == "rf"
         cfg = GrowConfig(
@@ -262,6 +295,7 @@ class Booster:
             lambda_l2=opts.lambda_l2,
             min_gain_to_split=opts.min_gain_to_split,
             learning_rate=1.0 if rf else opts.learning_rate,
+            voting_top_k=opts.top_k if str(opts.tree_learner).startswith("voting") else 0,
             deterministic=opts.deterministic,
             cat_smooth=opts.cat_smooth,
             cat_l2=opts.cat_l2,
@@ -271,15 +305,16 @@ class Booster:
         cat_mask[[int(i) for i in opts.categorical_indexes]] = True
         renewal = get_leaf_renewal(opts.objective, alpha=opts.alpha)
         renew_alpha, renew_weighted = renewal if renewal else (None, False)
+        rows = hi - lo
         if k > 1:
             init = 0.0
             y_fit = np.eye(k)[y.astype(int)]                        # (n, K)
-            pred0 = torch.zeros((n, k), dtype=torch.float32, device=device)
+            pred0 = torch.zeros((rows, k), dtype=torch.float32, device=device)
         else:
             init = (warm.init_score if warm is not None else
                     init_raw_score(opts.objective, y, w, opts.boost_from_average, opts.alpha))
             y_fit = y
-            pred0 = torch.full((n,), init, dtype=torch.float32, device=device)
+            pred0 = torch.full((rows,), init, dtype=torch.float32, device=device)
         trees: list[dict[str, np.ndarray]] = []
         tree_classes: list[int] = []
         if warm is not None:
@@ -292,7 +327,7 @@ class Booster:
                 trees = [_scale_tree(warm._tree_dict(t), float(n_prev))
                          for t in range(warm.num_trees)]
             else:
-                raw = warm.predict_raw(x)
+                raw = block(warm.predict_raw(x))
                 pred0 = torch.as_tensor(raw, dtype=torch.float32, device=device).reshape(
                     pred0.shape)
                 trees = [warm._tree_dict(t) for t in range(warm.num_trees)]
@@ -351,9 +386,18 @@ class Booster:
                 from ..resilience.elastic import TrainingCheckpointer
 
                 ckpt = TrainingCheckpointer(opts.checkpoint_dir)
+                if mesh is not None:
+                    mesh.barrier()
         fit_done = 0
+        # on a mesh of several ranks every rank resumes from the snapshots,
+        # and only shard 0's rank writes them (behind a barrier)
+        shared = mesh is not None and mesh.size > 1
+        writer = not shared or mesh.shard_index == 0
         if ckpt is not None:
             restored = _restore_snapshot(ckpt, opts, k, start_iter, log)
+            if shared:
+                _same_on_every_rank(-1 if restored is None else restored[1], mesh, device,
+                                    "rounds restored from the checkpoint")
             if restored is not None:
                 snap, fit_done = restored
                 fit_done = min(fit_done, num_rounds)
@@ -363,7 +407,7 @@ class Booster:
                     # the carry again: predict_raw adds init and then each
                     # tree's f32 value in tree order, as the loop's
                     # `pred + rowvals` did, so the margins are the same bits
-                    raw = snap.predict_raw(x)
+                    raw = block(snap.predict_raw(x))
                     pred0 = torch.as_tensor(raw, dtype=torch.float32, device=device).reshape(
                         pred0.shape)
 
@@ -390,12 +434,12 @@ class Booster:
                     renew_weighted=renew_weighted)
                 if single_dart:
                     return make_fused_dart_fn(f, num_bins, cfg, mapper.num_bins, cat_mask,
-                                              obj_fn, spec, device=device)
+                                              obj_fn, spec, device=device, mesh=mesh)
                 return make_fused_train_fn(f, num_bins, cfg, mapper.num_bins, cat_mask,
                                            obj_fn, spec, device=device,
-                                           val_loss_fn=val_loss_fn)
+                                           val_loss_fn=val_loss_fn, mesh=mesh)
 
-            y_dev = torch.as_tensor(y_fit, dtype=torch.float32, device=device)
+            y_dev = torch.as_tensor(block(y_fit), dtype=torch.float32, device=device)
             # one key for every draw (reference :462)
             seed = opts.seed if opts.seed else opts.bagging_seed
             if log:
@@ -441,9 +485,14 @@ class Booster:
                                              round_offset=fit_done)
                     append_round_trees(t_stack, rounds)
                     fit_done += rounds
-                    path = _write_snapshot(ckpt, trees, tree_classes, mapper, opts, init,
-                                           feature_names, fit_done, start_iter, k)
-                    preempt_now(None, lambda: path, "gbdt-train")
+                    path = (_write_snapshot(ckpt, trees, tree_classes, mapper, opts, init,
+                                            feature_names, fit_done, start_iter, k)
+                            if writer else None)
+                    if shared:
+                        mesh.barrier()
+                        _preempt_on_any_rank(mesh, device, path)
+                    else:
+                        preempt_now(None, lambda: path, "gbdt-train")
         if rf and trees:
             scale = 1.0 / max(len(trees) // k, 1)   # rf averages its trees
             trees = [_scale_tree(t, scale) for t in trees]
@@ -1387,6 +1436,34 @@ def _parse_lightgbm_sections(text: str):
 
 
 # ---- preemption-tolerant chunked training (resilience/elastic.py) ---- #
+
+def _same_on_every_rank(value: int, mesh, device, what: str) -> None:
+    """Raise unless every rank of the mesh holds the same `value` (a
+    tensor on the fit's device: NCCL reduces card tensors only)."""
+    from ..parallel.collectives import pmax, pmin
+
+    t = torch.tensor([float(value)], device=device)
+    lo, hi = float(pmin(t, mesh)[0]), float(pmax(t, mesh)[0])
+    if lo != hi:
+        raise RuntimeError(f"the ranks of the mesh disagree on the {what}: {lo:g} .. {hi:g}")
+
+
+def _preempt_on_any_rank(mesh, device, path) -> None:
+    """Preemption on a mesh: if any rank's guard is draining, every rank
+    stops at this chunk's end (one rank leaving would block the others in
+    their next collective). Shard 0's rank wrote the snapshot."""
+    from ..parallel.collectives import pmax
+    from ..resilience.elastic import Preempted, get_active_guard, preempt_now
+
+    guard = get_active_guard()
+    draining = guard is not None and guard.should_checkpoint()
+    if not float(pmax(torch.tensor([float(draining)], device=device), mesh)[0]):
+        return
+    if draining:
+        preempt_now(guard, lambda: path, "gbdt-train")
+    raise Preempted("gbdt-train preempted on another rank of the mesh; resumable "
+                    "checkpoint written by shard 0's rank", checkpoint_path=path)
+
 
 def _ckpt_config(opts: TrainOptions, k: int, start_iter: int) -> dict:
     """The fit identity a snapshot must match to be resumable: a snapshot

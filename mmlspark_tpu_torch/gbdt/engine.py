@@ -29,8 +29,23 @@ that order, scored with cat_l2 added to lambda_l2 and capped by
 max_cat_threshold on the smaller side, and the winning prefix becomes the
 node's bitset over bins, which routes rows. Bin 0 (other, unseen, NaN),
 empty bins and bins past the feature's count sort last and always go
-right. The voting-parallel learner and the data-parallel histogram
-all-reduce raise NotImplementedError until their ROADMAP item lands.
+right.
+
+On a mesh of several shards (parallel/mesh.py: one process a shard) each
+rank grows the tree from its own block of rows, and every node histogram
+is merged across the ranks before the split search (engine.py:187-193 of
+the JAX package): a plain `all_reduce`, or with `deterministic` the
+bit-exact fixed-point merge (parallel/collectives.py). Every rank then
+grows the same tree from the same merged histograms, LightGBM's
+replicated model. The voting-parallel learner (`voting_top_k` > 0,
+engine.py:288-331) first ranks the features by the best split gain of the
+rank's own root histogram, proposes its top 2k (a stable descending sort:
+`lax.top_k` puts the lower index first on ties), tallies the proposals
+across the ranks (an all-reduce of one-hot votes) and keeps the 2k with
+the most votes, the lower feature id first on equal votes; only those
+features' histograms are merged for the whole tree. The collective waits
+for the rank's kernels: a merge reads its histogram back when the backend
+is gloo, and NCCL runs on the card's stream.
 """
 
 from __future__ import annotations
@@ -40,9 +55,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.collectives import psum, psum_exact_fixedpoint
 from .hist_kernel import histogram
 
-__all__ = ["TreeArrays", "GrowConfig", "make_grow_fn", "tree_apply"]
+__all__ = ["TreeArrays", "GrowConfig", "make_grow_fn", "tree_apply", "pad_rows"]
 
 _NEG_INF = float("-inf")
 
@@ -73,11 +89,21 @@ class GrowConfig(NamedTuple):
     lambda_l2: float = 0.0
     min_gain_to_split: float = 0.0
     learning_rate: float = 0.1
-    voting_top_k: int = 0         # voting-parallel: not ported yet
-    deterministic: bool = False   # merge order of a multi-device fit; one device is exact
+    # voting-parallel (tree_learner=voting_parallel): each shard proposes
+    # its top-k features, and only the 2k most voted are merged. 0 = data
+    # parallel
+    voting_top_k: int = 0
+    # LightGBM's `deterministic`: merge the histograms by the fixed-point
+    # all-reduce, the same bits under any order (one shard is exact already)
+    deterministic: bool = False
     cat_smooth: float = 10.0
     cat_l2: float = 10.0
     max_cat_threshold: int = 32
+
+
+def pad_rows(n: int, shards: int) -> int:
+    """Rows padded up so the data axis divides evenly (weight 0 on the pad)."""
+    return ((n + shards - 1) // shards) * shards
 
 
 def tree_apply(tree: TreeArrays, bins: torch.Tensor, max_steps: int) -> torch.Tensor:
@@ -131,12 +157,15 @@ def make_grow_fn(
             -> (TreeArrays, per_row_value (n,) f32, node_of_row (n,) int32)
 
     `categorical_mask` (F,) bool marks the features split as category
-    subsets."""
-    if mesh is not None or cfg.voting_top_k > 0:
-        raise NotImplementedError(
-            "mesh and voting-parallel training are not ported yet; see "
-            "ROADMAP.md Queue 1, P2 'distributed GBDT'")
+    subsets. With a `mesh` of several shards the row inputs are this
+    rank's block, the histograms are merged across the mesh and the tree
+    comes out the same on every rank; `cfg.voting_top_k` > 0 takes the
+    voting-parallel learner there (without such a mesh it has no effect,
+    as in the reference)."""
     device = torch.device(device)
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    voting = mesh is not None and cfg.voting_top_k > 0
     nl = cfg.num_leaves
     m = 2 * nl - 1
     max_depth = cfg.max_depth if cfg.max_depth and cfg.max_depth > 0 else nl + 1
@@ -168,29 +197,29 @@ def make_grow_fn(
         pushed = (bin_pos == 0) | (h[..., 2] <= 0) | (bin_pos >= fb[..., None])
         return torch.argsort(torch.where(pushed, float("inf"), ratio), dim=-1, stable=True)
 
+    def merge(h):
+        """The one histogram-merge collective (engine.py:187-193)."""
+        if cfg.deterministic:
+            return psum_exact_fixedpoint(h, mesh)
+        return psum(h, mesh)
+
     def grow(bins, grad, hess, sample_mask, feature_mask):
         n = bins.shape[0]
         dev = bins.device
-        valid_bin = valid_base & (feature_mask[:, None] > 0)         # (F, B)
         node_ids = torch.arange(m, device=dev)
 
-        def hist_for(mask):
+        def local_hist(mask):
             # channels: [grad, hess, row count] — count is unweighted so
             # min_data_in_leaf means ROWS (LightGBM semantics)
             stats = torch.stack(
                 [grad * mask, hess * mask, (mask > 0).to(torch.float32)], dim=-1)
             return histogram(bins, stats, num_bins)                 # (F, B, 3)
 
-        def totals(h):
-            # summing one feature's bins over a node gives the node totals
-            # (every row lands in exactly one bin per feature)
-            return h[:, 0].sum(dim=1)                               # (k, 3)
-
-        def best_splits(h, tot):
-            """h (k, F, B, 3), tot (k, 3) -> per node (gain, feature, bin).
-            Numeric position b: bins <= b go left; categorical position b:
-            the first b + 1 bins of the node's order (engine.py:243-287)."""
-            k = h.shape[0]
+        def gains(h, tot, valid):
+            """h (k, F, B, 3), tot (k, 3) -> (k, F, B) split gains, -inf
+            where a split is not allowed. Numeric position b: bins <= b go
+            left; categorical position b: the first b + 1 bins of the
+            node's order (engine.py:243-287)."""
             left = torch.cumsum(h, dim=2)
             if cat_any:
                 order = cat_order(h, fbins_t)                       # (k, F, B)
@@ -200,7 +229,7 @@ def make_grow_fn(
             ng, nh, nc = (tot[:, c, None, None] for c in range(3))
             gr, hr, cr = ng - gl, nh - hl, nc - cl
             ok = (
-                valid_bin
+                valid
                 & (cl >= cfg.min_data_in_leaf)
                 & (cr >= cfg.min_data_in_leaf)
                 & (hl >= cfg.min_sum_hessian_in_leaf)
@@ -213,7 +242,55 @@ def make_grow_fn(
                 gain_cat = (_leaf_objective(gl, hl, l1, l2c) + _leaf_objective(gr, hr, l1, l2c)
                             - _leaf_objective(ng, nh, l1, l2c))
                 gain = torch.where(is_cat_f[:, None], gain_cat, gain)
-            gain = torch.where(ok, gain, _NEG_INF).reshape(k, -1)
+            return torch.where(ok, gain, _NEG_INF)
+
+        # -- voting-parallel feature selection, once a tree -------------
+        sel_ids = None          # (2k,) the voted features, most votes first
+        tot_feat = None         # a kept feature, whose bins sum to the totals
+        if voting:
+            h_local = local_hist(sample_mask)
+            vb = valid_base & (feature_mask[:, None] > 0)
+            gains_f = gains(h_local[None], h_local[0].sum(dim=0)[None], vb)[0].amax(dim=1)
+            k2 = min(2 * cfg.voting_top_k, num_features)
+            # lax.top_k: descending, the lower index first on ties (-inf
+            # fillers, duplicate columns)
+            top_gains, top_ids = torch.sort(gains_f, descending=True, stable=True)
+            top_gains, top_ids = top_gains[:k2], top_ids[:k2]
+            # a -inf candidate is a filler, not a proposal: it does not vote
+            ballots = (top_gains > _NEG_INF).to(torch.float32)
+            votes = torch.zeros(num_features, dtype=torch.float32, device=dev).index_add_(
+                0, top_ids, ballots)
+            votes = psum(votes, mesh)
+            # more votes first, then the lower feature id: no two scores tie
+            sel_score = votes * (num_features + 1) - torch.arange(
+                num_features, device=dev, dtype=torch.float32)
+            sel_ids = torch.sort(sel_score, descending=True, stable=True).indices[:k2]
+            sel_vec = torch.zeros(num_features, dtype=torch.float32, device=dev).index_fill_(
+                0, sel_ids, 1.0)
+            feature_mask = feature_mask * sel_vec
+            tot_feat = torch.argmin(-sel_vec).view(1)               # the first kept feature
+
+        def hist_for(mask, h=None):
+            h = local_hist(mask) if h is None else h
+            if sel_ids is not None:
+                # only the voted features' histograms cross the mesh
+                return torch.zeros_like(h).index_copy_(0, sel_ids, merge(h.index_select(0, sel_ids)))
+            if mesh is not None:
+                return merge(h)
+            return h                                                 # (F, B, 3)
+
+        def totals(h):
+            # summing one kept feature's bins over a node gives the node
+            # totals (every row lands in exactly one bin per feature)
+            if tot_feat is None:
+                return h[:, 0].sum(dim=1)                            # (k, 3)
+            return h.index_select(1, tot_feat)[:, 0].sum(dim=1)
+
+        valid_bin = valid_base & (feature_mask[:, None] > 0)         # (F, B)
+
+        def best_splits(h, tot):
+            """h (k, F, B, 3), tot (k, 3) -> per node (gain, feature, bin)."""
+            gain = gains(h, tot, valid_bin).reshape(h.shape[0], -1)
             flat = gain.argmax(dim=1)          # first index on ties, like JAX
             return (gain.gather(1, flat[:, None])[:, 0],
                     flat // num_bins, flat % num_bins)
@@ -231,7 +308,7 @@ def make_grow_fn(
         node_of_row = torch.zeros(n, dtype=torch.long, device=dev)
         hists = torch.zeros((m, num_features, num_bins, 3), dtype=torch.float32,
                             device=dev)
-        root = hist_for(sample_mask)
+        root = hist_for(sample_mask, h_local if voting else None)
         hists[0].copy_(root)
         g0, f0, b0 = best_splits(root[None], totals(root[None]))
         best_gain = torch.where(is_leaf, g0, _NEG_INF)

@@ -10,10 +10,13 @@ default. `model_string` warm-starts from a model's JSON text, and
 of the rows for early stopping, and `categorical_slot_indexes` names the
 feature slots split as category subsets. `checkpoint_dir` with
 `checkpoint_every_n` snapshots the fit every so many rounds and resumes a
-preempted one. A Param value the port does not run yet (the mesh, elastic
-workers; see booster.py) raises NotImplementedError at fit time naming
-the ROADMAP item that ports it. `load_native_model` reads the JSON format
-and LightGBM's model.txt.
+preempted one. `use_mesh` fits over the current mesh
+(parallel.mesh.get_mesh(): one process a shard, every rank calling `fit`
+on the whole table) and returns the same model on every rank;
+`tree_learner`, `top_k` and `deterministic` choose the learner and the
+histogram merge there. `elastic_workers` raises NotImplementedError
+naming the ROADMAP item that ports it. `load_native_model` reads the JSON
+format and LightGBM's model.txt.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..core.params import (
 from ..core.pipeline import Estimator, Model
 from ..core.schema import SCORE_KIND, Table
 from ..core.serialize import register_stage
+from ..parallel.mesh import get_mesh
 from .booster import Booster, TrainOptions, _not_ported
 from .sparse import as_features
 
@@ -80,27 +84,32 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCol):
     max_cat_threshold = Param(32, "max categories on the smaller side of a categorical split", ptype=int)
     model_string = Param(None, "warm-start model text (reference modelString)", ptype=str)
     boost_from_average = Param(True, "init score from label average", ptype=bool)
-    use_mesh = Param(False, "shard rows over several devices (not ported yet)", ptype=bool)
+    # every rank of the mesh ends with the same model (the reference's
+    # LightGBMClassifier.scala:82-85). Against a one-device fit the merged
+    # histograms add in another order, so a near-tied split can part
+    use_mesh = Param(False, "shard rows over the current mesh's ranks (all-reduced histograms)",
+                     ptype=bool)
     tree_learner = Param(
         "data_parallel", "data_parallel | voting_parallel (LightGBMParams.scala:12-14)",
         ptype=str,
     )
     top_k = Param(20, "voting-parallel local candidate count", ptype=int)
     deterministic = Param(
-        False, "bit-exact histogram merge (LightGBM's deterministic flag); "
-        "a one-device fit is exact already", ptype=bool,
+        False, "bit-exact histogram merge under any reduction order or shard permutation "
+        "(LightGBM's deterministic flag; parallel/collectives.py)", ptype=bool,
     )
     verbosity = Param(1, "logging verbosity", ptype=int)
     seed = Param(0, "master rng seed", ptype=int)
     checkpoint_dir = Param(None, "snapshot directory for preemption-tolerant training", ptype=str)
     checkpoint_every_n = Param(0, "boosting rounds between snapshots (0 = off)", ptype=int)
-    elastic_workers = Param(0, "fit over N elastic fleet workers (not ported yet)", ptype=int)
+    elastic_workers = Param(0, "fit over N elastic fleet workers (not ported yet: ROADMAP item 15)",
+                            ptype=int)
     elastic_num_virtual = Param(32, "virtual shards for the elastic fit", ptype=int)
     device = Param("cuda", "torch device of the fit: cuda | cpu", ptype=str)
 
     def _train_options(self, objective: str, num_class: int = 1) -> TrainOptions:
-        if self.get("use_mesh") or int(self.get("elastic_workers") or 0) > 0:
-            raise _not_ported("use_mesh / elastic_workers", "distributed GBDT")
+        if int(self.get("elastic_workers") or 0) > 0:
+            raise _not_ported("elastic_workers", "item 15, elastic training")
         init_model = None
         if self.get("model_string"):
             init_model = Booster.from_text(self.get("model_string"), device=self.get("device"))
@@ -162,7 +171,8 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCol):
             x, y = x[ti], y[ti]
             if w is not None:
                 w = w[ti]
-        return x, y, w, valid
+        mesh = get_mesh() if self.get("use_mesh") else None
+        return x, y, w, valid, mesh
 
     def _log(self):
         if self.get("verbosity") and self.get("verbosity") > 0:
@@ -207,7 +217,7 @@ class GBDTClassifier(_GBDTParams, Estimator):
     objective = Param("binary", "binary|multiclass (auto-upgraded by label arity)", ptype=str)
 
     def _fit(self, table: Table) -> "GBDTClassificationModel":
-        x, y, w, valid = self._fit_arrays(table)
+        x, y, w, valid, mesh = self._fit_arrays(table)
         # the class set spans the training and the held-out labels, so a
         # class seen only in the held-out rows still gets its own index
         classes = np.unique(y if valid is None else np.concatenate([y, valid[1]]))
@@ -223,7 +233,8 @@ class GBDTClassifier(_GBDTParams, Estimator):
             objective = "binary" if num_class <= 2 else "multiclass"
         opts = self._train_options(objective, num_class=num_class)
         opts.is_unbalance = self.get("is_unbalance")
-        booster = Booster.train(x, y_idx, opts, weights=w, valid=valid, log=self._log())
+        booster = Booster.train(x, y_idx, opts, weights=w, valid=valid, mesh=mesh,
+                                log=self._log())
         booster.class_labels = [float(c) for c in classes]
         model = GBDTClassificationModel(
             features_col=self.get("features_col"),
@@ -320,12 +331,12 @@ class GBDTRegressor(_GBDTParams, Estimator):
     fair_c = Param(1.0, "fair-loss c", ptype=float)
 
     def _fit(self, table: Table) -> "GBDTRegressionModel":
-        x, y, w, valid = self._fit_arrays(table)
+        x, y, w, valid, mesh = self._fit_arrays(table)
         opts = self._train_options(self.get("objective"))
         opts.alpha = self.get("alpha")
         opts.tweedie_variance_power = self.get("tweedie_variance_power")
         opts.fair_c = self.get("fair_c")
-        booster = Booster.train(x, y, opts, weights=w, valid=valid, log=self._log())
+        booster = Booster.train(x, y, opts, weights=w, valid=valid, mesh=mesh, log=self._log())
         model = GBDTRegressionModel(
             features_col=self.get("features_col"),
             prediction_col=self.get("prediction_col"),

@@ -24,6 +24,18 @@ one costs nothing on the device.
 
 Comparisons and products with a hyperparameter round it to float32 first
 (`_f32`): JAX applies a Python float to a float32 array in float32.
+
+With a `mesh` of several shards (parallel/mesh.py) every rank runs the loop
+on its own block of rows and the trees come out the same on every rank
+(the reference's shard_map over the loop, fused.py:478-491). The row draws
+fold the shard index into the key first (bags, GOSS samples: fold_in(key,
+shard), fused.py:320-322; dart's bag key, :562-565), so shards draw apart;
+the feature masks and dart's drops stay on the shared key, so every rank
+grows from the same ones. GOSS keeps each shard's own top fraction
+(:334-345). Leaf renewal merges its residual brackets with pmin / pmax and
+its histograms as the split histograms are merged. Early stopping scores a
+validation set that every rank holds whole, so every rank stops at the
+same round.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ import numpy as np
 import torch
 
 from ..core import prng
+from ..parallel.collectives import pmax, pmin, psum, psum_exact_fixedpoint
 from .engine import GrowConfig, TreeArrays, make_grow_fn, tree_apply
 
 __all__ = ["FusedTrainSpec", "make_fused_train_fn", "make_fused_dart_fn"]
@@ -73,14 +86,17 @@ _RENEW_ROUNDS = 2
 
 
 def _renew_tree_values(tree: TreeArrays, node_of_row, resid, w, alpha: float,
-                       learning_rate: float) -> TreeArrays:
+                       learning_rate: float, mesh=None,
+                       deterministic: bool = False) -> TreeArrays:
     """LightGBM RenewTreeOutput, as fused.py:97 computes it: each leaf's
     value becomes learning_rate x the alpha-percentile of its (weighted)
     rows' residuals. Each node keeps its own [lo, hi] residual bracket, and
     the percentile is found by _RENEW_ROUNDS rounds of 256-bin histogram
     refinement. The histograms are chunked one-hot products in f32 (TF32
     is off), the reference's Precision.HIGHEST dot_general: the same sums
-    on every launch. Non-finite residuals carry no weight."""
+    on every launch. Non-finite residuals carry no weight. On a mesh the
+    brackets and the histograms are merged across the shards (fused.py:
+    143-145, 176-180), so every rank renews to the same values."""
     m = tree.value.shape[0]
     dev = resid.device
     f32 = torch.float32
@@ -102,6 +118,8 @@ def _renew_tree_values(tree: TreeArrays, node_of_row, resid, w, alpha: float,
         0, nd, torch.where(live, r, inf), "amin")
     hi = torch.full((m,), float("-inf"), device=dev).scatter_reduce(
         0, nd, torch.where(live, r, -inf), "amax")
+    if mesh is not None:
+        lo, hi = pmin(lo, mesh), pmax(hi, mesh)
     empty = lo > hi          # nodes without rows keep inf brackets
     lo = torch.where(empty, 0.0, lo)
     hi = torch.where(empty, 0.0, hi)
@@ -124,6 +142,8 @@ def _renew_tree_values(tree: TreeArrays, node_of_row, resid, w, alpha: float,
             oh_n = (ndc[:, None] == nodes[None, :]).to(f32)              # (ch, M)
             oh_b = (bidx[:, None] == bins[None, :]).to(f32) * inw[:, None]
             hist = hist + oh_n.t() @ oh_b                                 # (M, B)
+        if mesh is not None:
+            hist = psum_exact_fixedpoint(hist, mesh) if deterministic else psum(hist, mesh)
         cum = torch.cumsum(hist, dim=1)
         tot = cum[:, -1]
         if first:
@@ -148,7 +168,7 @@ def _renew_tree_values(tree: TreeArrays, node_of_row, resid, w, alpha: float,
 
 
 def _apply_renewal(tree, node_row, resid, mask, base_w, y, spec: FusedTrainSpec,
-                   cfg: GrowConfig):
+                   cfg: GrowConfig, mesh=None):
     """Renew a grown tree's leaves and recompute its row values (fused.py:209).
     The rows weigh by bag membership times the data weight, not by the
     grow mask: GOSS amplifies its sampled small-gradient rows for the
@@ -158,7 +178,7 @@ def _apply_renewal(tree, node_row, resid, mask, base_w, y, spec: FusedTrainSpec,
     if spec.renew_weighted:
         member_w = member_w / torch.clamp(torch.abs(y), min=1.0)
     tree = _renew_tree_values(tree, node_row, resid, member_w, spec.renew_alpha,
-                              cfg.learning_rate)
+                              cfg.learning_rate, mesh, cfg.deterministic)
     return tree, tree.value.gather(0, node_row.long())
 
 
@@ -212,8 +232,10 @@ def make_fused_train_fn(
     spec: FusedTrainSpec,
     device: "str | torch.device" = "cuda",
     val_loss_fn: "Callable | None" = None,
+    mesh=None,
 ):
-    """Build the gbdt / goss / rf loop for tensors on `device`.
+    """Build the gbdt / goss / rf loop for tensors on `device`, over this
+    rank's block of rows when `mesh` has several shards.
 
       fn(bins (n, F) uint8/int32, y, base_w (n,) f32, pred0, seed, val=None,
          round_offset=0)
@@ -224,7 +246,9 @@ def make_fused_train_fn(
     sample weights. `seed` is the int32 the draws fold from: per round
     `kr = fold_in(key, it)`, the bag from `fold_in(kr, 1)`, class c's GOSS
     draw from `fold_in(kr, 2 + c)` and its feature mask from
-    `fold_in(kr, 100 + c)` (fused.py:356-381).
+    `fold_in(kr, 100 + c)` (fused.py:356-381). On a mesh the bag's and
+    GOSS's `key` is `fold_in(PRNGKey(seed), shard)`; the feature mask's
+    stays `PRNGKey(seed)`.
 
     `it` is the global round index: the loop runs rounds round_offset ..
     round_offset + num_rounds - 1 (a Python int, as `fold_in` takes host
@@ -252,8 +276,10 @@ def make_fused_train_fn(
         raise ValueError("early stopping requires val_loss_fn")
     k = spec.num_class
     f = num_features
+    if mesh is not None and mesh.size == 1:
+        mesh = None
     grow = make_grow_fn(num_features, num_bins, cfg, feature_num_bins,
-                        categorical_mask, device=device)
+                        categorical_mask, device=device, mesh=mesh)
     rf_mode = spec.boosting_type == "rf"
     use_goss = spec.boosting_type == "goss"
     use_bagging = rf_mode or (spec.boosting_type == "gbdt" and spec.bagging_fraction < 1.0
@@ -270,7 +296,9 @@ def make_fused_train_fn(
                              f"bagging_freq {bag_freq}: the carried bag would be lost")
         dev = bins.device
         n = bins.shape[0]
-        key = prng.prng_key(seed)
+        key_repl = prng.prng_key(seed)
+        # rows draw per shard; the feature masks feed the shared tree state
+        key = key_repl if mesh is None else prng.fold_in(key_repl, mesh.shard_index)
         present = (base_w > 0).to(torch.float32)
         ones_f = torch.ones(f, dtype=torch.float32, device=dev)
         pred, bag = pred0, base_w
@@ -283,6 +311,7 @@ def make_fused_train_fn(
         trees = []
         for it in range(round_offset, round_offset + spec.num_rounds):
             kr = prng.fold_in(key, it)
+            kr_repl = prng.fold_in(key_repl, it)
             # the gbdt bag refreshes every bag_freq rounds and is carried
             # between; rf draws a fresh one every round
             if use_bagging and (rf_mode or it % bag_freq == 0):
@@ -298,15 +327,15 @@ def make_fused_train_fn(
                                                  spec.top_rate, spec.other_rate)
                 else:
                     mask = bag
-                fmask = (feature_mask_of(prng.fold_in(kr, 100 + cls), f, spec.feature_fraction,
-                                         dev)
+                fmask = (feature_mask_of(prng.fold_in(kr_repl, 100 + cls), f,
+                                         spec.feature_fraction, dev)
                          if spec.feature_fraction < 1.0 else ones_f)
                 if round_hook is not None:
                     round_hook(it, cls, mask, fmask, None)
                 tree, rv, node_row = grow(bins, gc, hc, mask, fmask)
                 if spec.renew_alpha is not None and k == 1:
                     tree, rv = _apply_renewal(tree, node_row, y - pred, mask, base_w, y,
-                                              spec, cfg)
+                                              spec, cfg, mesh)
                 trees_k.append(tree)
                 rowvals.append(rv)
             if rf_mode:
@@ -341,15 +370,18 @@ def make_fused_dart_fn(
     obj_fn: Callable,
     spec: FusedTrainSpec,
     device: "str | torch.device" = "cuda",
+    mesh=None,
 ):
-    """Build single-class DART (reference make_fused_dart_fn, fused.py:501).
+    """Build single-class DART (reference make_fused_dart_fn, fused.py:501),
+    over this rank's block of rows when `mesh` has several shards.
 
       fn(bins, y, base_w, pred0, drop_seed, bag_seed, feat_seed)
         -> (TreeArrays stacked over rounds, tree_weights (R,) f32, final_pred)
 
     Each purpose has its own key: round r drops each earlier tree with
     probability drop_rate by `uniform(fold_in(PRNGKey(drop_seed), r),
-    (rounds,))`, bags by `fold_in(PRNGKey(bag_seed), r)` and samples
+    (rounds,))`, bags by `fold_in(PRNGKey(bag_seed), r)` (on a mesh
+    `fold_in(fold_in(PRNGKey(bag_seed), shard), r)`) and samples
     features by `fold_in(PRNGKey(feat_seed), r)`. The round's base
     prediction is pred0 plus every earlier tree's row values (rows of a
     (rounds, n) f32 matrix) times its weight, 0 if dropped; the new tree
@@ -371,8 +403,10 @@ def make_fused_dart_fn(
         raise ValueError("dart covers the single-class path only")
     rounds = spec.num_rounds
     f = num_features
+    if mesh is not None and mesh.size == 1:
+        mesh = None
     grow = make_grow_fn(num_features, num_bins, cfg, feature_num_bins,
-                        categorical_mask, device=device)
+                        categorical_mask, device=device, mesh=mesh)
     use_bagging = spec.bagging_fraction < 1.0 and spec.bagging_freq > 0
     bag_freq = max(spec.bagging_freq, 1)
 
@@ -380,6 +414,8 @@ def make_fused_dart_fn(
         dev = bins.device
         n = bins.shape[0]
         key_drop, key_bag, key_feat = (prng.prng_key(s) for s in (drop_seed, bag_seed, feat_seed))
+        if mesh is not None:
+            key_bag = prng.fold_in(key_bag, mesh.shard_index)      # rows draw per shard
         ones_f = torch.ones(f, dtype=torch.float32, device=dev)
         order = torch.arange(rounds, device=dev)
         weights = torch.zeros(rounds, dtype=torch.float32, device=dev)
@@ -403,7 +439,7 @@ def make_fused_dart_fn(
             tree, rv, node_row = grow(bins, g, h, bag, fmask)
             if spec.renew_alpha is not None:
                 tree, rv = _apply_renewal(tree, node_row, y - pred_round, bag, base_w, y,
-                                          spec, cfg)
+                                          spec, cfg, mesh)
             weights = torch.where(drop, weights * k_drop / (k_drop + 1.0), weights)
             weights = torch.where(order == it, torch.reciprocal(k_drop + 1.0), weights)
             total = (pred_round + torch.mv(contribs.t(), torch.where(drop, weights, 0.0))

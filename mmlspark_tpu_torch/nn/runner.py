@@ -20,8 +20,8 @@ parameter and buffer) and the inputs per batch, as the JAX stage does
 so nothing is compiled: the `ExecutableCache` keeps the JAX stage's
 per-(family, bucket) counters.
 
-Not ported: `use_mesh` (ROADMAP Queue 1 item 10, P2) and `device_kernel`
-(fusion, item 11, P3).
+Not ported: `use_mesh` (ROADMAP Queue 1 item 12c; item 10 brought the mesh
+itself, parallel/mesh.py) and `device_kernel` (fusion, item 11, P3).
 """
 
 from __future__ import annotations
@@ -137,8 +137,8 @@ class DeepModelTransformer(Model):
             raise ValueError("DeepModelTransformer has no model; call set_model()")
         if self.get("use_mesh"):
             raise NotImplementedError(
-                "use_mesh is not ported yet (ROADMAP Queue 1, item 10, 'P2: "
-                "distributed GBDT' brings the mesh)")
+                "use_mesh is not ported yet for DNN serving (ROADMAP Queue 1, item 12c; "
+                "item 10 brought the mesh, mmlspark_tpu_torch.parallel)")
         col = table[self.get("input_col")]
         x = np.stack(col) if isinstance(col, list) else np.asarray(col)
         n = x.shape[0]

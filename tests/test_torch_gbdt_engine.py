@@ -107,12 +107,24 @@ def test_tree_apply_matches_jax():
 
 
 def test_categorical_and_mesh_options_raise():
-    # categorical features grow (tests/test_torch_gbdt_categorical.py); the
-    # mesh and voting-parallel learners still raise
-    cfg = engine.GrowConfig(num_leaves=4)
+    # categorical features grow (tests/test_torch_gbdt_categorical.py) and
+    # the mesh learners run on several ranks (tests/test_torch_gbdt_mesh*.py);
+    # without a mesh of several shards, voting has no effect and a one-shard
+    # mesh is no mesh, as in the reference: the same tree bit for bit. A
+    # model or sequence axis still raises.
+    from mmlspark_tpu_torch.parallel.mesh import make_mesh
+
+    bins, grad, hess, mask = _inputs(500, seed=8)
     nbins = np.full(F, B, np.int32)
+    cfg = engine.GrowConfig(num_leaves=7, min_data_in_leaf=10.0)
+    args = [torch.from_numpy(a) for a in (bins, grad, hess, mask, np.ones(F, np.float32))]
+    plain = engine.make_grow_fn(F, B, cfg, nbins, np.zeros(F, bool), device="cpu")(*args)
+    for kw in (dict(mesh=make_mesh()), dict(mesh=make_mesh(n_data=1), cfg=cfg._replace(
+            voting_top_k=2, deterministic=True)), dict(cfg=cfg._replace(voting_top_k=2))):
+        got = engine.make_grow_fn(F, B, kw.get("cfg", cfg), nbins, np.zeros(F, bool),
+                                  device="cpu", mesh=kw.get("mesh"))(*args)
+        for a, b in zip(got[0], plain[0]):
+            assert torch.equal(a, b)
+        assert torch.equal(got[1], plain[1]) and torch.equal(got[2], plain[2])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.make_grow_fn(F, B, cfg, nbins, np.zeros(F, bool), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.make_grow_fn(F, B, cfg._replace(voting_top_k=2), nbins,
-                            np.zeros(F, bool), device="cpu")
+        make_mesh(n_data=1, n_model=2)

@@ -119,10 +119,16 @@ def test_cuda_without_a_card_raises(data, monkeypatch):
     dict(tree_learner="voting_parallel"),
 ], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
 def test_options_outside_the_slice_raise(data, opts):
+    # voting needs a mesh of several ranks (tests/test_torch_gbdt_mesh.py);
+    # without one it logs, as the reference does, and trains data_parallel
     x, y = data
-    kw = {**FIT, "device": "cpu", **opts}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Booster.train(x, y, TrainOptions(**kw))
+    logs = []
+    got = Booster.train(x, y, TrainOptions(**{**FIT, "device": "cpu", **opts}),
+                        log=logs.append)
+    assert any("no effect without a mesh" in m for m in logs), logs
+    assert got.to_text() == Booster.train(x, y, TrainOptions(**FIT, device="cpu")).to_text()
+    with pytest.raises(ValueError, match="tree_learner"):
+        Booster.train(x, y, TrainOptions(**{**FIT, "device": "cpu", "tree_learner": "feature"}))
 
 
 @pytest.mark.parametrize("params", [
@@ -130,7 +136,15 @@ def test_options_outside_the_slice_raise(data, opts):
     dict(elastic_workers=2),
 ], ids=lambda d: ",".join(d))
 def test_estimator_options_outside_the_slice_raise(data, params):
+    # use_mesh fits over get_mesh(): one shard outside torch.distributed,
+    # which equals the fit without a mesh byte for byte (several ranks:
+    # tests/test_torch_gbdt_mesh.py); elastic_workers still raises
     x, y = data
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GBDTClassifier(device="cpu", num_iterations=2, **params).fit(
-            Table({"features": x, "label": y}))
+    table = Table({"features": x, "label": y})
+    if "use_mesh" in params:
+        got = GBDTClassifier(device="cpu", num_iterations=2, **params).fit(table)
+        want = GBDTClassifier(device="cpu", num_iterations=2).fit(table)
+        assert got.booster.to_text() == want.booster.to_text()
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 15"):
+        GBDTClassifier(device="cpu", num_iterations=2, **params).fit(table)

@@ -611,3 +611,35 @@ def test_zoo_lightgbm_model_scores_on_the_card_as_the_host_walk(cuda):
     assert np.array_equal(booster.predict_raw(x, device="device"), host)
     params, fn = booster.device_predict_fn()
     assert np.array_equal(fn(params, x).cpu().numpy(), host)
+
+
+def test_two_rank_gloo_mesh_fit_on_the_card_agrees_with_the_one_device_fit(cuda, tmp_path):
+    # two spawned ranks share the card over gloo (NCCL takes one rank a
+    # card): both hold the same model, each launched K1 once a split on
+    # its own rows, and the model meets the one-device card fit by
+    # chip_smoke.compare_fits at 1e-4 (K1's block-order sums and the
+    # merge add in other orders), every tree compared or the comparison
+    # ended by a near-tie, with predictions then within 1e-3
+    import os
+    import sys
+
+    import test_torch_mesh_jobs as jobs
+    from mmlspark_tpu_torch.gbdt import Booster
+    from mmlspark_tpu_torch.gbdt.booster import TrainOptions
+    from mmlspark_tpu_torch.parallel import RankPool
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir))
+    import chip_smoke
+
+    x, y = _adult_like(32768)
+    opts = dict(objective="binary", num_iterations=10, num_leaves=31)
+    single = Booster.train(x, y, TrainOptions(device="cuda", **opts))
+    with RankPool(2, backend="gloo", workdir=str(tmp_path), timeout_s=300) as pool:
+        out = pool.run(jobs.train, x, y, opts, [0, 1], device="cuda")
+    assert out[0][0] == out[1][0]
+    assert [o[1] for o in out] == [10 * 31] * 2
+    assert all(o[2]["calls"] == 10 * 31 for o in out)
+    mesh = Booster.from_text(out[0][0], device="cuda")
+    parity = chip_smoke.compare_fits(single, mesh, single.bin_mapper.transform(x), tol=1e-4)
+    if parity["trees_compared"] < single.num_trees:
+        np.testing.assert_allclose(mesh.predict(x), single.predict(x), rtol=1e-3, atol=1e-3)

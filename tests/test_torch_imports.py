@@ -45,6 +45,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "mmlspark_tpu_torch.observability.tracing",
                    "mmlspark_tpu_torch.observability.recorder",
                    "mmlspark_tpu_torch.utils.storage", "mmlspark_tpu_torch.resilience.policy",
-                   "mmlspark_tpu_torch.resilience.elastic"):
+                   "mmlspark_tpu_torch.resilience.elastic", "mmlspark_tpu_torch.parallel",
+                   "mmlspark_tpu_torch.parallel.mesh", "mmlspark_tpu_torch.parallel.collectives",
+                   "mmlspark_tpu_torch.parallel.launch"):
         assert module in out["modules"]
     assert out["leaked"] == [], f"the port pulled in: {out['leaked']}"
