@@ -25,8 +25,9 @@ DeepModelTransformer serving 1,024 rows x 512 token ids through bench.py's
 accelerator transformer (8 layers, d_model 512, 8 heads, vocab 16,384) with
 attention_impl="flash", in bf16 and in f32, through two small bf16
 transformers (head dims 16 and 8) and through a BERT-base-wide one (head
-dim 192) — and shows through the kernels' launch counters that each path
-ran on its kernel. It prints one JSON line per phase:
+dim 192), and DNNLearner training that transformer and ResNet-50 — and
+shows through the kernels' launch counters that each path ran on its
+kernel. It prints one JSON line per phase:
 
   env          torch/CUDA versions and the card (the nvidia-smi name and
                power limit also stand alone on the next line)
@@ -166,6 +167,18 @@ ran on its kernel. It prints one JSON line per phase:
   stage_roundtrip  the serving stage saved and loaded through
                core.serialize serves the same logits
   slice_zoo    model_zoo/resnet20_digits.model on the card against the CPU
+  slice_train  DNN training through DNNLearner: bench.py's transformer at
+               its training width (8 layers, d_model 512, flash core in
+               bf16, adamw, 32 x 512 tokens a step), 3 epochs of 32 steps
+               (768 K2 launches, all on "wgmma", falling loss) and one under
+               remat (512 launches); bench_trainer's ResNet-50 fine-tune
+               (512 uint8 images of 224 x 224, batch 64, 2 epochs; its
+               BatchNorm statistics move); a small f32 flash transformer
+               on the CPU and the card (first-step gradients at the flash
+               gradient gate, parameters after 2 epochs), fused = streamed
+               = resumed byte for byte, 2 gloo ranks sharing the card
+               (equal parameters); and K2's forward + ported backward
+               against the plain forward + the same backward and SDPA
 
 then the {"kernels": [...]} summary, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2779,6 +2792,460 @@ def phase_slice_zoo() -> dict:
     return doc
 
 
+# ---- slice_train: DNN training through DNNLearner on the card ---- #
+
+# bench.py's transformer at its training width (bench.py:632-634, :697-734):
+# adamw at 1e-4, 32 rows x 512 tokens a step, the flash core in bf16
+TRAIN_TRANSFORMER = dict(num_layers=8, d_model=512, num_heads=8, d_ff=2048, vocab_size=16384,
+                         max_len=512, num_outputs=8, attention_impl="flash")
+TRAIN_ROWS, TRAIN_TOKENS, TRAIN_BATCH, TRAIN_EPOCHS = 1024, 512, 32, 3
+# bench_trainer's ResNet-50 fine-tune (bench.py:770-800): 512 uint8 images
+# of 224 x 224 x 3, 10 classes, batch 64, bf16 compute, f32 parameters
+RESNET_ROWS, RESNET_SIDE, RESNET_BATCH, RESNET_EPOCHS = 512, 224, 64, 2
+# items c-e: a 2-layer f32 flash transformer (d_model 64 over 4 heads, D 16)
+SMALL_TRAIN = dict(num_layers=2, d_model=64, num_heads=4, d_ff=128, vocab_size=512, max_len=64,
+                   num_outputs=4, attention_impl="flash")
+SMALL_TRAIN_ROWS, SMALL_TRAIN_TOKENS, SMALL_TRAIN_BATCH = 256, 64, 32
+# the reference's gate for flash gradients (tests/test_attention.py:86-88)
+GRAD_ATOL, GRAD_RTOL = 5e-5, 1e-4
+# fits on two devices or two meshes after 2 epochs: every parameter leaf
+# within this share of its largest magnitude
+FIT_GAP = 1e-3
+# K2 forward + backward rows: bench.py's training attention in both dtypes,
+# and a causal one at a ragged length
+TRAIN_FLASH_SHAPES = [
+    ("train_bf16", 32, 512, 8, 64, torch.bfloat16, False),
+    ("train_f32", 32, 512, 8, 64, torch.float32, False),
+    ("train_causal_ragged_bf16", 2, 1000, 8, 64, torch.bfloat16, True),
+]
+# dq, dk, dv against the plain version's: f32 at the flash gradient gate;
+# bf16 at the reference's bf16 gate between attention tiers
+# (tests/test_attention.py:117): the gradients are rounded to bf16, and the
+# output they are taken at may part from the plain one by a bf16 ulp or two
+TRAIN_FLASH_TOL = {torch.float32: (GRAD_ATOL, GRAD_RTOL), torch.bfloat16: (3e-2, 3e-2)}
+
+
+def banded_tokens(rows: int, tokens: int, vocab: int, classes: int, seed: int):
+    """Token rows with a learnable label: row r's tokens come from its
+    class's band of vocab // classes ids."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, classes, size=rows)
+    band = vocab // classes
+    x = y[:, None] * band + rng.integers(0, band, size=(rows, tokens))
+    return x, y.astype(np.float64)
+
+
+def _learner(**params):
+    from mmlspark_tpu_torch.nn import DNNLearner
+
+    return DNNLearner(use_mesh=False, **params)
+
+
+def _fit(est, x, y, init=None):
+    from mmlspark_tpu_torch.core import Table
+
+    est.init_bundle = init
+    t0 = time.perf_counter()
+    model = est.fit(Table({"features": x, "label": y}))
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def _leaf_gaps(a: dict, b: dict, prefix=()) -> dict:
+    """Per leaf of two params trees: max |a - b| over max |a|. The attention
+    key projection's bias is left out: its gradient is zero in exact
+    arithmetic (a softmax row is unchanged by a shift common to its
+    scores), so Adam turns rounding noise there into steps of either sign
+    on any two devices; it changes no output."""
+    out = {}
+    for k, v in a.items():
+        path = prefix + (k,)
+        if isinstance(v, dict):
+            out.update(_leaf_gaps(v, b[k], path))
+        elif path[-2:] != ("key", "bias"):
+            w, g = np.asarray(v, np.float32), np.asarray(b[k], np.float32)
+            out["/".join(path)] = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+    return out
+
+
+def train_transformer() -> dict:
+    """Item a: the transformer at bench.py's training width, 3 epochs of 32
+    steps; then one epoch under remat."""
+    from mmlspark_tpu_torch.nn import ModelBundle
+    from mmlspark_tpu_torch.nn.attention import flash_attention
+
+    x, y = banded_tokens(TRAIN_ROWS, TRAIN_TOKENS, TRAIN_TRANSFORMER["vocab_size"],
+                         TRAIN_TRANSFORMER["num_outputs"], seed=21)
+    bundle = ModelBundle.init("transformer", (TRAIN_TOKENS,), seed=0, dtype="bfloat16",
+                              **TRAIN_TRANSFORMER)
+    steps = TRAIN_ROWS // TRAIN_BATCH
+    layers = TRAIN_TRANSFORMER["num_layers"]
+    out = {}
+    for remat, epochs in ((False, TRAIN_EPOCHS), (True, 1)):
+        est = _learner(architecture="transformer", optimizer="adamw", learning_rate=1e-4,
+                       batch_size=TRAIN_BATCH, epochs=epochs, remat=remat)
+        flash_attention.launches, flash_attention.launches_by_path = 0, {}
+        _, seconds = _fit(est, x, y, bundle)
+        launches, by_path = flash_attention.launches, dict(flash_attention.launches_by_path)
+        want = (2 if remat else 1) * epochs * steps * layers
+        assert launches == want and by_path == {"wgmma": want}, \
+            f"remat={remat}: K2 launched {by_path}, want {want} on wgmma"
+        losses = est.epoch_losses
+        assert all(np.isfinite(losses)), losses
+        tokens = epochs * steps * TRAIN_BATCH * TRAIN_TOKENS
+        out["remat" if remat else "fit"] = {
+            "epochs": epochs, "steps": epochs * steps, "seconds": seconds,
+            "epoch_seconds": est.epoch_seconds, "epoch_losses": losses,
+            "train_tokens_per_s": tokens / seconds,
+            # the first epoch carries the cuBLAS and allocator warm-up
+            "steady_tokens_per_s": (tokens - steps * TRAIN_BATCH * TRAIN_TOKENS)
+            / sum(est.epoch_seconds[1:]) if epochs > 1 else None,
+            "flash_launches": launches, "flash_launches_by_path": by_path}
+        print(f"slice_train transformer remat={remat}: {tokens / seconds:.0f} train tokens/s, "
+              f"epoch losses {losses}, K2 launches {launches}", flush=True)
+    first, last = out["fit"]["epoch_losses"][0], out["fit"]["epoch_losses"][-1]
+    assert last < first, f"the loss did not fall: {out['fit']['epoch_losses']}"
+    out["profile"] = {name: profile_train_steps(bundle, x, y, TRAIN_BATCH, "adamw", 1e-4, remat)
+                      for name, remat in (("step", False), ("remat_step", True))}
+    return out
+
+
+def profile_train_steps(bundle, x, y, batch: int, optimizer: str = "adam",
+                        lr: float = 1e-3, remat: bool = False, steps: int = 3) -> dict:
+    """Where a train step's time goes: DNNLearner's step (nn/trainer.py
+    `loss_and_grads`, the optimizer, the new statistics) on `batch` rows of
+    x, two warm-up steps, then `steps` under torch.profiler: wall and
+    device kernel seconds a step, and the kernels that take most of it."""
+    import copy
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmlspark_tpu_torch.core import prng
+    from mmlspark_tpu_torch.nn.optim import Optimizer
+    from mmlspark_tpu_torch.nn.runner import _to_device
+    from mmlspark_tpu_torch.nn.trainer import TrainState, loss_and_grads
+
+    dev = torch.device("cuda")
+    ts = TrainState(copy.deepcopy(bundle.module).to(dev), Optimizer(optimizer, lr))
+    bx, by = _to_device(x[:batch], dev), _to_device(y[:batch], dev)
+
+    def step(k):
+        _, grads, stats = loss_and_grads(ts, bx, by, prng.fold_in(prng.prng_key(1), k),
+                                         "softmax_ce", remat=remat)
+        ts.optimizer.step(ts.trained, grads, ts.opt_state)
+        ts.install_stats(stats)
+
+    for k in range(2):
+        step(k)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in range(steps):
+            step(2 + k)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us, count = by_name.get(e.key, (0.0, 0))
+            by_name[e.key] = (us + e.self_device_time_total, count + e.count)
+    device_s = sum(us for us, _ in by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"steps": steps, "remat": remat, "wall_ms_per_step": wall_s / steps * 1e3,
+            "device_ms_per_step": device_s / steps * 1e3 if by_name else None,
+            "device_busy_share": device_s / wall_s if by_name else None,
+            "kernels_per_step": sum(c for _, c in by_name.values()) / steps,
+            "top_kernels": [{"name": k[:80], "ms_per_step": us / 1e3 / steps,
+                             "count_per_step": c / steps} for k, (us, c) in top]}
+
+
+def train_resnet50() -> dict:
+    """Item b: bench_trainer's ResNet-50 fine-tune, 2 epochs of 8 steps."""
+    from mmlspark_tpu_torch.nn import ModelBundle
+
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 256, size=(RESNET_ROWS, RESNET_SIDE, RESNET_SIDE, 3), dtype=np.uint8)
+    y = rng.integers(0, 10, size=RESNET_ROWS).astype(np.float64)
+    bundle = ModelBundle.init("resnet50", x.shape[1:], seed=0, num_outputs=10,
+                              dtype="bfloat16")
+    est = _learner(architecture="resnet50", batch_size=RESNET_BATCH, epochs=RESNET_EPOCHS)
+    model, seconds = _fit(est, x, y, bundle)
+    assert all(np.isfinite(est.epoch_losses)), est.epoch_losses
+    moved = _leaf_gaps(bundle.variables["batch_stats"], model.bundle.variables["batch_stats"])
+    still = [k for k, v in moved.items() if v == 0.0]
+    assert not still, f"BatchNorm statistics that did not move: {still[:5]}"
+    images = RESNET_EPOCHS * (RESNET_ROWS // RESNET_BATCH) * RESNET_BATCH
+    doc = {"rows": RESNET_ROWS, "side": RESNET_SIDE, "batch": RESNET_BATCH,
+           "epochs": RESNET_EPOCHS, "seconds": seconds, "epoch_seconds": est.epoch_seconds,
+           "epoch_losses": est.epoch_losses, "images_per_s": images / seconds,
+           "steady_images_per_s": images / RESNET_EPOCHS / est.epoch_seconds[-1],
+           "batch_stats_leaves_moved": len(moved),
+           "profile": profile_train_steps(bundle, x, y, RESNET_BATCH, steps=2)}
+    print(f"slice_train resnet50: {images / seconds:.1f} images/s, "
+          f"epoch losses {est.epoch_losses}", flush=True)
+    return doc
+
+
+def small_train_data():
+    return banded_tokens(SMALL_TRAIN_ROWS, SMALL_TRAIN_TOKENS, SMALL_TRAIN["vocab_size"],
+                         SMALL_TRAIN["num_outputs"], seed=23)
+
+
+def small_train_bundle():
+    from mmlspark_tpu_torch.nn import ModelBundle
+
+    return ModelBundle.init("transformer", (SMALL_TRAIN_TOKENS,), seed=1, **SMALL_TRAIN)
+
+
+def _small_params(**over) -> dict:
+    return {"architecture": "transformer", "batch_size": SMALL_TRAIN_BATCH, "epochs": 2,
+            "bfloat16": False, "seed": 4, **over}
+
+
+def first_step_grads(bundle, x, y, device: str) -> dict:
+    """The first step's gradients of DNNLearner(_small_params()) on
+    `device`: its first shuffled batch and step key."""
+    import copy
+
+    from mmlspark_tpu_torch.core import prng
+    from mmlspark_tpu_torch.nn.optim import Optimizer
+    from mmlspark_tpu_torch.nn.runner import _to_device
+    from mmlspark_tpu_torch.nn.trainer import TrainState, loss_and_grads
+
+    p = _small_params()
+    rows = np.random.default_rng(p["seed"]).permutation(len(x))[:p["batch_size"]]
+    ts = TrainState(copy.deepcopy(bundle.module).to(device), Optimizer("adam", 1e-3))
+    key = prng.fold_in(prng.fold_in(prng.prng_key(p["seed"] + 1), 0), 0)
+    _, grads, _ = loss_and_grads(ts, _to_device(x[rows], torch.device(device)),
+                                 _to_device(y[rows], torch.device(device)), key, "softmax_ce")
+    return {n: g.cpu() for n, g in zip(ts.trained_names, grads)}
+
+
+def train_cpu_vs_card() -> dict:
+    """Item c: the small f32 flash transformer from one bundle on "cpu" and
+    "cuda": the first step's gradients at the flash gradient gate, and the
+    parameters after 2 epochs within FIT_GAP of each leaf's largest."""
+    x, y = small_train_data()
+    bundle = small_train_bundle()
+    g_cpu, g_card = (first_step_grads(bundle, x, y, d) for d in ("cpu", "cuda"))
+    grad_gap = 0.0
+    for name, g in g_cpu.items():
+        torch.testing.assert_close(g_card[name], g, atol=GRAD_ATOL, rtol=GRAD_RTOL,
+                                   msg=lambda m: f"first-step gradient of {name}: {m}")
+        grad_gap = max(grad_gap, float((g_card[name] - g).abs().max()))
+    fits = {d: _fit(_learner(device=d, **_small_params()), x, y, bundle) for d in ("cpu", "cuda")}
+    gaps = _leaf_gaps(fits["cpu"][0].bundle.variables["params"],
+                      fits["cuda"][0].bundle.variables["params"])
+    worst = max(gaps, key=gaps.get)
+    assert gaps[worst] <= FIT_GAP, f"card and CPU fits part at {worst}: {gaps[worst]}"
+    print(f"slice_train cpu vs card: first-step gradients within {grad_gap:.3g}, "
+          f"largest parameter gap {gaps[worst]:.3g} of its leaf ({worst})", flush=True)
+    return {"first_step_grad_max_abs": grad_gap, "param_gap": gaps[worst],
+            "param_gap_leaf": worst, "cpu_seconds": fits["cpu"][1],
+            "card_seconds": fits["cuda"][1]}
+
+
+def trip_guard(after: int):
+    """A PreemptionGuard that drains after its `after`-th step-boundary poll."""
+    from mmlspark_tpu_torch.resilience.elastic import PreemptionGuard
+
+    class Trip(PreemptionGuard):
+        polls = 0
+
+        def should_checkpoint(self) -> bool:
+            self.polls += 1
+            if self.polls >= after:
+                self.request_drain("chip-smoke-trip")
+            return super().should_checkpoint()
+
+    return Trip(install=False)
+
+
+def train_fused_and_resumed() -> dict:
+    """Item d: on the card, fused epochs equal streamed ones, and a fit
+    preempted at an epoch boundary or mid-epoch and resumed equals the
+    uninterrupted fit, byte for byte (flax_blob.to_bytes of the
+    variables)."""
+    from mmlspark_tpu_torch.nn import flax_blob
+    from mmlspark_tpu_torch.resilience.elastic import Preempted, set_active_guard
+
+    x, y = small_train_data()
+    bundle = small_train_bundle()
+    ck = ROOT / "build" / "chip_smoke_train"
+
+    def fit(**over):
+        model, _ = _fit(_learner(**_small_params(**over)), x, y, bundle)
+        return flax_blob.to_bytes(model.bundle.variables)
+
+    def preempted(trip, **over):
+        shutil.rmtree(ck, ignore_errors=True)
+        set_active_guard(trip_guard(trip))
+        try:
+            fit(checkpoint_dir=str(ck), **over)
+            raise AssertionError(f"the fit was not preempted at poll {trip}")
+        except Preempted:
+            pass
+        finally:
+            set_active_guard(None)
+        resumed = fit(checkpoint_dir=str(ck), **over)
+        shutil.rmtree(ck, ignore_errors=True)
+        return resumed
+
+    fused, streamed = fit(), fit(fused_epochs=False)
+    assert fused == streamed, "fused and streamed epochs gave different bytes"
+    # the fused path polls once an epoch: trip 1 drains after epoch 1; the
+    # streamed path polls after every step: trip 5 drains mid-epoch 1
+    boundary = preempted(1)
+    mid = preempted(5, fused_epochs=False)
+    assert boundary == fused, "the epoch-boundary resume parted from the uninterrupted fit"
+    assert mid == fused, "the mid-epoch resume parted from the uninterrupted fit"
+    print("slice_train fused = streamed = resumed at an epoch boundary = resumed mid-epoch",
+          flush=True)
+    return {"fused_equals_streamed": True, "epoch_boundary_resume_equal": True,
+            "mid_epoch_resume_equal": True, "variables_bytes": len(fused)}
+
+
+def dnn_mesh_job(x, y, variables, ranks: int) -> dict:
+    """Run on every rank of a RankPool: DNNLearner(use_mesh=True) on the
+    card over the pool's mesh of `ranks` shards (one epoch of the small
+    transformer); this rank's trained params."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.nn import DNNLearner, ModelBundle
+    from mmlspark_tpu_torch.parallel import get_mesh
+
+    assert get_mesh().size == ranks
+    est = DNNLearner(use_mesh=True, **_small_params(epochs=1))
+    est.init_bundle = ModelBundle("transformer", dict(SMALL_TRAIN), variables,
+                                  (SMALL_TRAIN_TOKENS,))
+    return est.fit(Table({"features": x, "label": y})).bundle.variables["params"]
+
+
+def train_data_parallel() -> dict:
+    """Item e: 2 gloo ranks sharing the card, one epoch of the small
+    transformer: both ranks hold the same bytes, within FIT_GAP of the
+    one-device fit."""
+    from mmlspark_tpu_torch.nn import flax_blob
+    from mmlspark_tpu_torch.parallel import RankPool
+
+    x, y = small_train_data()
+    bundle = small_train_bundle()
+    work = ROOT / "build" / "chip_smoke_train_mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    with RankPool(2, backend="gloo", workdir=str(work), timeout_s=600) as pool:
+        spawn_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = pool.run(dnn_mesh_job, x, y, bundle.variables, 2, deadline_s=600)
+        mesh_s = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    assert flax_blob.to_bytes(ranks[0]) == flax_blob.to_bytes(ranks[1]), \
+        "the two ranks hold different parameters"
+    single, _ = _fit(_learner(**_small_params(epochs=1)), x, y, bundle)
+    gaps = _leaf_gaps(single.bundle.variables["params"], ranks[0])
+    worst = max(gaps, key=gaps.get)
+    assert gaps[worst] <= FIT_GAP, f"the mesh fit parts from the one-device fit at {worst}"
+    print(f"slice_train 2 gloo ranks: equal parameters, {gaps[worst]:.3g} of its leaf "
+          f"from the one-device fit ({worst})", flush=True)
+    return {"ranks": 2, "spawn_seconds": spawn_s, "mesh_fit_seconds": mesh_s,
+            "ranks_equal": True, "param_gap_to_one_device": gaps[worst],
+            "param_gap_leaf": worst}
+
+
+def train_flash_rows() -> list:
+    """Item f: K2 forward + the ported backward (FlashAttention) against the
+    plain forward + the same backward, and SDPA's forward + backward as the
+    library yardstick, at TRAIN_FLASH_SHAPES: dq, dk, dv errors and median
+    ms of each. The bound: bytes of the forward (q, k, v read, out and lse
+    written) and of the backward (q, k, v, out, do and lse read, dq, dk, dv
+    written) at the card's memory rate; operations of the forward's two
+    products and the backward's five (2.5 times the forward's) at the
+    dtype's tensor-core rate (bf16 989 TFLOP/s; f32 as 3xTF32 at 495)."""
+    import torch.nn.functional as F
+
+    from mmlspark_tpu_torch.nn.attention import (FlashAttention, flash_attention,
+                                                 flash_attention_bwd_torch,
+                                                 flash_attention_torch)
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal):
+            out, lse = flash_attention_torch(q, k, v, causal)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.causal = causal
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            return (*flash_attention_bwd_torch(*ctx.saved_tensors, do, ctx.causal), None)
+
+    rows = []
+    for i, (name, b, t, h, d, dt, causal) in enumerate(TRAIN_FLASH_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(300 + i)
+        q, k, v, do = (torch.randn((b, t, h, d), generator=g, device="cuda").to(dt)
+                       for _ in range(4))
+        q, k, v = (a.requires_grad_(True) for a in (q, k, v))
+
+        def fwd_bwd(fn):
+            out = fn(q, k, v, causal)
+            return torch.autograd.grad(out, (q, k, v), do)
+
+        kern = fwd_bwd(lambda *a: FlashAttention.apply(*a, 128, 128))
+        path = flash_attention.last_path
+        plain = fwd_bwd(Plain.apply)
+        atol, rtol = TRAIN_FLASH_TOL[dt]
+        errs = {}
+        for gname, a, p in zip(("dq", "dk", "dv"), kern, plain):
+            torch.testing.assert_close(a.float(), p.float(), atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{name} {gname}: {m}")
+            errs[gname] = float((a.float() - p.float()).abs().max())
+        ms = median_ms(lambda: fwd_bwd(lambda *a: FlashAttention.apply(*a, 128, 128)),
+                       reps=10, warmup=2)
+        plain_ms = median_ms(lambda: fwd_bwd(Plain.apply), reps=5, warmup=1)
+        qt, kt, vt = (a.detach().transpose(1, 2).contiguous().requires_grad_(True)
+                      for a in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        library_ms = median_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), (qt, kt, vt), dot),
+            reps=10, warmup=2)
+        pairs = (sum(min(r + 1, t) for r in range(t)) if causal else t * t) * b * h
+        ops = 4 * pairs * d * 3.5          # forward 4 * pairs * d, backward 2.5 times it
+        item = q.element_size()
+        qkv = 3 * b * t * h * d * item
+        lse_bytes = b * h * t * 4
+        bytes_moved = (qkv + b * t * h * d * item + lse_bytes                 # forward
+                       + qkv + 2 * b * t * h * d * item + lse_bytes + qkv)    # backward
+        bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+        ops_ms = (ops / H100_BF16_OPS_PER_S if dt == torch.bfloat16
+                  else 3 * ops / H100_TF32_OPS_PER_S) * 1e3
+        rows.append({"shape": name, "B": b, "T": t, "H": h, "D": d,
+                     "dtype": str(dt).replace("torch.", ""), "causal": causal, "path": path,
+                     "max_abs_err": max(errs.values()), "grad_max_abs_err": errs,
+                     "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bytes": bytes_moved, "ops": ops,
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+        print(f"slice_train K2 fwd+bwd {name}: {ms:.3f} ms (plain {plain_ms:.3f}, "
+              f"SDPA {library_ms:.3f}, bound {max(bytes_ms, ops_ms):.3f})", flush=True)
+        del q, k, v, do, kern, plain, qt, kt, vt, dot
+    return rows
+
+
+def phase_slice_train() -> dict:
+    """DNN training through DNNLearner on the card (items a-f above)."""
+    t0 = time.perf_counter()
+    doc = {"phase": "slice_train", "transformer": {"config": TRAIN_TRANSFORMER,
+                                                   "rows": TRAIN_ROWS, "tokens": TRAIN_TOKENS,
+                                                   "batch": TRAIN_BATCH, **train_transformer()},
+           "resnet50": train_resnet50(), "cpu_vs_card": train_cpu_vs_card(),
+           "fused_and_resumed": train_fused_and_resumed(),
+           "data_parallel": train_data_parallel(), "flash_fwd_bwd": train_flash_rows()}
+    doc["seconds"] = time.perf_counter() - t0
+    emit(doc)
+    return doc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
@@ -2818,6 +3285,7 @@ def main() -> int:
     phase_profile_transformer(dnn["stage"], dnn["tokens"])
     phase_stage_roundtrip(dnn["stage"], dnn["tokens"])
     phase_slice_zoo()
+    train = phase_slice_train()
 
     main_shape = kern["histogram"][0]
     flash_main = kern["flash_attention"][0]
@@ -2830,6 +3298,8 @@ def main() -> int:
     wgmma_d192 = next(r for r in wgmma_wide_rows if r["shape"] == "d192_bf16")
     wide_rows = [r for r in kern["flash_attention"] if r["path"] == "wide"]
     wide_main = next(r for r in wide_rows if r["shape"] == "d192_f32")
+    train_k2 = train["transformer"]
+    train_main = train["flash_fwd_bwd"][0]
     emit({"kernels": [{
         "name": "histogram",
         "route": "cuda",
@@ -2951,6 +3421,27 @@ def main() -> int:
         "exp_ms": wide_main["exp_ms"],
         "shape": wide_main["shape"],
         "path": wide_main["path"],
+    }, {
+        # the same wrapper and TPU kernel, made differentiable: K2's forward
+        # and the port of _flash_bwd_xla (torch code, attention.py:246), with
+        # the launches of slice_train's fits (every layer of every step;
+        # twice a step under remat)
+        "name": "flash_attention_fwd_bwd",
+        "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/flash_attn.cu",
+        "replaces": "mmlspark_tpu/nn/attention.py:192",
+        "launches": train_k2["fit"]["flash_launches"] + train_k2["remat"]["flash_launches"],
+        "launches_by_fit": {"transformer": train_k2["fit"]["flash_launches"],
+                            "transformer_remat": train_k2["remat"]["flash_launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in train["flash_fwd_bwd"]),
+        "ms": train_main["ms"],
+        "plain_ms": train_main["plain_ms"],
+        "bound_ms": train_main["bound_ms"],
+        "bound_by": train_main["bound_by"],
+        "library_ms": train_main["library_ms"],
+        "shape": train_main["shape"],
+        "path": train_main["path"],
+        "shapes": train["flash_fwd_bwd"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

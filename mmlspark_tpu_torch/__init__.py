@@ -13,7 +13,9 @@ voting-parallel fits over a mesh of processes), the mesh as a
 torch.distributed process group with its collectives and the bit-exact
 fixed-point merge (`parallel`), random draws equal to `jax.random`'s
 (`core.prng`), DNN serving through
-`DeepModelTransformer` with the flash-attention forward (`nn`), the
+`DeepModelTransformer` and DNN training through `DNNLearner` (data-parallel
+over the mesh too), with the flash-attention forward and its backward
+(`nn`), the
 pipeline core and async data plane (`core`), the checkpointer and its
 host chain (`resilience`, `observability`, `utils`), host native kernels
 (`native`) and classification metrics (`automl`). ROADMAP.md lists what

@@ -19,6 +19,11 @@ draws use, written from jax's own definitions (jax/_src/prng.py):
   not depend on n. The scheme with the flag off is not ported.
 - `uniform(key, shape)` is `jax.random.uniform(key, shape)` in float32:
   the word's top 23 bits as the mantissa of a float in [1, 2), minus 1.
+- `fold_in_static(key, data)` is flax's `_fold_in_static`
+  (flax/core/scope.py), which `make_rng` uses to derive a module's key
+  from its path and call count: `fold_in` of the first four bytes of the
+  SHA-1 of the strings and ints of `data` (flax_fix_rng_separator off,
+  flax's default).
 
 Keys are pairs of Python ints: choosing one launches nothing and reads
 nothing back. The draws run on the device they are asked for, as torch
@@ -30,11 +35,12 @@ bit for bit. The same threefry function runs on Python ints for the keys.
 
 from __future__ import annotations
 
+import hashlib
 import math
 
 import torch
 
-__all__ = ["Key", "prng_key", "fold_in", "random_bits", "uniform"]
+__all__ = ["Key", "prng_key", "fold_in", "fold_in_static", "random_bits", "uniform"]
 
 Key = tuple  # (k0, k1): two Python ints in [0, 2**32)
 
@@ -73,6 +79,21 @@ def prng_key(seed: int) -> Key:
 def fold_in(key: Key, data: int) -> Key:
     """`jax.random.fold_in(key, data)`; data is taken as a uint32."""
     return _threefry2x32(int(key[0]), int(key[1]), 0, int(data) & _M32)
+
+
+def fold_in_static(key: Key, data) -> Key:
+    """flax's `_fold_in_static(key, data)` for a tuple of strings and ints."""
+    if not data:
+        return key
+    m = hashlib.sha1()
+    for x in data:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        elif isinstance(x, int):
+            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
+        else:
+            raise ValueError(f"Expected int or string, got: {x}")
+    return fold_in(key, int.from_bytes(m.digest()[:4], byteorder="big"))
 
 
 def random_bits(key: Key, shape, device: "str | torch.device" = "cuda") -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Deep-model subsystem of the port: architectures, the ModelBundle
-container and batched inference (`DeepModelTransformer`), with the
-flash-attention forward (K2) as a hand-written CUDA kernel.
+container, batched inference (`DeepModelTransformer`) and training
+(`DNNLearner`, `DNNModel`; optax's optimizers in nn/optim.py), with the
+flash-attention forward (K2) as a hand-written CUDA kernel and its
+backward ported as torch code.
 
 Counterpart of mmlspark_tpu/nn/. Not ported yet (ROADMAP Queue 1, P4):
-the trainer (`DNNLearner`) and K2's backward, `ImageFeaturizer`, the
-model zoo and the weight importers.
+`ImageFeaturizer`, the model zoo and the weight importers.
 """
 
 from .models import (
@@ -19,6 +20,7 @@ from .models import (
     ModelBundle,
 )
 from .runner import DeepModelTransformer
+from .trainer import DNNLearner, DNNModel
 
 __all__ = [
     "MLP",
@@ -31,4 +33,6 @@ __all__ = [
     "make_model",
     "ModelBundle",
     "DeepModelTransformer",
+    "DNNLearner",
+    "DNNModel",
 ]

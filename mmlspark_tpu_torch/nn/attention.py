@@ -16,8 +16,14 @@ its (B, T, H, D) layout: q (B, Tq, H, D), k and v (B, Tk, H, D), output
   `flash_attention.launches` counts kernel launches,
   `flash_attention.launches_by_path` counts them by kernel, and
   `flash_attention.last_path` names the kernel of the last one ("tf32x3",
-  "wgmma", "mma" or "wide"). Forward only: the backward comes with the
-  trainer (ROADMAP Queue 1, P4 trainer item).
+  "wgmma", "mma" or "wide"). Differentiable: where q, k or v require grad
+  under grad mode it runs as `FlashAttention`, an autograd Function whose
+  forward is K2 (or its plain version on the CPU) and whose backward is
+  `flash_attention_bwd_torch`.
+- `flash_attention_bwd_torch`: the port of `_flash_bwd_xla`
+  (attention.py:246-298), the flash recomputation over key chunks driven
+  by the forward's logsumexp, in f32 torch ops (the JAX package runs it as
+  XLA, not as a Pallas kernel).
 - `flash_plan`: which kernel a (dtype, head dim, shape) takes on a card,
   at which built head dim, whether the inputs need a pad copy, and its
   query rows a block or work item.
@@ -26,7 +32,10 @@ its (B, T, H, D) layout: q (B, Tq, H, D), k and v (B, Tk, H, D), output
   (out, lse). The CPU tests use it, and chip_smoke.py holds the kernel
   against it on the card.
 - `SelfAttention`: the param-compatible self-attention module (query, key,
-  value, out with flax DenseGeneral layouts) with a selectable core.
+  value, out with flax DenseGeneral layouts) with a selectable core;
+  `MultiHeadDotProductAttention`, flax's dense module, with its attention
+  dropout in train mode (nn/layers.py `TrainMode`), masks bit for bit
+  flax's.
 """
 
 from __future__ import annotations
@@ -39,11 +48,12 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from ..core import kernels
-from .layers import Dense
+from ..core import kernels, prng
+from .layers import Dense, current_train_mode
 
 __all__ = ["dense_attention", "chunked_attention", "flash_attention",
-           "flash_attention_torch", "flash_plan", "FlashPlan", "SelfAttention",
+           "flash_attention_torch", "flash_attention_bwd_torch", "FlashAttention",
+           "flash_plan", "FlashPlan", "SelfAttention", "MultiHeadDotProductAttention",
            "HEAD_DIMS"]
 
 _NEG_INF = -1e30          # the TPU kernel's mask value: keeps exp/max NaN-free
@@ -159,12 +169,50 @@ def flash_attention_torch(q, k, v, causal: bool = False, block_q: int = 128,
     return out.to(q.dtype).permute(0, 2, 1, 3).contiguous(), lse
 
 
+def flash_attention_bwd_torch(q, k, v, out, lse, do, causal: bool = False,
+                              k_chunk: int = 128):
+    """K2's backward, the port of `_flash_bwd_xla` (attention.py:246-298):
+    the standard dV/dK/dQ recomputation over key chunks of `k_chunk`,
+    driven by the forward's per-row logsumexp `lse` (B, H, Tq), in f32
+    throughout. `lse` is +inf on fully masked rows (and for Tk = 0), so
+    p = exp(s - lse) vanishes there. Returns (dq, dk, dv) in q's, k's and
+    v's dtypes."""
+    f32 = torch.float32
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    scale = d ** -0.5
+    qf = q.permute(0, 2, 1, 3).to(f32)                # (B, H, Tq, D)
+    dof = do.permute(0, 2, 1, 3).to(f32)
+    of = out.permute(0, 2, 1, 3).to(f32)
+    delta = (dof * of).sum(-1)                        # (B, H, Tq)
+    kf = k.permute(0, 2, 1, 3).to(f32)                # (B, H, Tk, D)
+    vf = v.permute(0, 2, 1, 3).to(f32)
+    k_chunk = min(k_chunk, max(tk, 1))
+    qpos = torch.arange(tq, device=q.device)
+    dq = torch.zeros_like(qf)
+    dk = torch.empty_like(kf)
+    dv = torch.empty_like(vf)
+    for k0 in range(0, tk, k_chunk):
+        kb, vb = kf[:, :, k0:k0 + k_chunk], vf[:, :, k0:k0 + k_chunk]
+        s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
+        kpos = k0 + torch.arange(kb.shape[2], device=q.device)
+        # the JAX scan's padded key rows (kp >= tk) carry no keys here: a
+        # chunk ends at Tk, so only causality masks
+        if causal:
+            ok = qpos[:, None] >= kpos[None, :]
+            p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+        else:
+            p = torch.exp(s - lse[..., None])
+        dv[:, :, k0:k0 + k_chunk] = torch.matmul(p.transpose(-1, -2), dof)
+        dp = torch.matmul(dof, vb.transpose(-1, -2))
+        ds = p * (dp - delta[..., None])
+        dq += torch.matmul(ds, kb) * scale
+        dk[:, :, k0:k0 + k_chunk] = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return (dq.permute(0, 2, 1, 3).to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
 def _check(q, k, v) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention is forward-only in the port: its backward comes "
-            "with the trainer (ROADMAP Queue 1, 'P4: DNN' — trainer and the "
-            "K2 backward); call it under torch.no_grad()")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D (B, T, H, D)")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -323,11 +371,37 @@ def _flash_fwd_lse(q, k, v, causal: bool = False, block_q: int = 128,
     return (out[..., :d] if plan.pad else out), lse
 
 
+class FlashAttention(torch.autograd.Function):
+    """K2 made differentiable, the counterpart of `_flash_diff` and its
+    custom VJP (attention.py:301-317): the forward is `_flash_fwd_lse` (K2
+    on a CUDA tensor, its plain version on a CPU tensor) and saves
+    (q, k, v, out, lse), out in the input dtype and lse in f32, as the JAX
+    residuals are; the backward is `flash_attention_bwd_torch` over key
+    chunks of `block_k`. A recompute under torch.utils.checkpoint runs the
+    forward, and so launches K2, again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, block_q: int, block_k: int):
+        out, lse = _flash_fwd_lse(q, k, v, causal, block_q, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.block_k = causal, block_k
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_torch(q, k, v, out, lse, do, ctx.causal, ctx.block_k)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, causal: bool = False, block_q: int = 128,
                     block_k: int = 128):
-    """Flash attention forward, same contract as `dense_attention`: K2 on a
-    CUDA tensor, its plain version on a CPU tensor. Inputs that require
-    grad under grad mode raise NotImplementedError."""
+    """Flash attention, same contract as `dense_attention`: K2 on a CUDA
+    tensor, its plain version on a CPU tensor. Where q, k or v require grad
+    under grad mode it runs as `FlashAttention`, whose backward is the port
+    of `_flash_bwd_xla`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, block_q, block_k)
     return _flash_fwd_lse(q, k, v, causal, block_q, block_k)[0]
 
 
@@ -383,17 +457,31 @@ class SelfAttention(nn.Module):
 
 
 class MultiHeadDotProductAttention(SelfAttention):
-    """flax `nn.MultiHeadDotProductAttention` without mask or dropout: the
-    query is divided by sqrt(depth) before the score product and the softmax
-    runs in the compute dtype. TransformerEncoder(attention_impl="dense")
-    uses it; its parameters are SelfAttention's."""
+    """flax `nn.MultiHeadDotProductAttention` without mask: the query is
+    divided by sqrt(depth) before the score product and the softmax runs in
+    the compute dtype. TransformerEncoder(attention_impl="dense") uses it;
+    its parameters are SelfAttention's.
+
+    Under a `TrainMode` with `dropout_rate` > 0 the attention weights take
+    flax's dropout (`dot_product_attention_weights`, broadcast_dropout=True):
+    keep = uniform(key, (1, 1, Tq, Tk)) < 1 - rate, then w * (keep /
+    keep_prob) in the compute dtype, where key is what flax's
+    `make_rng("dropout")` gives this module (`TrainMode.make_rng`). The
+    mask is the same for every batch row and head."""
 
     def __init__(self, d_model: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout_rate: float = 0.0):
         super().__init__(d_model, num_heads, dtype, impl="dense")
+        self.dropout_rate = dropout_rate
 
     def attend(self, q, k, v):
         depth = torch.tensor(math.sqrt(q.shape[-1]), dtype=torch.float32)
         q = q / depth.to(q.dtype)
         w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        mode = current_train_mode()
+        if mode is not None and self.dropout_rate > 0.0:
+            keep_prob = 1.0 - self.dropout_rate
+            u = prng.uniform(mode.make_rng(self), (1, 1, *w.shape[-2:]), w.device)
+            keep = u < torch.tensor(keep_prob, dtype=torch.float32)
+            w = w * (keep.to(w.dtype) / torch.tensor(keep_prob, dtype=w.dtype))
         return torch.einsum("bhqk,bkhd->bqhd", w, v)

@@ -10,8 +10,9 @@ dtypes, so that the same weights give the same outputs:
   compute `dtype` at each use, as flax's `promote_dtype` does;
 - `LayerNorm` is flax's, not torch's: epsilon 1e-6, variance
   E[x^2] - E[x]^2 clipped at 0, statistics in f32 whatever the input;
-- `BatchNorm` is the eval-mode normalisation with epsilon 1e-5 and the
-  stored statistics;
+- `BatchNorm` normalises by the stored statistics (epsilon 1e-5), or
+  under a `TrainMode` by the batch's, as flax's
+  `BatchNorm(use_running_average=False)` does;
 - `Embed` gathers like `jnp.take`'s default "fill" mode: ids in
   [-V, 0) wrap, ids outside [-V, V) give NaN rows instead of raising;
 - `Conv` takes and returns NHWC (the JAX package's layout) and keeps
@@ -22,19 +23,72 @@ Torch's promotion rules match JAX's for every mix used here (bf16 op f32
 term for term.
 
 Each layer names its flax leaves: `flax_leaves()` gives them in the flax
-layout (numpy) and `load_flax_leaves()` installs them. nn/carry.py walks a
-model with these two; it is the one place that converts layouts.
+layout (numpy) and `load_flax_leaves()` installs them, and `flax_names`
+maps its parameters to their leaves. nn/carry.py walks a model with these;
+it is the one place that converts layouts.
+
+`TrainMode` is the counterpart of flax's `train=True` with
+`mutable=["batch_stats"]` and a "dropout" rng: while one is active
+(`with TrainMode(model, key):`), `BatchNorm` normalises by the batch's
+moments and records its new running statistics in `mode.stats` instead of
+changing its buffers, and attention dropout draws its masks from
+`mode.make_rng`. A forward recomputed under torch.utils.checkpoint runs in
+a mode of its own, with the same key, so it draws the same masks and
+leaves the first run's statistics alone.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..core import prng
+
 __all__ = ["Dense", "LayerNorm", "Embed", "Conv", "BatchNorm", "same_padding",
-           "max_pool"]
+           "max_pool", "TrainMode", "current_train_mode"]
+
+_ACTIVE = threading.local()
+
+
+class TrainMode:
+    """A train-mode forward's state: the step's "dropout" key, the mesh
+    whose shards hold the global batch (None: one device), and the new
+    BatchNorm statistics it records (`stats`: module -> (mean, var), f32,
+    detached)."""
+
+    def __init__(self, model: nn.Module, key, mesh=None):
+        self.model = model
+        self.key = key
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.stats: dict = {}
+        self._paths: "dict | None" = None
+        self._rng_calls: dict = {}
+
+    def make_rng(self, module: nn.Module):
+        """flax's `make_rng("dropout")` in `module`: the step's key folded
+        (`fold_in_static`) with the module's path and its count of calls."""
+        if self._paths is None:
+            self._paths = {id(m): tuple(n.split(".")) if n else ()
+                           for n, m in self.model.named_modules()}
+        path = self._paths[id(module)]
+        calls = self._rng_calls[path] = self._rng_calls.get(path, 0) + 1
+        return prng.fold_in_static(self.key, path + (calls,))
+
+    def __enter__(self) -> "TrainMode":
+        self._prior = getattr(_ACTIVE, "mode", None)
+        _ACTIVE.mode = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _ACTIVE.mode = self._prior
+
+
+def current_train_mode() -> "TrainMode | None":
+    return getattr(_ACTIVE, "mode", None)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -52,6 +106,8 @@ class Dense(nn.Module):
     The weight is (out, in), torch's layout. `kernel_shape`/`bias_shape`
     are the flax leaves' shapes (a DenseGeneral's (D, H, D/H) or
     (H, D/H, D)), which the carry reshapes to and from."""
+
+    flax_names = {"weight": "kernel", "bias": "bias"}
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32, use_bias: bool = True,
@@ -88,6 +144,8 @@ class LayerNorm(nn.Module):
     """flax `nn.LayerNorm` over the last axis (epsilon 1e-6, fast variance,
     f32 statistics); the output is cast to `dtype`."""
 
+    flax_names = {"weight": "scale", "bias": "bias"}
+
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  epsilon: float = 1e-6):
         super().__init__()
@@ -118,6 +176,8 @@ class LayerNorm(nn.Module):
 class Embed(nn.Module):
     """flax `nn.Embed`: rows of the (V, D) table cast to `dtype`, gathered
     as `jnp.take` does by default (see the module docstring)."""
+
+    flax_names = {"weight": "embedding"}
 
     def __init__(self, num_embeddings: int, features: int,
                  dtype: torch.dtype = torch.float32):
@@ -156,6 +216,8 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 class Conv(nn.Module):
     """flax `nn.Conv` with 'SAME' padding on NHWC input; weight OIHW."""
+
+    flax_names = {"weight": "kernel", "bias": "bias"}
 
     def __init__(self, in_features: int, features: int, kernel_size: tuple[int, int],
                  strides: tuple[int, int] = (1, 1), use_bias: bool = True,
@@ -196,7 +258,19 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax `nn.BatchNorm(use_running_average=True)` over the last axis."""
+    """flax `nn.BatchNorm` over the last axis: `use_running_average=True`
+    outside a `TrainMode`, False inside one.
+
+    In train mode the moments are flax's `_compute_stats`: E[x] and E[x^2]
+    over every axis but the last, in f32, var = max(0, E[x^2] - E[x]^2);
+    under a mesh of several shards the sums cover the global batch (one
+    `psum_autograd` of both). The new running statistics, momentum *
+    stored + (1 - momentum) * batch, go to `mode.stats`; the buffers stay
+    as they are until the trainer installs them."""
+
+    flax_names = {"weight": "scale", "bias": "bias"}
+
+    momentum = 0.99          # flax's default, which the JAX package's models keep
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  epsilon: float = 1e-5, scale_init_zero: bool = False):
@@ -210,10 +284,32 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x - self.running_mean
-        mul = torch.rsqrt(self.running_var + self.epsilon) * self.weight
+        mode = current_train_mode()
+        if mode is None:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean, var = self._batch_moments(x, mode.mesh)
+            m = self.momentum
+            mode.stats[self] = (m * self.running_mean + (1 - m) * mean.detach(),
+                                m * self.running_var + (1 - m) * var.detach())
+        y = x - mean
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
         y = y * mul + self.bias
         return y.to(self.dtype)
+
+    @staticmethod
+    def _batch_moments(x: torch.Tensor, mesh) -> tuple:
+        xf = x.float()
+        axes = tuple(range(x.dim() - 1))
+        if mesh is None:
+            mu, mu2 = xf.mean(axes), (xf * xf).mean(axes)
+        else:
+            from ..parallel.collectives import psum_autograd
+
+            count = x.numel() // x.shape[-1] * mesh.size
+            sums = psum_autograd(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]), mesh)
+            mu, mu2 = sums[0] / count, sums[1] / count
+        return mu, torch.clamp(mu2 - mu * mu, min=0.0)
 
     def flax_leaves(self) -> dict:
         return {("params", "scale"): _to_numpy(self.weight),

@@ -12,6 +12,11 @@ Torch needs input widths when a module is built, where flax infers them
 at the first call, so every architecture takes the per-example
 `input_shape` first.
 
+`train_forward` is the train-mode forward of every architecture, the
+counterpart of `module.apply(..., train=True, mutable=["batch_stats"],
+rngs={"dropout": key})`, optionally recomputed in the backward pass
+(`remat`, the counterpart of `jax.checkpoint`).
+
 `ModelBundle` keeps `variables` as the flax-layout tree of numpy arrays,
 and `save`/`load` write and read the JAX package's bundle file (an 8-byte
 header length, a JSON header, then the flax msgpack blob; nn/flax_blob.py)
@@ -29,10 +34,12 @@ import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import flax_blob
 from .attention import MultiHeadDotProductAttention, SelfAttention
-from .layers import BatchNorm, Conv, Dense, Embed, LayerNorm, _to_numpy, max_pool
+from .layers import (BatchNorm, Conv, Dense, Embed, LayerNorm, TrainMode, _to_numpy,
+                     max_pool)
 
 __all__ = [
     "MLP",
@@ -48,6 +55,7 @@ __all__ = [
     "ModelBundle",
     "Capture",
     "resolve_dtype",
+    "train_forward",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -258,8 +266,10 @@ class TransformerEncoder(_Model):
     """Pre-LN transformer encoder classifier over (batch, seq[, feat])
     inputs. Token ids embed through `embed` (vocab_size > 0); continuous
     inputs project through the `stem` Dense. attention_impl: "dense"
-    (flax MultiHeadDotProductAttention), "chunked", or "flash" (K2).
-    Sows `pooled_features`."""
+    (flax MultiHeadDotProductAttention, with attention dropout in train
+    mode), "chunked", or "flash" (K2). Sows `pooled_features`."""
+
+    flax_names = {"pos_embed": "pos_embed"}
 
     def __init__(self, input_shape: Sequence[int] = (), num_layers: int = 2,
                  d_model: int = 64, num_heads: int = 4, d_ff: int = 128,
@@ -276,7 +286,7 @@ class TransformerEncoder(_Model):
         self.num_layers = num_layers
         self.vocab_size = vocab_size
         self.max_len = max_len
-        self.dropout_rate = dropout_rate     # serving is eval: dropout is off
+        self.dropout_rate = dropout_rate     # attention dropout, train mode only
         if vocab_size > 0:
             self.embed = Embed(vocab_size, d_model, dt)
         else:
@@ -287,7 +297,7 @@ class TransformerEncoder(_Model):
         for i in range(num_layers):
             setattr(self, f"ln_attn_{i}", LayerNorm(d_model, dt))
             if attention_impl == "dense":
-                attn = MultiHeadDotProductAttention(d_model, num_heads, dt)
+                attn = MultiHeadDotProductAttention(d_model, num_heads, dt, dropout_rate)
             else:
                 attn = SelfAttention(d_model, num_heads, dt, impl=attention_impl)
             setattr(self, f"attn_{i}", attn)
@@ -340,6 +350,28 @@ def resnet50(input_shape: Sequence[int], num_outputs: int = 1000,
     return ResNet(input_shape, stage_sizes=(3, 4, 6, 3), num_filters=64,
                   bottleneck=True, stem_strides=2, num_outputs=num_outputs,
                   dtype=dtype)
+
+
+def train_forward(model: nn.Module, x: torch.Tensor, key, mesh=None,
+                  remat: bool = False) -> tuple:
+    """The train-mode forward of `model` on `x`: (logits, new batch
+    statistics as {BatchNorm module: (mean, var)}, empty without
+    BatchNorm). `key` is the step's "dropout" key (core/prng.py); `mesh`
+    makes BatchNorm's moments those of the global batch. `remat` recomputes
+    the forward in the backward pass (torch.utils.checkpoint, non-reentrant)
+    instead of keeping its activations; the recompute draws the same
+    dropout masks and its statistics are dropped, so the step's numbers
+    are those without remat."""
+    modes = []
+
+    def run(inp):
+        mode = TrainMode(model, key, mesh)
+        modes.append(mode)
+        with mode:
+            return model(inp)
+
+    out = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+    return out, modes[0].stats
 
 
 # name -> factory(input_shape, **config), the JAX package's registry

@@ -50,6 +50,7 @@ from .mesh import Mesh
 
 __all__ = [
     "psum",
+    "psum_autograd",
     "pmean",
     "pmax",
     "pmin",
@@ -112,6 +113,25 @@ def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The histogram all-reduce (LightGBM's socket reduce-scatter and
     allgather)."""
     return _all_reduce(x, mesh, dist.ReduceOp.SUM)
+
+
+class _PsumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return psum(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.contiguous(), ctx.mesh), None
+
+
+def psum_autograd(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """`psum` whose gradient is the psum of the shards' gradients: what XLA
+    differentiates through a reduction over a sharded axis (the trainer's
+    BatchNorm moments of the global batch). Every rank must run the
+    backward, in the same order."""
+    return x if mesh.size == 1 else _PsumGrad.apply(x, mesh)
 
 
 def pmean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -129,10 +129,13 @@ def test_wrapper_refusals():
         tatt.flash_attention(q.transpose(1, 3).contiguous().transpose(1, 3), k, v)
     with pytest.raises(ValueError, match="4-D"):
         tatt.flash_attention(q[0], k[0], v[0])
-    with pytest.raises(NotImplementedError, match="trainer"):
-        tatt.flash_attention(q.requires_grad_(), k, v)
+    # inputs that require grad run the differentiable K2 (FlashAttention),
+    # and its refusals hold there too
+    assert tatt.flash_attention(q.requires_grad_(), k, v).requires_grad
+    with pytest.raises(ValueError, match="one dtype"):
+        tatt.flash_attention(q, k.to(torch.bfloat16), v)
     with torch.no_grad():           # forward-only use of the same tensor is fine
-        tatt.flash_attention(q, k, v)
+        assert not tatt.flash_attention(q, k, v).requires_grad
     with pytest.raises(ValueError, match="unknown attention impl"):
         tatt.SelfAttention(8, 2, impl="nope")
 

@@ -512,8 +512,10 @@ def test_flash_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="head dim 0 is not a head dim"):
         att.flash_attention(q, q, q)
     q = torch.zeros((1, 8, 2, 16), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="trainer"):
-        att.flash_attention(q, q, q)
+    # inputs that require grad launch the differentiable K2 (FlashAttention)
+    assert att.flash_attention(q, q, q).requires_grad
+    assert att.flash_attention.launches == before + 1
+    before = att.flash_attention.launches
     with pytest.raises(ValueError, match="devices"):
         att.flash_attention(q.detach(), q.detach().cpu(), q.detach())
     flat = torch.zeros(8 * 2 * 16 + 1, dtype=torch.bfloat16, device=cuda)
@@ -643,3 +645,51 @@ def test_two_rank_gloo_mesh_fit_on_the_card_agrees_with_the_one_device_fit(cuda,
     parity = chip_smoke.compare_fits(single, mesh, single.bin_mapper.transform(x), tol=1e-4)
     if parity["trees_compared"] < single.num_trees:
         np.testing.assert_allclose(mesh.predict(x), single.predict(x), rtol=1e-3, atol=1e-3)
+
+
+def test_dnn_fit_on_the_card_launches_k2_once_a_layer_a_step_and_tracks_the_cpu(cuda):
+    """A bf16 flash transformer at head dim 64 trains on the card: K2 runs
+    every layer's forward of every step on "wgmma" (twice under remat), the
+    losses are finite, and remat changes no bit. The same f32 fit on the
+    card and on the CPU (one initial bundle, TF32 off) ends within 1e-3 of
+    each parameter leaf's largest magnitude."""
+    from mmlspark_tpu_torch.nn import DNNLearner, flax_blob
+
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 64, size=(64, 32))
+    y = (x[:, 0] >= 32).astype(np.float64)
+    cfg = dict(num_layers=2, d_model=128, num_heads=2, d_ff=256, vocab_size=64, max_len=32,
+               attention_impl="flash")
+    bundle = ModelBundle.init("transformer", (32,), seed=2, num_outputs=2, dtype="bfloat16",
+                              **cfg)
+    fits = {}
+    for remat in (False, True):
+        est = DNNLearner(architecture="transformer", epochs=2, batch_size=16, remat=remat,
+                         use_mesh=False, optimizer="adamw", learning_rate=1e-3)
+        est.init_bundle = bundle
+        att.flash_attention.launches, att.flash_attention.launches_by_path = 0, {}
+        fits[remat] = est.fit(Table({"features": x, "label": y}))
+        steps = 2 * 4
+        assert att.flash_attention.launches_by_path == {"wgmma": (2 if remat else 1) * steps * 2}
+        assert all(np.isfinite(est.epoch_losses))
+    assert flax_blob.to_bytes(fits[True].bundle.variables) == \
+        flax_blob.to_bytes(fits[False].bundle.variables)
+
+    f32 = ModelBundle.init("transformer", (32,), seed=2, num_outputs=2, **cfg)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        est = DNNLearner(architecture="transformer", epochs=2, batch_size=16, use_mesh=False,
+                         bfloat16=False, device=dev)
+        est.init_bundle = f32
+        out[dev] = est.fit(Table({"features": x, "label": y})).bundle.variables["params"]
+
+    def leaves(tree, prefix=()):
+        for k, v in tree.items():
+            yield from leaves(v, prefix + (k,)) if isinstance(v, dict) else [(prefix + (k,), v)]
+
+    card = dict(leaves(out["cuda"]))
+    for path, want in leaves(out["cpu"]):
+        if path[-2:] == ("key", "bias"):     # zero gradient in exact arithmetic
+            continue
+        gap = float(np.abs(card[path] - want).max())
+        assert gap <= 1e-3 * float(np.abs(want).max()) + 1e-6, (path, gap)

@@ -39,7 +39,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "mmlspark_tpu_torch.automl.metrics", "mmlspark_tpu_torch.nn.attention",
                    "mmlspark_tpu_torch.nn.models", "mmlspark_tpu_torch.nn.runner",
                    "mmlspark_tpu_torch.nn.carry", "mmlspark_tpu_torch.nn.flax_blob",
-                   "mmlspark_tpu_torch.nn.layers", "mmlspark_tpu_torch.core.dataplane",
+                   "mmlspark_tpu_torch.nn.layers", "mmlspark_tpu_torch.nn.trainer",
+                   "mmlspark_tpu_torch.nn.optim", "mmlspark_tpu_torch.core.dataplane",
                    "mmlspark_tpu_torch.observability.sanitizer",
                    "mmlspark_tpu_torch.observability.metrics",
                    "mmlspark_tpu_torch.observability.tracing",

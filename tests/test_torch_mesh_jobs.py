@@ -83,3 +83,21 @@ def fit_estimator(kind: str, x, y, params: dict, ranks, device="cpu"):
         model = est(use_mesh=True, device=device, **params).fit(
             Table({"features": x, "label": y}))
     return model.booster.to_text()
+
+
+def fit_dnn(x, y, params: dict, bundle: dict, ranks, device="cpu"):
+    """DNNLearner(use_mesh=True) under `use_mesh`, from the carried-over
+    bundle (architecture, config, variables, input_shape): this rank's
+    trained variables (flax layout, numpy)."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.nn import DNNLearner, ModelBundle
+    from mmlspark_tpu_torch.parallel.mesh import use_mesh
+
+    mesh = mesh_of(ranks)
+    if not mesh.is_member:
+        return None
+    est = DNNLearner(use_mesh=True, device=device, architecture=bundle["architecture"],
+                     **params)
+    est.init_bundle = ModelBundle(**bundle)
+    with use_mesh(mesh):
+        return est.fit(Table({"features": x, "label": y})).bundle.variables
