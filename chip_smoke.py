@@ -25,7 +25,11 @@ DeepModelTransformer serving 1,024 rows x 512 token ids through bench.py's
 accelerator transformer (8 layers, d_model 512, 8 heads, vocab 16,384) with
 attention_impl="flash", in bf16 and in f32, through two small bf16
 transformers (head dims 16 and 8) and through a BERT-base-wide one (head
-dim 192), and DNNLearner training that transformer and ResNet-50 — and
+dim 192), transfer learning (an image chain on ImageTransformer,
+torchvision-named ResNet-50 weights imported through ModelDownloader and
+featurized at 224 by ImageFeaturizer, an encoder at BERT-base's widths
+imported and served), and DNNLearner training that transformer and
+ResNet-50 — and
 shows through the kernels' launch counters that each path ran on its
 kernel. It prints one JSON line per phase:
 
@@ -166,7 +170,25 @@ kernel. It prints one JSON line per phase:
                GEMMs' share of device time, device busy share
   stage_roundtrip  the serving stage saved and loaded through
                core.serialize serves the same logits
-  slice_zoo    model_zoo/resnet20_digits.model on the card against the CPU
+  slice_zoo    model_zoo/resnet20_digits through ModelDownloader (its
+               index.json sha256 checked) on the card against the CPU
+  slice_featurize  transfer learning: (a) 512 seeded uint8 images of 256 x
+               256 through ImageTransformer's resize(224) -> crop(192) ->
+               flip -> gray -> blur(3) -> gaussian(5) -> threshold(100) on
+               the card and the CPU (1e-3 before the threshold; equal past
+               its edge), the chain's and the resize's ms, UnrollImage's
+               shape; (b) tests/test_import_weights.py's torchvision-named
+               ResNet-50 through ModelDownloader.import_external ->
+               load_bundle, its logits held to the committed fixture on
+               the card, then ImageFeaturizer (pooled_features, minibatch
+               64) over the 512 images resized to 224 on the card: (512,
+               2048) finite, 8 images card = CPU within 1e-4 of the
+               largest, images/s; (c) the tiny imported encoder held to
+               its fixture (dense and flash), then an encoder at
+               BERT-base's published widths imported with 12 heads, flash,
+               bf16: 1,024 x 512 tokens, exactly 192 K2 launches on
+               "wgmma", tokens/s; its weights in f32, card = CPU on 4 x 128
+               tokens (K2 on "tf32x3")
   slice_train  DNN training through DNNLearner: bench.py's transformer at
                its training width (8 layers, d_model 512, flash core in
                bf16, adamw, 32 x 512 tokens a step), 3 epochs of 32 steps
@@ -663,7 +685,9 @@ def hist_empty_launch_ms() -> dict:
 # bf16 runs them on "wgmma" (64-row items: too few 128-row ones to fill
 # the card), f32 on "wide". d192_b16 has 256 items of 128 rows, so wgmma
 # takes them with two consumer warpgroups. d320 (d_model 1,280 over 4
-# heads) takes "wide" in both dtypes.
+# heads) takes "wide" in both dtypes. "bert_bf16" is slice_featurize's
+# imported BERT-base-wide encoder (d_model 768 over its 12 heads) at its
+# minibatch of 64 rows x 512 tokens: wgmma at D 64.
 FLASH_SHAPES = [
     ("slice_bf16", 64, 512, 512, 8, 64, torch.bfloat16, False),
     ("slice_f32", 64, 512, 512, 8, 64, torch.float32, False),
@@ -688,6 +712,7 @@ FLASH_SHAPES = [
     ("d192_b16_bf16", 16, 512, 512, 4, 192, torch.bfloat16, False),
     ("d320_bf16", 4, 512, 512, 4, 320, torch.bfloat16, False),
     ("d320_f32", 4, 512, 512, 4, 320, torch.float32, False),
+    ("bert_bf16", 64, 512, 512, 12, 64, torch.bfloat16, False),
 ]
 
 
@@ -2761,12 +2786,13 @@ def phase_stage_roundtrip(stage, x) -> dict:
 
 
 def phase_slice_zoo() -> dict:
-    """model_zoo/resnet20_digits.model through the port's ModelBundle.load,
-    the 1,797 digits images served on the card and on the CPU."""
+    """model_zoo/resnet20_digits through the port's ModelDownloader (which
+    checks the sha256 that model_zoo/index.json records), the 1,797 digits
+    images served on the card and on the CPU."""
     from mmlspark_tpu_torch.core import Table
-    from mmlspark_tpu_torch.nn import DeepModelTransformer, ModelBundle
+    from mmlspark_tpu_torch.nn import DeepModelTransformer, ModelDownloader
 
-    bundle = ModelBundle.load(str(ROOT / "model_zoo" / "resnet20_digits.model"))
+    bundle = ModelDownloader(str(ROOT / "model_zoo")).load_bundle("resnet20_digits")
     data = np.loadtxt(ROOT / "tests" / "benchmarks" / "data" / "digits.csv",
                       delimiter=",", skiprows=1)
     y = data[:, 0]
@@ -2791,6 +2817,285 @@ def phase_slice_zoo() -> dict:
     emit(doc)
     return doc
 
+
+
+# ---- slice_featurize: transfer learning on the card ---- #
+
+FEATURIZE_IMAGES, FEATURIZE_SIZE, FEATURIZE_BATCH = 512, 256, 64
+# BERT-base's published widths (Devlin et al. 2018; google-research/bert's
+# bert_config.json for uncased_L-12_H-768_A-12): 12 layers, hidden 768, 12
+# heads, intermediate 3,072, vocabulary 30,522, 512 positions; 2 outputs
+BERT_BASE = {"num_layers": 12, "d_model": 768, "num_heads": 12, "d_ff": 3072,
+             "vocab_size": 30522, "max_len": 512, "num_outputs": 2}
+BERT_ROWS, BERT_TOKENS, BERT_BATCH = 1024, 512, 64
+
+
+def reference_import_tests():
+    """tests/test_import_weights.py, loaded by path for its manifests and
+    seeded state dicts (it imports only json, os, numpy and pytest at
+    module level, and nothing of the JAX package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "reference_import_weights_tests", ROOT / "tests" / "test_import_weights.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    leaked = {"jax", "jaxlib", "flax", "mmlspark_tpu"} & set(sys.modules)
+    assert not leaked, f"{spec.origin} imported {sorted(leaked)}: copy its builders here"
+    return mod
+
+
+def bert_base_state_dict(ref, seed: int = 12) -> dict:
+    """An HF-style encoder state dict with `transformer_manifest`'s names
+    and shapes, each of its tiny widths replaced by BERT-base's and its
+    layer-0 tensors repeated for 12 layers: every tensor N(0, 0.02) (BERT's
+    initializer range), LayerNorm weights 1 + N(0, 0.02)."""
+    widths = {ref.T_VOCAB: BERT_BASE["vocab_size"], ref.T_DMODEL: BERT_BASE["d_model"],
+              ref.T_DFF: BERT_BASE["d_ff"], ref.T_MAXLEN: BERT_BASE["max_len"],
+              ref.T_OUT: BERT_BASE["num_outputs"]}
+    assert len(widths) == 5, "the tiny manifest's widths must be distinct"
+    manifest = {}
+    for name, shape in ref.transformer_manifest().items():
+        shape = tuple(widths[d] for d in shape)
+        if name.startswith("encoder.layer.0."):
+            for i in range(BERT_BASE["num_layers"]):
+                manifest[name.replace("encoder.layer.0.", f"encoder.layer.{i}.")] = shape
+        elif not name.startswith("encoder.layer."):
+            manifest[name] = shape
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, shape in manifest.items():
+        w = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+        if name.endswith("ln.weight") or name == "final_layer_norm.weight":
+            w += np.float32(1.0)
+        sd[name] = w
+    return sd
+
+
+def _featurize_chain(device: str):
+    from mmlspark_tpu_torch.image import ImageTransformer
+
+    return (ImageTransformer(device=device).resize(224, 224).crop(16, 16, 192, 192).flip(1)
+            .gray(keep_channels=True).blur(3, 3).gaussian_kernel(5, 1.0))
+
+
+def featurize_image_chain(images: np.ndarray) -> dict:
+    """(a) The image chain over the 512 images on the card and the CPU: the
+    continuous ops (everything before the threshold) within 1e-3 on 0-255;
+    the threshold's output equal wherever its input lies more than 1e-3
+    from the threshold (a pixel that close may fall on either side)."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.image import UnrollImage
+    from mmlspark_tpu_torch.image.ops import resize_nhwc, threshold_image
+
+    table = Table({"image": images})
+    card_chain = _featurize_chain("cuda").threshold(100.0)
+    seconds = []
+    for _ in range(2):           # the first call, then a steady one
+        t0 = time.perf_counter()
+        card = card_chain.transform(table)
+        seconds.append(time.perf_counter() - t0)
+    card = np.asarray(card["image_out"])
+    card_before = np.asarray(_featurize_chain("cuda").transform(table)["image_out"])
+    t0 = time.perf_counter()
+    cpu_before = np.asarray(_featurize_chain("cpu").transform(table)["image_out"])
+    cpu_s = time.perf_counter() - t0
+    # the chain's last op on the CPU's values: the CPU chain's output
+    cpu = threshold_image(torch.from_numpy(cpu_before), 100.0).numpy()
+    continuous_gap = float(np.abs(card_before - cpu_before).max())
+    assert continuous_gap <= 1e-3, f"chain before the threshold: card - CPU {continuous_gap}"
+    near = np.abs(cpu_before - 100.0) <= 1e-3
+    assert card.shape == cpu.shape == (len(images), 192, 192, 3)
+    assert np.array_equal(card[~near], cpu[~near]), "threshold output differs off its edge"
+
+    x = torch.from_numpy(images).cuda().float()
+    resize_ms = median_ms(lambda: resize_nhwc(x, 224, 224), reps=20, warmup=3)
+    chain_ms = median_ms(lambda: card_chain.apply(x), reps=20, warmup=3)
+    unrolled = UnrollImage(input_col="image_out").transform(Table({"image_out": card}))
+    return {"chain_seconds_first_call": seconds[0], "chain_seconds": seconds[1],
+            "chain_cpu_seconds_before_threshold": cpu_s, "chain_device_ms": chain_ms,
+            "resize_ms": resize_ms, "resize_images_per_s": len(images) / (resize_ms / 1e3),
+            "card_vs_cpu_before_threshold_max_abs": continuous_gap,
+            "threshold_pixels_within_1e-3": int(near.sum()),
+            "threshold_pixels_differing": int((card != cpu).sum()),
+            "unroll_shape": list(np.asarray(unrolled["features"]).shape)}
+
+
+def featurize_resnet50(ref, images: np.ndarray, repo: Path) -> dict:
+    """(b) torchvision-named ResNet-50 weights imported through the zoo,
+    held to the JAX package's committed logits on the card, then
+    ImageFeaturizer over the 512 images (resized to 224 on the card)."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.nn import (DeepModelTransformer, ImageFeaturizer, ModelDownloader,
+                                       ModelSchema)
+
+    src = repo / "src" / "resnet50.npz"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(src, **ref.synthetic_state_dict())
+    zoo = ModelDownloader(str(repo / "zoo"))
+    t0 = time.perf_counter()
+    zoo.import_external(ModelSchema(name="resnet50_64", uri=str(src), architecture="resnet50",
+                                    input_shape=(64, 64, 3), num_outputs=1000))
+    bundle = zoo.load_bundle("resnet50_64")
+    import_s = time.perf_counter() - t0
+
+    # the committed activations: seed 42, 2 x 64 x 64 x 3 (the reference's gate)
+    x = np.random.default_rng(42).integers(0, 256, size=(2, 64, 64, 3)).astype(np.float32)
+    logits = np.asarray(DeepModelTransformer(
+        input_col="x", mini_batch_size=2, device="cuda",
+        fetch_dict={"l": "logits"}).set_model(bundle).transform(Table({"x": x}))["l"])
+    with open(ROOT / "tests" / "fixtures" / "imported_resnet50_logits.json") as fh:
+        want = np.asarray(json.load(fh)["logits_2x8"])
+    np.testing.assert_allclose(logits[:, :8], want, rtol=2e-3, atol=2e-4)
+    fixture_gap = float(np.abs(logits[:, :8] - want).max())
+
+    zoo.import_external(ModelSchema(name="resnet50_224", uri=str(src),
+                                    architecture="resnet50", input_shape=(224, 224, 3),
+                                    num_outputs=1000))
+    b224 = zoo.load_bundle("resnet50_224")
+    table = Table({"image": images})
+    stage = ImageFeaturizer(input_col="image", output_col="features",
+                            layer_name="pooled_features", mini_batch_size=FEATURIZE_BATCH,
+                            device="cuda").set_model(b224)
+    seconds = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = np.asarray(stage.transform(table)["features"])
+        seconds.append(time.perf_counter() - t0)
+    assert feats.shape == (FEATURIZE_IMAGES, 2048) and feats.dtype == np.float64
+    assert np.isfinite(feats).all()
+    # 8 images on the CPU (f32, TF32 off on the card)
+    cpu = np.asarray(ImageFeaturizer(input_col="image", output_col="features",
+                                     layer_name="pooled_features", mini_batch_size=8,
+                                     device="cpu").set_model(b224)
+                     .transform(Table({"image": images[:8]}))["features"])
+    gap = float(np.abs(feats[:8] - cpu).max())
+    scale = float(np.abs(cpu).max())
+    assert gap <= 1e-4 * scale, f"ResNet-50 features card - CPU {gap} of {scale}"
+    return {"import_and_load_seconds_64": import_s, "fixture_max_abs": fixture_gap,
+            "features_shape": list(feats.shape),
+            "featurize_seconds_first_call": seconds[0], "featurize_seconds": seconds[1],
+            "images_per_s_first_call": FEATURIZE_IMAGES / seconds[0],
+            "images_per_s": FEATURIZE_IMAGES / seconds[1],
+            "card_vs_cpu_8_images_max_abs": gap, "feature_max_abs": scale}
+
+
+def featurize_encoder(ref, repo: Path) -> dict:
+    """(c) The tiny imported encoder held to its committed logits on the
+    card under both attention cores; then BERT-base's widths imported with
+    12 heads, flash and bf16, serving 1,024 x 512 tokens (one K2 launch a
+    layer and minibatch, on "wgmma"); the imported weights in f32 on 4 x
+    128 tokens, card against CPU (K2 on "tf32x3")."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.nn import ModelDownloader, ModelSchema
+    from mmlspark_tpu_torch.nn.attention import flash_attention
+
+    zoo = ModelDownloader(str(repo / "zoo"))
+    tiny_src = repo / "src" / "tiny_encoder.npz"
+    np.savez(tiny_src, **ref.synthetic_transformer_state_dict())
+    zoo.import_external(ModelSchema(name="tiny_encoder", uri=str(tiny_src),
+                                    architecture="transformer",
+                                    extra={"config": {"num_heads": ref.T_HEADS}}))
+    tiny = zoo.load_bundle("tiny_encoder")
+    tokens = np.arange(2 * 12).reshape(2, 12) % ref.T_VOCAB
+    with open(ROOT / "tests" / "fixtures" / "imported_transformer_logits.json") as fh:
+        want = np.asarray(json.load(fh)["logits_2x3"])
+    tiny_gaps = {}
+    flash_attention.launches, flash_attention.launches_by_path = 0, {}
+    for impl in ("dense", "flash"):
+        _, out = _serve(_variant(tiny, attention_impl=impl), tokens, "cuda", 2)
+        got = np.asarray(out["logits"])
+        np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
+        tiny_gaps[impl] = float(np.abs(got - want).max())
+    # f32, head dim 4: one launch a layer on "tf32x3", none in the dense run
+    tiny_by_path = dict(flash_attention.launches_by_path)
+    assert tiny_by_path == {"tf32x3": 2}, tiny_by_path
+
+    t0 = time.perf_counter()
+    src = repo / "src" / "bert_base.npz"
+    np.savez(src, **bert_base_state_dict(ref))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zoo.import_external(ModelSchema(
+        name="bert_base_width", uri=str(src), architecture="transformer",
+        extra={"config": {"num_heads": BERT_BASE["num_heads"], "attention_impl": "flash",
+                          "dtype": "bfloat16"}}))
+    bundle = zoo.load_bundle("bert_base_width")
+    import_s = time.perf_counter() - t0
+    assert {k: bundle.config[k] for k in BERT_BASE} == BERT_BASE, bundle.config
+
+    rows = np.random.default_rng(13).integers(0, BERT_BASE["vocab_size"],
+                                              size=(BERT_ROWS, BERT_TOKENS))
+    fetch = {"logits": "logits", "prob": "probability"}
+    stage, _ = _serve(bundle, rows[:BERT_BATCH], "cuda", BERT_BATCH, fetch)  # warm-up
+    torch.cuda.synchronize()
+    flash_attention.launches, flash_attention.launches_by_path = 0, {}
+    t0 = time.perf_counter()
+    out = stage.transform(Table({"tokens": rows}))
+    serve_s = time.perf_counter() - t0
+    launches, by_path = flash_attention.launches, dict(flash_attention.launches_by_path)
+    want_launches = BERT_ROWS // BERT_BATCH * BERT_BASE["num_layers"]
+    assert launches == want_launches, f"K2 launched {launches} times, want {want_launches}"
+    assert by_path == {"wgmma": want_launches}, by_path
+    logits, prob = np.asarray(out["logits"]), np.asarray(out["prob"])
+    assert logits.shape == prob.shape == (BERT_ROWS, BERT_BASE["num_outputs"])
+    assert np.isfinite(logits).all() and np.isfinite(prob).all()
+    assert np.allclose(prob.sum(-1), 1.0, atol=1e-5)
+    # the served bf16 logits of 4 rows against the same bundle's dense core
+    # in bf16 on the card: the attention core and the GEMMs' minibatch are
+    # all that differ, so the two agree within a bf16 ulp at the top of the
+    # logits (2**-7 of the largest), a small share of what bf16 itself moves
+    # them from f32
+    _, dense = _serve(_variant(bundle, attention_impl="dense"), rows[:4], "cuda", 4)
+    dense = np.asarray(dense["logits"])
+    bf16_gap = float(np.abs(logits[:4] - dense).max())
+    bf16_tol = 2.0 ** -7 * float(np.abs(dense).max())
+    assert bf16_gap <= bf16_tol, f"bf16 flash - dense logits {bf16_gap} > {bf16_tol}"
+
+    # the imported weights in f32: card against CPU on 4 rows x 128 tokens
+    f32 = _variant(bundle, dtype="float32")
+    short = rows[:4, :128]
+    flash_attention.launches, flash_attention.launches_by_path = 0, {}
+    _, card = _serve(f32, short, "cuda", 4)
+    f32_launches, f32_by_path = flash_attention.launches, dict(flash_attention.launches_by_path)
+    assert f32_by_path == {"tf32x3": BERT_BASE["num_layers"]}, f32_by_path
+    _, cpu = _serve(f32, short, "cpu", 4)
+    card, cpu = np.asarray(card["logits"]), np.asarray(cpu["logits"])
+    f32_gap = float(np.abs(card - cpu).max())
+    np.testing.assert_allclose(card, cpu, atol=1e-4, rtol=1e-4)
+    return {"tiny_fixture_max_abs": tiny_gaps, "tiny_flash_launches": tiny_by_path["tf32x3"],
+            "config": BERT_BASE,
+            "state_dict_write_seconds": write_s, "import_and_load_seconds": import_s,
+            "rows": BERT_ROWS, "tokens_per_row": BERT_TOKENS, "mini_batch_size": BERT_BATCH,
+            "serve_seconds": serve_s, "tokens_per_s": BERT_ROWS * BERT_TOKENS / serve_s,
+            "flash_launches": launches, "flash_launches_by_path": by_path,
+            "bf16_flash_vs_dense_max_abs_4_rows": bf16_gap, "bf16_flash_vs_dense_tol": bf16_tol,
+            "f32_flash_launches": f32_launches, "f32_card_vs_cpu_max_abs_4x128": f32_gap}
+
+
+def phase_slice_featurize() -> dict:
+    """Transfer learning through the entry points a user calls: the image
+    chain, ModelDownloader.import_external -> load_bundle ->
+    ImageFeaturizer at ResNet-50 224, and DeepModelTransformer over an
+    imported BERT-base-wide encoder (items a-c above). Writes and removes
+    build/chip_smoke_featurize/."""
+    t0 = time.perf_counter()
+    ref = reference_import_tests()
+    images = np.random.default_rng(16).integers(
+        0, 256, size=(FEATURIZE_IMAGES, FEATURIZE_SIZE, FEATURIZE_SIZE, 3), dtype=np.uint8)
+    repo = ROOT / "build" / "chip_smoke_featurize"
+    shutil.rmtree(repo, ignore_errors=True)
+    try:
+        doc = {"phase": "slice_featurize", "images": list(images.shape),
+               "image_chain": featurize_image_chain(images),
+               "resnet50": featurize_resnet50(ref, images, repo),
+               "encoder": featurize_encoder(ref, repo)}
+    finally:
+        shutil.rmtree(repo, ignore_errors=True)
+    doc["seconds"] = time.perf_counter() - t0
+    emit(doc)
+    return doc
 
 # ---- slice_train: DNN training through DNNLearner on the card ---- #
 
@@ -3285,6 +3590,7 @@ def main() -> int:
     phase_profile_transformer(dnn["stage"], dnn["tokens"])
     phase_stage_roundtrip(dnn["stage"], dnn["tokens"])
     phase_slice_zoo()
+    featurize = phase_slice_featurize()
     train = phase_slice_train()
 
     main_shape = kern["histogram"][0]
@@ -3296,6 +3602,7 @@ def main() -> int:
     wgmma_wide_rows = [r for r in kern["flash_attention"]
                        if r["path"] == "wgmma" and r["D"] > 128]
     wgmma_d192 = next(r for r in wgmma_wide_rows if r["shape"] == "d192_bf16")
+    bert_row = next(r for r in kern["flash_attention"] if r["shape"] == "bert_bf16")
     wide_rows = [r for r in kern["flash_attention"] if r["path"] == "wide"]
     wide_main = next(r for r in wide_rows if r["shape"] == "d192_f32")
     train_k2 = train["transformer"]
@@ -3351,11 +3658,14 @@ def main() -> int:
         "route": "cuda",
         "source": "mmlspark_tpu_torch/csrc/flash_attn.cu",
         "replaces": "mmlspark_tpu/nn/attention.py:192",
-        # the wgmma kernel: the bf16 serving transformer (D 64) and the
-        # bf16 wide transformer (D 192)
-        "launches": dnn["flash_launches"] + wide["bfloat16"]["flash_launches"],
+        # the wgmma kernel: the bf16 serving transformer (D 64), the bf16
+        # wide transformer (D 192) and the imported BERT-base-wide encoder
+        # (D 64)
+        "launches": (dnn["flash_launches"] + wide["bfloat16"]["flash_launches"]
+                     + featurize["encoder"]["flash_launches"]),
         "launches_by_phase": {"slice_transformer": dnn["flash_launches"],
-                              "serve_wide_bf16": wide["bfloat16"]["flash_launches"]},
+                              "serve_wide_bf16": wide["bfloat16"]["flash_launches"],
+                              "slice_featurize": featurize["encoder"]["flash_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern["flash_attention"]),
         "ms": flash_main["ms"],
         "plain_ms": flash_main["plain_ms"],
@@ -3364,6 +3674,10 @@ def main() -> int:
         "library_ms": flash_main["library_ms"],
         "shape": flash_main["shape"],
         "path": flash_main["path"],
+        # slice_featurize's launches, at the imported encoder's 12 heads
+        "featurize_row": {key: bert_row[key] for key in (
+            "shape", "H", "path", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")},
         # its rows above head dim 128, d192 (serve_wide's) first
         "wide_rows": [{key: r[key] for key in ("shape", "D", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms", "max_abs_err")}
@@ -3371,12 +3685,18 @@ def main() -> int:
         "shapes": kern["flash_attention"],
     }, {
         # the same wrapper and TPU kernel; the CUDA kernel every f32 bundle
-        # serves through, with its launches from the f32 serving run
+        # serves through, with its launches from the f32 serving run and
+        # slice_featurize's f32 encoders (the tiny imported one, and the
+        # BERT-base-wide one's card-vs-CPU check)
         "name": "flash_attention_tf32x3",
         "route": "cuda",
         "source": "mmlspark_tpu_torch/csrc/flash_attn.cu",
         "replaces": "mmlspark_tpu/nn/attention.py:192",
-        "launches": dnn["f32_flash_launches"],
+        "launches": (dnn["f32_flash_launches"] + featurize["encoder"]["tiny_flash_launches"]
+                     + featurize["encoder"]["f32_flash_launches"]),
+        "launches_by_phase": {"slice_transformer": dnn["f32_flash_launches"],
+                              "slice_featurize": featurize["encoder"]["tiny_flash_launches"]
+                              + featurize["encoder"]["f32_flash_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in f32_rows),
         "ms": f32_main["ms"],
         "plain_ms": f32_main["plain_ms"],

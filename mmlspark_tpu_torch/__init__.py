@@ -14,11 +14,13 @@ torch.distributed process group with its collectives and the bit-exact
 fixed-point merge (`parallel`), random draws equal to `jax.random`'s
 (`core.prng`), DNN serving through
 `DeepModelTransformer` and DNN training through `DNNLearner` (data-parallel
-over the mesh too), with the flash-attention forward and its backward
-(`nn`), the
+over the mesh too), with the flash-attention forward and its backward,
+transfer learning through `ImageFeaturizer` over checkpoints that the
+model zoo (`ModelDownloader`) imports (`nn`), the image pipeline
+(`image`: `ImageTransformer` on a port of `jax.image.resize`), the
 pipeline core and async data plane (`core`), the checkpointer and its
 host chain (`resilience`, `observability`, `utils`), host native kernels
-(`native`) and classification metrics (`automl`). ROADMAP.md lists what
+(`native`) and evaluation metrics (`automl`). ROADMAP.md lists what
 is still to come.
 """
 
@@ -31,8 +33,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("core", "gbdt", "automl", "native", "nn", "observability", "parallel",
-                "resilience", "utils")
+_SUBPACKAGES = ("core", "gbdt", "automl", "image", "native", "nn", "observability",
+                "parallel", "resilience", "utils")
 
 
 def __getattr__(name):

@@ -5,8 +5,10 @@ interpretation are later slices (ROADMAP.md, Queue 1)."""
 from .metrics import (
     MetricConstants,
     ComputeModelStatistics,
+    ComputePerInstanceStatistics,
     roc_curve,
     auc,
 )
 
-__all__ = ["MetricConstants", "ComputeModelStatistics", "roc_curve", "auc"]
+__all__ = ["MetricConstants", "ComputeModelStatistics", "ComputePerInstanceStatistics",
+           "roc_curve", "auc"]

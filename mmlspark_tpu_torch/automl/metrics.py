@@ -22,7 +22,8 @@ from ..core.pipeline import Transformer
 from ..core.schema import SCORE_KIND, Table
 from ..core.serialize import register_stage
 
-__all__ = ["MetricConstants", "ComputeModelStatistics", "roc_curve", "auc"]
+__all__ = ["MetricConstants", "ComputeModelStatistics", "ComputePerInstanceStatistics",
+           "roc_curve", "auc"]
 
 
 class MetricConstants:
@@ -207,3 +208,58 @@ class ComputeModelStatistics(Transformer):
             MetricConstants.R2: r2,
             MetricConstants.MAE: mae,
         }])
+
+
+@register_stage
+class ComputePerInstanceStatistics(Transformer):
+    """Per-row metrics: L1/L2 loss for regression, log-loss for
+    classification. Reference ComputePerInstanceStatistics.scala:42+."""
+
+    label_col = Param("label", "true-label column", ptype=str)
+    scores_col = Param(None, "probability column (classification)", ptype=str)
+    scored_labels_col = Param("scored_labels", "prediction column", ptype=str)
+    evaluation_metric = Param("all", "classification | regression | all", ptype=str)
+
+    def _transform(self, table: Table) -> Table:
+        labels = np.asarray(table[self.get("label_col")], np.float64)
+        scores_col = self.get("scores_col")
+        if self.get("evaluation_metric") == "classification" and not (
+            scores_col and scores_col in table
+        ):
+            raise ValueError(
+                "ComputePerInstanceStatistics: classification mode requires "
+                "scores_col pointing at a probability column"
+            )
+        use_probs = (
+            scores_col
+            and scores_col in table
+            and self.get("evaluation_metric") != "regression"
+        )
+        if use_probs:
+            probs = np.asarray(table[scores_col], np.float64)
+            if probs.ndim == 1:  # binary: p(class 1)
+                probs = np.stack([1.0 - probs, probs], axis=1)
+            # column order comes from the model's class list when the scorer
+            # tagged it; a batch-local unique() would misalign whenever a
+            # class is absent from this batch
+            cls_meta = table.meta(scores_col).get("class_labels")
+            if cls_meta is not None:
+                classes = np.asarray(cls_meta, np.float64)
+            elif np.all(labels == np.round(labels)) and labels.min() >= 0 and (
+                labels.max() < probs.shape[1]
+            ):
+                classes = np.arange(probs.shape[1], dtype=np.float64)
+            else:
+                classes = np.unique(labels)
+            if np.setdiff1d(labels, classes).size:
+                raise ValueError(
+                    f"labels {np.setdiff1d(labels, classes)} not in class set {classes}"
+                )
+            idx = np.searchsorted(classes, labels)
+            p_true = np.clip(probs[np.arange(labels.size), idx], 1e-15, 1.0)
+            return table.with_column("log_loss", -np.log(p_true))
+        preds = np.asarray(table[self.get("scored_labels_col")], np.float64)
+        err = preds - labels
+        return table.with_column("L1_loss", np.abs(err)).with_column(
+            "L2_loss", err * err
+        )

@@ -20,7 +20,7 @@ import threading
 
 import numpy as np
 
-__all__ = ["available", "get_lib", "bin_numeric", "make_tree_predictor"]
+__all__ = ["available", "get_lib", "bin_numeric", "make_tree_predictor", "predict_trees"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "kernels.cpp")
@@ -183,3 +183,17 @@ def make_tree_predictor(feature: np.ndarray, threshold: np.ndarray,
 
     predict._keepalive = arrs  # the cached pointers must outlive the closure
     return predict
+
+
+def predict_trees(bins: np.ndarray, feature: np.ndarray, threshold: np.ndarray,
+                  is_cat: np.ndarray, left: np.ndarray, right: np.ndarray,
+                  value: np.ndarray, tree_class: np.ndarray, k: int,
+                  max_steps: int, init_score: float,
+                  cat_bitset: "np.ndarray | None" = None
+                  ) -> "np.ndarray | None":
+    """SoA tree-walk scoring; None when the native lib is unavailable.
+    cat_bitset: (T, M, Bc) bool left-subset masks for categorical nodes.
+    One-shot convenience over make_tree_predictor."""
+    fn = make_tree_predictor(feature, threshold, is_cat, left, right, value,
+                             tree_class, k, max_steps, init_score, cat_bitset)
+    return None if fn is None else fn(bins)

@@ -2,10 +2,11 @@
 container, batched inference (`DeepModelTransformer`) and training
 (`DNNLearner`, `DNNModel`; optax's optimizers in nn/optim.py), with the
 flash-attention forward (K2) as a hand-written CUDA kernel and its
-backward ported as torch code.
+backward ported as torch code; transfer-learning featurization
+(`ImageFeaturizer`), the model zoo (`ModelDownloader`) and the importers
+of torch-layout checkpoints (nn/import_weights.py).
 
-Counterpart of mmlspark_tpu/nn/. Not ported yet (ROADMAP Queue 1, P4):
-`ImageFeaturizer`, the model zoo and the weight importers.
+Counterpart of mmlspark_tpu/nn/.
 """
 
 from .models import (
@@ -21,6 +22,9 @@ from .models import (
 )
 from .runner import DeepModelTransformer
 from .trainer import DNNLearner, DNNModel
+from .featurizer import ImageFeaturizer
+from .zoo import ModelSchema, ModelDownloader, retry_with_timeout
+from .import_weights import import_external_weights
 
 __all__ = [
     "MLP",
@@ -35,4 +39,9 @@ __all__ = [
     "DeepModelTransformer",
     "DNNLearner",
     "DNNModel",
+    "ImageFeaturizer",
+    "ModelSchema",
+    "ModelDownloader",
+    "retry_with_timeout",
+    "import_external_weights",
 ]

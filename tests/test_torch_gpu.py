@@ -693,3 +693,51 @@ def test_dnn_fit_on_the_card_launches_k2_once_a_layer_a_step_and_tracks_the_cpu(
             continue
         gap = float(np.abs(card[path] - want).max())
         assert gap <= 1e-3 * float(np.abs(want).max()) + 1e-6, (path, gap)
+
+
+# the resize ratios of tests/test_torch_image_ops.py: 256 -> 224, 24 -> 16,
+# an upsample to 37 x 23, 300 -> 224
+RESIZE_RATIOS = [(256, 224, 224), (24, 16, 16), (16, 37, 23), (300, 224, 224)]
+
+
+@pytest.mark.parametrize("method", ["linear", "cubic", "lanczos3", "nearest"])
+@pytest.mark.parametrize("size,oh,ow", RESIZE_RATIOS,
+                         ids=[f"{r[0]}to{r[1]}x{r[2]}" for r in RESIZE_RATIOS])
+def test_resize_on_the_card_matches_the_cpu(cuda, size, oh, ow, method):
+    """The port of jax.image.resize on a CUDA tensor runs there (TF32 off:
+    f32 contractions) and gives the CPU's values within 1e-3 on 0-255;
+    "nearest" gathers the same pixels."""
+    from mmlspark_tpu_torch.image.ops import resize_nhwc
+
+    x = torch.from_numpy(np.random.default_rng(size).integers(
+        0, 256, size=(4, size, size, 3), dtype=np.uint8))
+    card = resize_nhwc(x.to(cuda), oh, ow, method)
+    assert card.is_cuda and card.shape == (4, oh, ow, 3)
+    cpu = resize_nhwc(x, oh, ow, method)
+    if method == "nearest":
+        assert torch.equal(card.cpu(), cpu)
+    else:
+        torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-3)
+
+
+def test_image_chain_on_the_card_matches_the_cpu(cuda):
+    """chip_smoke's slice_featurize chain on 16 images of 256 x 256: the
+    continuous ops within 1e-3 on 0-255; the threshold's output equal
+    wherever its input lies more than 1e-3 from the threshold."""
+    from mmlspark_tpu_torch.image import ImageTransformer
+
+    x = np.random.default_rng(16).integers(0, 256, size=(16, 256, 256, 3), dtype=np.uint8)
+
+    def chain(device, threshold=True):
+        t = (ImageTransformer(device=device).resize(224, 224).crop(16, 16, 192, 192).flip(1)
+             .gray(keep_channels=True).blur(3, 3).gaussian_kernel(5, 1.0))
+        if threshold:
+            t = t.threshold(100.0)
+        return np.asarray(t.transform(Table({"image": x}))["image_out"])
+
+    before = {d: chain(d, threshold=False) for d in ("cuda", "cpu")}
+    np.testing.assert_allclose(before["cuda"], before["cpu"], rtol=0, atol=1e-3)
+    card, cpu = chain("cuda"), chain("cpu")
+    assert card.shape == (16, 192, 192, 3)
+    near = np.abs(before["cpu"] - 100.0) <= 1e-3
+    assert np.array_equal(card[~near], cpu[~near])

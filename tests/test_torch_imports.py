@@ -48,6 +48,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "mmlspark_tpu_torch.utils.storage", "mmlspark_tpu_torch.resilience.policy",
                    "mmlspark_tpu_torch.resilience.elastic", "mmlspark_tpu_torch.parallel",
                    "mmlspark_tpu_torch.parallel.mesh", "mmlspark_tpu_torch.parallel.collectives",
-                   "mmlspark_tpu_torch.parallel.launch"):
+                   "mmlspark_tpu_torch.parallel.launch", "mmlspark_tpu_torch.image",
+                   "mmlspark_tpu_torch.image.ops", "mmlspark_tpu_torch.image.transformer",
+                   "mmlspark_tpu_torch.image.unroll", "mmlspark_tpu_torch.image.augmenter",
+                   "mmlspark_tpu_torch.image.io", "mmlspark_tpu_torch.nn.import_weights",
+                   "mmlspark_tpu_torch.nn.zoo", "mmlspark_tpu_torch.nn.featurizer"):
         assert module in out["modules"]
     assert out["leaked"] == [], f"the port pulled in: {out['leaked']}"
