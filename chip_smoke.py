@@ -28,8 +28,10 @@ transformers (head dims 16 and 8) and through a BERT-base-wide one (head
 dim 192), transfer learning (an image chain on ImageTransformer,
 torchvision-named ResNet-50 weights imported through ModelDownloader and
 featurized at 224 by ImageFeaturizer, an encoder at BERT-base's widths
-imported and served), and DNNLearner training that transformer and
-ResNet-50 — and
+imported and served), a CSV at UCI Adult's schema read on the native
+parser and fitted through CleanMissingData -> TrainClassifier, a hashed
+text corpus through TextFeaturizer -> GBDTClassifier, and DNNLearner
+training that transformer and ResNet-50 — and
 shows through the kernels' launch counters that each path ran on its
 kernel. It prints one JSON line per phase:
 
@@ -189,6 +191,24 @@ kernel. It prints one JSON line per phase:
                bf16: 1,024 x 512 tokens, exactly 192 K2 launches on
                "wgmma", tokens/s; its weights in f32, card = CPU on 4 x 128
                tokens (K2 on "tf32x3")
+  slice_tabular  tabular ingest, featurization and text: (a) 40,960 rows
+               of make_adult_categorical written as adult.data is (", ",
+               level strings, "?", ~1% blank hours-per-week, income as
+               ">50K" / "<=50K") read by read_csv on the native parser
+               (which must run), equal to the csv module's table bit for
+               bit, MB/s of both; (b) CleanMissingData -> TrainClassifier
+               (GBDTClassifier, 100 rounds of 31 leaves) on 32,768 rows:
+               108 featurized columns, exactly 3,100 K1 launches, held-out
+               AUC > 0.75 and accuracy > 0.7, card scores = the host walk,
+               the saved and loaded PipelineModel scoring alike; 10 rounds
+               on "cpu" and "cuda" (the first 3,072 rows): equal matrices,
+               trees by compare_fits at 1e-4 through K1 and 1e-5 through
+               the row-order histogram; a fit from Cacher(device="cuda")'d
+               columns = the f32 host fit's to_text; (c) 8,192 seeded
+               documents through TextFeaturizer (4,096 hashed features,
+               IDF) -> GBDTClassifier (20 rounds, exactly 620 K1 launches
+               at F 4,096), held-out AUC > 0.75, card = host walk, 2 rounds
+               on "cpu" and "cuda" (the first 512 documents)
   slice_train  DNN training through DNNLearner: bench.py's transformer at
                its training width (8 layers, d_model 512, flash core in
                bf16, adamw, 32 x 512 tokens a step), 3 epochs of 32 steps
@@ -506,7 +526,10 @@ def _hist_f64(bins: torch.Tensor, stats: torch.Tensor, num_bins: int = HIST_BINS
 # block along the rows (n 1 and 31, and 50 rows in feature groups), B = 2
 # and 64, one histogram copy of 17 warps, a tile under 256 rows without a
 # feature split (F = 48 int32), feature groups along grid_y (F = 100), and
-# the Higgs grid with gathered rows (3% kept). Above 256 bins (int32 bins;
+# the Higgs grid with gathered rows (3% kept); slice_tabular's featurized
+# fits, whose feature groups also lie along grid_y: the one-hot Adult
+# matrix (F = TABULAR_F) and the hashed text matrix (F 4,096 at TEXT_BINS,
+# the bins its mapper gives). Above 256 bins (int32 bins;
 # max_bin 511 gives 512, 1023 gives 1024, 16383 gives 16,384): the Adult
 # shape at B 512, 1024 and 4096 (with every row kept and 3%), a ragged n at
 # 1024, the Amazon-access shape slice_high_cardinality fits (32,769 x 9 at
@@ -514,6 +537,8 @@ def _hist_f64(bins: torch.Tensor, stats: torch.Tensor, num_bins: int = HIST_BINS
 # all its bins ("split"); the Adult shape at 16,384 (slice_max_bin_16383's
 # calls), whose blocks own a range of them ("ranges"), and at 65,536, one
 # block along the rows of each range ("one_block")
+TABULAR_F = 108          # the one-hot Adult matrix's width (6 numeric, 102 levels)
+TEXT_BINS = 27           # the bins the text fit's mapper gives its 4,096 columns
 HIST_SHAPES = [
     ("adult_int32", 32768, 14, torch.int32, 1.0, 256),
     ("adult_uint8", 32768, 14, torch.uint8, 1.0, 256),
@@ -530,6 +555,8 @@ HIST_SHAPES = [
     ("split_f100_int32", 50000, 100, torch.int32, 1.0, 256),
     ("split_f100_uint8", 50000, 100, torch.uint8, 1.0, 256),
     ("split_f100_one_block", 50, 100, torch.int32, 1.0, 256),
+    ("tabular_f108_int32", 32768, TABULAR_F, torch.int32, 1.0, 256),
+    ("text_f4096", 6144, 4096, torch.int32, 1.0, TEXT_BINS),
     ("adult_int32_b512", 32768, 14, torch.int32, 1.0, 512),
     ("adult_int32_b1024", 32768, 14, torch.int32, 1.0, 1024),
     ("ragged_int32_b1024", 10007, 14, torch.int32, 1.0, 1024),
@@ -3097,6 +3124,349 @@ def phase_slice_featurize() -> dict:
     emit(doc)
     return doc
 
+# ---- slice_tabular: tabular ingest, featurization and text on the card ---- #
+
+# UCI Adult's six numeric columns (adult.names), the columns CleanMissingData
+# fills; 32,768 rows fitted and 8,192 held out, as slice_categorical
+ADULT_NUMERIC = ("age", "fnlwgt", "education-num", "capital-gain", "capital-loss",
+                 "hours-per-week")
+TABULAR_ROWS, TABULAR_HELD_OUT = 32768, 8192
+# the text corpus: 8,192 documents (6,144 fitted) over a 20,000-word
+# vocabulary, hashed into HashingTF's 4,096 buckets, the reference's default
+# for tree learners (text/featurizer.py:115-124, after Featurize.scala:13-19)
+TEXT_DOCS, TEXT_FIT_DOCS, TEXT_VOCAB, TEXT_FEATURES = 8192, 6144, 20000, 4096
+# the CPU-against-card fits run on the first rows only, to keep the phase
+# within ~45 s: on the card machine's host the CPU's plain histogram took
+# ~95 ms a node at 8,192 x 108 (a 10-round CPU fit 29.5 s) and a 2-round
+# fit at 1,024 x 4,096 9.7 s
+TABULAR_PARITY_ROWS, TEXT_PARITY_DOCS = 3072, 512
+
+
+def adult_csv_bytes(n: int, seed: int = 17) -> bytes:
+    """make_adult_categorical(n) written as UCI Adult's adult.data is: cells
+    separated by ", ", the six numeric columns as integers, the categorical
+    ones as level strings ("workclass_3"), "?" where the generator has NaN
+    (as the file has it) and the label income as ">50K" / "<=50K"; ~1% of
+    hours-per-week cells are left blank (missing numbers). A first row
+    names the 15 columns (adult.names; adult.data itself has no header)."""
+    x, y = make_adult_categorical(n, seed)
+    blank = np.random.default_rng(seed + 1).random(n) < 0.01
+    cols = []
+    for j, name in enumerate(ADULT_COLUMNS):
+        v = x[:, j]
+        if name in ADULT_CATEGORIES:
+            codes = np.nan_to_num(v).astype(np.int64).astype(str)
+            cols.append(np.where(np.isnan(v), "?", np.char.add(f"{name}_", codes)))
+        else:
+            cells = v.astype(np.int64).astype(str)
+            cols.append(np.where(blank, "", cells) if name == "hours-per-week" else cells)
+    cols.append(np.where(y > 0, ">50K", "<=50K"))
+    lines = [", ".join(ADULT_COLUMNS + ("income",))] + [", ".join(row) for row in zip(*cols)]
+    return ("\n".join(lines) + "\n").encode()
+
+
+def text_corpus(n: int, seed: int = 23):
+    """n seeded documents of 40 to 200 tokens over TEXT_VOCAB made-up
+    lowercase words, and their classes (half each). Both classes draw
+    their words Zipf-like (weight of rank r 1 / r**1.1, the ranks shuffled
+    over the vocabulary); each class weights 300 words of its own 4 times."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = set()
+    while len(words) < TEXT_VOCAB:
+        words.add("".join(rng.choice(letters, size=int(rng.integers(3, 10)))))
+    vocab = np.array(sorted(words))
+    base = (1.0 / np.arange(1, TEXT_VOCAB + 1) ** 1.1)[rng.permutation(TEXT_VOCAB)]
+    shifted = rng.choice(TEXT_VOCAB, size=600, replace=False).reshape(2, 300)
+    y = (rng.random(n) < 0.5).astype(np.float64)
+    lengths = rng.integers(40, 201, size=n)
+    docs = [""] * n
+    for c in (0, 1):
+        p = base.copy()
+        p[shifted[c]] *= 4.0
+        rows = np.flatnonzero(y == c)
+        drawn = rng.choice(TEXT_VOCAB, size=int(lengths[rows].sum()), p=p / p.sum())
+        for r, ids in zip(rows, np.split(drawn, np.cumsum(lengths[rows])[:-1])):
+            docs[r] = " ".join(vocab[ids])
+    return docs, y
+
+
+def _tabular_pipeline(rounds: int, device: str):
+    """The tabular path a user builds: CleanMissingData (means of the six
+    numeric columns), then TrainClassifier -> GBDTClassifier (31 leaves)."""
+    from mmlspark_tpu_torch.automl import TrainClassifier
+    from mmlspark_tpu_torch.core import Pipeline
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.ops import CleanMissingData
+
+    return Pipeline([
+        CleanMissingData(input_cols=list(ADULT_NUMERIC), output_cols=list(ADULT_NUMERIC),
+                         cleaning_mode="Mean"),
+        TrainClassifier(model=GBDTClassifier(num_iterations=rounds, num_leaves=31,
+                                             device=device), label_col="income")])
+
+
+def _featurized(fitted, table) -> np.ndarray:
+    """The matrix a fitted _tabular_pipeline feeds its booster."""
+    return fitted.stages[1].featurizer.transform(fitted.stages[0].transform(table))["features"]
+
+
+def _income_metrics(scored) -> dict:
+    """_metrics of a TrainClassifier-scored table: ComputeModelStatistics
+    reads labels as numbers, so ">50K" counts as 1 in the label and the
+    decoded prediction."""
+    from mmlspark_tpu_torch.core import Table
+
+    def ones(col):
+        return np.asarray([v == ">50K" for v in col], np.float64)
+
+    return _metrics(Table({"label": ones(scored["income"]),
+                           "prediction": ones(scored["prediction"])}).with_column(
+        "probability", scored["probability"], meta=scored.meta("probability")))
+
+
+def _same_table(a, b) -> bool:
+    """Equal columns in the same order and of the same kinds: numbers bit
+    for bit with NaN in the same places, strings equal."""
+    if a.columns != b.columns:
+        return False
+    for c in a.columns:
+        x, y = a[c], b[c]
+        if isinstance(x, np.ndarray) != isinstance(y, np.ndarray):
+            return False
+        if not isinstance(x, np.ndarray):
+            if list(x) != list(y):
+                return False
+            continue
+        nan = np.isnan(x)
+        if (x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(nan, np.isnan(y))
+                or not np.array_equal(x[~nan].view(np.uint64), y[~nan].view(np.uint64))):
+            return False
+    return True
+
+
+def tabular_ingest(folder: Path) -> dict:
+    """(a) The Adult CSV of TABULAR_ROWS + TABULAR_HELD_OUT rows through
+    read_csv on the native parser, against the csv module's path."""
+    from unittest import mock
+
+    from mmlspark_tpu_torch import native
+    from mmlspark_tpu_torch.core import read_csv
+    from mmlspark_tpu_torch.core.table_io import _read_csv_slow
+
+    assert native.available(), "the native CSV parser did not build"
+    data = adult_csv_bytes(TABULAR_ROWS + TABULAR_HELD_OUT)
+    path = folder / "adult.csv"
+    path.write_bytes(data)
+    ran, parse = [], native.csv_parse
+
+    def spy(*args, **kwargs):
+        out = parse(*args, **kwargs)
+        ran.append(out is not None)
+        return out
+
+    with mock.patch.object(native, "csv_parse", spy):
+        t0 = time.perf_counter()
+        table = read_csv(str(path))
+        native_s = time.perf_counter() - t0
+    assert ran == [True], f"read_csv did not take the native parser: {ran}"
+    t0 = time.perf_counter()
+    slow = _read_csv_slow(data, True, ",", None, "utf-8")
+    slow_s = time.perf_counter() - t0
+    assert _same_table(table, slow), "the native parser's table differs from the csv module's"
+    numeric = [c for c in table.columns if isinstance(table[c], np.ndarray)]
+    assert numeric == list(ADULT_NUMERIC), numeric
+    blank = int(np.isnan(table["hours-per-week"]).sum())
+    assert blank > 0
+    return table, {"rows": len(table), "columns": len(table.columns), "bytes": len(data),
+                   "native_seconds": native_s, "native_mb_per_s": len(data) / 1e6 / native_s,
+                   "csv_module_seconds": slow_s, "csv_module_mb_per_s": len(data) / 1e6 / slow_s,
+                   "numeric_columns": numeric, "blank_hours_per_week": blank,
+                   "native_equals_csv_module": True}
+
+
+def tabular_fit(table, folder: Path) -> dict:
+    """(b) CleanMissingData -> TrainClassifier(GBDTClassifier) on the card:
+    100 rounds of 31 leaves (3,100 K1 launches), held-out metrics, card
+    scores = the host walk; 10 rounds on "cpu" and "cuda"; the fitted
+    PipelineModel saved and loaded; a fit from Cacher'd columns."""
+    from unittest import mock
+
+    from mmlspark_tpu_torch.core import PipelineStage, Table
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier, engine
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+    from mmlspark_tpu_torch.ops import Cacher
+
+    train = table.slice(0, TABULAR_ROWS)
+    held = table.slice(TABULAR_ROWS, len(table))
+    torch.cuda.synchronize()
+    histogram.launches = 0
+    t0 = time.perf_counter()
+    fitted = _tabular_pipeline(100, "cuda").fit(train)
+    fit_s = time.perf_counter() - t0
+    launches = histogram.launches
+    assert launches == 100 * 31, f"histogram launched {launches} times, want 3100"
+    x = _featurized(fitted, train)
+    assert x.shape == (TABULAR_ROWS, TABULAR_F), x.shape
+    trained = fitted.stages[1]
+    t0 = time.perf_counter()
+    scored = fitted.transform(held)
+    transform_s = time.perf_counter() - t0
+    valid = _income_metrics(scored)
+    assert valid["auc"] > 0.75 and valid["accuracy"] > 0.7, valid
+    assert set(scored["prediction"]) <= {">50K", "<=50K"}
+    booster = trained.inner_model.booster
+    xh = _featurized(fitted, held)
+    raw_card = booster.predict_raw(xh, device="device")
+    assert raw_card.shape == (len(held),) and np.isfinite(raw_card).all()
+    assert np.array_equal(raw_card, booster.predict_raw(xh, device="host")), \
+        "card traversal differs from the host walk"
+
+    # the saved and loaded PipelineModel scores the held-out rows alike
+    path = folder / "pipeline"
+    fitted.save(str(path))
+    loaded = PipelineStage.load(str(path))
+    again = loaded.transform(held)
+    assert np.array_equal(again["probability"], scored["probability"]) and \
+        list(again["prediction"]) == list(scored["prediction"]), "the loaded pipeline scores otherwise"
+
+    # 10 rounds on the CPU and the card (the first TABULAR_PARITY_ROWS):
+    # the same matrix, trees by compare_fits through K1 (1e-4) and through
+    # the CPU's row-order histogram in K1's place (1e-5)
+    sub = train.slice(0, TABULAR_PARITY_ROWS)
+    fits, seconds = {}, {}
+    for key, device, hist in (("cpu", "cpu", engine.histogram),
+                              ("cuda", "cuda", engine.histogram),
+                              ("row_order", "cuda", _row_order_histogram)):
+        with mock.patch.object(engine, "histogram", hist):
+            t0 = time.perf_counter()
+            fits[key] = _tabular_pipeline(10, device).fit(sub)
+            seconds[key] = time.perf_counter() - t0
+    mats = [_featurized(f, sub) for f in fits.values()]
+    assert all(np.array_equal(m.view(np.uint32), mats[0].view(np.uint32)) for m in mats), \
+        "the featurized matrices differ between the devices"
+    cpu, card, rows = (fits[k].stages[1].inner_model.booster for k in ("cpu", "cuda", "row_order"))
+    bins = cpu.bin_mapper.transform(mats[0])
+    keys = ("trees_equal", "trees_compared", "near_ties", "max_value_err_over_tree_max")
+    witness = compare_fits(cpu, rows, bins)
+    k1 = compare_fits(cpu, card, bins, tol=1e-4)
+
+    # Cacher onto the card, then a fit from the cached columns: the fit of
+    # the host matrix rounded to f32, byte for byte
+    y01 = np.asarray([v == ">50K" for v in train["income"]], np.float64)
+    cached = Cacher(device="cuda").transform(Table({"features": x, "label": y01}))
+    assert cached["features"].is_cuda and cached["features"].dtype == torch.float32
+    assert cached["label"].dtype == torch.float32
+    from_cache = GBDTClassifier(num_iterations=10, num_leaves=31, device="cuda").fit(cached)
+    from_host = GBDTClassifier(num_iterations=10, num_leaves=31, device="cuda").fit(
+        Table({"features": x.astype(np.float32), "label": y01.astype(np.float32)}))
+    assert from_cache.booster.to_text() == from_host.booster.to_text(), \
+        "the fit from Cacher'd columns differs from the f32 host fit"
+    return booster, {
+        "rows": TABULAR_ROWS, "held_out_rows": len(held), "features": x.shape[1],
+        "feature_kinds": sorted({s["kind"] for s in trained.featurizer.stages[0].specs}),
+        "rounds": 100, "num_leaves": 31, "fit_seconds": fit_s, "histogram_launches": launches,
+        "transform_seconds": transform_s, "valid_auc": valid["auc"],
+        "valid_accuracy": valid["accuracy"], "card_equals_host_walk": True,
+        "num_bins": int(booster.bin_mapper.num_bins.max()), "loaded_scores_equal": True,
+        "parity_10_rounds": {"rows": TABULAR_PARITY_ROWS, "k1": {k: k1[k] for k in keys},
+                             "row_order": {k: witness[k] for k in keys},
+                             **{f"{k}_fit_seconds": s for k, s in seconds.items()}},
+        "cacher_fit_equals_f32_host_fit": True}
+
+
+def tabular_text() -> dict:
+    """(c) TextFeaturizer (4,096 hashed features, IDF) -> GBDTClassifier on
+    the card: 20 rounds of 31 leaves (620 K1 launches at F 4,096)."""
+    from unittest import mock
+
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier, engine
+    from mmlspark_tpu_torch.gbdt.binning import BinMapper
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+    from mmlspark_tpu_torch.text import TextFeaturizer
+
+    t0 = time.perf_counter()
+    docs, y = text_corpus(TEXT_DOCS)
+    corpus_s = time.perf_counter() - t0
+    table = Table({"text": docs, "label": y})
+    fit_docs, held_docs = table.slice(0, TEXT_FIT_DOCS), table.slice(TEXT_FIT_DOCS, TEXT_DOCS)
+    t0 = time.perf_counter()
+    featurizer = TextFeaturizer(input_col="text", num_features=TEXT_FEATURES,
+                                use_idf=True).fit(fit_docs)
+    train, held = featurizer.transform(fit_docs), featurizer.transform(held_docs)
+    featurize_s = time.perf_counter() - t0
+    x, xh = train["features"], held["features"]
+    assert x.shape == (TEXT_FIT_DOCS, TEXT_FEATURES) and np.isfinite(x).all()
+    t0 = time.perf_counter()
+    BinMapper(max_bin=255).fit(x).transform(x)
+    binning_s = time.perf_counter() - t0
+
+    seen = set()
+
+    def spy(bins, stats, num_bins):
+        seen.add((str(bins.dtype).replace("torch.", ""), tuple(bins.shape), num_bins))
+        return histogram(bins, stats, num_bins)
+
+    torch.cuda.synchronize()
+    histogram.launches = 0
+    with mock.patch.object(engine, "histogram", spy):
+        t0 = time.perf_counter()
+        model = GBDTClassifier(num_iterations=20, num_leaves=31, device="cuda").fit(train)
+        fit_s = time.perf_counter() - t0
+    launches = histogram.launches
+    assert launches == 20 * 31, f"histogram launched {launches} times, want 620"
+    assert seen == {("int32", (TEXT_FIT_DOCS, TEXT_FEATURES), TEXT_BINS)}, seen
+    valid = _metrics(model.transform(held))
+    assert valid["auc"] > 0.75, valid
+    booster = model.booster
+    raw_card = booster.predict_raw(xh, device="device")
+    assert raw_card.shape == (len(xh),) and np.isfinite(raw_card).all()
+    assert np.array_equal(raw_card, booster.predict_raw(xh, device="host")), \
+        "card traversal differs from the host walk"
+    # 2 rounds on the CPU and the card (the first TEXT_PARITY_DOCS)
+    sub, two = train.slice(0, TEXT_PARITY_DOCS), {}
+    for device in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        two[device] = GBDTClassifier(num_iterations=2, num_leaves=31, device=device).fit(sub).booster
+        two[device + "_seconds"] = time.perf_counter() - t0
+    keys = ("trees_equal", "trees_compared", "near_ties", "max_value_err_over_tree_max")
+    parity = compare_fits(two["cpu"], two["cuda"], two["cpu"].bin_mapper.transform(sub["features"]),
+                          tol=1e-4)
+    return {"documents": TEXT_DOCS, "fit_documents": TEXT_FIT_DOCS, "vocabulary": TEXT_VOCAB,
+            "features": TEXT_FEATURES, "tokens": int(sum(len(d.split()) for d in docs)),
+            "corpus_seconds": corpus_s, "featurize_seconds": featurize_s,
+            "featurize_documents_per_s": TEXT_DOCS / featurize_s,
+            "binning_seconds_alone": binning_s, "rounds": 20, "num_leaves": 31,
+            "fit_seconds": fit_s, "histogram_launches": launches, "k1_bins": TEXT_BINS,
+            "valid_auc": valid["auc"], "valid_accuracy": valid["accuracy"],
+            "card_equals_host_walk": True,
+            "parity_2_rounds": {"documents": TEXT_PARITY_DOCS, **{k: parity[k] for k in keys},
+                                "cpu_fit_seconds": two["cpu_seconds"],
+                                "cuda_fit_seconds": two["cuda_seconds"]}}
+
+
+def phase_slice_tabular(card: str) -> dict:
+    """Tabular ingest, featurization and text through the entry points a
+    user calls (items a-c above); `card` (phase_env's nvidia-smi name and
+    power limit) stands beside its times and rates. Writes and removes
+    build/chip_smoke_tabular/."""
+    t0 = time.perf_counter()
+    folder = ROOT / "build" / "chip_smoke_tabular"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    try:
+        table, ingest = tabular_ingest(folder)
+        _, fit = tabular_fit(table, folder)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    doc = {"phase": "slice_tabular", "card": card, "ingest": ingest, "fit": fit,
+           "text": tabular_text()}
+    doc["seconds"] = time.perf_counter() - t0
+    emit(doc)
+    return doc
+
+
 # ---- slice_train: DNN training through DNNLearner on the card ---- #
 
 # bench.py's transformer at its training width (bench.py:632-634, :697-734):
@@ -3563,7 +3933,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import mmlspark_tpu_torch  # noqa: F401  (sets the TF32 switches off)
 
-    phase_env()
+    env = phase_env()
     phase_build()
     rate = phase_ex2_rate()
     kern = phase_kernels(rate["ex2_per_s"])
@@ -3591,6 +3961,7 @@ def main() -> int:
     phase_stage_roundtrip(dnn["stage"], dnn["tokens"])
     phase_slice_zoo()
     featurize = phase_slice_featurize()
+    tabular = phase_slice_tabular(env["nvidia_smi"])
     train = phase_slice_train()
 
     main_shape = kern["histogram"][0]
@@ -3618,15 +3989,19 @@ def main() -> int:
         # categorical Adult and Amazon-access fits (B 256 and 1024), the
         # numeric Adult fit at max_bin 16383 (B 16,384), the five
         # checkpoint fits (uninterrupted, chunked, preempted and resumed,
-        # goss and its chunked twin) and slice_mesh's four 4-rank fits
-        # (every rank's launches, counted in its own process)
+        # goss and its chunked twin), slice_mesh's four 4-rank fits (every
+        # rank's launches, counted in its own process) and slice_tabular's
+        # TrainClassifier fit (the one-hot Adult CSV, F 108) and text fit
+        # (F 4,096)
         "launches": (adult["histogram_launches"] + higgs["histogram_launches"]
                      + multiclass["histogram_launches"] + objectives["histogram_launches"]
                      + boosting["histogram_launches"] + early["histogram_launches"]
                      + early["warm_start_launches"] + gates["histogram_launches"]
                      + categorical["histogram_launches"] + wide_bins["histogram_launches"]
                      + max_bin["histogram_launches"] + checkpoint["histogram_launches"]
-                     + sum(mesh["histogram_launches_by_fit"].values())),
+                     + sum(mesh["histogram_launches_by_fit"].values())
+                     + tabular["fit"]["histogram_launches"]
+                     + tabular["text"]["histogram_launches"]),
         "launches_by_fit": {"adult": adult["histogram_launches"],
                             "higgs": higgs["histogram_launches"],
                             "multiclass": multiclass["histogram_launches"],
@@ -3641,7 +4016,9 @@ def main() -> int:
                             "max_bin_16383": max_bin["histogram_launches"],
                             **{f"checkpoint_{name}": fit["histogram_launches"]
                                for name, fit in checkpoint["fits"].items()},
-                            **mesh["histogram_launches_by_fit"]},
+                            **mesh["histogram_launches_by_fit"],
+                            "tabular": tabular["fit"]["histogram_launches"],
+                            "text": tabular["text"]["histogram_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern["histogram"]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],

@@ -18,10 +18,15 @@ over the mesh too), with the flash-attention forward and its backward,
 transfer learning through `ImageFeaturizer` over checkpoints that the
 model zoo (`ModelDownloader`) imports (`nn`), the image pipeline
 (`image`: `ImageTransformer` on a port of `jax.image.resize`), the
-pipeline core and async data plane (`core`), the checkpointer and its
-host chain (`resilience`, `observability`, `utils`), host native kernels
-(`native`) and evaluation metrics (`automl`). ROADMAP.md lists what
-is still to come.
+pipeline core and async data plane (`core`), tabular ingest (`core`:
+`read_csv` on the native CSV parser, parquet and pandas, `DeviceTable`),
+the utility and featurization stages (`ops`: `Featurize`,
+`CleanMissingData`, `ValueIndexer`, `Cacher` onto the card, ...), text
+featurization (`text`: `TextFeaturizer` and its stages), the checkpointer
+and its host chain (`resilience`, `observability`, `utils`), seeded
+tables (`utils.datagen`), host native kernels (`native`), and evaluation
+metrics and the featurize-then-fit trainers (`automl`: `TrainClassifier`,
+`TrainRegressor`). ROADMAP.md lists what is still to come.
 """
 
 import torch
@@ -34,7 +39,7 @@ torch.backends.cudnn.allow_tf32 = False
 __version__ = "0.1.0"
 
 _SUBPACKAGES = ("core", "gbdt", "automl", "image", "native", "nn", "observability",
-                "parallel", "resilience", "utils")
+                "ops", "parallel", "resilience", "text", "utils")
 
 
 def __getattr__(name):

@@ -1,5 +1,6 @@
-"""AutoML layer of the port: evaluation metrics so far (reference
-compute-model-statistics). Auto-train, tuning, model selection and
+"""AutoML layer of the port: evaluation metrics (reference
+compute-model-statistics) and the featurize-then-fit trainers
+(TrainClassifier, TrainRegressor). Tuning, model selection and
 interpretation are later slices (ROADMAP.md, Queue 1)."""
 
 from .metrics import (
@@ -9,6 +10,13 @@ from .metrics import (
     roc_curve,
     auc,
 )
+from .train import (
+    TrainClassifier,
+    TrainedClassifierModel,
+    TrainRegressor,
+    TrainedRegressorModel,
+)
 
 __all__ = ["MetricConstants", "ComputeModelStatistics", "ComputePerInstanceStatistics",
-           "roc_curve", "auc"]
+           "roc_curve", "auc", "TrainClassifier", "TrainedClassifierModel", "TrainRegressor",
+           "TrainedRegressorModel"]

@@ -31,3 +31,12 @@ from .pipeline import (
 )
 from .config import get_config, set_config
 from .logging import get_logger
+from .table_io import (
+    read_csv,
+    write_csv,
+    read_parquet,
+    write_parquet,
+    from_pandas,
+    to_pandas,
+    DeviceTable,
+)

@@ -27,6 +27,7 @@ __all__ = [
     "IMAGE_SPEC",
     "as_scalar",
     "find_unused_column_name",
+    "host_array",
 ]
 
 # Metadata keys (mirror the roles of the reference's metadata namespaces).
@@ -327,6 +328,20 @@ class Table:
 def as_scalar(v: Any) -> Any:
     """Normalize a cell to a plain Python scalar (numpy/torch 0-d -> item)."""
     return v.item() if hasattr(v, "item") else v
+
+
+def host_array(col: Any, dtype: Any = None) -> np.ndarray:
+    """A column as a host numpy array (of `dtype` where given): a numpy
+    array or a host value as `np.asarray` takes it, a tensor on any device
+    (a `Cacher`'d column), or the list of tensors that `Table.gather` leaves
+    of one. The reference's stages read such columns with `np.asarray`,
+    which takes jax arrays on any device; `np.asarray` refuses a CUDA
+    tensor, so the port's stages read through this."""
+    if isinstance(col, (list, tuple)) and col and all(isinstance(v, torch.Tensor) for v in col):
+        col = torch.stack(list(col))
+    if isinstance(col, torch.Tensor):
+        col = col.detach().cpu().numpy()
+    return np.asarray(col, dtype=dtype)
 
 
 def find_unused_column_name(prefix: str, table: Table) -> str:

@@ -33,7 +33,7 @@ from ..core.params import (
     Param,
 )
 from ..core.pipeline import Estimator, Model
-from ..core.schema import SCORE_KIND, Table
+from ..core.schema import SCORE_KIND, Table, host_array
 from ..core.serialize import register_stage
 from ..parallel.mesh import get_mesh
 from .booster import Booster, TrainOptions, _not_ported
@@ -154,11 +154,11 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCol):
         x = _features_from(table, self.get("features_col"))
         if getattr(x, "ndim", 2) == 1:
             x = x[:, None]
-        y = np.asarray(table[self.get("label_col")], dtype=np.float64)
+        y = host_array(table[self.get("label_col")], np.float64)
         w = None
         wc = self.get("weight_col")
         if wc:
-            w = np.asarray(table[wc], dtype=np.float64)
+            w = host_array(table[wc], np.float64)
         valid = None
         vf = self.get("validation_fraction") or 0.0
         if vf > 0 and self.get("early_stopping_round"):

@@ -21,6 +21,8 @@ from typing import Any, Iterator
 
 import numpy as np
 
+from ..core.schema import host_array
+
 __all__ = ["CSRMatrix", "is_sparse", "as_features"]
 
 # transient dense-chunk budget for CSR -> binned conversion
@@ -178,5 +180,4 @@ def as_features(x: Any) -> "np.ndarray | CSRMatrix":
         return x
     if is_sparse(x):
         return CSRMatrix.from_scipy(x)
-    x = np.asarray(x, np.float64)
-    return x
+    return host_array(x, np.float64)

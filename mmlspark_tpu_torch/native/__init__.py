@@ -2,12 +2,14 @@
 
 Reference: `NativeLoader.java:47-105` extracts the right `.so` for the
 platform and `System.load`s it before any native call. A copy of
-mmlspark_tpu/native/__init__.py for the two host kernels the port uses:
-numeric binning and the tree walk. The C++ in `kernels.cpp` is compiled ON
-DEMAND with the system toolchain (g++, cached by source mtime, into this
-package's own `_build/`) and bound via ctypes; every entry point has a
-pure-numpy path that gives the same bits, taken when no toolchain is there
-(`available()` reports which path is active).
+mmlspark_tpu/native/__init__.py for the three host kernels the port uses:
+the CSV cell parser, numeric binning and the tree walk. The C++ in
+`kernels.cpp` is compiled ON DEMAND with the system toolchain (g++, cached
+by source mtime, into this package's own `_build/`) and bound via ctypes;
+binning and the tree walk have a pure-numpy path that gives the same bits,
+taken when no toolchain is there, and `csv_parse` returns None there, which
+sends `read_csv` to the csv module (`available()` reports which path is
+active).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import threading
 
 import numpy as np
 
-__all__ = ["available", "get_lib", "bin_numeric", "make_tree_predictor", "predict_trees"]
+__all__ = ["available", "get_lib", "bin_numeric", "csv_parse", "make_tree_predictor",
+           "predict_trees"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "kernels.cpp")
@@ -110,6 +113,11 @@ def get_lib() -> "ctypes.CDLL | None":
         ]
         raw.mmlspark_predict_trees.restype = None
         lib._predict_trees_raw = raw.mmlspark_predict_trees
+        lib.mmlspark_csv_parse.argtypes = [
+            ctypes.c_char_p, np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+            _I64, _I64, ctypes.c_char, _F64, _U8, ctypes.c_int32,
+        ]
+        lib.mmlspark_csv_parse.restype = None
         _LIB = lib
         return lib
 
@@ -134,6 +142,33 @@ def bin_numeric(x: np.ndarray, upper_bounds: np.ndarray, num_bins: np.ndarray,
         out,
     )
     return True
+
+
+def csv_parse(data: bytes, offsets: np.ndarray, n_cols: int,
+              delimiter: str = ",", n_threads: int = 0
+              ) -> "tuple[np.ndarray, np.ndarray] | None":
+    """Parse pre-indexed CSV rows into a (rows, cols) float64 matrix plus a
+    per-cell numeric-ok bitmap; None when the native lib is unavailable.
+    n_threads=0 picks the host's CPU count."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    if len(delimiter) != 1 or ord(delimiter) > 127:
+        # the C parser splits on ONE byte; a multi-byte UTF-8 delimiter
+        # would split rows on its first byte only — callers must route
+        # non-ASCII delimiters to the csv-module slow path
+        return None
+    offs = np.ascontiguousarray(offsets, np.int64)
+    n_rows = len(offs) - 1
+    out = np.empty((n_rows, n_cols), np.float64)
+    ok = np.empty((n_rows, n_cols), np.uint8)
+    if n_threads <= 0:
+        n_threads = min(os.cpu_count() or 1, 16)
+    lib.mmlspark_csv_parse(
+        data, offs, n_rows, n_cols,
+        delimiter.encode()[0:1] or b",", out, ok, n_threads,
+    )
+    return out, ok
 
 
 def make_tree_predictor(feature: np.ndarray, threshold: np.ndarray,

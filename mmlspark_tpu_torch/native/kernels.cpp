@@ -1,27 +1,43 @@
-// Host-side native kernels of mmlspark_tpu_torch (a copy of the binning and
-// tree-walk kernels of mmlspark_tpu/native/kernels.cpp).
+// Host-side native kernels of mmlspark_tpu_torch (a copy of the CSV parser
+// and the binning and tree-walk kernels of mmlspark_tpu/native/kernels.cpp).
 //
 // Reference analogue: the reference's dataset-build and per-row predict are
 // C++ (lib_lightgbm via generateDenseDataset, LightGBMUtils.scala:326-394,
 // and LGBM_BoosterPredictForMat, LightGBMBooster.scala:38-113). The device
 // compute path is torch plus the CUDA kernels in csrc/; these kernels cover
-// the HOST hot paths around it — feature binning during dataset build and small-batch tree-walk
-// scoring (the serving latency path) — loaded via ctypes by
+// the HOST hot paths around it — CSV ingest, feature binning during dataset
+// build and small-batch tree-walk scoring (the serving latency path) — loaded via ctypes by
 // mmlspark_tpu_torch/native/__init__.py with a numpy path when no toolchain
 // is available (the NativeLoader role, NativeLoader.java:47-105).
 //
-// Both kernels are written to be BIT-IDENTICAL to their numpy/XLA
-// counterparts: same searchsorted semantics for binning, same float32
-// accumulation order for prediction as the device traversal.
+// The binning and tree-walk kernels are written to be BIT-IDENTICAL to
+// their numpy/XLA counterparts: same searchsorted semantics for binning,
+// same float32 accumulation order for prediction as the device traversal.
 
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <locale.h>
 #include <thread>
 #include <vector>
 
 namespace {
+
+// C-locale strtod: the process may have called setlocale(LC_NUMERIC, ...)
+// (e.g. a de_DE locale rejects "1.5"); parse results must not depend on it.
+locale_t c_locale() {
+    static locale_t loc = newlocale(LC_ALL_MASK, "C", nullptr);
+    return loc;
+}
+
+// match Python float(): no hex literals (strtod accepts "0x1A"), so the
+// same file yields the same schema on the native and pure-Python paths
+bool looks_hex(const char* cs, const char* ce) {
+    const char* p = cs;
+    if (p < ce && (*p == '+' || *p == '-')) ++p;
+    return (ce - p) >= 2 && p[0] == '0' && (p[1] == 'x' || p[1] == 'X');
+}
 
 // Shared thread-over-row-ranges scaffolding (disjoint writes per range):
 // one place for the concurrency cap, the min-work gate, and the
@@ -49,6 +65,84 @@ void parallel_rows(int64_t n, int64_t min_rows_per_thread, const Fn& fn) {
 }  // namespace
 
 extern "C" {
+
+// Multithreaded CSV cell parse (the tabular-ingest hot path; the reference
+// delegates this to Spark's JVM csv reader — here it is framework-native).
+// Rows are pre-indexed by the caller (offsets[i] = byte start of row i;
+// offsets[n_rows] = end). Each cell is parsed as float64:
+//   ok=1: full cell consumed by strtod (after trimming), or empty -> NaN
+//   ok=0: non-numeric text (value set to NaN; Python keeps it as a string
+//         column when any cell in the column has ok=0)
+// No quote handling: the Python wrapper routes quoted files to the slow
+// path — correctness first, speed for the machine-written common case.
+void mmlspark_csv_parse(
+    const char* data,
+    const int64_t* offsets,     // (n_rows + 1,)
+    int64_t n_rows, int64_t n_cols,
+    char delim,
+    double* out,                // (n_rows, n_cols) pre-allocated
+    uint8_t* ok,                // (n_rows, n_cols) pre-allocated
+    int32_t n_threads)
+{
+    const double kNaN = std::nan("");
+    auto parse_rows = [&](int64_t r0, int64_t r1) {
+        for (int64_t i = r0; i < r1; ++i) {
+            const char* p = data + offsets[i];
+            const char* end = data + offsets[i + 1];
+            while (end > p && (end[-1] == '\n' || end[-1] == '\r')) --end;
+            int64_t c = 0;
+            const char* cs = p;
+            for (const char* q = p; q <= end && c < n_cols; ++q) {
+                if (q == end || *q == delim) {
+                    const char* ce = q;
+                    while (cs < ce && (*cs == ' ' || *cs == '\t')) ++cs;
+                    while (ce > cs && (ce[-1] == ' ' || ce[-1] == '\t')) --ce;
+                    const int64_t idx = i * n_cols + c;
+                    if (cs == ce) {
+                        out[idx] = kNaN;
+                        ok[idx] = 1;          // empty = missing numeric
+                    } else {
+                        // in-place strtod: the buffer always ends with '\n'
+                        // (Python appends one), so parsing stops at the
+                        // delimiter/newline and never runs off the end
+                        char* stop = nullptr;
+                        const double v = looks_hex(cs, ce)
+                            ? (stop = const_cast<char*>(cs), 0.0)
+                            : strtod_l(cs, &stop, c_locale());
+                        if (stop == ce) {
+                            out[idx] = v;
+                            ok[idx] = 1;
+                        } else {
+                            out[idx] = kNaN;
+                            ok[idx] = 0;      // text cell
+                        }
+                    }
+                    ++c;
+                    cs = q + 1;
+                }
+            }
+            for (; c < n_cols; ++c) {         // short row: missing tail
+                out[i * n_cols + c] = kNaN;
+                ok[i * n_cols + c] = 1;
+            }
+        }
+    };
+    int64_t nt = n_threads > 0 ? n_threads : 1;
+    if (nt > n_rows) nt = n_rows > 0 ? n_rows : 1;
+    if (nt <= 1) {
+        parse_rows(0, n_rows);
+        return;
+    }
+    std::vector<std::thread> workers;
+    const int64_t chunk = (n_rows + nt - 1) / nt;
+    for (int64_t t = 0; t < nt; ++t) {
+        const int64_t r0 = t * chunk;
+        const int64_t r1 = r0 + chunk < n_rows ? r0 + chunk : n_rows;
+        if (r0 >= r1) break;
+        workers.emplace_back(parse_rows, r0, r1);
+    }
+    for (auto& w : workers) w.join();
+}
 
 // Numeric-feature binning: replicates
 //   np.searchsorted(upper_bounds[j,1:nb], col, side='left') + 1,

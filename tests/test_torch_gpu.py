@@ -741,3 +741,89 @@ def test_image_chain_on_the_card_matches_the_cpu(cuda):
     assert card.shape == (16, 192, 192, 3)
     near = np.abs(before["cpu"] - 100.0) <= 1e-3
     assert np.array_equal(card[~near], cpu[~near])
+
+
+def _k1_fits(table, make, cuda):
+    """`make(device)` fitted on the CPU and on the card: (cpu, card) boosters
+    and the card fit's K1 launches."""
+    cpu = make("cpu").fit(table)
+    before = hk.histogram.launches
+    card = make("cuda").fit(table)
+    return cpu, card, hk.histogram.launches - before
+
+
+def test_csv_to_train_classifier_on_the_card_tracks_the_cpu(cuda, tmp_path):
+    """read_csv of chip_smoke's Adult CSV (2,000 rows) -> CleanMissingData ->
+    TrainClassifier(GBDTClassifier, 5 rounds of 15 leaves) on the card and
+    the CPU: equal matrices, trees by compare_fits at 1e-4 through K1,
+    held-out predictions decoded alike where the margins are not near 0."""
+    import chip_smoke
+    from mmlspark_tpu_torch.automl import TrainClassifier
+    from mmlspark_tpu_torch.core import Pipeline, read_csv
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.ops import CleanMissingData
+
+    path = tmp_path / "adult.csv"
+    path.write_bytes(chip_smoke.adult_csv_bytes(2500))
+    table = read_csv(str(path))
+    train, held = table.slice(0, 2000), table.slice(2000, 2500)
+    cols = list(chip_smoke.ADULT_NUMERIC)
+
+    def make(device):
+        return Pipeline([CleanMissingData(input_cols=cols, output_cols=cols),
+                         TrainClassifier(model=GBDTClassifier(num_iterations=5, num_leaves=15,
+                                                              device=device),
+                                         label_col="income")])
+
+    cpu, card, launches = _k1_fits(train, make, cuda)
+    assert launches == 5 * 15
+    x = chip_smoke._featurized(cpu, train)
+    assert np.array_equal(x, chip_smoke._featurized(card, train))
+    b_cpu, b_card = (f.stages[1].inner_model.booster for f in (cpu, card))
+    assert b_card.device.startswith("cuda")
+    chip_smoke.compare_fits(b_cpu, b_card, b_cpu.bin_mapper.transform(x), tol=1e-4)
+    sure = np.abs(b_cpu.predict_raw(chip_smoke._featurized(cpu, held), device="host")) > 1e-2
+    assert np.array_equal(np.asarray(card.transform(held)["prediction"])[sure],
+                          np.asarray(cpu.transform(held)["prediction"])[sure])
+
+
+def test_cacher_on_the_card_uploads_with_jax_dtypes(cuda):
+    from mmlspark_tpu_torch.core import DeviceTable
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.ops import Cacher, CleanMissingData
+
+    cols = {"f64": np.array([1.0, np.nan, 3.0, 0.5]), "i64": np.arange(4),
+            "u8": np.arange(4, dtype=np.uint8), "x": np.arange(8.0).reshape(4, 2) / 3,
+            "s": ["a", "b", "c", "d"]}
+    out = Cacher().transform(Table(cols))
+    want = {"f64": torch.float32, "i64": torch.int32, "u8": torch.uint8, "x": torch.float32}
+    for name, dtype in want.items():
+        assert out[name].is_cuda and out[name].dtype == dtype, name
+    assert out["s"] == cols["s"]
+    assert DeviceTable.from_host({"a": cols["i64"]})["a"].dtype == torch.int32
+    filled = CleanMissingData(input_cols=["f64"], output_cols=["g"]).fit(out).transform(out)
+    assert filled["g"].dtype == np.float32 and filled["g"][1] == np.float32((1.0 + 3.0 + 0.5) / 3)
+    tbl = Table({"features": np.random.default_rng(0).normal(size=(256, 3)),
+                 "label": np.arange(256) % 2 * 1.0})
+    from_cache = GBDTClassifier(num_iterations=2, num_leaves=4).fit(Cacher().transform(tbl))
+    from_f32 = GBDTClassifier(num_iterations=2, num_leaves=4).fit(
+        Table({"features": tbl["features"].astype(np.float32), "label": tbl["label"]}))
+    assert from_cache.booster.to_text() == from_f32.booster.to_text()
+
+
+def test_text_fit_on_the_card_tracks_the_cpu(cuda):
+    """256 of chip_smoke's seeded documents through TextFeaturizer (4,096
+    features) -> GBDTClassifier (3 rounds of 7 leaves), on the card (K1 at
+    F 4,096) and the CPU: trees by compare_fits at 1e-4."""
+    import chip_smoke
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.text import TextFeaturizer
+
+    docs, y = chip_smoke.text_corpus(256)
+    table = Table({"text": docs, "label": y})
+    feats = TextFeaturizer(num_features=4096).fit(table).transform(table)
+    cpu, card, launches = _k1_fits(
+        feats, lambda d: GBDTClassifier(num_iterations=3, num_leaves=7, device=d), cuda)
+    assert launches == 3 * 7
+    chip_smoke.compare_fits(cpu.booster, card.booster,
+                            cpu.booster.bin_mapper.transform(feats["features"]), tol=1e-4)

@@ -107,11 +107,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 # (n, F, B, bin bytes): the Adult and Higgs shapes, a ragged n, n = 1 and
 # 31 (one block along the rows), B = 2 and 64, F = 17 (W = 17 warps, one
 # copy), F = 48 int32 (a smaller tile, no split) and F = 100 (feature
-# groups along grid_y), and F = 10,000 (more groups than SMs)
+# groups along grid_y), F = 10,000 (more groups than SMs), and the
+# featurized fits of chip_smoke's slice_tabular: the one-hot Adult matrix
+# (F 108) and the hashed text matrix (F 4,096 at the 27 bins its mapper
+# gives)
 PLAN_SHAPES = [(32768, 14, 256, 4), (1 << 20, 28, 256, 1), (10007, 14, 256, 4),
                (1, 14, 256, 4), (31, 5, 16, 1), (5000, 5, 2, 1), (5000, 5, 64, 4),
                (20000, 17, 256, 4), (50000, 48, 256, 4), (50000, 100, 256, 4),
-               (50, 100, 256, 4), (100000, 10000, 256, 4)]
+               (50, 100, 256, 4), (100000, 10000, 256, 4), (32768, 108, 256, 4),
+               (6144, 4096, 27, 4)]
 
 
 @pytest.mark.parametrize("n,f,b,bin_bytes", PLAN_SHAPES)
@@ -295,6 +299,8 @@ NARROW_PLANS = {
     (50000, 100, 256, 4): (66, 2, 50, 32, 1, 64, 12, 13056, 204, 215552),
     (50000, 100, 256, 1): (66, 2, 50, 32, 1, 256, 3, 15360, 60, 228608),
     (50, 100, 256, 4): (1, 2, 50, 32, 1, 64, 1, 13056, 204, 215552),
+    (32768, 108, 256, 4): (64, 2, 54, 32, 1, 64, 8, 14080, 220, 229888),
+    (6144, 4096, 27, 4): (12, 11, 373, 32, 1, 32, 16, 48000, 1500, 221984),
 }
 
 

@@ -52,6 +52,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "mmlspark_tpu_torch.image.ops", "mmlspark_tpu_torch.image.transformer",
                    "mmlspark_tpu_torch.image.unroll", "mmlspark_tpu_torch.image.augmenter",
                    "mmlspark_tpu_torch.image.io", "mmlspark_tpu_torch.nn.import_weights",
-                   "mmlspark_tpu_torch.nn.zoo", "mmlspark_tpu_torch.nn.featurizer"):
+                   "mmlspark_tpu_torch.nn.zoo", "mmlspark_tpu_torch.nn.featurizer",
+                   "mmlspark_tpu_torch.core.table_io", "mmlspark_tpu_torch.ops",
+                   "mmlspark_tpu_torch.ops.stages", "mmlspark_tpu_torch.ops.indexer",
+                   "mmlspark_tpu_torch.ops.missing", "mmlspark_tpu_torch.ops.conversion",
+                   "mmlspark_tpu_torch.ops.summarize", "mmlspark_tpu_torch.ops.sample",
+                   "mmlspark_tpu_torch.ops.ensemble", "mmlspark_tpu_torch.ops.adapter",
+                   "mmlspark_tpu_torch.ops.featurize", "mmlspark_tpu_torch.ops.minibatch",
+                   "mmlspark_tpu_torch.automl.train", "mmlspark_tpu_torch.text",
+                   "mmlspark_tpu_torch.text.featurizer", "mmlspark_tpu_torch.text.page_splitter",
+                   "mmlspark_tpu_torch.text.multi_ngram", "mmlspark_tpu_torch.utils.datagen"):
         assert module in out["modules"]
     assert out["leaked"] == [], f"the port pulled in: {out['leaked']}"
