@@ -30,8 +30,11 @@ torchvision-named ResNet-50 weights imported through ModelDownloader and
 featurized at 224 by ImageFeaturizer, an encoder at BERT-base's widths
 imported and served), a CSV at UCI Adult's schema read on the native
 parser and fitted through CleanMissingData -> TrainClassifier, a hashed
-text corpus through TextFeaturizer -> GBDTClassifier, and DNNLearner
-training that transformer and ResNet-50 — and
+text corpus through TextFeaturizer -> GBDTClassifier, a fused
+CleanMissingData -> AssembleFeatures -> GBDTRegressor -> DataConversion
+pipeline scoring 1,048,576 rows from CUDA graphs, that regressor and the
+transformer served over HTTP by serve_model, and DNNLearner training that
+transformer and ResNet-50 — and
 shows through the kernels' launch counters that each path ran on its
 kernel. It prints one JSON line per phase:
 
@@ -50,7 +53,9 @@ kernel. It prints one JSON line per phase:
                floor of a call timed this way); K2 "flash_attention" with
                the kernel path each shape took ("tf32x3", "wgmma", "mma"
                or "wide"), its achieved TFLOP/s, and its exponentials with
-               their time at the measured ex2 rate
+               their time at the measured ex2 rate; K1 at one shape and
+               K2 at the serving shape each captured in a CUDA graph and
+               replayed on new inputs, equal to the eager call bit for bit
   slice_adult  the GBDT path: fit seconds, launches (must be 3,100),
                train accuracy > 0.7, held-out AUC > 0.75, and the card's
                scores equal to the host walk bit for bit
@@ -209,6 +214,24 @@ kernel. It prints one JSON line per phase:
                IDF) -> GBDTClassifier (20 rounds, exactly 620 K1 launches
                at F 4,096), held-out AUC > 0.75, card = host walk, 2 rounds
                on "cpu" and "cuda" (the first 512 documents)
+  slice_serving  pipeline fusion and serving: a GBDTRegressor fitted on
+               the Adult shape (exactly 3,100 K1 launches); (a) 1,048,576
+               rows of 14 f32 columns (1% NaN in one) through
+               fuse(CleanMissingData -> AssembleFeatures -> the regressor
+               -> DataConversion), one fused segment of 4 stages replayed
+               from CUDA graphs in 65,536-row chunks, equal to the staged
+               transform byte for byte, no capture on a second run, rows/s
+               of both; (b) serve_model of the regressor over HTTP,
+               keep-alive clients at concurrency 1, 32 and 256 (512
+               requests each) and a pass forced onto the resident route,
+               every reply equal to make_reply of the staged transform,
+               64 binary-wire requests, server and client p50/p99; (c) the
+               serving transformer (bf16 bundle, flash) in a fused
+               pipeline over HTTP, 1,024 requests of 512 token ids (half
+               JSON, half binary wire) at concurrency 64: K2 on "wgmma"
+               8 times a fused forward (graph replays included), the
+               hot path never disabled, probabilities summing to 1,
+               tokens/s, and 256 rows fused against the staged transform
   slice_train  DNN training through DNNLearner: bench.py's transformer at
                its training width (8 layers, d_model 512, flash core in
                bf16, adamw, 32 x 512 tokens a step), 3 epochs of 32 steps
@@ -859,8 +882,45 @@ def flash_rows(ex2_per_s: "float | None" = None) -> list:
                 "exps": pairs, "exp_ms": pairs / ex2_per_s * 1e3,
                 "achieved_tflops": ops / (kernel_ms * 1e-3) / 1e12 if kernel_ms > 0 else None,
             })
+            if name == FLASH_GRAPH_SHAPE:
+                rows[-1]["graph_replays_eager_bits"] = _flash_graph_replays(q, k, v, causal)
             del q, k, v, out, out2, lse, lse2, p_out, p_lse
+    assert any(r.get("graph_replays_eager_bits") for r in rows), "no K2 shape replayed in a graph"
     return rows
+
+
+# the shape slice_serving's fused segments replay K2 at (64 rows of the
+# serving transformer: B 64, T 512, H 8, D 64, bf16, wgmma)
+FLASH_GRAPH_SHAPE = "slice_bf16"
+
+
+def _flash_graph_replays(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool) -> bool:
+    """K2 captured in a CUDA graph, then replayed on new q, k, v written
+    into the captured inputs: each replay gives the eager call's bits."""
+    from mmlspark_tpu_torch.nn.attention import _flash_fwd_lse
+
+    q, k, v = q.clone(), k.clone(), v.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _flash_fwd_lse(q, k, v, causal)            # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, lse = _flash_fwd_lse(q, k, v, causal)
+    equal = True
+    for seed in (1, 2):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        for t in (q, k, v):
+            t.copy_(torch.randn(t.shape, generator=g, device="cuda").to(t.dtype))
+        graph.replay()
+        torch.cuda.synchronize()
+        e_out, e_lse = _flash_fwd_lse(q, k, v, causal)
+        equal = equal and torch.equal(out, e_out) and torch.equal(lse, e_lse)
+    assert equal, "K2 replayed in a CUDA graph differs from the eager call"
+    return equal
 
 
 def phase_kernels(ex2_per_s: float) -> dict:
@@ -3467,6 +3527,381 @@ def phase_slice_tabular(card: str) -> dict:
     return doc
 
 
+# ---- slice_serving: pipeline fusion and the serving server ---- #
+
+# (a) batch scoring at bench.py's Adult widths (bench.py:62-65): 1,048,576
+# rows of 14 f32 columns, 1% NaN in one, through CleanMissingData ->
+# AssembleFeatures -> the regressor -> DataConversion, in 65,536-row chunks
+SERVE_ROWS, SERVE_CHUNK, SERVE_FEATURES = 1 << 20, 65536, 14
+# (b) keep-alive clients at each concurrency, SERVE_REQUESTS requests a level
+SERVE_CONCURRENCY, SERVE_REQUESTS, SERVE_WIRE_REQUESTS = (1, 32, 256), 512, 64
+# (c) the serving transformer over HTTP: requests of 512 token ids, half
+# JSON, half the binary wire, at concurrency 64 (its max batch)
+TOKEN_REQUESTS, TOKEN_CONCURRENCY, TOKEN_STAGED_ROWS = 1024, 64, 256
+# requests of the pass forced onto the resident route
+TOKEN_FORCED = 128
+
+
+def _serving_columns(x: np.ndarray) -> dict:
+    return {f"f{j}": np.ascontiguousarray(x[:, j]) for j in range(x.shape[1])}
+
+
+def _assert_identical(staged, fused) -> None:
+    """tests/test_fusion.py's TestByteIdentity._assert_identical: the same
+    columns, dtypes, bytes and metadata."""
+    assert staged.columns == fused.columns, (staged.columns, fused.columns)
+    for c in staged.columns:
+        s, f = staged[c], fused[c]
+        if isinstance(s, np.ndarray):
+            assert s.dtype == f.dtype, (c, s.dtype, f.dtype)
+            assert s.tobytes() == f.tobytes(), f"column {c!r}: fused bytes differ"
+        else:
+            assert list(s) == list(f), c
+        assert staged.meta(c) == fused.meta(c), c
+
+
+def _wait_ready(srv, timeout_s: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not srv.ready:
+        if time.monotonic() > deadline:
+            raise TimeoutError("the serving server never became ready")
+        time.sleep(0.02)
+
+
+def _drive(srv, bodies: list, clients: int, headers=None) -> dict:
+    """`clients` keep-alive connections posting `bodies` concurrently (body
+    i from client i % clients), connected before anyone posts. Returns the
+    reply entities in body order, each client RTT and the wall seconds."""
+    import http.client
+    import threading
+
+    replies, rtt, errors = [None] * len(bodies), [], []
+    barrier = threading.Barrier(clients + 1)
+    hdrs = headers or {"Content-Type": "application/json"}
+
+    def client(k: int) -> None:
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=120)
+        try:
+            conn.connect()
+            barrier.wait()
+            for i in range(k, len(bodies), clients):
+                t0 = time.perf_counter()
+                conn.request("POST", srv.api_path, body=bodies[i], headers=hdrs)
+                r = conn.getresponse()
+                replies[i] = (r.status, r.getheader("Content-Type"), r.read())
+                rtt.append(time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(repr(e))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    for t in threads:
+        t.start()
+    barrier.wait(timeout=120)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=300)
+    seconds = time.perf_counter() - t0
+    assert not errors, f"serving clients failed: {errors[:3]}"
+    assert all(r is not None and r[0] == 200 for r in replies), \
+        f"non-200 replies: {[r[0] for r in replies if r is not None and r[0] != 200][:5]}"
+    ms = np.asarray(rtt) * 1e3
+    return {"replies": [r[2] for r in replies], "content_types": [r[1] for r in replies],
+            "seconds": seconds, "client_p50_ms": float(np.percentile(ms, 50)),
+            "client_p99_ms": float(np.percentile(ms, 99))}
+
+
+def _server_counters(srv) -> dict:
+    counts = {"seen": srv.requests_seen, "accepted": srv.requests_accepted,
+              "answered": srv.requests_answered, "failed": srv.requests_failed,
+              "shed": srv.requests_shed, "expired": srv.requests_expired}
+    assert counts["seen"] == counts["accepted"] == counts["answered"], counts
+    assert counts["failed"] == counts["shed"] == counts["expired"] == 0, counts
+    return counts
+
+
+def serving_regressor() -> tuple:
+    """GBDTRegressor fitted on the Adult shape (make_dataset(32768, 14),
+    features rounded to f32-representable values, the 0/1 label as the
+    target: bench.py's hot-path recipe, bench.py:1975-1979) on the card,
+    K1 counted over the fit."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.gbdt.estimators import GBDTRegressor
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+
+    x, y = make_dataset(32768, SERVE_FEATURES)
+    x = x.astype(np.float32).astype(np.float64)
+    histogram.launches = 0
+    t0 = time.perf_counter()
+    model = GBDTRegressor(num_iterations=100, num_leaves=31, device="cuda").fit(
+        Table({"features": x, "label": y}))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = histogram.launches
+    assert launches == 3100, f"the regressor fit launched K1 {launches} times, want 3,100"
+    return model, x, {"fit_seconds": fit_s, "histogram_launches": launches}
+
+
+def serving_batch(model) -> dict:
+    """(a) fuse(pipeline_model(CleanMissingData, AssembleFeatures, the
+    regressor, DataConversion)).transform over 1,048,576 rows on the card:
+    one fused segment of 4 stages, equal to the staged transform byte for
+    byte, a second transform with no capture."""
+    from mmlspark_tpu_torch.core import Table, fuse, pipeline_model, plan_fusion
+    from mmlspark_tpu_torch.ops.conversion import DataConversion
+    from mmlspark_tpu_torch.ops.featurize import AssembleFeatures
+    from mmlspark_tpu_torch.ops.missing import CleanMissingData
+
+    x, _ = make_dataset(SERVE_ROWS, SERVE_FEATURES, seed=29)
+    x = x.astype(np.float32)
+    rng = np.random.default_rng(31)
+    x[rng.random(SERVE_ROWS) < 0.01, 0] = np.nan
+    table = Table(_serving_columns(x))
+    cols = list(table.columns)
+    clean = CleanMissingData(input_cols=["f0"], output_cols=["f0"],
+                             cleaning_mode="Mean").fit(table)
+    asm = AssembleFeatures(columns_to_featurize=cols).fit(table)
+    staged_model = pipeline_model(clean, asm, model,
+                                  DataConversion(cols=["prediction"], convert_to="float"))
+    plan = plan_fusion([staged_model])
+    assert len(plan.segments) == 1 and plan.segments[0].fused, plan.describe()
+    assert plan.n_fused_stages == 4 and plan.fusion_ratio == 1.0, plan.describe()
+    fm = fuse(staged_model, mini_batch_size=SERVE_CHUNK, prefetch_depth=2, device="cuda")
+    t0 = time.perf_counter()
+    staged = staged_model.transform(table)
+    staged_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    first = fm.transform(table)
+    first_s = time.perf_counter() - t0
+    _assert_identical(staged, first)
+    seg = fm._segments[0]
+    warm = seg._exec_cache.stats()
+    captures = seg.captures
+    t0 = time.perf_counter()
+    fused = fm.transform(table)
+    fused_s = time.perf_counter() - t0
+    _assert_identical(staged, fused)
+    again = seg._exec_cache.stats()
+    assert again["misses"] == warm["misses"] and again["recompiles"] == warm["recompiles"], \
+        (warm, again)
+    assert seg.captures == captures, "the second transform captured a graph"
+    stats = fm.last_stats["segments"][0]
+    assert stats["kind"] == "fused", stats
+    out = np.asarray(fused["prediction"])
+    assert out.shape == (SERVE_ROWS,) and np.isfinite(out).all()
+    return {"rows": SERVE_ROWS, "chunk": SERVE_CHUNK, "plan": plan.describe(),
+            "staged_seconds": staged_s, "first_fused_seconds": first_s,
+            "fused_seconds": fused_s, "staged_rows_per_s": SERVE_ROWS / staged_s,
+            "fused_rows_per_s": SERVE_ROWS / fused_s, "graph_captures": seg.captures,
+            "segment_stats": {k: v for k, v in stats.items() if k != "stages"},
+            "byte_identical": True}
+
+
+def serving_gbdt(model, x: np.ndarray) -> dict:
+    """(b) serve_model(the regressor) over HTTP on the card: keep-alive
+    clients at each SERVE_CONCURRENCY, a pass forced onto the resident
+    route, binary-wire requests; every reply's bytes equal make_reply of
+    the staged transform's."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.io_http import wire
+    from mmlspark_tpu_torch.io_http.schema import HTTPRequestData, make_reply
+    from mmlspark_tpu_torch.io_http.serving import serve_model
+
+    cols = [f"f{j}" for j in range(SERVE_FEATURES)]
+    rows = x[:SERVE_REQUESTS]
+    bodies = [json.dumps({c: float(v) for c, v in zip(cols, row)}).encode() for row in rows]
+    expect = [r.entity for r in make_reply(model.transform(Table({"features": rows})),
+                                           "prediction")["reply"]]
+    warm = HTTPRequestData.from_json("/", {c: float(v) for c, v in zip(cols, x[0])})
+    t0 = time.perf_counter()
+    srv = serve_model(model, cols, max_batch_size=256, warmup_request=warm, device="cuda")
+    try:
+        _wait_ready(srv)
+        warm_s = time.perf_counter() - t0
+        hp = srv.hot_path
+        assert hp is not None and hp.disabled is None, \
+            f"hot path disabled: {None if hp is None else hp.disabled}"
+        ladder = list(srv.bucketer.ladder)
+        assert sorted(hp.crossover) == ladder, (hp.crossover, ladder)
+        levels = {}
+        for clients in SERVE_CONCURRENCY:
+            paths0 = dict(hp.path_requests)
+            srv.reset_latency_stats()
+            run = _drive(srv, bodies, clients)
+            assert run["replies"] == expect, f"concurrency {clients}: replies differ"
+            server = srv.latency_stats()
+            levels[str(clients)] = {
+                "requests": len(bodies), "seconds": run["seconds"],
+                "requests_per_s": len(bodies) / run["seconds"],
+                "server_p50_ms": server["p50_ms"], "server_p99_ms": server["p99_ms"],
+                "client_p50_ms": run["client_p50_ms"], "client_p99_ms": run["client_p99_ms"],
+                "routes": {p: n - paths0.get(p, 0) for p, n in hp.path_requests.items()
+                           if n != paths0.get(p, 0)}}
+        res0, batches0 = hp.path_requests["resident"], hp.resident_batches
+        hp.force_path = "resident"
+        srv.reset_latency_stats()
+        forced = _drive(srv, bodies, 32)
+        hp.force_path = None
+        assert forced["replies"] == expect, "the resident route's replies differ"
+        assert hp.path_requests["resident"] > res0 and hp.resident_batches > batches0, \
+            "the card served no resident batch"
+        server = srv.latency_stats()
+        levels["resident_forced_32"] = {
+            "requests": len(bodies), "seconds": forced["seconds"],
+            "requests_per_s": len(bodies) / forced["seconds"],
+            "server_p50_ms": server["p50_ms"], "server_p99_ms": server["p99_ms"],
+            "client_p50_ms": forced["client_p50_ms"], "client_p99_ms": forced["client_p99_ms"],
+            "resident_batches": hp.resident_batches - batches0}
+        wire_bodies = [wire.encode_features_request(row) for row in rows[:SERVE_WIRE_REQUESTS]]
+        binary = _drive(srv, wire_bodies, 8, headers={"Content-Type": wire.WIRE_CONTENT_TYPE,
+                                                      "Accept": wire.WIRE_CONTENT_TYPE})
+        for entity, ct, want in zip(binary["replies"], binary["content_types"], expect):
+            assert wire.is_wire_content_type(ct), ct
+            col, vals = wire.decode_reply(entity)
+            assert col == "prediction"
+            assert float(np.asarray(vals).ravel()[0]) == json.loads(want)["prediction"]
+        counters = _server_counters(srv)
+        snap = hp.snapshot()
+    finally:
+        srv.stop()
+    return {"warmup_seconds": warm_s, "ladder": ladder, "crossover": snap["crossover"],
+            "crossover_timings_ms": snap["timings_ms"], "levels": levels,
+            "binary_requests": SERVE_WIRE_REQUESTS, "counters": counters,
+            "paths": snap["paths"], "resident_batches": snap["resident_batches"],
+            "round_trips": snap["round_trips"]}
+
+
+def serving_transformer(bundle=None) -> dict:
+    """(c) the serving transformer (8 layers, d_model 512, bf16 bundle,
+    attention_impl="flash") as DeepModelTransformer(bfloat16=False) in a
+    fused pipeline served over HTTP: TOKEN_REQUESTS requests of 512 token
+    ids, half JSON and half the binary wire, then a pass forced onto the
+    resident route; K2's wgmma launches 8 a fused forward, replays
+    included; then 256 rows fused against the staged transform."""
+    from mmlspark_tpu_torch.core import Table, fuse, pipeline_model
+    from mmlspark_tpu_torch.io_http import wire
+    from mmlspark_tpu_torch.io_http.schema import HTTPRequestData
+    from mmlspark_tpu_torch.io_http.serving import serve_model
+    from mmlspark_tpu_torch.nn import DeepModelTransformer, ModelBundle
+    from mmlspark_tpu_torch.nn.attention import flash_attention
+
+    if bundle is None:
+        bundle = ModelBundle.init("transformer", (SLICE_TOKENS,), seed=0,
+                                  attention_impl="flash", dtype="bfloat16",
+                                  **SLICE_TRANSFORMER)
+    runner = DeepModelTransformer(input_col="features", bfloat16=False, device="cuda",
+                                  fetch_dict={"probability": "probability"}).set_model(bundle)
+    fm = fuse(pipeline_model(runner), device="cuda")
+    rng = np.random.default_rng(37)
+    tokens = rng.integers(0, SLICE_TRANSFORMER["vocab_size"],
+                          size=(TOKEN_REQUESTS, SLICE_TOKENS))
+    cols = [f"t{j}" for j in range(SLICE_TOKENS)]
+    half = TOKEN_REQUESTS // 2
+    json_bodies = [json.dumps({c: int(v) for c, v in zip(cols, row)}).encode()
+                   for row in tokens[:half]]
+    wire_bodies = [wire.encode_features_request(row) for row in tokens[half:]]
+    warm = HTTPRequestData.from_json("/", {c: int(v) for c, v in zip(cols, tokens[0])})
+
+    flash_attention.launches = 0
+    flash_attention.launches_by_path = {}
+    t0 = time.perf_counter()
+    srv = serve_model(fm, cols, output_col="probability", max_batch_size=TOKEN_CONCURRENCY,
+                      warmup_request=warm, device="cuda")
+    try:
+        _wait_ready(srv)
+        warm_s = time.perf_counter() - t0
+        hp = srv.hot_path
+        assert hp is not None and hp.disabled is None, \
+            f"hot path disabled: {None if hp is None else hp.disabled}"
+        seg = hp.executor.segment
+        srv.reset_latency_stats()
+        run_json = _drive(srv, json_bodies, TOKEN_CONCURRENCY)
+        run_wire = _drive(srv, wire_bodies, TOKEN_CONCURRENCY,
+                          headers={"Content-Type": wire.WIRE_CONTENT_TYPE,
+                                   "Accept": wire.WIRE_CONTENT_TYPE})
+        server = srv.latency_stats()
+        batches0 = hp.resident_batches
+        hp.force_path = "resident"
+        forced = _drive(srv, json_bodies[:TOKEN_FORCED], TOKEN_CONCURRENCY)
+        hp.force_path = None
+        assert hp.resident_batches > batches0 and hp.path_requests["resident"] > 0, \
+            "the card served no resident batch"
+        assert hp.disabled is None, f"hot path disabled: {hp.disabled}"
+        torch.cuda.synchronize()
+        launches = dict(flash_attention.launches_by_path)
+        forwards, captures, replays = seg.forwards, seg.captures, seg.replays
+        probs = [np.asarray(json.loads(e)["probability"], np.float64)
+                 for e in run_json["replies"] + forced["replies"]]
+        for entity, ct in zip(run_wire["replies"], run_wire["content_types"]):
+            assert wire.is_wire_content_type(ct), ct
+            col, vals = wire.decode_reply(entity)
+            assert col == "probability"
+            probs.append(np.asarray(vals, np.float64).ravel())
+        probs = np.stack(probs)
+        assert probs.shape == (TOKEN_REQUESTS + len(forced["replies"]), 8)
+        assert np.isfinite(probs).all()
+        assert np.allclose(probs.sum(-1), 1.0, atol=1e-5), float(np.abs(probs.sum(-1) - 1).max())
+        layers = SLICE_TRANSFORMER["num_layers"]
+        assert captures > 0 and replays > 0, (captures, replays)
+        assert set(launches) == {"wgmma"}, launches
+        assert launches["wgmma"] == layers * forwards, \
+            f"K2 launched {launches['wgmma']} times on wgmma for {forwards} fused forwards"
+        counters = _server_counters(srv)
+        snap = hp.snapshot()
+    finally:
+        srv.stop()
+    seconds = run_json["seconds"] + run_wire["seconds"]
+    # 256 rows fused (one graph at that rung) against the staged transform
+    sample = Table({"features": tokens[:TOKEN_STAGED_ROWS].astype(np.float64)})
+    fused = np.asarray(fm.transform(sample)["probability"])
+    staged = np.asarray(runner.transform(sample)["probability"])
+    assert fused.dtype == staged.dtype == np.float32
+    np.testing.assert_allclose(fused, staged, atol=1e-4, rtol=0)
+    return {"requests": TOKEN_REQUESTS, "tokens_per_request": SLICE_TOKENS,
+            "concurrency": TOKEN_CONCURRENCY, "warmup_seconds": warm_s,
+            "seconds": seconds, "requests_per_s": TOKEN_REQUESTS / seconds,
+            "tokens_per_s": TOKEN_REQUESTS * SLICE_TOKENS / seconds,
+            "json_seconds": run_json["seconds"], "wire_seconds": run_wire["seconds"],
+            "server_p50_ms": server["p50_ms"], "server_p99_ms": server["p99_ms"],
+            "client_p50_ms": float(np.median([run_json["client_p50_ms"],
+                                              run_wire["client_p50_ms"]])),
+            "json_client_p50_ms": run_json["client_p50_ms"],
+            "json_client_p99_ms": run_json["client_p99_ms"],
+            "wire_client_p50_ms": run_wire["client_p50_ms"],
+            "wire_client_p99_ms": run_wire["client_p99_ms"],
+            "flash_launches": launches["wgmma"], "fused_forwards": forwards,
+            "graph_captures": captures, "graph_replays": replays,
+            "paths": snap["paths"], "resident_batches": snap["resident_batches"],
+            "crossover": snap["crossover"], "counters": counters,
+            "staged_rows": TOKEN_STAGED_ROWS,
+            "fused_equals_staged_bytes": fused.tobytes() == staged.tobytes(),
+            "fused_vs_staged_max_abs": float(np.abs(fused - staged).max())}
+
+
+def phase_slice_serving(card: str, bundle=None) -> dict:
+    """Pipeline fusion and the serving server on the card (items a-c
+    above); `card` (phase_env's nvidia-smi name and power limit) stands
+    beside every time and rate."""
+    t0 = time.perf_counter()
+    model, x, fit = serving_regressor()
+    doc = {"phase": "slice_serving", "card": card, "fit": fit,
+           "batch": serving_batch(model), "gbdt_http": serving_gbdt(model, x),
+           "transformer_http": serving_transformer(bundle)}
+    doc["seconds"] = time.perf_counter() - t0
+    emit(doc)
+    b, g, t = doc["batch"], doc["gbdt_http"], doc["transformer_http"]
+    print(f"slice_serving on {card}: fused {b['fused_rows_per_s']:.0f} rows/s, staged "
+          f"{b['staged_rows_per_s']:.0f}; GBDT over HTTP "
+          + ", ".join(f"c{k} p50 {v['server_p50_ms']:.3f}/{v['client_p50_ms']:.3f} ms p99 "
+                      f"{v['server_p99_ms']:.3f}/{v['client_p99_ms']:.3f} ms"
+                      for k, v in g["levels"].items())
+          + f"; transformer {t['tokens_per_s']:.0f} tokens/s, p50 {t['server_p50_ms']:.2f} ms, "
+          f"p99 {t['server_p99_ms']:.2f} ms, fused = staged bytes: "
+          f"{t['fused_equals_staged_bytes']}", flush=True)
+    return doc
+
+
 # ---- slice_train: DNN training through DNNLearner on the card ---- #
 
 # bench.py's transformer at its training width (bench.py:632-634, :697-734):
@@ -3962,6 +4397,7 @@ def main() -> int:
     phase_slice_zoo()
     featurize = phase_slice_featurize()
     tabular = phase_slice_tabular(env["nvidia_smi"])
+    serving = phase_slice_serving(env["nvidia_smi"], dnn["bundle"])
     train = phase_slice_train()
 
     main_shape = kern["histogram"][0]
@@ -4001,7 +4437,8 @@ def main() -> int:
                      + max_bin["histogram_launches"] + checkpoint["histogram_launches"]
                      + sum(mesh["histogram_launches_by_fit"].values())
                      + tabular["fit"]["histogram_launches"]
-                     + tabular["text"]["histogram_launches"]),
+                     + tabular["text"]["histogram_launches"]
+                     + serving["fit"]["histogram_launches"]),
         "launches_by_fit": {"adult": adult["histogram_launches"],
                             "higgs": higgs["histogram_launches"],
                             "multiclass": multiclass["histogram_launches"],
@@ -4018,7 +4455,8 @@ def main() -> int:
                                for name, fit in checkpoint["fits"].items()},
                             **mesh["histogram_launches_by_fit"],
                             "tabular": tabular["fit"]["histogram_launches"],
-                            "text": tabular["text"]["histogram_launches"]},
+                            "text": tabular["text"]["histogram_launches"],
+                            "serving_regressor": serving["fit"]["histogram_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern["histogram"]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -4036,13 +4474,16 @@ def main() -> int:
         "source": "mmlspark_tpu_torch/csrc/flash_attn.cu",
         "replaces": "mmlspark_tpu/nn/attention.py:192",
         # the wgmma kernel: the bf16 serving transformer (D 64), the bf16
-        # wide transformer (D 192) and the imported BERT-base-wide encoder
-        # (D 64)
+        # wide transformer (D 192), the imported BERT-base-wide encoder
+        # (D 64) and slice_serving's transformer over HTTP (D 64, replayed
+        # from the fused segment's CUDA graphs)
         "launches": (dnn["flash_launches"] + wide["bfloat16"]["flash_launches"]
-                     + featurize["encoder"]["flash_launches"]),
+                     + featurize["encoder"]["flash_launches"]
+                     + serving["transformer_http"]["flash_launches"]),
         "launches_by_phase": {"slice_transformer": dnn["flash_launches"],
                               "serve_wide_bf16": wide["bfloat16"]["flash_launches"],
-                              "slice_featurize": featurize["encoder"]["flash_launches"]},
+                              "slice_featurize": featurize["encoder"]["flash_launches"],
+                              "slice_serving": serving["transformer_http"]["flash_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern["flash_attention"]),
         "ms": flash_main["ms"],
         "plain_ms": flash_main["plain_ms"],

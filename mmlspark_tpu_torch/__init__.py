@@ -24,9 +24,14 @@ the utility and featurization stages (`ops`: `Featurize`,
 `CleanMissingData`, `ValueIndexer`, `Cacher` onto the card, ...), text
 featurization (`text`: `TextFeaturizer` and its stages), the checkpointer
 and its host chain (`resilience`, `observability`, `utils`), seeded
-tables (`utils.datagen`), host native kernels (`native`), and evaluation
+tables (`utils.datagen`), host native kernels (`native`), evaluation
 metrics and the featurize-then-fit trainers (`automl`: `TrainClassifier`,
-`TrainRegressor`). ROADMAP.md lists what is still to come.
+`TrainRegressor`), pipeline fusion (`core.fuse`: adjacent device stages
+as one program, a CUDA graph a shape on the card, every stage's
+`device_kernel`) and serving (`io_http`: `serve_model` and
+`ServingServer`, JSON and the binary wire, the resident hot path over a
+fused segment, the batch-mode journal). ROADMAP.md lists what is still
+to come.
 """
 
 import torch
@@ -38,8 +43,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("core", "gbdt", "automl", "image", "native", "nn", "observability",
-                "ops", "parallel", "resilience", "text", "utils")
+_SUBPACKAGES = ("core", "gbdt", "automl", "image", "io_http", "native", "nn",
+                "observability", "ops", "parallel", "resilience", "text", "utils")
 
 
 def __getattr__(name):

@@ -40,3 +40,12 @@ from .table_io import (
     to_pandas,
     DeviceTable,
 )
+from .fusion import (
+    DeviceKernel,
+    FusionPlan,
+    FusedPipelineModel,
+    ResidentExecutor,
+    fuse,
+    kernel_of,
+    plan_fusion,
+)

@@ -28,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KernelBuildError", "build", "load", "resolve_device",
+__all__ = ["KernelBuildError", "build", "load", "resolve_device", "LAUNCH_COUNTERS",
            "BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS"]
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
@@ -39,6 +39,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+#: every kernel wrapper that counts its launches: `fn.launches`, and
+#: `fn.launches_by_path` where it has one. A CUDA graph replay runs no
+#: Python, so core/fusion.py advances these by the launches its capture
+#: recorded at every replay.
+LAUNCH_COUNTERS: list = []
 
 
 class KernelBuildError(RuntimeError):

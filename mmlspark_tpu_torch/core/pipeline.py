@@ -155,6 +155,9 @@ class Timer(Transformer):
     disable = Param(False, "if true, skip timing", ptype=bool)
 
     last_elapsed: float | None = None  # class default so loaded stages have it
+    #: per-segment device/host split when the wrapped stage is a fused
+    #: pipeline (core/fusion.py), else None
+    last_segments: list | None = None
 
     def __init__(self, stage: Transformer | None = None, **kw):
         super().__init__(**kw)
@@ -170,10 +173,64 @@ class Timer(Transformer):
         self.last_elapsed = time.perf_counter() - t0
         from .logging import get_logger
 
-        get_logger("timer").info(
+        log = get_logger("timer")
+        log.info(
             "%s.transform took %.4fs", type(inner).__name__, self.last_elapsed
         )
+        self.last_segments = self._segment_report(inner)
+        for seg in self.last_segments or []:
+            log.info(
+                "  segment %s [%s] %s: %.4fs (device %.4fs, host %.4fs)",
+                seg["segment"], seg["kind"], "+".join(seg["stages"]),
+                seg["seconds"], seg["device_seconds"], seg["host_seconds"],
+            )
+        # also land the measurement in the process registry (lazy import:
+        # observability's package init imports THIS module)
+        try:
+            from ..observability.metrics import get_registry
+
+            reg = get_registry()
+            reg.histogram(
+                "mmlspark_tpu_pipeline_stage_seconds",
+                "pipeline stage transform wall time",
+                labels=("stage",)).labels(
+                    stage=type(inner).__name__).observe(self.last_elapsed)
+            for seg in self.last_segments or []:
+                reg.histogram(
+                    "mmlspark_tpu_pipeline_segment_seconds",
+                    "fused-pipeline segment wall time by execution kind",
+                    labels=("kind", "mesh_shape")).labels(
+                        kind=seg["kind"],
+                        mesh_shape=seg.get("mesh_shape", "1"),
+                    ).observe(seg["seconds"])
+        except Exception:
+            pass
         return out
+
+    @staticmethod
+    def _segment_report(inner: Transformer) -> "list | None":
+        """Device/host time split per fused-pipeline segment. Fused
+        segments spend `prepare_seconds` on the host (slice/pad/upload);
+        the rest of their wall time is device dispatch + read-back. Host
+        segments (and host fallbacks) are all host time."""
+        stats = getattr(inner, "last_stats", None)
+        if not isinstance(stats, dict) or not stats.get("segments"):
+            return None
+        report = []
+        for i, seg in enumerate(stats["segments"]):
+            total = float(seg.get("seconds", 0.0))
+            if seg.get("kind") == "fused":
+                host = min(float(seg.get("prepare_seconds", 0.0)), total)
+                device = total - host
+            else:
+                host, device = total, 0.0
+            report.append({
+                "segment": seg.get("segment", i), "kind": seg.get("kind"),
+                "stages": list(seg.get("stages", [])), "seconds": total,
+                "device_seconds": device, "host_seconds": host,
+                "mesh_shape": seg.get("mesh_shape", "1"),
+            })
+        return report
 
     def _save_state(self) -> dict[str, Any]:
         return {"stage": self.get("stage")}

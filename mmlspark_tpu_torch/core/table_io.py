@@ -60,9 +60,9 @@ def device_column(arr, device: "str | torch.device") -> torch.Tensor:
 class DeviceTable:
     """A lightweight dict of DEVICE-resident columns.
 
-    The device-side counterpart of `Table` that the reference's pipeline
-    fusion engine (`core/fusion.py`, not ported yet: ROADMAP item 11) runs
-    on: columns live as tensors between fused stage boundaries, so a fused
+    The device-side counterpart of `Table` that the pipeline fusion engine
+    (`core/fusion.py`) runs on: columns live as tensors between fused
+    stage boundaries, so a fused
     run pays one upload at entry and one read-back at exit instead of a
     host round-trip per stage.  Only the pieces fusion needs — no metadata,
     no list columns, no mutation: derive new tables with `with_columns`.
@@ -81,14 +81,14 @@ class DeviceTable:
         as int32. Asking for "cuda" without a card raises RuntimeError.
 
         `shardings` (the reference's per-column mesh placements) has no
-        counterpart in the port: the mesh's sharding helpers wait for
-        ROADMAP item 11, so anything but None raises."""
+        counterpart in the port: fusion over a mesh of several ranks is
+        ROADMAP item 11c, so anything but None raises."""
         from .kernels import resolve_device
 
         if shardings:
             raise NotImplementedError(
                 "DeviceTable.from_host(shardings=...) is not ported yet: sharded "
-                "uploads come with fusion (ROADMAP item 11)")
+                "uploads come with fusion over a mesh (ROADMAP item 11c)")
         dev = resolve_device(device)
         return cls({name: device_column(arr, dev) for name, arr in cols.items()})
 

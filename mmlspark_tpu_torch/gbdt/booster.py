@@ -659,12 +659,18 @@ class Booster:
             self._predict_cache[key] = lambda bins: self._walk(trees, bins)
         return self._predict_cache[key]
 
-    def device_predict_fn(self):
+    # objectives whose transform_score is the identity: their f64
+    # predictions are an exact widening of the f32 margins
+    IDENTITY_OBJECTIVES = (
+        "regression", "l1", "l2", "huber", "fair", "quantile", "mape")
+
+    def device_predict_fn(self, device: "str | None" = None):
         """(params, fn): the fused decode -> bin -> traverse scoring program
         (reference booster.py:969). `fn(params, x)` takes raw values (n, F)
         (numpy or a tensor, cast to f32) and returns the margins as a tensor
-        on the booster's device; params hold the binning keys, `nb` and the
-        blocked tree SoA as tensors there, so they move to the card once.
+        on the device of `params`; params hold the binning keys, `nb` and
+        the blocked tree SoA as tensors on `device` (the booster's own by
+        default), so they move to the card once.
 
         Binning is one `torch.searchsorted` per (row, feature) over
         ADJUSTED f32 boundary keys: key = the f32 value below f32(ub) where
@@ -677,7 +683,7 @@ class Booster:
         mapper = self.bin_mapper
         if mapper.category_maps:
             raise ValueError("device predict does not support categorical features")
-        dev = resolve_device(self.device)
+        dev = resolve_device(device or self.device)
         ub64 = np.asarray(mapper.upper_bounds[:, 1:max(mapper.total_bins, 2)], np.float64)
         ub32 = ub64.astype(np.float32)
         rounded_up = ub32.astype(np.float64) > ub64

@@ -291,6 +291,12 @@ class GBDTClassificationModel(_BoosterModelMixin, HasFeaturesCol, HasPredictionC
             meta={SCORE_KIND: "predicted_label"},
         )
 
+    def device_kernel(self):
+        """Non-fusable (core/fusion.py): transform_score computes sigmoid /
+        softmax in float64 on host — a float32 device version could not
+        reproduce the staged probabilities bit-for-bit."""
+        return "sigmoid/softmax probabilities computed in float64 on host"
+
     def _save_state(self) -> dict[str, Any]:
         st = _BoosterModelMixin._save_state(self)
         st["classes"] = None if self.classes is None else self.classes.tolist()
@@ -361,11 +367,69 @@ class GBDTRegressionModel(_BoosterModelMixin, HasFeaturesCol, HasPredictionCol, 
             meta={SCORE_KIND: "prediction"})
 
     def device_kernel(self):
-        """The pipeline fusion engine's kernel (core/fusion.py) comes with
-        ROADMAP Queue 1's GBDT-serving item; the fused bin -> traverse
-        program it wraps is `Booster.device_predict_fn`."""
-        raise _not_ported("GBDTRegressionModel.device_kernel (pipeline fusion)",
-                          "P3: GBDT serving")
+        """Fusion kernel (core/fusion.py): the booster's fused
+        decode->bin->traverse program (`fused_traverse`,
+        `Booster.device_predict_fn`) — searchsorted binning against
+        adjusted boundary keys plus the fixed-depth gather traversal, ONE
+        program from raw features to margins with the tree tables on the
+        segment's device (built on the CPU here, moved there once).
+        Regression objectives only — their transform_score is the
+        identity, so the float64 output is an exact widening of the
+        float32 margins. The `ready` check pins the binning bit-identity
+        precondition: feature values must be float32-representable. That
+        check is VALUE-dependent, so it also ships as the kernel's
+        `ready_values` hook — the serving hot path validates the schema
+        once at warmup and then re-runs only this per batch (a float32
+        batch skips the scan entirely: it is representable by
+        definition)."""
+        from ..core.fusion import DeviceKernel
+
+        b = self.booster
+        if b is None:
+            return "no fitted booster"
+        if b.num_trees == 0:
+            return "empty model (constant init score)"
+        if b.bin_mapper.category_maps:
+            return "categorical features bin through host category maps"
+        if b.objective not in b.IDENTITY_OBJECTIVES:
+            return (f"objective {b.objective!r} transforms scores in "
+                    "float64 on host")
+        in_col = self.get("features_col")
+        out_col = self.get("prediction_col")
+        params, predict = b.device_predict_fn(device="cpu")
+
+        def fn(p, cols):
+            x = cols[in_col]
+            if x.ndim == 1:
+                x = x[:, None]
+            return {out_col: predict(p, x)}
+
+        def ready_values(cols: dict):
+            col = np.asarray(cols[in_col])
+            if col.dtype != np.float32:
+                col64 = col.astype(np.float64)
+                mismatch = col64.astype(np.float32).astype(np.float64) != col64
+                if np.issubdtype(col.dtype, np.floating):
+                    mismatch &= ~np.isnan(col64)
+                if mismatch.any():
+                    return (f"features in {in_col!r} are not float32-"
+                            "representable (device binning would shift bins)")
+            return True
+
+        def ready(table: Table):
+            col = table[in_col]
+            if not isinstance(col, np.ndarray):
+                return f"features column {in_col!r} is not a dense ndarray"
+            return ready_values({in_col: col})
+
+        return DeviceKernel(
+            fn=fn, input_cols=(in_col,), output_cols=(out_col,),
+            params=params, name="GBDTRegressionModel",
+            out_dtypes={out_col: np.float64},
+            out_meta={out_col: {SCORE_KIND: "prediction"}}, ready=ready,
+            ready_values=ready_values,
+            mesh_desc="rows P(data); binning table + tree SoAs replicated",
+            kernel_label="fused_traverse")
 
     def native_score_fn(self):
         """Host-side scorer for a serving hot path: `fn(x) -> float64

@@ -458,3 +458,4 @@ def _launch(bins: torch.Tensor, stats: torch.Tensor, out: torch.Tensor, plan: La
 
 
 histogram.launches = 0
+kernels.LAUNCH_COUNTERS.append(histogram)

@@ -7,8 +7,8 @@ row through JNI). A uniform NHWC batch goes to the stage's device once and
 runs the whole op chain there in one pass over the batch; a ragged list of
 images runs it once per distinct shape. The output is float32 either way.
 
-Not ported: `device_kernel` (fusion, ROADMAP Queue 1 item 11), as for the
-GBDT models.
+`device_kernel` runs the op chain over a uniform NHWC batch in a fused
+segment (core/fusion.py).
 """
 
 from __future__ import annotations
@@ -133,6 +133,35 @@ class ImageTransformer(HasInputCol, HasOutputCol, Transformer):
             }
         return table.with_column(self.get("output_col"), out, meta=meta)
 
+    def device_kernel(self):
+        """Fusion kernel (core/fusion.py): the op chain over a uniform NHWC
+        batch — pixel math is float32 on both paths, so fused output
+        matches the staged bytes. Ragged image lists fall back to the
+        per-shape host path."""
+        from ..core.fusion import DeviceKernel
+
+        in_col, out_col = self.get("input_col"), self.get("output_col")
+
+        def fn(params, cols):
+            return {out_col: self.apply(cols[in_col])}
+
+        def ready(table: Table):
+            col = table[in_col]
+            if not (isinstance(col, np.ndarray) and col.ndim == 4):
+                return "ragged image column (grouped per-shape on host)"
+            return True
+
+        def image_meta(arr: np.ndarray) -> dict:
+            return {IMAGE_SPEC: {
+                "height": int(arr.shape[1]), "width": int(arr.shape[2]),
+                "channels": int(arr.shape[3]),
+            }}
+
+        return DeviceKernel(
+            fn=fn, input_cols=(in_col,), output_cols=(out_col,),
+            name="ImageTransformer", out_dtypes={out_col: np.float32},
+            out_meta={out_col: image_meta}, ready=ready)
+
 
 @register_stage
 class ResizeImageTransformer(HasInputCol, HasOutputCol, Transformer):
@@ -152,3 +181,6 @@ class ResizeImageTransformer(HasInputCol, HasOutputCol, Transformer):
 
     def _transform(self, table: Table) -> Table:
         return self._inner().transform(table)
+
+    def device_kernel(self):
+        return self._inner().device_kernel()

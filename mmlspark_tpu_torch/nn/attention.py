@@ -406,6 +406,7 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = 128,
 
 
 flash_attention.launches = 0
+kernels.LAUNCH_COUNTERS.append(flash_attention)
 flash_attention.launches_by_path = {}
 flash_attention.last_path = None
 

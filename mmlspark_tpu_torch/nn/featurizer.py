@@ -8,7 +8,8 @@ Each minibatch is resized on the stage's device by image/ops.py's port of
 output is the layer's output as `Capture` records it: no graph surgery on
 a serialized model.
 
-Not ported: `device_kernel` (fusion, ROADMAP Queue 1 item 11).
+`device_kernel` runs resize -> truncated forward -> flatten as one fused
+segment (core/fusion.py).
 """
 
 from __future__ import annotations
@@ -73,3 +74,37 @@ class ImageFeaturizer(DeepModelTransformer):
             feats = feats.reshape(feats.shape[0], -1)
         return out.with_column(out_col, feats.astype(np.float64),
                                meta={SCORE_KIND: "features"})
+
+    def device_kernel(self):
+        """Fusion kernel: resize -> truncated forward -> flatten as ONE
+        device program (the staged path already computes the resize and
+        forward in float32, so the float64 output cast after read-back is
+        an exact widening — fused and staged bytes match)."""
+        from ..core.fusion import DeviceKernel
+
+        if self.bundle is None:
+            return "no model bundle attached (call set_model())"
+        if self.get("use_mesh"):
+            return "mesh-sharded apply manages its own device placement"
+        in_col = self.get("input_col")
+        out_col = self.get("output_col")
+        fetches = (self._fetch_name(),)
+
+        def fn(params, cols):
+            (feats,) = self._forward(params["model"], fetches, cols[in_col],
+                                     params["mean"], params["std"])
+            if feats.ndim > 2:
+                feats = feats.reshape(feats.shape[0], -1)
+            return {out_col: feats}
+
+        def ready(table: Table):
+            col = table[in_col]
+            if not (isinstance(col, np.ndarray) and col.ndim == 4):
+                return f"column {in_col!r} is not a uniform NHWC batch"
+            return True
+
+        return DeviceKernel(
+            fn=fn, input_cols=(in_col,), output_cols=(out_col,),
+            params=self._device_params(), name="ImageFeaturizer",
+            out_dtypes={out_col: np.float64},
+            out_meta={out_col: {SCORE_KIND: "features"}}, ready=ready)

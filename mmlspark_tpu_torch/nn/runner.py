@@ -20,8 +20,10 @@ parameter and buffer) and the inputs per batch, as the JAX stage does
 so nothing is compiled: the `ExecutableCache` keeps the JAX stage's
 per-(family, bucket) counters.
 
-Not ported: `use_mesh` (ROADMAP Queue 1 item 12c; item 10 brought the mesh
-itself, parallel/mesh.py) and `device_kernel` (fusion, item 11, P3).
+`device_kernel` hands core/fusion.py the same `_forward` with the device
+model as its params, so a fused segment (a CUDA graph a shape on the
+card) runs it. Not ported: `use_mesh` (ROADMAP Queue 1 item 12c; item 10
+brought the mesh itself, parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -241,6 +243,53 @@ class DeepModelTransformer(Model):
             **self._exec_cache.stats(),
         }
         return [np.concatenate([c[j] for c in chunks]) for j in range(len(fetches))]
+
+    def _device_params(self) -> dict:
+        """The forward's params on the stage's device: the (bf16-cast)
+        model and the preprocessing mean and std."""
+        device = resolve_device(self.get("device"))
+        pre = self.bundle.preprocess
+        return {"model": self._device_model(device),
+                "mean": torch.as_tensor(np.asarray(pre.get("mean", 0.0), np.float32),
+                                        device=device),
+                "std": torch.as_tensor(np.asarray(pre.get("std", 1.0), np.float32),
+                                       device=device)}
+
+    def device_kernel(self):
+        """Fusion kernel (core/fusion.py): the same `_forward` the staged
+        path runs, with the device model, mean and std as params (moved to
+        the segment's device once). The forward is row-independent (eval
+        mode — no batch statistics), so the engine's chunking/padding
+        cannot change any row's value."""
+        from ..core.fusion import DeviceKernel
+
+        if self.bundle is None:
+            return "no model bundle attached (call set_model())"
+        fetch = dict(self.get("fetch_dict"))
+        fetches = tuple(fetch.values())
+        out_cols = tuple(fetch.keys())
+        in_col = self.get("input_col")
+
+        def fn(params, cols):
+            outs = self._forward(params["model"], fetches, cols[in_col],
+                                 params["mean"], params["std"])
+            return dict(zip(out_cols, outs))
+
+        def ready(table: Table):
+            if isinstance(table[in_col], list):
+                return f"column {in_col!r} is a ragged list (host stacks it)"
+            return True
+
+        meta = {c: {SCORE_KIND: "probability" if f == "probability"
+                    else "raw_prediction"} for c, f in fetch.items()}
+        return DeviceKernel(
+            fn=fn, input_cols=(in_col,), output_cols=out_cols,
+            params=self._device_params(), name="DeepModelTransformer",
+            out_dtypes={c: np.float32 for c in out_cols},
+            out_meta=meta, ready=ready,
+            mesh_desc=("rows P(data); dense kernels column-parallel "
+                       "P(None,model) + tiled all_gather when the mesh has "
+                       "a >1 model axis, else variables replicated"))
 
     # -- persistence ---------------------------------------------------- #
 

@@ -1,8 +1,9 @@
 """Utility pipeline stages of the port: column stages, indexing, imputation,
 conversion, profiling, sampling, aggregation, adapters, featurization and
 mini-batching. Copies of mmlspark_tpu/ops (host numpy code); `Cacher` puts
-columns on the card. The stages' `device_kernel`s wait for fusion (ROADMAP
-item 11)."""
+columns on the card. `CleanMissingDataModel`, `DataConversion` and
+`AssembleFeaturesModel` declare `device_kernel`s, which run in fused
+segments (core/fusion.py); `EnsembleByKey` declares why it cannot."""
 
 from .stages import (
     DropColumns,

@@ -3,9 +3,8 @@
 Reference: `src/ensemble/EnsembleByKey.scala:21+` — group rows by key
 column(s), aggregate chosen scalar/vector columns (mean or collect).
 
-A copy of mmlspark_tpu/ops/ensemble.py (host numpy code). Not
-ported: `device_kernel` (the stage's kernel in a fused segment), which
-waits for fusion, ROADMAP item 11.
+A copy of mmlspark_tpu/ops/ensemble.py (host numpy code; its
+`device_kernel` declares why the stage stays on the host).
 """
 
 from __future__ import annotations
@@ -70,3 +69,11 @@ class EnsembleByKey(Transformer):
             vals = [col[pos[kt]] for kt in key_tuples]
             out = out.with_column(name, vals)
         return out
+
+    def device_kernel(self):
+        """Non-fusable (core/fusion.py): groupby over python key tuples with
+        a DATA-DEPENDENT output row count — neither expressible as a
+        fixed-shape row-independent device program. The planner surfaces
+        this reason in the plan text."""
+        return ("groupby with data-dependent output shape "
+                "(row count depends on key values)")

@@ -10,9 +10,9 @@ TPU-first: the assembled features column is a dense (n, d) float32 matrix —
 the layout the MXU wants — built in one pass; string hashing uses a stable
 crc32 (not process-salted hash()).
 
-A copy of mmlspark_tpu/ops/featurize.py (host numpy code). Not ported:
-`AssembleFeaturesModel.device_kernel` (the assembly in a fused segment),
-which waits for fusion, ROADMAP item 11.
+A copy of mmlspark_tpu/ops/featurize.py; `AssembleFeaturesModel`'s
+`device_kernel` (the assembly in a fused segment, core/fusion.py) runs in
+torch.
 """
 
 from __future__ import annotations
@@ -179,6 +179,69 @@ class AssembleFeaturesModel(Model):
         return table.with_column(
             self.get("features_col"), features, meta={"feature_names": names}
         )
+
+    def device_kernel(self):
+        """Fusion kernel (core/fusion.py): numeric/vector/onehot assembly is
+        pure gather/compare/concat, byte-identical to the staged path
+        (float->float32 rounds to nearest in both numpy and torch;
+        float->int category indices truncate toward zero in both). String
+        kinds (levels/hash) need host string processing, so any such spec
+        keeps the whole stage on the host path."""
+        import torch
+
+        from ..core.fusion import DeviceKernel
+
+        specs = list(self.specs)
+        if not specs:
+            return "no feature specs (empty assembly)"
+        for s in specs:
+            if s["kind"] not in ("numeric", "vector", "onehot"):
+                return f"spec kind {s['kind']!r} needs host string processing"
+        out_col = self.get("features_col")
+        in_cols = tuple(dict.fromkeys(s["col"] for s in specs))
+        names: list[str] = []
+        for s in specs:
+            if s["kind"] == "numeric":
+                names.append(s["col"])
+            elif s["kind"] == "vector":
+                names.extend(f"{s['col']}_{i}" for i in range(s["dim"]))
+            else:
+                names.extend(f"{s['col']}={i}" for i in range(s["dim"]))
+
+        def fn(params, cols):
+            n = cols[specs[0]["col"]].shape[0]
+            parts = []
+            for s in specs:
+                x = cols[s["col"]]
+                if s["kind"] == "numeric":
+                    parts.append(x.to(torch.float32).reshape(n, 1))
+                elif s["kind"] == "vector":
+                    parts.append(x.to(torch.float32).reshape(n, s["dim"]))
+                else:  # onehot
+                    idx = x.to(torch.int32)
+                    valid = (idx >= 0) & (idx < s["dim"])
+                    oh = idx[:, None] == torch.arange(s["dim"], device=x.device)[None, :]
+                    parts.append((oh & valid[:, None]).to(torch.float32))
+            return {out_col: torch.cat(parts, dim=1)}
+
+        def ready(table: Table):
+            for s in specs:
+                col = table[s["col"]]
+                if (s["kind"] == "onehot"
+                        and np.issubdtype(col.dtype, np.floating)
+                        and not np.isfinite(col).all()):
+                    # host int64-cast of NaN/inf is a huge sentinel (-> zero
+                    # row); a device float->int cast of them is undefined
+                    return f"non-finite category indices in {s['col']!r}"
+                if (np.issubdtype(col.dtype, np.integer) and col.size
+                        and (col.min() < -(2 ** 31) or col.max() >= 2 ** 31)):
+                    return f"values in {s['col']!r} exceed device int32"
+            return True
+
+        return DeviceKernel(
+            fn=fn, input_cols=in_cols, output_cols=(out_col,),
+            name="AssembleFeatures", out_dtypes={out_col: np.float32},
+            out_meta={out_col: {"feature_names": names}}, ready=ready)
 
     def _save_state(self) -> dict[str, Any]:
         return {"specs": self.specs}

@@ -3,9 +3,9 @@
 Reference: `src/clean-missing-data/CleanMissingData.scala:46-157` —
 mean/median/custom fill over selected columns.
 
-A copy of mmlspark_tpu/ops/missing.py (host numpy code). Not
-ported: `device_kernel` (the stage's kernel in a fused segment), which
-waits for fusion, ROADMAP item 11.
+A copy of mmlspark_tpu/ops/missing.py; `CleanMissingDataModel`'s
+`device_kernel` (its kernel in a fused segment, core/fusion.py) runs in
+torch.
 """
 
 from __future__ import annotations
@@ -84,6 +84,39 @@ class CleanMissingDataModel(Model):
                 filled = np.where(np.isnan(col), fill, col)
             out = out.with_column(o, filled)
         return out
+
+    def device_kernel(self):
+        """Fusion kernel: `where(isnan(x), fill, x)` elementwise. Only
+        float32 columns fuse — the staged path computes float64 columns in
+        float64, and the fill value is generally not representable in
+        float32, so a device (f32) run could not be byte-identical."""
+        import torch
+
+        from ..core.fusion import DeviceKernel
+
+        ins = tuple(self.get("input_cols"))
+        outs = tuple(self.get("output_cols"))
+        fills = [np.float32(f) for f in self.fill_values]
+
+        def fn(params, cols):
+            result = {}
+            for c, o, fill in zip(ins, outs, fills):
+                x = cols[c]
+                result[o] = x.masked_fill(torch.isnan(x), float(fill))
+            return result
+
+        def ready(table: Table):
+            for c in ins:
+                col = table[c]
+                if col.dtype != np.float32:
+                    return (f"column {c!r} is {col.dtype} (float64 fill "
+                            "values are not representable on device)")
+            return True
+
+        return DeviceKernel(
+            fn=fn, input_cols=ins, output_cols=outs,
+            name="CleanMissingData",
+            out_dtypes={o: np.float32 for o in outs}, ready=ready)
 
     def _save_state(self) -> dict[str, Any]:
         return {"fill_values": list(self.fill_values)}

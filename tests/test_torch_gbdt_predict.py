@@ -200,5 +200,8 @@ def test_regressor_importances_and_native_scorer(data):
     score = model.native_score_fn()
     np.testing.assert_array_equal(score(x[:20]),
                                   model.transform(Table({"features": x[:20]}))["prediction"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.device_kernel()
+    # since fusion came (core/fusion.py), the regressor's kernel is the
+    # fused bin -> traverse program
+    kernel = model.device_kernel()
+    assert kernel.kernel_label == "fused_traverse"
+    assert kernel.input_cols == ("features",) and kernel.output_cols == ("prediction",)

@@ -827,3 +827,105 @@ def test_text_fit_on_the_card_tracks_the_cpu(cuda):
     assert launches == 3 * 7
     chip_smoke.compare_fits(cpu.booster, card.booster,
                             cpu.booster.bin_mapper.transform(feats["features"]), tol=1e-4)
+
+
+# ---- pipeline fusion and serving on the card ---- #
+
+
+def _fusion_chain(rng, n=3000, f=6):
+    from mmlspark_tpu_torch.core import pipeline_model
+    from mmlspark_tpu_torch.gbdt.estimators import GBDTRegressor
+    from mmlspark_tpu_torch.ops.conversion import DataConversion
+    from mmlspark_tpu_torch.ops.featurize import AssembleFeatures
+    from mmlspark_tpu_torch.ops.missing import CleanMissingData
+
+    cols = {f"c{i}": rng.normal(size=n).astype(np.float32) for i in range(f)}
+    cols["c0"][::40] = np.nan
+    table = Table(cols)
+    clean = CleanMissingData(input_cols=["c0"], output_cols=["c0"],
+                             cleaning_mode="Mean").fit(table)
+    asm = AssembleFeatures(columns_to_featurize=list(cols)).fit(table)
+    x = asm.transform(clean.transform(table))["features"].astype(np.float64)
+    y = np.sin(np.nan_to_num(x[:, 0])) + (x[:, 1] > 0)
+    reg = GBDTRegressor(num_iterations=8, num_leaves=15, device="cuda").fit(
+        Table({"features": x, "label": y}))
+    conv = DataConversion(cols=["prediction"], convert_to="float")
+    return table, pipeline_model(clean, asm, reg, conv), reg, list(cols)
+
+
+def test_fused_segment_on_the_card_equals_the_staged_path_byte_for_byte(cuda):
+    from mmlspark_tpu_torch.core import fuse
+
+    table, staged_model, _, _ = _fusion_chain(np.random.default_rng(41))
+    fm = fuse(staged_model, mini_batch_size=1024, device="cuda")
+    staged = staged_model.transform(table)
+    fused = fm.transform(table)
+    seg = fm._segments[0]
+    assert fm.last_stats["segments"][0]["kind"] == "fused"
+    assert seg.captures == 1 and seg.replays == 3       # the 952-row tail pads to 1024
+    for c in staged.columns:
+        assert staged[c].dtype == fused[c].dtype, c
+        assert staged[c].tobytes() == fused[c].tobytes(), c
+        assert staged.meta(c) == fused.meta(c), c
+    again = fm.transform(table)
+    assert seg.captures == 1 and seg.replays == 6
+    assert again["prediction"].tobytes() == fused["prediction"].tobytes()
+
+
+def test_resident_lag2_warm_keeps_each_batch_its_own_outputs(cuda):
+    """Batch N+1's replay writes over the graph's outputs before a lag-2
+    readback fetches batch N: each dispatch's outputs are its own copy."""
+    from mmlspark_tpu_torch.core import fuse
+
+    rng = np.random.default_rng(43)
+    table, staged_model, _, cols = _fusion_chain(rng)
+    ex = fuse(staged_model, device="cuda").resident_executor()
+    rows = {c: np.asarray(table[c][:64]) for c in cols}
+    n = ex.warm(rows, [64, 64, 64, 32, 64, 32], readback_lag=2)
+    assert n == 6
+    outs = []
+    for start in (0, 64, 128, 192):             # four batches in flight, then fetched
+        outs.append(ex.dispatch({c: np.asarray(table[c][start:start + 64]) for c in cols}))
+    got = [ex.fetch(o, 64)["prediction"] for o in outs]
+    want = staged_model.transform(Table({c: np.asarray(table[c][:256]) for c in cols}))
+    assert np.concatenate(got).tobytes() == want["prediction"].tobytes()
+    assert ex.segment.captures == 2 and ex.stats()["misses"] == 2
+
+
+def test_serve_model_on_the_card_replies_as_the_cpu_server(cuda):
+    import json
+    import time
+    import urllib.request
+
+    from mmlspark_tpu_torch.gbdt.booster import Booster
+    from mmlspark_tpu_torch.gbdt.estimators import GBDTRegressionModel
+    from mmlspark_tpu_torch.io_http.schema import HTTPRequestData
+    from mmlspark_tpu_torch.io_http.serving import serve_model
+
+    rng = np.random.default_rng(47)
+    _, _, reg, cols = _fusion_chain(rng)
+    cpu = GBDTRegressionModel()
+    cpu.booster = Booster.from_text(reg.booster.to_text(), device="cpu")
+    feats = rng.normal(size=(24, len(cols))).astype(np.float32).astype(np.float64)
+    warm = HTTPRequestData.from_json("/", dict(zip(cols, feats[0].tolist())))
+    replies = {}
+    for device, model in (("cuda", reg), ("cpu", cpu)):
+        srv = serve_model(model, cols, max_batch_size=8, warmup_request=warm, device=device)
+        try:
+            deadline = time.monotonic() + 60
+            while not srv.ready:
+                assert time.monotonic() < deadline, "server never ready"
+                time.sleep(0.02)
+            assert srv.hot_path.disabled is None
+            srv.hot_path.force_path = "resident"
+            out = []
+            for row in feats:
+                req = urllib.request.Request(srv.url, data=json.dumps(
+                    dict(zip(cols, row.tolist()))).encode())
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    out.append(r.read())
+            assert srv.hot_path.resident_batches > 0
+            replies[device] = out
+        finally:
+            srv.stop()
+    assert replies["cuda"] == replies["cpu"]

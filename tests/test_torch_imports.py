@@ -61,6 +61,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "mmlspark_tpu_torch.ops.featurize", "mmlspark_tpu_torch.ops.minibatch",
                    "mmlspark_tpu_torch.automl.train", "mmlspark_tpu_torch.text",
                    "mmlspark_tpu_torch.text.featurizer", "mmlspark_tpu_torch.text.page_splitter",
-                   "mmlspark_tpu_torch.text.multi_ngram", "mmlspark_tpu_torch.utils.datagen"):
+                   "mmlspark_tpu_torch.text.multi_ngram", "mmlspark_tpu_torch.utils.datagen",
+                   "mmlspark_tpu_torch.core.fusion", "mmlspark_tpu_torch.resilience.breaker",
+                   "mmlspark_tpu_torch.io_http", "mmlspark_tpu_torch.io_http.wire",
+                   "mmlspark_tpu_torch.io_http.schema", "mmlspark_tpu_torch.io_http.journal",
+                   "mmlspark_tpu_torch.io_http.serving"):
         assert module in out["modules"]
     assert out["leaked"] == [], f"the port pulled in: {out['leaked']}"
