@@ -33,8 +33,9 @@ parser and fitted through CleanMissingData -> TrainClassifier, a hashed
 text corpus through TextFeaturizer -> GBDTClassifier, a fused
 CleanMissingData -> AssembleFeatures -> GBDTRegressor -> DataConversion
 pipeline scoring 1,048,576 rows from CUDA graphs, that regressor and the
-transformer served over HTTP by serve_model, and DNNLearner training that
-transformer and ResNet-50 — and
+transformer served over HTTP by serve_model, then each on two replica
+processes of a ServingFleet behind a ServingGateway, and DNNLearner
+training that transformer and ResNet-50 — and
 shows through the kernels' launch counters that each path ran on its
 kernel. It prints one JSON line per phase:
 
@@ -147,11 +148,12 @@ kernel. It prints one JSON line per phase:
                1e-6, atol 1e-7; parse and export seconds
   slice_mesh   distributed GBDT: 4 spawned ranks on the one card over gloo
                (parallel.RankPool), each fitting slice_adult's data on its
-               8,192 rows through GBDTClassifier(use_mesh=True) under
-               data_parallel, deterministic, voting_parallel (top_k 5) and
-               bagged gbdt: every rank's model one text, 3,100 K1 launches
-               a rank, held-out AUC > 0.75 (within 0.01 of slice_adult's
-               for the first two), data_parallel against slice_adult's
+               8,192 rows through GBDTClassifier(use_mesh=True), 40 rounds,
+               under data_parallel, deterministic, voting_parallel (top_k
+               5) and bagged gbdt: every rank's model one text, 1,240 K1
+               launches a rank, held-out AUC > 0.75 (within 0.01 of
+               slice_adult's first 40 rounds for the first two),
+               data_parallel against those 40 trees of slice_adult's
                booster and every fit against 4 CPU ranks' 10-round fit by
                compare_fits at 1e-4; fit seconds, collectives, bytes merged
                and their host-timed share; then a one-rank mesh on NCCL,
@@ -232,6 +234,22 @@ kernel. It prints one JSON line per phase:
                8 times a fused forward (graph replays included), the
                hot path never disabled, probabilities summing to 1,
                tokens/s, and 256 rows fused against the staged transform
+  slice_fleet  the serving fleet (after slice_serving, whose regressor and
+               transformer it serves again): (a) the regressor on two
+               ServingFleet replicas (spawned processes, a CUDA context
+               each) behind a ServingGateway, 2,048 requests through the
+               gateway at concurrency 32 and 256 straight at a replica,
+               every reply equal to make_reply of the parent's transform,
+               the rendezvous totals equal to the replicas' own counters,
+               a kill window (100 requests, a replica SIGKILLed, 200 more:
+               no client-visible error), respawn, a rolling swap under
+               load (no error, the same bytes), the stop; nvidia-smi's
+               context count follows every spawn, kill and stop; (c) an
+               SLOEngine, a TimelineRecorder and a FleetAutoscaler over
+               that fleet; (b) the transformer on two replicas behind a
+               gateway, 512 requests at concurrency 16, probabilities
+               within 1e-4 of the staged transform, K2's wgmma launches = 8
+               x each replica's fused forwards, read back from the replica
   slice_train  DNN training through DNNLearner: bench.py's transformer at
                its training width (8 layers, d_model 512, flash core in
                bf16, adamw, 32 x 512 tokens a step), 3 epochs of 32 steps
@@ -275,7 +293,14 @@ H100_TF32_OPS_PER_S = 495e12      # dense TF32 tensor cores
 HIST_BINS = 256
 
 
+_STARTED = time.perf_counter()
+
+
 def emit(doc: dict) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (`at_s`), so differences give each phase's wall time."""
+    if "phase" in doc:
+        doc = {**doc, "at_s": time.perf_counter() - _STARTED}
     print(json.dumps(doc), flush=True)
 
 
@@ -2345,6 +2370,10 @@ def phase_slice_lightgbm_import(adult: dict, categorical: dict) -> dict:
 # The serving transformer at bench.py's accelerator width (bench.py:632-645)
 MESH_RANKS = 4
 MESH_CPU_ROUNDS = 10      # the CPU ranks' fits, against the card fits' first trees
+# the card ranks' fits: 40 of slice_adult's 100 rounds, held against its first
+# 40 trees (a tree of round r depends on no later round), so that the smoke
+# stays well inside its time limit (at 100 rounds the four fits took 164 s)
+MESH_ROUNDS = 40
 # compare_fits' tolerance of a card fit against the CPU ranks' fit. The
 # fixed-point merge rounds each bin to 2**23 / 4 steps of its channel's
 # largest value, so where K1's block-order sums and the CPU's row-order
@@ -2434,14 +2463,15 @@ def _mesh_pool_fits(pool, x, y, device: str, rounds: int, row_order: bool = Fals
 def phase_slice_mesh(adult: dict) -> dict:
     """Distributed GBDT: 4 ranks on the one card, joined over gloo (NCCL
     takes one rank a card), each fitting slice_adult's data (32,768 x 14,
-    100 rounds of 31 leaves) through GBDTClassifier(use_mesh=True) on its
+    MESH_ROUNDS rounds of 31 leaves) through GBDTClassifier(use_mesh=True) on its
     block of 8,192 rows under MESH_CONFIGS: data_parallel, deterministic
     (the fixed-point merge), voting_parallel with top_k 5 (10 of the 14
     features merged a tree) and bagged gbdt (per-shard draws). Every
-    rank's model is one text; each rank launches K1 3,100 times a fit.
-    data_parallel meets slice_adult's one-device card fit by compare_fits
-    at 1e-4 (the merge and K1 add in other orders); deterministic is held
-    to it by quality. The same four fits on 4 CPU ranks meet the card's by
+    rank's model is one text; each rank launches K1 31 times a round. The
+    card fits run MESH_ROUNDS of the 100 rounds, against slice_adult's
+    booster truncated to as many: data_parallel meets that one-device
+    card fit by compare_fits at 1e-4 (the merge and K1 add in other
+    orders); deterministic is held to it by quality. The same four fits on 4 CPU ranks meet the card's by
     compare_fits at MESH_CPU_TOL (below); the deterministic fit again on
     the card with the CPU's row-order histogram in K1's place meets the CPU
     ranks' at 1e-5, so only K1's order parts them. Held-out AUC > 0.75, and within 0.01 of the
@@ -2457,12 +2487,13 @@ def phase_slice_mesh(adult: dict) -> dict:
     from mmlspark_tpu_torch.gbdt import Booster
     from mmlspark_tpu_torch.parallel import RankPool
 
-    n, n_valid, f, rounds, leaves = 32768, 8192, 14, 100, 31
+    n, n_valid, f, rounds, leaves = 32768, 8192, 14, MESH_ROUNDS, 31
     x_all, y_all = make_dataset(n + n_valid, f)
     x, y, xv, yv = x_all[:n], y_all[:n], x_all[n:], y_all[n:]
     single = adult["booster"]
+    single_cut = single.truncated(rounds)
     bins = single.bin_mapper.transform(x)
-    auc_single = auc(yv, single.predict(xv))
+    auc_single = auc(yv, single_cut.predict(xv))
     workdir = ROOT / "build" / "chip_smoke_mesh"
     workdir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -2503,7 +2534,7 @@ def phase_slice_mesh(adult: dict) -> dict:
                  "valid_auc": valid_auc, "vs_cpu_ranks_tol": MESH_CPU_TOL[name],
                  "vs_cpu_ranks": {k: vs_cpu[k] for k in keys}}
         if name == "data_parallel":
-            vs_single = compare_fits(single, model, bins, tol=1e-4)
+            vs_single = compare_fits(single_cut, model, bins, tol=1e-4)
             assert vs_single["trees_compared"] > 0, "no tree compared with the one-device fit"
             entry["vs_single_device"] = {k: vs_single[k] for k in keys}
         if name == "deterministic":
@@ -2515,7 +2546,7 @@ def phase_slice_mesh(adult: dict) -> dict:
     assert nccl["backend"] == "nccl" and nccl["all_reduce_ok"], nccl
     assert nccl["text"] == single_text, "the one-rank NCCL mesh fit differs from the fit " \
                                        "without a mesh"
-    assert nccl["launches"] == rounds * leaves, nccl["launches"]
+    assert nccl["launches"] == single.num_trees * leaves, nccl["launches"]
     doc["nccl_one_rank"] = {"equal_to_no_mesh": True, "launches": nccl["launches"],
                             "mesh_device": nccl["mesh_device"],
                             "booster_device": nccl["booster_device"], "all_reduce_ok": True}
@@ -3571,18 +3602,30 @@ def _wait_ready(srv, timeout_s: float = 120.0) -> None:
 def _drive(srv, bodies: list, clients: int, headers=None) -> dict:
     """`clients` keep-alive connections posting `bodies` concurrently (body
     i from client i % clients), connected before anyone posts. Returns the
-    reply entities in body order, each client RTT and the wall seconds."""
+    reply entities in body order, each client RTT and the wall seconds.
+    The connections open one after another before the client threads
+    start: opened all at once they overflow the server's accept backlog
+    (128), the overflow waits out SYN retries, and the first ones sit idle
+    past the handler's 5 s keep-alive timeout, which closes them."""
     import http.client
     import threading
 
     replies, rtt, errors = [None] * len(bodies), [], []
     barrier = threading.Barrier(clients + 1)
     hdrs = headers or {"Content-Type": "application/json"}
+    conns = []
+    try:
+        for _ in range(clients):
+            conns.append(http.client.HTTPConnection(srv.host, srv.port, timeout=120))
+            conns[-1].connect()
+    except OSError:
+        for conn in conns:
+            conn.close()
+        raise
 
     def client(k: int) -> None:
-        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=120)
+        conn = conns[k]
         try:
-            conn.connect()
             barrier.wait()
             for i in range(k, len(bodies), clients):
                 t0 = time.perf_counter()
@@ -3890,6 +3933,7 @@ def phase_slice_serving(card: str, bundle=None) -> dict:
            "transformer_http": serving_transformer(bundle)}
     doc["seconds"] = time.perf_counter() - t0
     emit(doc)
+    doc["regressor"] = model          # slice_fleet serves it again
     b, g, t = doc["batch"], doc["gbdt_http"], doc["transformer_http"]
     print(f"slice_serving on {card}: fused {b['fused_rows_per_s']:.0f} rows/s, staged "
           f"{b['staged_rows_per_s']:.0f}; GBDT over HTTP "
@@ -3899,6 +3943,449 @@ def phase_slice_serving(card: str, bundle=None) -> dict:
           + f"; transformer {t['tokens_per_s']:.0f} tokens/s, p50 {t['server_p50_ms']:.2f} ms, "
           f"p99 {t['server_p99_ms']:.2f} ms, fused = staged bytes: "
           f"{t['fused_equals_staged_bytes']}", flush=True)
+    return doc
+
+
+# ---- slice_fleet: the serving fleet behind the gateway on the card ---- #
+
+# (a) the Adult regressor: requests through the gateway and straight at one
+# replica (bench.py's bench_fleet_gateway, bench.py:1878-1957, at the
+# serving slice's concurrency), the kill window's sequential requests
+FLEET_REQUESTS, FLEET_DIRECT, FLEET_CONCURRENCY = 2048, 256, 32
+FLEET_KILL_BEFORE, FLEET_KILL_AFTER = 100, 200
+# (b) the 8-layer transformer: requests of SLICE_TOKENS ids
+FLEET_TOKEN_REQUESTS, FLEET_TOKEN_CONCURRENCY, FLEET_TOKEN_BATCH = 512, 16, 64
+FLEET_STOP_TIMEOUT_S = 15.0
+_SEEN = "mmlspark_tpu_serving_requests_seen_total"
+_ANSWERED = "mmlspark_tpu_serving_requests_answered_total"
+_FAILED = "mmlspark_tpu_serving_requests_failed_total"
+_LATENCY = "mmlspark_tpu_serving_latency_seconds"
+
+
+def _fleet_handler(model, cols: list, output_col: str, status_dir: str, started: float):
+    """A replica's handler: the request fields stacked into the features
+    matrix, the fused model's transform, make_reply. After each batch it
+    writes the replica's own counters (K2's launches by path, the fused
+    segment's forwards, captures and replays, the bytes its allocator
+    holds on the card) and its clock (`started`: the factory's first line,
+    after the replica's imports; `built`: the handler ready, before the
+    warm-up) to status_dir/replica-<pid>.json: the parent reads them from
+    there, never from its own counters."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.io_http.schema import make_reply, parse_request
+    from mmlspark_tpu_torch.nn.attention import flash_attention
+
+    status = Path(status_dir) / f"replica-{os.getpid()}.json"
+    batches, built = [0], time.time()
+
+    def handler(table):
+        t = parse_request(table)
+        feats = np.stack([np.asarray(t[c], np.float64) for c in cols], 1)
+        out = make_reply(model.transform(Table({"request": list(table["request"]),
+                                                "features": feats})), output_col)
+        batches[0] += 1
+        seg = model._segments[0]
+        doc = {"pid": os.getpid(), "batches": batches[0], "started": started, "built": built,
+               "launches_by_path": dict(flash_attention.launches_by_path),
+               "forwards": seg.forwards, "captures": seg.captures, "replays": seg.replays,
+               "memory_reserved": (torch.cuda.memory_reserved()
+                                   if torch.cuda.is_initialized() else 0)}
+        tmp = status.with_name(status.name + ".tmp")
+        tmp.write_text(json.dumps(doc))
+        os.replace(tmp, status)
+        return out
+
+    return handler
+
+
+def fleet_regressor_factory(model_path: str, status_dir: str):
+    """(a)'s replica: the regressor loaded from the file the parent saved,
+    `fuse(pipeline_model(regressor))` on the card. Module-level, so that
+    the spawned replica finds it by name."""
+    started = time.time()
+    from mmlspark_tpu_torch.core import fuse, pipeline_model
+    from mmlspark_tpu_torch.gbdt.estimators import GBDTRegressionModel
+
+    model = fuse(pipeline_model(GBDTRegressionModel.load_native_model(model_path,
+                                                                      device="cuda")),
+                 device="cuda")
+    return _fleet_handler(model, [f"f{j}" for j in range(SERVE_FEATURES)], "prediction",
+                          status_dir, started)
+
+
+def fleet_transformer_factory(bundle_path: str, status_dir: str):
+    """(b)'s replica: the bundle loaded from the parent's file, served as
+    DeepModelTransformer(bfloat16=False) fused on the card."""
+    started = time.time()
+    from mmlspark_tpu_torch.core import fuse, pipeline_model
+    from mmlspark_tpu_torch.nn import DeepModelTransformer, ModelBundle
+
+    runner = DeepModelTransformer(input_col="features", bfloat16=False, device="cuda",
+                                  fetch_dict={"probability": "probability"}).set_model(
+        ModelBundle.load(bundle_path))
+    return _fleet_handler(fuse(pipeline_model(runner), device="cuda"),
+                          [f"t{j}" for j in range(SLICE_TOKENS)], "probability", status_dir,
+                          started)
+
+
+def _compute_apps() -> list:
+    """nvidia-smi's compute processes as (pid, MiB), one a CUDA context.
+    In a container every pid may read as the same number, so a context is
+    counted, not matched by pid."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return [(int(p), float(m)) for p, m in
+            (line.split(",") for line in out.strip().splitlines() if line.strip())]
+
+
+def _await_apps(n: int, timeout_s: float = 15.0) -> list:
+    """The compute-process listing once it holds `n` contexts: a killed or
+    stopped process's context is released by the CUDA driver a moment after
+    the process is gone."""
+    deadline = time.monotonic() + timeout_s
+    apps = _compute_apps()
+    while len(apps) != n and time.monotonic() < deadline:
+        time.sleep(0.1)
+        apps = _compute_apps()
+    assert len(apps) == n, f"nvidia-smi lists {len(apps)} contexts, want {n}: {apps}"
+    return apps
+
+
+def _context_mib(apps: list) -> float:
+    """The card memory the listed contexts hold. Where one pid stands for
+    several contexts nvidia-smi gives that pid's total on each line."""
+    per_pid = {}
+    for pid, mib in apps:
+        per_pid[pid] = max(per_pid.get(pid, 0.0), mib)
+    return sum(per_pid.values())
+
+
+def _spawn_times(status: dict, spawned: float, ready: float) -> list:
+    """A replica's startup split at its own clock: spawn to the factory's
+    first line (the interpreter, torch, the main module), the factory
+    (model load, fuse), and the warm-up over the ladder to ready."""
+    return [{"imports_s": s["started"] - spawned, "factory_s": s["built"] - s["started"],
+             "warmup_s": ready - s["built"]} for s in status]
+
+
+def _replica_status(status_dir: str) -> dict:
+    return {doc["pid"]: doc for doc in
+            (json.loads(p.read_text()) for p in Path(status_dir).glob("replica-*.json"))}
+
+
+def _sequential(url: str, bodies: list) -> tuple:
+    """bench.py's timed_posts: one keep-alive connection, `bodies` posted
+    in turn. A dropped socket is a client-visible error (status 0); the
+    client reconnects and carries on."""
+    import http.client
+    import urllib.parse
+
+    p = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(p.hostname, p.port, timeout=60)
+    statuses, replies = [], []
+    try:
+        for body in bodies:
+            try:
+                conn.request("POST", p.path or "/", body=body,
+                             headers={"Content-Type": "application/json"})
+                r = conn.getresponse()
+                replies.append(r.read())
+                statuses.append(r.status)
+            except OSError:
+                statuses.append(0)
+                replies.append(None)
+                conn.close()
+                conn = http.client.HTTPConnection(p.hostname, p.port, timeout=60)
+    finally:
+        conn.close()
+    return statuses, replies
+
+
+def _url_target(url: str):
+    import types
+    import urllib.parse
+
+    p = urllib.parse.urlsplit(url)
+    return types.SimpleNamespace(host=p.hostname, port=p.port, api_path=p.path or "/")
+
+
+def _replica_info(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def fleet_regressor(model, tmp: Path) -> dict:
+    """(a) and (c): the Adult regressor on two card replicas behind a
+    ServingGateway, the fleet's SLOs, timeline and autoscaler over them,
+    the kill window, a respawn, a rolling swap under load and the stop."""
+    import functools
+    import threading
+
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.io_http.autoscale import FleetAutoscaler
+    from mmlspark_tpu_torch.io_http.gateway import ServingGateway
+    from mmlspark_tpu_torch.io_http.schema import HTTPRequestData, make_reply
+    from mmlspark_tpu_torch.io_http.serving import ServingFleet
+    from mmlspark_tpu_torch.observability.fleet import parse_prometheus
+    from mmlspark_tpu_torch.observability.slo import (SLOEngine, availability_slo,
+                                                      latency_slo)
+    from mmlspark_tpu_torch.observability.timeline import TimelineRecorder, TimelineStore
+
+    model_path, status_dir = str(tmp / "regressor.json"), tmp / "regressor_status"
+    status_dir.mkdir()
+    model.save_native_model(model_path)
+    cols = [f"f{j}" for j in range(SERVE_FEATURES)]
+    x, _ = make_dataset(FLEET_REQUESTS, SERVE_FEATURES, seed=41)
+    x = x.astype(np.float32).astype(np.float64)
+    bodies = [json.dumps({c: float(v) for c, v in zip(cols, row)}).encode() for row in x]
+    expect = [r.entity for r in make_reply(model.transform(Table({"features": x})),
+                                           "prediction")["reply"]]
+    factory = functools.partial(fleet_regressor_factory, model_path, str(status_dir))
+    warm = HTTPRequestData.from_json("/", {c: float(v) for c, v in zip(cols, x[0])})
+    base_apps = _compute_apps()
+    base = len(base_apps)
+    doc = {"requests": FLEET_REQUESTS, "concurrency": FLEET_CONCURRENCY,
+           "baseline_contexts": base}
+    t0, spawned = time.perf_counter(), time.time()
+    fleet = ServingFleet(factory, n_hosts=2, max_batch_size=256, bucket_batches=True,
+                         warmup_request=warm, stop_timeout_s=FLEET_STOP_TIMEOUT_S).start()
+    gw = rec = None
+    try:
+        doc["spawn_to_ready_s"] = time.perf_counter() - t0
+        doc["spawn_split"] = _spawn_times(_replica_status(str(status_dir)).values(), spawned,
+                                          time.time())
+        apps = _await_apps(base + 2)
+        assert all(m > 0 for _p, m in apps), apps
+        doc["contexts_with_replicas"] = apps
+        doc["replica_context_mib"] = (_context_mib(apps) - _context_mib(base_apps)) / 2
+        rv = fleet.rendezvous
+        engine = SLOEngine(rv.aggregator, slos=[
+            availability_slo("availability", 0.99, total=_SEEN, bad=_FAILED),
+            latency_slo("latency", 0.99, histogram=_LATENCY, threshold_s=0.25)])
+        rv.attach_slo(engine)
+        rv.aggregator.scrape()
+        engine.evaluate()
+        rec = TimelineRecorder(str(tmp / "timeline"), rv.aggregator, interval_s=1.0)
+        rec.start()
+        gw = ServingGateway().attach_fleet(fleet).start()
+
+        run = _drive(_url_target(gw.url), bodies, FLEET_CONCURRENCY)
+        assert run["replies"] == expect, "gateway replies differ from make_reply"
+        direct = _drive(_url_target(fleet.urls[0]), bodies[:FLEET_DIRECT], FLEET_CONCURRENCY)
+        assert direct["replies"] == expect[:FLEET_DIRECT], "direct replies differ"
+        doc["gateway"] = {k: run[k] for k in ("seconds", "client_p50_ms", "client_p99_ms")}
+        doc["gateway"]["requests_per_s"] = FLEET_REQUESTS / run["seconds"]
+        doc["direct"] = {k: direct[k] for k in ("seconds", "client_p50_ms", "client_p99_ms")}
+        doc["direct"]["requests_per_s"] = FLEET_DIRECT / direct["seconds"]
+
+        # the rendezvous totals against the replicas' own counters
+        info = fleet.info()
+        own = [_replica_info(u) for u in fleet.urls]
+        per_replica = sorted(r["answered"] for r in info["replicas"])
+        assert all(n > 0 for n in per_replica), f"a replica answered nothing: {info}"
+        assert sorted(o["answered"] for o in own) == per_replica, (own, info)
+        assert info["totals"]["answered"] == sum(o["answered"] for o in own) \
+            >= FLEET_REQUESTS + FLEET_DIRECT, (info, own)
+        assert info["totals"]["seen"] == sum(o["seen"] for o in own), (info, own)
+        text = rv.render_metrics()
+        families = {f.name for f in parse_prometheus(text)}
+        assert _ANSWERED in families, sorted(families)[:20]
+        doc["replica_answered"] = per_replica
+        doc["fleet_totals"] = info["totals"]
+
+        # (c) the SLO gauges, the timeline reopened from disk, one tick
+        assert {"mmlspark_tpu_slo_burn_rate",
+                "mmlspark_tpu_slo_budget_remaining_ratio"} <= families, sorted(families)
+        rec.sample()
+        answered = fleet.info()["totals"]["answered"]
+        store = TimelineStore(str(tmp / "timeline"))
+        # the fleet-merged series, one a label set: each one's last value
+        stored = sum(pts[-1][1] for pts in store.series(_ANSWERED).values())
+        assert stored == answered, (stored, answered)
+        slo = engine.evaluate()
+        scaler = FleetAutoscaler(fleet, engine, min_replicas=2, max_replicas=2,
+                                 timeline=rec)
+        decision = scaler.tick()
+        assert decision in ("none", "up", "down", "respawn"), decision
+        doc["observability"] = {
+            "slo": {k: {"burn_rates": v["burn_rates"], "alerting": v["alerting"],
+                        "total": v["total"], "bad": v["bad"]} for k, v in slo.items()},
+            "timeline_answered": stored, "timeline_samples": sum(1 for _ in store.samples()),
+            "autoscaler_decision": decision,
+            "autoscaler_signals": {k: v for k, v in scaler.state().items()
+                                   if k in ("n_live", "pressure", "last_action")}}
+
+        # the kill window: replica 1 dies without the fleet or gateway told
+        statuses, replies = _sequential(gw.url, bodies[:FLEET_KILL_BEFORE])
+        fleet._procs[1].kill()
+        fleet._procs[1].join(timeout=10)
+        after, replies_after = _sequential(
+            gw.url, bodies[FLEET_KILL_BEFORE:FLEET_KILL_BEFORE + FLEET_KILL_AFTER])
+        statuses += after
+        replies += replies_after
+        errors = sum(s != 200 for s in statuses)
+        assert errors == 0, f"{errors} client-visible errors in the kill window"
+        assert replies == expect[:FLEET_KILL_BEFORE + FLEET_KILL_AFTER]
+        _await_apps(base + 1)
+        doc["kill_window"] = {"requests": len(statuses), "errors": errors}
+
+        t0 = time.perf_counter()
+        url = fleet.respawn(1)
+        doc["respawn_s"] = time.perf_counter() - t0
+        assert _replica_info(url)["name"] == "mmlspark_tpu.serving"
+        _await_apps(base + 2)
+
+        # the rolling swap under a client's load: n + 1 replicas for a moment
+        swap_statuses, swap_replies, stop_load = [], [], threading.Event()
+
+        def load() -> None:
+            i = 0
+            while not stop_load.is_set():
+                st, rep = _sequential(gw.url, [bodies[i % len(bodies)]])
+                swap_statuses.append(st[0])
+                swap_replies.append((i % len(bodies), rep[0]))
+                i += 1
+
+        loader = threading.Thread(target=load, daemon=True)
+        loader.start()
+        t0 = time.perf_counter()
+        try:
+            swapped = fleet.rolling_swap(factory)
+        finally:
+            stop_load.set()
+            loader.join(timeout=60)
+        doc["swap_s"] = time.perf_counter() - t0
+        assert swapped == 2, swapped
+        assert swap_statuses and all(s == 200 for s in swap_statuses), \
+            f"{sum(s != 200 for s in swap_statuses)} errors in the swap"
+        assert all(rep == expect[i] for i, rep in swap_replies), "swap replies differ"
+        doc["swap"] = {"requests": len(swap_statuses), "errors": 0}
+        doc["replica_allocator_bytes"] = {str(s["pid"]): s["memory_reserved"]
+                                          for s in _replica_status(str(status_dir)).values()}
+        doc["contexts_after_swap"] = _await_apps(base + 2)
+    finally:
+        if gw is not None:
+            gw.stop()
+        if rec is not None:
+            rec.stop()
+        procs = list(fleet._procs)
+        t0 = time.perf_counter()
+        fleet.stop()
+        doc["stop_s"] = time.perf_counter() - t0
+    assert all(p.exitcode is not None for p in procs), [p.exitcode for p in procs]
+    assert doc["stop_s"] < FLEET_STOP_TIMEOUT_S + 10, doc["stop_s"]
+    doc["contexts_after_stop"] = _await_apps(base)
+    doc["replicas_spawned"] = len(procs)
+    return doc
+
+
+def fleet_transformer(bundle, tmp: Path) -> dict:
+    """(b): the 8-layer transformer on two card replicas behind a gateway;
+    each replica's K2 launches read back from that replica."""
+    import functools
+
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.io_http.gateway import ServingGateway
+    from mmlspark_tpu_torch.io_http.schema import HTTPRequestData
+    from mmlspark_tpu_torch.io_http.serving import ServingFleet
+    from mmlspark_tpu_torch.nn import DeepModelTransformer
+
+    bundle_path, status_dir = str(tmp / "transformer.bundle"), tmp / "transformer_status"
+    status_dir.mkdir()
+    bundle.save(bundle_path)
+    rng = np.random.default_rng(43)
+    tokens = rng.integers(0, SLICE_TRANSFORMER["vocab_size"],
+                          size=(FLEET_TOKEN_REQUESTS, SLICE_TOKENS))
+    cols = [f"t{j}" for j in range(SLICE_TOKENS)]
+    bodies = [json.dumps({c: int(v) for c, v in zip(cols, row)}).encode() for row in tokens]
+    runner = DeepModelTransformer(input_col="features", bfloat16=False, device="cuda",
+                                  fetch_dict={"probability": "probability"}).set_model(bundle)
+    staged = np.asarray(runner.transform(
+        Table({"features": tokens.astype(np.float64)}))["probability"], np.float64)
+    warm = HTTPRequestData.from_json("/", {c: int(v) for c, v in zip(cols, tokens[0])})
+    base_apps = _compute_apps()
+    base = len(base_apps)
+    t0, spawned = time.perf_counter(), time.time()
+    fleet = ServingFleet(functools.partial(fleet_transformer_factory, bundle_path,
+                                           str(status_dir)),
+                         n_hosts=2, max_batch_size=FLEET_TOKEN_BATCH, bucket_batches=True,
+                         warmup_request=warm, stop_timeout_s=FLEET_STOP_TIMEOUT_S).start()
+    gw = None
+    try:
+        doc = {"requests": FLEET_TOKEN_REQUESTS, "tokens_per_request": SLICE_TOKENS,
+               "concurrency": FLEET_TOKEN_CONCURRENCY,
+               "spawn_to_ready_s": time.perf_counter() - t0}
+        doc["spawn_split"] = _spawn_times(_replica_status(str(status_dir)).values(), spawned,
+                                          time.time())
+        doc["contexts_with_replicas"] = _await_apps(base + 2)
+        doc["replica_context_mib"] = (_context_mib(doc["contexts_with_replicas"])
+                                      - _context_mib(base_apps)) / 2
+        gw = ServingGateway().attach_fleet(fleet).start()
+        run = _drive(_url_target(gw.url), bodies, FLEET_TOKEN_CONCURRENCY)
+        info = fleet.info()
+        assert all(r["answered"] > 0 for r in info["replicas"]), info
+        doc["replica_answered"] = sorted(r["answered"] for r in info["replicas"])
+    finally:
+        if gw is not None:
+            gw.stop()
+        procs = list(fleet._procs)
+        fleet.stop()
+    assert all(p.exitcode is not None for p in procs), [p.exitcode for p in procs]
+    doc["contexts_after_stop"] = _await_apps(base)
+    probs = np.stack([np.asarray(json.loads(e)["probability"], np.float64)
+                      for e in run["replies"]])
+    assert probs.shape == (FLEET_TOKEN_REQUESTS, SLICE_TRANSFORMER["num_outputs"])
+    assert np.isfinite(probs).all()
+    assert np.allclose(probs.sum(-1), 1.0, atol=1e-5), float(np.abs(probs.sum(-1) - 1).max())
+    np.testing.assert_allclose(probs, staged, atol=1e-4, rtol=0)
+    doc["bytes_equal_staged"] = bool(probs.astype(np.float32).tobytes()
+                                     == staged.astype(np.float32).tobytes())
+    doc["max_abs_vs_staged"] = float(np.abs(probs - staged).max())
+    layers = SLICE_TRANSFORMER["num_layers"]
+    replicas = _replica_status(str(status_dir))
+    assert len(replicas) == 2, replicas
+    for rep in replicas.values():
+        assert rep["forwards"] > 0 and rep["captures"] > 0 and rep["replays"] > 0, rep
+        assert rep["launches_by_path"] == {"wgmma": layers * rep["forwards"]}, \
+            f"replica {rep['pid']}: K2 {rep['launches_by_path']} for {rep['forwards']} forwards"
+    doc["replicas"] = list(replicas.values())
+    doc["flash_launches"] = sum(r["launches_by_path"]["wgmma"] for r in replicas.values())
+    doc.update({k: run[k] for k in ("seconds", "client_p50_ms", "client_p99_ms")})
+    doc["requests_per_s"] = FLEET_TOKEN_REQUESTS / run["seconds"]
+    doc["tokens_per_s"] = FLEET_TOKEN_REQUESTS * SLICE_TOKENS / run["seconds"]
+    return doc
+
+
+def phase_slice_fleet(card: str, model, bundle) -> dict:
+    """The serving fleet on the card ((a)-(c) above): replicas are spawned
+    processes, each with its own CUDA context on the one card; `card`
+    (phase_env's nvidia-smi name and power limit) stands beside every
+    time and rate."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="slice_fleet_") as tmp:
+        doc = {"phase": "slice_fleet", "card": card,
+               "regressor": fleet_regressor(model, Path(tmp)),
+               "transformer": fleet_transformer(bundle, Path(tmp))}
+    doc["seconds"] = time.perf_counter() - t0
+    emit(doc)
+    a, b = doc["regressor"], doc["transformer"]
+    print(f"slice_fleet on {card}: regressor through the gateway "
+          f"{a['gateway']['requests_per_s']:.0f} requests/s, client p50 "
+          f"{a['gateway']['client_p50_ms']:.2f} ms p99 {a['gateway']['client_p99_ms']:.2f} ms; "
+          f"direct p50 {a['direct']['client_p50_ms']:.2f} ms p99 "
+          f"{a['direct']['client_p99_ms']:.2f} ms; spawn-to-ready {a['spawn_to_ready_s']:.2f} s, "
+          f"respawn {a['respawn_s']:.2f} s, swap {a['swap_s']:.2f} s, kill-window errors "
+          f"{a['kill_window']['errors']} of {a['kill_window']['requests']}; "
+          f"{a['replica_context_mib']:.0f} MiB a replica; transformer {b['tokens_per_s']:.0f} tokens/s, p50 "
+          f"{b['client_p50_ms']:.2f} ms p99 {b['client_p99_ms']:.2f} ms, spawn-to-ready "
+          f"{b['spawn_to_ready_s']:.2f} s, {b['replica_context_mib']:.0f} MiB a replica, "
+          f"bytes equal staged: {b['bytes_equal_staged']}",
+          flush=True)
     return doc
 
 
@@ -4398,6 +4885,7 @@ def main() -> int:
     featurize = phase_slice_featurize()
     tabular = phase_slice_tabular(env["nvidia_smi"])
     serving = phase_slice_serving(env["nvidia_smi"], dnn["bundle"])
+    fleet = phase_slice_fleet(env["nvidia_smi"], serving.pop("regressor"), dnn["bundle"])
     train = phase_slice_train()
 
     main_shape = kern["histogram"][0]
@@ -4475,15 +4963,19 @@ def main() -> int:
         "replaces": "mmlspark_tpu/nn/attention.py:192",
         # the wgmma kernel: the bf16 serving transformer (D 64), the bf16
         # wide transformer (D 192), the imported BERT-base-wide encoder
-        # (D 64) and slice_serving's transformer over HTTP (D 64, replayed
-        # from the fused segment's CUDA graphs)
+        # (D 64), slice_serving's transformer over HTTP (D 64, replayed
+        # from the fused segment's CUDA graphs) and slice_fleet's two
+        # replicas of it behind the gateway (each replica's own count)
         "launches": (dnn["flash_launches"] + wide["bfloat16"]["flash_launches"]
                      + featurize["encoder"]["flash_launches"]
-                     + serving["transformer_http"]["flash_launches"]),
+                     + serving["transformer_http"]["flash_launches"]
+                     + fleet["transformer"]["flash_launches"]),
         "launches_by_phase": {"slice_transformer": dnn["flash_launches"],
                               "serve_wide_bf16": wide["bfloat16"]["flash_launches"],
                               "slice_featurize": featurize["encoder"]["flash_launches"],
-                              "slice_serving": serving["transformer_http"]["flash_launches"]},
+                              "slice_serving": serving["transformer_http"]["flash_launches"],
+                              # counted in each replica process, read back from it
+                              "slice_fleet": fleet["transformer"]["flash_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern["flash_attention"]),
         "ms": flash_main["ms"],
         "plain_ms": flash_main["plain_ms"],

@@ -30,8 +30,21 @@ metrics and the featurize-then-fit trainers (`automl`: `TrainClassifier`,
 as one program, a CUDA graph a shape on the card, every stage's
 `device_kernel`) and serving (`io_http`: `serve_model` and
 `ServingServer`, JSON and the binary wire, the resident hot path over a
-fused segment, the batch-mode journal). ROADMAP.md lists what is still
-to come.
+fused segment, the batch-mode journal), the serving fleet (`io_http`:
+`ServingFleet`, one spawned replica process with its own CUDA context a
+host, behind `ServingGateway` or `GatewayTier`, scaled by
+`FleetAutoscaler`; `observability`'s fleet metrics, SLOs and timeline),
+the HTTP client side (`http_send`, `HTTPClient`, `TargetPool`,
+`HTTPTransformer`, `SimpleHTTPTransformer`, `PartitionConsolidator`) and
+the typed REST stages (`io_http`: cognitive services, `AzureSearchWriter`,
+`PowerBIWriter`). ROADMAP.md lists what is still to come.
+
+The CPU tests hold each module against the JAX package's
+(`JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py`; the fleet's:
+`tests/test_torch_serving_fleet.py`, `test_torch_gateway.py`,
+`test_torch_observability_fleet.py`, `test_torch_timeline.py`,
+`test_torch_io_http_clients.py`). On the card, `python3 chip_smoke.py`
+drives every slice, the fleet in its `slice_fleet` phase.
 """
 
 import torch

@@ -18,15 +18,18 @@ trades exactly that much p50 for bigger batches.
 Multi-host serving = one ServingServer per host behind any TCP balancer
 (the reference's per-executor servers + load balancer, SURVEY.md §3.4).
 
-A copy of mmlspark_tpu/io_http/serving.py up to and including
-`serve_model`, whose fused segments (core/fusion.py) replay CUDA graphs on
-the card; `serve_model` takes `device` ("cuda" by default) for them. Not
-ported yet: the fleet half (`ServiceInfo`, `FleetRendezvous`,
-`ServingFleet`; ROADMAP Queue 1 item 11b), `SARModel` delegation to
-`serve_recommender` (with SAR, item 14), and the phase profiler
-(`observability/profiler.py`, item 15): until it comes, `_prof_ledger`
-gives the null ledger and `_profiler_info` the disarmed snapshot, which is
-what the JAX package gives while its profiler is disarmed, its default.
+A copy of mmlspark_tpu/io_http/serving.py, whose fused segments
+(core/fusion.py) replay CUDA graphs on the card; `serve_model` takes
+`device` ("cuda" by default) for them. The fleet half (`ServiceInfo`,
+`FleetRendezvous`, `ServingFleet`) spawns each replica as a process of its
+own (the `spawn` context: a forked child of a process that touched CUDA
+cannot use the card), which builds its handler, and so its model and its
+CUDA context, itself. Not ported yet: `SARModel` delegation to
+`serve_recommender` (with SAR, ROADMAP Queue 1 item 14), and the phase
+profiler (`observability/profiler.py`, item 15): until it comes,
+`_prof_ledger` gives the null ledger and `_profiler_info` the disarmed
+snapshot, which is what the JAX package gives while its profiler is
+disarmed, its default.
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ from .schema import (HTTPRequestData, HTTPResponseData, RequestDecoder,
 from .wire import (WIRE_CONTENT_TYPE, accepts_wire, encode_reply,
                    is_wire_content_type)
 
-__all__ = ["ServingServer", "MicroBatchQuery", "serve_model"]
+__all__ = ["ServingServer", "ServingFleet", "MicroBatchQuery", "serve_model",
+           "ServiceInfo", "FleetRendezvous"]
 
 # unique `server=` label per ServingServer in this process: the registry is
 # shared, the per-server counts must stay exact (tests assert them)
@@ -1637,3 +1641,795 @@ def serve_model(
         server_kw.setdefault("bucket_multiple_of", hp.executor.data_axis_size)
     return ServingServer(handler, host=host, port=port, hot_path=hp,
                          **server_kw).start()
+
+
+@dataclass
+class ServiceInfo:
+    """One serving replica's coordinates — the reference's
+    `ServiceInfo{name, host, port, partitionId, localIp, publicIp}`
+    collected by the driver rendezvous service (HTTPSourceV2.scala:118-165).
+
+    `public_host`/`public_port` are the NAT-traversing coordinates when a
+    reverse tunnel is attached (io_http.forwarding — the reference's
+    PortForwarding path); clients outside the boundary route there, the
+    rendezvous keeps polling the direct host:port."""
+
+    name: str
+    host: str
+    port: int
+    partition_id: int
+    pid: int
+    local_ip: str | None = None
+    public_host: str | None = None
+    public_port: int | None = None
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "host": self.host, "port": self.port,
+                "partition_id": self.partition_id, "pid": self.pid,
+                "local_ip": self.local_ip, "public_host": self.public_host,
+                "public_port": self.public_port}
+
+    @staticmethod
+    def from_dict(d: dict) -> "ServiceInfo":
+        pub_port = d.get("public_port")
+        return ServiceInfo(name=d["name"], host=d["host"], port=int(d["port"]),
+                           partition_id=int(d["partition_id"]),
+                           pid=int(d.get("pid", 0)),
+                           local_ip=d.get("local_ip"),
+                           public_host=d.get("public_host"),
+                           public_port=(int(pub_port)
+                                        if pub_port is not None else None))
+
+
+# the serving counter families the rendezvous reads out of scrapes
+_SEEN = "mmlspark_tpu_serving_requests_seen_total"
+_ANSWERED = "mmlspark_tpu_serving_requests_answered_total"
+_LATENCY = "mmlspark_tpu_serving_latency_seconds"
+
+
+class FleetRendezvous:
+    """Driver-side rendezvous + fleet-state aggregator.
+
+    Reference: continuous mode runs an HTTP service ON THE DRIVER that
+    collects each partition reader's ServiceInfo and exposes the routing
+    table (HTTPSourceV2.scala:118-165). Here:
+
+      POST /register      — a replica announces its ServiceInfo at startup
+      POST /metrics/push  — a draining replica flushes its final counters
+      GET  /services      — the raw registry
+      GET  /info          — LIVE aggregate: scrapes every replica's
+                            /metrics through the MetricsAggregator and
+                            reads counters/latency out of it (replicas
+                            that fail to answer are reported unreachable,
+                            not dropped silently)
+      GET  /metrics       — the fleet-wide exposition: per-replica samples
+                            under a `replica` label + merged samples under
+                            replica="fleet" (+ SLO series when an engine
+                            is attached via attach_slo)
+      GET  /healthz       — fleet health: per-replica alive/ready
+
+    `info()` and `/metrics` read the SAME aggregator state, so the JSON
+    totals and the exposition's fleet-merged counters cannot disagree.
+    """
+
+    def __init__(self, name: str = "fleet", host: str = "127.0.0.1",
+                 port: int = 0, clock: Any = None,
+                 stale_after_s: float = 10.0):
+        from ..observability.fleet import MetricsAggregator
+
+        self.name = name
+        self.host, self.port = host, port
+        self._services: dict[int, ServiceInfo] = {}
+        self._lock = make_lock("FleetRendezvous._lock")
+        self._server: ThreadingHTTPServer | None = None
+        self.aggregator = MetricsAggregator(
+            urls=self._metric_urls, clock=clock,
+            stale_after_s=stale_after_s)
+        self.slo_engine = None
+
+    def _metric_urls(self) -> dict[str, str]:
+        return {str(s.partition_id): f"http://{s.host}:{s.port}/metrics"
+                for s in self.services()}
+
+    def attach_slo(self, engine) -> None:
+        """Serve an SLOEngine's series from `/metrics` (it is evaluated on
+        every scrape). Point the engine's `source` at `self.aggregator` so
+        SLO math reads the same merged series the exposition shows."""
+        self.slo_engine = engine
+
+    # -- aggregate ------------------------------------------------------ #
+
+    def services(self) -> list[ServiceInfo]:
+        with self._lock:
+            return [self._services[k] for k in sorted(self._services)]
+
+    def register(self, info: ServiceInfo) -> None:
+        with self._lock:
+            self._services[info.partition_id] = info
+
+    def _replica_latency(self, rid: str) -> dict:
+        """p50/p99 (ms) estimated from the replica's scraped latency
+        histogram — shaped like ServingServer.latency_stats()."""
+        from ..observability.slo import SeriesReader
+
+        reader = SeriesReader(self.aggregator.replica_snapshot(rid))
+        h = reader.histogram(_LATENCY)
+        n = int(h["count"])
+        if n == 0:
+            return {"n": 0, "p50_ms": float("nan"), "p99_ms": float("nan")}
+        return {"n": n,
+                "p50_ms": reader.histogram_quantile(_LATENCY, 0.5) * 1e3,
+                "p99_ms": reader.histogram_quantile(_LATENCY, 0.99) * 1e3}
+
+    def info(self) -> dict:
+        """Scrape every replica's /metrics and merge fleet state. Totals
+        come from the aggregator's retained counter families, so a
+        gracefully-stopped replica's final flush stays counted."""
+        ok = self.aggregator.scrape()
+        replicas = []
+        for svc in self.services():
+            rid = str(svc.partition_id)
+            entry: dict[str, Any] = svc.to_dict()
+            if ok.get(rid):
+                entry.update(
+                    seen=int(self.aggregator.total(_SEEN, replica=rid)),
+                    answered=int(self.aggregator.total(_ANSWERED,
+                                                       replica=rid)),
+                    latency=self._replica_latency(rid),
+                    reachable=True)
+            else:
+                entry.update(reachable=False)
+            replicas.append(entry)
+        totals = {"seen": int(self.aggregator.total(_SEEN)),
+                  "answered": int(self.aggregator.total(_ANSWERED))}
+        return {"name": self.name, "replicas": replicas, "totals": totals,
+                "n_replicas": len(replicas)}
+
+    def fleet_health(self) -> dict:
+        """Per-replica liveness/readiness polled from /healthz + /readyz."""
+        import http.client
+
+        replicas = {}
+        for svc in self.services():
+            rid = str(svc.partition_id)
+            entry = {"alive": False, "ready": False}
+            for path, key in (("/healthz", "alive"), ("/readyz", "ready")):
+                conn = None
+                try:
+                    conn = http.client.HTTPConnection(svc.host, svc.port,
+                                                      timeout=2)
+                    conn.request("GET", path)
+                    r = conn.getresponse()
+                    r.read()
+                    entry[key] = r.status == 200
+                except (OSError, http.client.HTTPException):
+                    pass
+                finally:
+                    if conn is not None:
+                        conn.close()
+            replicas[rid] = entry
+        n_ready = sum(e["ready"] for e in replicas.values())
+        return {"replicas": replicas, "n_replicas": len(replicas),
+                "alive": sum(e["alive"] for e in replicas.values()),
+                "ready": n_ready,
+                "all_ready": bool(replicas) and n_ready == len(replicas)}
+
+    def render_metrics(self) -> str:
+        """The fleet exposition (+ SLO series when an engine is attached)."""
+        self.aggregator.scrape()
+        text = self.aggregator.render()
+        if self.slo_engine is not None:
+            try:
+                self.slo_engine.evaluate()
+                text += self.slo_engine.render()
+            except Exception:  # noqa: BLE001 — SLO math must not kill scrape
+                pass
+        return text
+
+    # -- HTTP surface --------------------------------------------------- #
+
+    def start(self) -> "FleetRendezvous":
+        outer = self
+
+        class Handler(SingleSegmentHandler):
+            def _reply(self, status: int, payload: bytes) -> None:
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(payload)))
+                self.end_headers()
+                self.wfile.write(payload)
+
+            def do_POST(self):  # noqa: N802 — http.server API
+                path, _, query = self.path.partition("?")
+                length = int(self.headers.get("Content-Length", 0))
+                body = self.rfile.read(length)
+                if path == "/register":
+                    try:
+                        info = ServiceInfo.from_dict(json.loads(body))
+                    except (ValueError, KeyError):
+                        self._reply(400, b'{"error": "bad ServiceInfo"}')
+                        return
+                    outer.register(info)
+                    self._reply(200, b'{"registered": true}')
+                    return
+                if path == "/metrics/push":
+                    # a draining replica's final flush: its counters stay
+                    # in the fleet totals after the process exits
+                    import urllib.parse
+
+                    params = urllib.parse.parse_qs(query)
+                    rid = params.get("replica", ["?"])[0]
+                    try:
+                        outer.aggregator.push(rid, body.decode("utf-8"),
+                                              final=True)
+                    except Exception:  # noqa: BLE001 — bad push, not a crash
+                        self._reply(400, b'{"error": "bad exposition"}')
+                        return
+                    self._reply(200, b'{"pushed": true}')
+                    return
+                self._reply(404, b"{}")
+
+            def do_GET(self):  # noqa: N802
+                path = self.path.split("?", 1)[0]
+                if path == "/metrics":
+                    payload = outer.render_metrics().encode()
+                    self.send_response(200)
+                    self.send_header(
+                        "Content-Type",
+                        "text/plain; version=0.0.4; charset=utf-8")
+                    self.send_header("Content-Length", str(len(payload)))
+                    self.end_headers()
+                    self.wfile.write(payload)
+                    return
+                if path == "/services":
+                    body = json.dumps(
+                        [s.to_dict() for s in outer.services()]
+                    ).encode()
+                elif self.path == "/info":
+                    body = json.dumps(outer.info()).encode()
+                elif path == "/healthz":
+                    health = outer.fleet_health()
+                    payload = json.dumps(health).encode()
+                    self._reply(200 if health["all_ready"] else 503, payload)
+                    return
+                else:
+                    self._reply(404, b"{}")
+                    return
+                self._reply(200, body)
+
+            def log_message(self, *a):
+                pass
+
+        self._server = ThreadingHTTPServer((self.host, self.port), Handler)
+        self.port = self._server.server_address[1]
+        threading.Thread(target=self._server.serve_forever, daemon=True).start()
+        return self
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
+    def stop(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._server = None
+
+
+def _register_with_rendezvous(rendezvous_url: str, info: ServiceInfo) -> None:
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlparse(rendezvous_url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=10)
+    conn.request("POST", "/register", body=json.dumps(info.to_dict()).encode(),
+                 headers={"Content-Type": "application/json"})
+    r = conn.getresponse()
+    r.read()
+    conn.close()
+    if r.status != 200:
+        raise IOError(f"rendezvous register failed: {r.status}")
+
+
+def _push_final_metrics(rendezvous_url: str, partition_id: int,
+                        text: str) -> None:
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlparse(rendezvous_url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=10)
+    conn.request("POST", f"/metrics/push?replica={partition_id}",
+                 body=text.encode(), headers={"Content-Type": "text/plain"})
+    r = conn.getresponse()
+    r.read()
+    conn.close()
+    if r.status != 200:
+        raise IOError(f"metrics push failed: {r.status}")
+
+
+def _fleet_worker(handler_factory, conn, server_kw, partition_id=0,
+                  rendezvous_url=None, forwarding=None,
+                  trace_dir=None, flight_recorder_dir=None) -> None:
+    """Child-process entry: build the handler locally (models must not cross
+    the process boundary — the reference re-creates per-JVM servers the same
+    way, DistributedHTTPSource.scala:244-291), optionally open a reverse
+    tunnel to the public gateway (the HTTPSourceV2 `forwarding.*` path,
+    HTTPSourceV2.scala:363-372), announce ServiceInfo to the driver
+    rendezvous, and serve until terminated."""
+    import os
+    import signal
+
+    from .forwarding import establish_forward, get_local_ip
+
+    rec = None
+    if flight_recorder_dir:
+        from ..observability.recorder import (FlightRecorder,
+                                              set_default_recorder)
+
+        rec = FlightRecorder(dump_dir=flight_recorder_dir,
+                             process=f"replica-{partition_id}")
+        # the process default, so gateway/autoscaler/supervisor code
+        # running in this replica records into the same ring
+        set_default_recorder(rec)
+        server_kw = dict(server_kw, recorder=rec)
+    srv = ServingServer(handler_factory(), **server_kw).start()
+    # SIGTERM (ServingFleet.stop) begins the GRACEFUL sequence below:
+    # shed new work, drain what was already admitted (srv.stop's default
+    # continuous-mode drain), flush final counters to the rendezvous, and
+    # export the replica's trace — so stopping the fleet loses neither
+    # in-flight requests nor their telemetry. The fleet's hard kill()
+    # stays as the timeout fallback for a worker stuck draining.
+    shutdown = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: shutdown.set())
+    fwd = None
+    if forwarding is not None:
+        fwd = establish_forward(srv.port, forwarding, local_host=srv.host)
+        # a dead tunnel must surface in /healthz, not blackhole traffic
+        srv.health_probes["forwarding"] = fwd.status
+    if rendezvous_url:
+        _register_with_rendezvous(rendezvous_url, ServiceInfo(
+            name="mmlspark_tpu.serving", host=srv.host, port=srv.port,
+            partition_id=partition_id, pid=os.getpid(),
+            local_ip=get_local_ip(),
+            public_host=fwd.remote_host if fwd else None,
+            public_port=fwd.remote_port if fwd else None,
+        ))
+    conn.send((srv.host, srv.port))
+    try:
+        shutdown.wait()
+        if rec is not None:
+            rec.record_transition("replica", "sigterm",
+                                  partition_id=partition_id)
+        srv.stop()  # graceful: drains in-flight requests first (and the
+        # recorder, when armed, dumps with trigger "drain")
+        if rendezvous_url:
+            try:
+                _push_final_metrics(rendezvous_url, partition_id,
+                                    srv.metrics.render_prometheus())
+            except Exception:  # noqa: BLE001 — rendezvous may be gone
+                pass
+        if trace_dir:
+            try:
+                from ..observability.tracing import get_tracer
+
+                get_tracer().export_jsonl(os.path.join(
+                    trace_dir, f"replica-{partition_id}.jsonl"))
+            except Exception:  # noqa: BLE001 — tracing is best-effort
+                pass
+    finally:
+        if fwd is not None:
+            fwd.close()
+
+
+class ServingFleet:
+    """Distributed serving: one ServingServer PROCESS per "host".
+
+    Reference: DistributedHTTPSource's per-executor-JVM `JVMSharedServer`
+    (DistributedHTTPSource.scala:89-343) — here each host is a real OS
+    process with its own handler instance (clients spread requests across
+    `urls`, the role of the reference's load balancer).
+
+    `handler_factory` must be a picklable zero-arg callable returning the
+    `handler(Table) -> Table` for that host.
+
+    A `FleetRendezvous` runs on the driver: every replica registers its
+    ServiceInfo at startup (HTTPSourceV2.scala:118-165), and `info()` /
+    the rendezvous `GET /info` endpoint aggregates live per-replica
+    counters into fleet totals.
+
+    Membership is dynamic: `kill()` prunes the dead replica from `urls`,
+    `respawn(index)` refills a slot through the same startup handshake,
+    `scale_to(n)` grows/shrinks the fleet (shrink = graceful drain), and
+    `rolling_swap(new_handler_factory)` replaces every replica's handler
+    with zero downtime. `watch(callback)` observes membership changes —
+    io_http.gateway.ServingGateway attaches itself this way so its
+    routing table tracks the live set."""
+
+    def __init__(self, handler_factory: Callable[[], Callable[[Table], Table]],
+                 n_hosts: int = 2, start_timeout_s: float = 60.0,
+                 rendezvous: bool = True, forwarding=None,
+                 trace_dir: "str | None" = None,
+                 flight_recorder_dir: "str | None" = None,
+                 timeline_dir: "str | None" = None,
+                 timeline_interval_s: float = 5.0,
+                 timeline_keep: int = 8,
+                 stop_timeout_s: float = 15.0, clock: Any = None,
+                 stale_after_s: float = 10.0, **server_kw):
+        self.handler_factory = handler_factory
+        self.n_hosts = n_hosts
+        self.start_timeout_s = start_timeout_s
+        self.server_kw = server_kw
+        # io_http.forwarding.ForwardingOptions: every replica opens its own
+        # reverse tunnel to the gateway and registers the public coords
+        # (HTTPSourceV2's forwarding.enabled path)
+        self.forwarding = forwarding
+        # when set, each gracefully-stopped replica exports its spans to
+        # trace_dir/replica-N.jsonl (merge with Tracer.merge_jsonl)
+        self.trace_dir = trace_dir
+        # when set, every replica arms a FlightRecorder dumping into this
+        # directory (tools/diagnose.py --postmortem merges the dumps)
+        self.flight_recorder_dir = flight_recorder_dir
+        # when set, a TimelineRecorder runs on the DRIVER beside the
+        # rendezvous aggregator, persisting the merged fleet scrape as
+        # segment files (tools/diagnose.py --history replays them);
+        # requires rendezvous=True — there is no fleet view without it
+        self.timeline_dir = timeline_dir
+        self.timeline_interval_s = float(timeline_interval_s)
+        self.timeline_keep = int(timeline_keep)
+        if timeline_dir is not None and not rendezvous:
+            raise ValueError("timeline_dir needs rendezvous=True "
+                             "(the recorder samples the aggregator)")
+        self.timeline: "Any | None" = None
+        # how long stop() waits for the graceful drain-and-flush before
+        # falling back to a hard kill
+        self.stop_timeout_s = stop_timeout_s
+        # slot-indexed bookkeeping: _procs[slot] may hold a dead process
+        # (killed / retired); _url_of maps LIVE slots to their URLs and
+        # `urls` is rebuilt from it, so a crashed replica never lingers
+        # in the routing view
+        self._procs: list[multiprocessing.Process] = []
+        self._url_of: dict[int, str] = {}
+        self.urls: list[str] = []
+        # fresh partition id per spawned process, NEVER reused: the
+        # aggregator retains a dead replica's counters for monotone fleet
+        # totals, so a respawn restarting the same id at zero would walk
+        # the totals backwards
+        self._next_part = 0
+        # slots drained ON PURPOSE (retire/scale-down) — dead_slots()
+        # excludes them so self-healing never resurrects a scale-down
+        self._retired: set[int] = set()
+        self._watchers: list[Callable[[str, str], None]] = []
+        self._fleet_lock = make_rlock("ServingFleet._fleet_lock")
+        # the injectable clock drives the startup wait loop and the
+        # rendezvous aggregator's staleness logic — chaos tests pass a
+        # FakeClock so dead-replica detection needs zero real waiting
+        if clock is None:
+            from ..resilience.policy import SYSTEM_CLOCK
+
+            clock = SYSTEM_CLOCK
+        self.clock = clock
+        self.rendezvous: FleetRendezvous | None = (
+            FleetRendezvous(name="mmlspark_tpu.fleet", clock=clock,
+                            stale_after_s=stale_after_s)
+            if rendezvous else None
+        )
+
+    # -- membership bookkeeping ----------------------------------------- #
+
+    @staticmethod
+    def _record_transition(action: str, **detail) -> None:
+        """Driver-side fleet transitions land in the driver's black box
+        (the process-default recorder, armed once anything configures a
+        flight_recorder_dir on it)."""
+        try:
+            from ..observability.recorder import get_recorder
+
+            get_recorder().record_transition("fleet", action, **detail)
+        except Exception:  # noqa: BLE001 — telemetry stays optional
+            pass
+
+    def watch(self, callback: Callable[[str, str], None]) -> None:
+        """Register `callback(event, url)` for membership changes; event
+        is "added" (replica live and warm) or "removed" (about to drain
+        or already dead). The gateway admits/ejects through this."""
+        self._watchers.append(callback)
+
+    def _notify(self, event: str, url: str) -> None:
+        for cb in list(self._watchers):
+            try:
+                cb(event, url)
+            except Exception:  # noqa: BLE001 — watchers must not kill ops
+                pass
+
+    def _set_url(self, slot: int, url: str) -> None:
+        with self._fleet_lock:
+            self._url_of[slot] = url
+            self.urls = [self._url_of[s] for s in sorted(self._url_of)]
+        self._notify("added", url)
+
+    def _drop_url(self, slot: int) -> None:
+        with self._fleet_lock:
+            url = self._url_of.pop(slot, None)
+            self.urls = [self._url_of[s] for s in sorted(self._url_of)]
+        if url is not None:
+            self._notify("removed", url)
+
+    def live_slots(self) -> list[int]:
+        with self._fleet_lock:
+            return sorted(self._url_of)
+
+    def dead_slots(self) -> list[int]:
+        """Slots whose process died WITHOUT being retired on purpose —
+        the self-healing respawn set (FleetAutoscaler polls this)."""
+        with self._fleet_lock:
+            return [i for i, p in enumerate(self._procs)
+                    if i not in self._retired and not p.is_alive()]
+
+    @property
+    def n_live(self) -> int:
+        return len(self._url_of)
+
+    # -- spawning ------------------------------------------------------- #
+
+    def _launch(self, partition_id: int):
+        """Start one worker process; returns (process, parent_conn) for
+        the startup handshake."""
+        ctx = multiprocessing.get_context("spawn")
+        parent, child = ctx.Pipe()
+        p = ctx.Process(
+            target=_fleet_worker,
+            args=(self.handler_factory, child, self.server_kw, partition_id,
+                  self.rendezvous.url if self.rendezvous else None,
+                  self.forwarding, self.trace_dir,
+                  self.flight_recorder_dir),
+            daemon=True,
+        )
+        p.start()
+        return p, parent
+
+    def _await_url(self, slot: int, p, parent) -> str:
+        """The startup handshake wait: fail FAST on a dead child (e.g.
+        establish_forward raised on bad credentials/exhausted ports) —
+        waiting out the full timeout would mask the real error with a
+        generic one. The deadline runs on the injectable clock."""
+        deadline = self.clock.monotonic() + self.start_timeout_s
+        while not parent.poll(0.5):
+            if not p.is_alive():
+                raise RuntimeError(
+                    f"serving host {slot} died during startup (exitcode "
+                    f"{p.exitcode}) — see the child's "
+                    "stderr; with forwarding enabled this is usually "
+                    "the reverse tunnel failing to establish"
+                )
+            if self.clock.monotonic() > deadline:
+                raise TimeoutError("serving host failed to start")
+        host, port = parent.recv()
+        return f"http://{host}:{port}/"
+
+    def _wait_ready(self, url: str, timeout_s: "float | None" = None,
+                    proc=None) -> None:
+        """Poll the replica's /readyz until 200 — with a warmup request
+        configured, readiness means the fused executable is warm over the
+        FULL bucket ladder, so admitting the replica cannot cost a live
+        request a compile. Real-time deadline: this waits on a real
+        subprocess, not on simulated time."""
+        import http.client
+        import urllib.parse
+
+        u = urllib.parse.urlsplit(url)
+        deadline = time.monotonic() + (timeout_s if timeout_s is not None
+                                       else self.start_timeout_s)
+        while True:
+            try:
+                conn = http.client.HTTPConnection(u.hostname, u.port,
+                                                  timeout=2)
+                try:
+                    conn.request("GET", "/readyz")
+                    if conn.getresponse().status == 200:
+                        return
+                finally:
+                    conn.close()
+            except (OSError, http.client.HTTPException):
+                pass
+            if proc is not None and not proc.is_alive():
+                raise RuntimeError(
+                    f"replica {url} died while warming up (exitcode "
+                    f"{proc.exitcode})")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"replica {url} never became ready")
+            time.sleep(0.02)
+
+    def _spawn(self, slot: int) -> str:
+        """Fill `slot` with a fresh worker: handshake, wait until warm
+        (/readyz), then publish it to `urls`/watchers — a spawned replica
+        is never routable before it is ready."""
+        part = self._next_part
+        self._next_part += 1
+        p, parent = self._launch(part)
+        with self._fleet_lock:
+            while len(self._procs) <= slot:
+                self._procs.append(p)
+            self._procs[slot] = p
+        url = self._await_url(slot, p, parent)
+        self._wait_ready(url, proc=p)
+        self._set_url(slot, url)
+        return url
+
+    def start(self) -> "ServingFleet":
+        if self.rendezvous is not None:
+            self.rendezvous.start()
+        if self.timeline_dir is not None and self.timeline is None:
+            from ..observability.recorder import get_recorder
+            from ..observability.timeline import TimelineRecorder
+
+            self.timeline = TimelineRecorder(
+                self.timeline_dir, self.rendezvous.aggregator,
+                clock=self.clock, interval_s=self.timeline_interval_s,
+                keep=self.timeline_keep, recorder=get_recorder())
+            self.timeline.start()
+        # spawn all workers in parallel, then run each handshake
+        started = []
+        for slot in range(self.n_hosts):
+            part = self._next_part
+            self._next_part += 1
+            p, parent = self._launch(part)
+            with self._fleet_lock:
+                self._procs.append(p)
+            started.append((slot, p, parent))
+        try:
+            for slot, p, parent in started:
+                url = self._await_url(slot, p, parent)
+                self._wait_ready(url, proc=p)
+                self._set_url(slot, url)
+        except Exception:
+            self.stop()
+            raise
+        return self
+
+    def info(self) -> dict:
+        """Aggregated fleet state (requires rendezvous=True)."""
+        if self.rendezvous is None:
+            raise ValueError("fleet started with rendezvous=False")
+        return self.rendezvous.info()
+
+    def kill(self, index: int) -> None:
+        """Hard-kill one replica — the chaos path: no drain, no final
+        flush, its ServiceInfo left registered (the rendezvous reports it
+        unreachable/down, which is exactly what the fleet view must show
+        for a crashed process). The dead replica's URL is pruned from
+        `urls` so routing layers stop offering it."""
+        p = self._procs[index]
+        if p.is_alive():
+            p.kill()
+        p.join(timeout=10)
+        self._drop_url(index)
+        self._record_transition("kill", slot=index)
+
+    def dump_all(self, trigger: str = "fleet") -> int:
+        """Broadcast a flight-recorder dump to every LIVE replica (POST
+        /flightrecorder/dump) — the fleet-wide snapshot a driver-side
+        trigger (SLO burn, chaos kill about to land) fans out so each
+        process writes its ring BEFORE anything dies. Fail-soft per
+        replica; returns how many acknowledged."""
+        import http.client
+        import urllib.parse
+
+        dumped = 0
+        with self._fleet_lock:
+            urls = list(self.urls)
+        for url in urls:
+            u = urllib.parse.urlsplit(url)
+            try:
+                conn = http.client.HTTPConnection(u.hostname, u.port,
+                                                  timeout=5)
+                try:
+                    conn.request(
+                        "POST", f"/flightrecorder/dump?trigger={trigger}",
+                        body=b"")
+                    if conn.getresponse().status == 200:
+                        dumped += 1
+                finally:
+                    conn.close()
+            except (OSError, http.client.HTTPException):
+                pass
+        return dumped
+
+    def respawn(self, index: int) -> str:
+        """Self-healing: refill a dead slot through the same startup
+        handshake `start()` uses. The new process gets a FRESH partition
+        id (the crashed one's counters stay retained in the fleet totals)
+        and is published only after /readyz. Returns the new URL."""
+        p = self._procs[index]
+        if p.is_alive():
+            raise RuntimeError(
+                f"slot {index} is still alive — kill() or retire() it "
+                "before respawning")
+        self._drop_url(index)  # no-op when kill() already pruned it
+        with self._fleet_lock:
+            self._retired.discard(index)
+        url = self._spawn(index)
+        self._record_transition("respawn", slot=index, url=url)
+        return url
+
+    def retire(self, index: int) -> None:
+        """Gracefully drain one replica out of the fleet: unpublish its
+        URL first (routing layers stop sending new work), then SIGTERM —
+        the worker sheds, drains in-flight requests, flushes its final
+        counters, and exits. Hard kill only past stop_timeout_s."""
+        with self._fleet_lock:
+            self._retired.add(index)
+        self._drop_url(index)
+        self._record_transition("retire", slot=index)
+        p = self._procs[index]
+        if p.is_alive():
+            p.terminate()
+            p.join(timeout=self.stop_timeout_s)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+
+    def scale_to(self, n: int) -> list[str]:
+        """Grow or shrink the live replica set to `n`. Growth spawns into
+        fresh slots and publishes each replica once warm; shrink retires
+        the highest live slots via graceful drain. Returns `urls`."""
+        if n < 0:
+            raise ValueError(f"cannot scale to {n} replicas")
+        with self._fleet_lock:
+            live = sorted(self._url_of)
+        while len(live) < n:
+            slot = len(self._procs)
+            self._spawn(slot)
+            live.append(slot)
+        for slot in reversed(live[n:]):
+            self.retire(slot)
+        return list(self.urls)
+
+    def rolling_swap(self, new_handler_factory) -> int:
+        """Zero-downtime model swap: for each live replica, start a NEW
+        replica with `new_handler_factory`, warm it over the full bucket
+        ladder (the warmup/readyz gate in _spawn), publish it, and only
+        then drain and retire one old replica — the live set never drops
+        below its pre-swap size and every routable replica is warm, so
+        clients see no downtime and no compile stalls. Returns the number
+        of replicas swapped."""
+        self.handler_factory = new_handler_factory
+        old_slots = self.live_slots()
+        self._record_transition("swap_begin", n=len(old_slots))
+        for slot in old_slots:
+            self._spawn(len(self._procs))
+            self.retire(slot)
+        self._record_transition("swap_done", n=len(old_slots))
+        return len(old_slots)
+
+    def stop(self) -> None:
+        """Graceful first: SIGTERM puts every worker through its drain-
+        and-flush sequence (in-flight requests answered, final counters
+        pushed to the rendezvous, traces exported); workers that miss
+        `stop_timeout_s` get the historical hard kill. The rendezvous
+        stops LAST so the final flushes have somewhere to land."""
+        if self.timeline is not None:
+            try:
+                self.timeline.sample()       # the shutdown-edge sample
+            except Exception:  # noqa: BLE001 — telemetry stays optional
+                pass
+            self.timeline.stop()
+            self.timeline = None
+        with self._fleet_lock:
+            procs = list(self._procs)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        deadline = time.monotonic() + self.stop_timeout_s
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 0.1))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        with self._fleet_lock:
+            self._procs = []
+            self._url_of = {}
+            self._retired = set()
+            self.urls = []
+        if self.rendezvous is not None:
+            self.rendezvous.stop()

@@ -929,3 +929,90 @@ def test_serve_model_on_the_card_replies_as_the_cpu_server(cuda):
         finally:
             srv.stop()
     assert replies["cuda"] == replies["cpu"]
+
+
+def _fleet_gbdt_factory(model_path, cols, device):
+    """A fleet replica's handler (module-level: the spawned replica finds it
+    by name): the regressor loaded from the parent's file, fused on
+    `device`, a batch at a time."""
+    from mmlspark_tpu_torch.core import fuse, pipeline_model
+    from mmlspark_tpu_torch.gbdt.estimators import GBDTRegressionModel
+    from mmlspark_tpu_torch.io_http.schema import make_reply, parse_request
+
+    model = fuse(pipeline_model(GBDTRegressionModel.load_native_model(model_path, device=device)),
+                 device=device)
+
+    def handler(table):
+        t = parse_request(table)
+        feats = np.stack([np.asarray(t[c], np.float64) for c in cols], 1)
+        return make_reply(model.transform(Table({"features": feats})), "prediction")
+
+    return handler
+
+
+def _compute_contexts():
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout
+    return [line for line in out.splitlines() if line.strip()]
+
+
+def test_fleet_on_the_card_replies_through_a_gateway_as_the_cpu_server(cuda, tmp_path):
+    import functools
+    import json
+    import time
+    import urllib.request
+
+    from mmlspark_tpu_torch.gbdt.estimators import GBDTRegressor
+    from mmlspark_tpu_torch.io_http.gateway import ServingGateway
+    from mmlspark_tpu_torch.io_http.schema import HTTPRequestData
+    from mmlspark_tpu_torch.io_http.serving import ServingFleet, ServingServer
+
+    rng = np.random.default_rng(53)
+    x = rng.normal(size=(2000, 6)).astype(np.float32).astype(np.float64)
+    y = x @ rng.normal(size=6) + rng.normal(scale=0.1, size=2000)
+    path = str(tmp_path / "model.json")
+    GBDTRegressor(num_iterations=20, num_leaves=15, device="cpu").fit(
+        Table({"features": x, "label": y})).save_native_model(path)
+    cols = [f"f{j}" for j in range(6)]
+    rows = [dict(zip(cols, map(float, r))) for r in x[:24]]
+    warm = HTTPRequestData.from_json("/", rows[0])
+
+    def post_all(url):
+        out = []
+        for row in rows:
+            req = urllib.request.Request(url, data=json.dumps(row).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as r:
+                out.append(r.read())
+        return out
+
+    cpu = ServingServer(_fleet_gbdt_factory(path, cols, "cpu"), max_batch_size=8,
+                        bucket_batches=True, warmup_request=warm).start()
+    try:
+        want = post_all(cpu.url)
+    finally:
+        cpu.stop()
+    before = len(_compute_contexts())
+    fleet = ServingFleet(functools.partial(_fleet_gbdt_factory, path, cols, "cuda"),
+                         n_hosts=2, max_batch_size=8, bucket_batches=True,
+                         warmup_request=warm).start()
+    gw = None
+    try:
+        assert len(_compute_contexts()) == before + 2
+        gw = ServingGateway(strategy="round_robin").attach_fleet(fleet).start()
+        got = post_all(gw.url)
+        assert all(r["answered"] > 0 for r in fleet.info()["replicas"])
+    finally:
+        if gw is not None:
+            gw.stop()
+        procs = list(fleet._procs)
+        fleet.stop()
+    assert got == want
+    assert all(p.exitcode is not None for p in procs)
+    deadline = time.monotonic() + 10
+    while len(_compute_contexts()) != before and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert len(_compute_contexts()) == before, "a replica still holds the card"

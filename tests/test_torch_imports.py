@@ -65,6 +65,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "mmlspark_tpu_torch.core.fusion", "mmlspark_tpu_torch.resilience.breaker",
                    "mmlspark_tpu_torch.io_http", "mmlspark_tpu_torch.io_http.wire",
                    "mmlspark_tpu_torch.io_http.schema", "mmlspark_tpu_torch.io_http.journal",
-                   "mmlspark_tpu_torch.io_http.serving"):
+                   "mmlspark_tpu_torch.io_http.serving", "mmlspark_tpu_torch.utils.async_utils",
+                   "mmlspark_tpu_torch.observability.fleet",
+                   "mmlspark_tpu_torch.observability.slo",
+                   "mmlspark_tpu_torch.observability.timeline",
+                   "mmlspark_tpu_torch.resilience.chaos", "mmlspark_tpu_torch.io_http.clients",
+                   "mmlspark_tpu_torch.io_http.forwarding", "mmlspark_tpu_torch.io_http.gateway",
+                   "mmlspark_tpu_torch.io_http.autoscale",
+                   "mmlspark_tpu_torch.io_http.consolidator",
+                   "mmlspark_tpu_torch.io_http.transformer",
+                   "mmlspark_tpu_torch.io_http.cognitive", "mmlspark_tpu_torch.io_http.search",
+                   "mmlspark_tpu_torch.io_http.powerbi"):
         assert module in out["modules"]
     assert out["leaked"] == [], f"the port pulled in: {out['leaked']}"
