@@ -34,8 +34,11 @@ text corpus through TextFeaturizer -> GBDTClassifier, a fused
 CleanMissingData -> AssembleFeatures -> GBDTRegressor -> DataConversion
 pipeline scoring 1,048,576 rows from CUDA graphs, that regressor and the
 transformer served over HTTP by serve_model, then each on two replica
-processes of a ServingFleet behind a ServingGateway, and DNNLearner
-training that transformer and ResNet-50 — and
+processes of a ServingFleet behind a ServingGateway, DNNLearner
+training that transformer and ResNet-50, and recommendation and AutoML
+(SAR at MovieLens-1M's shape and its resident top-k server, the ranking
+stages, TuneHyperparameters, FindBestModel, the hyperband sweep over
+worker processes, ImageLIME over ResNet-50) — and
 shows through the kernels' launch counters that each path ran on its
 kernel. It prints one JSON line per phase:
 
@@ -89,7 +92,7 @@ kernel. It prints one JSON line per phase:
   slice_boosting_parity  the random draws (bag, goss, feature and drop
                keys of rounds 0, 1, 7, 99) at 32,768 and 1,048,576 rows on
                the card and the CPU, bit for bit; the Adult data fitted on
-               "cpu" and "cuda" for 10 rounds under each boosting type:
+               "cpu" and "cuda" for 5 rounds under each boosting type:
                the bags, feature masks and drop sets the loops used
                (fused.round_hook) equal every round, GOSS's row weights up
                to the first parting tree; the card's trees meet
@@ -148,13 +151,13 @@ kernel. It prints one JSON line per phase:
                1e-6, atol 1e-7; parse and export seconds
   slice_mesh   distributed GBDT: 4 spawned ranks on the one card over gloo
                (parallel.RankPool), each fitting slice_adult's data on its
-               8,192 rows through GBDTClassifier(use_mesh=True), 40 rounds,
+               8,192 rows through GBDTClassifier(use_mesh=True), 20 rounds,
                under data_parallel, deterministic, voting_parallel (top_k
-               5) and bagged gbdt: every rank's model one text, 1,240 K1
+               5) and bagged gbdt: every rank's model one text, 620 K1
                launches a rank, held-out AUC > 0.75 (within 0.01 of
-               slice_adult's first 40 rounds for the first two),
-               data_parallel against those 40 trees of slice_adult's
-               booster and every fit against 4 CPU ranks' 10-round fit by
+               slice_adult's first 20 rounds for the first two),
+               data_parallel against those 20 trees of slice_adult's
+               booster and every fit against 4 CPU ranks' 5-round fit by
                compare_fits at 1e-4; fit seconds, collectives, bytes merged
                and their host-timed share; then a one-rank mesh on NCCL,
                its fit equal to slice_adult's byte for byte
@@ -167,7 +170,7 @@ kernel. It prints one JSON line per phase:
   small_transformer  1,024 rows x 512 tokens in bf16 through
                TransformerEncoder's default width (d_model 64, 4 heads of
                16) and the reference tests' width (d_model 32, 4 heads of
-               8), 2 layers each: 32 K2 launches on "mma" in each of 400
+               8), 2 layers each: 32 K2 launches on "mma" in each of 200
                passes, tokens/s of all of them with their spread, and one
                pass profiled (device busy share, K2's share)
   serve_wide   1,024 rows x 512 tokens at minibatch 4 through a 2-layer
@@ -262,6 +265,31 @@ kernel. It prints one JSON line per phase:
                = resumed byte for byte, 2 gloo ranks sharing the card
                (equal parameters); and K2's forward + ported backward
                against the plain forward + the same backward and SDPA
+  slice_recsys_automl  recommendation and AutoML: (a) MovieLens-1M's
+               shape seeded (6,040 users, 3,706 movies, 1,000,209 ratings
+               over three years) through RecommendationIndexer ->
+               SAR(jaccard, time decay) on the card and the CPU, the
+               similarity bit-equal, recommend_for_all_users(k=10) within
+               1e-5 of each row's largest rating (ids equal off near-ties),
+               blocks of 1,000 = blocks of 4,096 byte for byte, and
+               RankingAdapter / RankingEvaluator / RankingTrainValidationSplit
+               on each user's last 10% by time; (b) serve_model(sar_model)
+               (delegated to serve_recommender) forced onto the sar_resident
+               route and with hot_path=False, 2,048 requests from 32
+               keep-alive clients: the two servers' replies byte-equal and
+               equal to (a)'s recommendations, the route never disabled;
+               (c) TuneHyperparameters over GBDTClassifier on the Adult
+               shape (learning rate x num_leaves, 20 rounds, 2 folds, 2
+               threads, a trial ledger), K1 launches exact, FindBestModel
+               against a default model (held-out AUC > 0.75), a resumed run
+               skipping every trial, one fold's fit card vs CPU; (d) the
+               hyperband sweep of bench.py:2556-2625 on the Adult shape at
+               P=1, P=2 (ServingFleet worker processes sharing the card)
+               and P=2 with a worker SIGKILLed: equal digests, one bin
+               build a worker; (e) ImageLIME over the imported ResNet-50 at
+               224 (2 images, 300 samples, 196 superpixels): superpixels
+               card = CPU off near-ties, weights finite and bit-equal over
+               two runs
 
 then the {"kernels": [...]} summary, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1746,11 +1774,17 @@ def cpu_card_parity(x, y, kw: dict, rounds: int = 10, ties: "dict | None" = None
              "cuda_row_order_fit_seconds": rows_s}, (cpu_parts, card_parts))
 
 
+# rounds of the Adult CPU-against-card fits under each boosting type: 5 (10
+# until the smoke's time ran short; a tree of round r depends on no later
+# round, so 5 rounds check the first 5 of those 10 trees)
+BOOSTING_PARITY_ROUNDS = 5
+
+
 def phase_slice_boosting_parity() -> dict:
     """The card's draws are the CPU's. `prng.uniform` for the bag, GOSS,
     feature and drop keys of several rounds at 32,768 and 1,048,576 rows,
-    bit for bit. Then the Adult data fitted on "cpu" and on "cuda" for 10
-    rounds under each boosting type, the random parts each tree grew from
+    bit for bit. Then the Adult data fitted on "cpu" and on "cuda" for
+    BOOSTING_PARITY_ROUNDS rounds under each boosting type, the random parts each tree grew from
     read through `fused.round_hook`: the bag, feature mask and dart drop
     set equal every round, GOSS's row weights (set by each fit's own
     margins) every round up to the card's first parting tree. Trees:
@@ -1784,7 +1818,7 @@ def phase_slice_boosting_parity() -> dict:
         "host_us_per_call": host_us_per_call(lambda: prng.uniform(bag_key, (n,), "cuda"), 50),
         "device_ms": median_ms(lambda: prng.uniform(bag_key, (n,), "cuda"))}
         for n in (32768, 1 << 20)}
-    rounds = 10
+    rounds = BOOSTING_PARITY_ROUNDS
     x, y = make_dataset(32768, 14)
     fits = {}
     for name, kw in BOOSTING_FITS.items():
@@ -2369,11 +2403,12 @@ def phase_slice_lightgbm_import(adult: dict, categorical: dict) -> dict:
 
 # The serving transformer at bench.py's accelerator width (bench.py:632-645)
 MESH_RANKS = 4
-MESH_CPU_ROUNDS = 10      # the CPU ranks' fits, against the card fits' first trees
-# the card ranks' fits: 40 of slice_adult's 100 rounds, held against its first
-# 40 trees (a tree of round r depends on no later round), so that the smoke
-# stays well inside its time limit (at 100 rounds the four fits took 164 s)
-MESH_ROUNDS = 40
+MESH_CPU_ROUNDS = 5       # the CPU ranks' fits, against the card fits' first trees
+# the card ranks' fits: 20 of slice_adult's 100 rounds, held against its first
+# 20 trees (a tree of round r depends on no later round), so that the smoke
+# stays well inside its time limit (the four fits took 164 s at 100 rounds,
+# 63 s at 40)
+MESH_ROUNDS = 20
 # compare_fits' tolerance of a card fit against the CPU ranks' fit. The
 # fixed-point merge rounds each bin to 2**23 / 4 steps of its channel's
 # largest value, so where K1's block-order sums and the CPU's row-order
@@ -2476,7 +2511,7 @@ def phase_slice_mesh(adult: dict) -> dict:
     the card with the CPU's row-order histogram in K1's place meets the CPU
     ranks' at 1e-5, so only K1's order parts them. Held-out AUC > 0.75, and within 0.01 of the
     one-device fit for data_parallel and deterministic. The CPU ranks fit
-    10 rounds, held against the card fits' first 10 trees (a tree of round
+    MESH_CPU_ROUNDS rounds, held against the card fits' first trees (a tree of round
     r depends on no later round; 100 rounds on 4 CPU ranks take ~21 s a
     config on an 8-core host). Last, a one-rank
     mesh on NCCL: the data-parallel fit equal to the fit without a mesh
@@ -2694,9 +2729,10 @@ SMALL_TRANSFORMERS = {
 
 
 # Timed passes of a small transformer. The host sets a pass's time, which
-# spreads by ~20% between passes, while K2 is ~3% of it: 400 passes (~20 s)
-# bring the rate's standard error to ~1%.
-SMALL_PASSES = 400
+# spreads by ~20% between passes, while K2 is ~3% of it: 200 passes (~10 s)
+# bring the rate's standard error to ~1.5% (400 took ~20 s a width, more
+# than the smoke's time limit leaves it).
+SMALL_PASSES = 200
 
 
 def pass_rate(seconds: list, tokens_per_pass: int) -> dict:
@@ -4260,7 +4296,8 @@ def fleet_regressor(model, tmp: Path) -> dict:
         doc["swap_s"] = time.perf_counter() - t0
         assert swapped == 2, swapped
         assert swap_statuses and all(s == 200 for s in swap_statuses), \
-            f"{sum(s != 200 for s in swap_statuses)} errors in the swap"
+            f"{sum(s != 200 for s in swap_statuses)} errors in the swap: statuses " \
+            f"{sorted({s for s in swap_statuses if s != 200})} of {len(swap_statuses)}"
         assert all(rep == expect[i] for i, rep in swap_replies), "swap replies differ"
         doc["swap"] = {"requests": len(swap_statuses), "errors": 0}
         doc["replica_allocator_bytes"] = {str(s["pid"]): s["memory_reserved"]
@@ -4843,6 +4880,486 @@ def phase_slice_train() -> dict:
     return doc
 
 
+# ---- slice_recsys_automl: recommendation and AutoML on the card ---- #
+
+# MovieLens-1M's published shape (GroupLens ml-1m README): 6,040 users,
+# 3,706 rated movies (ids up to 3,952), 1,000,209 ratings, each user at
+# least 20; seeded here, no download
+ML1M_USERS, ML1M_ITEMS, ML1M_MOVIE_IDS, ML1M_RATINGS = 6040, 3706, 3952, 1_000_209
+RECS_K = 10
+RECS_CPU_BLOCK = 1024           # the CPU's users when its full pass would take over ~15 s
+RECS_TOL = 1e-5                 # of each row's largest rating
+RECS_REQUESTS, RECS_CLIENTS = 2048, 32      # bench.py:2313-2400's driver
+TUNE_ROWS, TUNE_HELD_OUT, TUNE_ROUNDS, TUNE_PARITY_ROWS = 32768, 8192, 20, 3072
+SWEEP_SPACE = [{"learning_rate": lr, "num_leaves": nl} for lr in (0.05, 0.1, 0.2)
+               for nl in (4, 8)]                  # bench.py:2556-2625
+LIME_IMAGES, LIME_SAMPLES, LIME_CELL, LIME_SIZE = 2, 300, 16, 224
+LIME_SUPERPIXELS = (LIME_SIZE // LIME_CELL) ** 2
+
+
+def movielens_1m(seed: int = 20) -> dict:
+    """MovieLens-1M's shape, seeded: per-user counts heavy-tailed from 20
+    (capped at half the movies), movies drawn without replacement under a
+    Zipf-like popularity (rank weight 1/r^0.8, over a seeded order of the
+    ids), ratings 1-5 leaning to 4, timestamps over three years."""
+    rng = np.random.default_rng(seed)
+    extra = rng.lognormal(0.0, 1.2, size=ML1M_USERS)
+    counts = 20 + np.floor(extra / extra.sum() * (ML1M_RATINGS - 20 * ML1M_USERS)).astype(np.int64)
+    cap = ML1M_ITEMS // 2
+    counts = np.minimum(counts, cap)
+    while counts.sum() < ML1M_RATINGS:
+        room = np.flatnonzero(counts < cap)
+        short = int(ML1M_RATINGS - counts.sum())
+        counts[rng.choice(room, size=min(short, len(room)), replace=False)] += 1
+    log_pop = (-0.8 * np.log(np.arange(1, ML1M_ITEMS + 1)))[rng.permutation(ML1M_ITEMS)]
+    items = []
+    for lo in range(0, ML1M_USERS, 512):
+        hi = min(lo + 512, ML1M_USERS)
+        # Gumbel top-k: a weighted draw without replacement, a block at a time
+        keys = log_pop[None, :] + rng.gumbel(size=(hi - lo, ML1M_ITEMS))
+        order = np.argsort(-keys, axis=1)
+        items.extend(order[r, :counts[u]] for r, u in enumerate(range(lo, hi)))
+    movie_ids = np.sort(rng.choice(np.arange(1, ML1M_MOVIE_IDS + 1), ML1M_ITEMS, replace=False))
+    user = np.repeat(np.arange(1, ML1M_USERS + 1), counts)
+    movie = movie_ids[np.concatenate(items)]
+    assert len(user) == ML1M_RATINGS and len(np.unique(movie)) == ML1M_ITEMS
+    rating = rng.choice(np.arange(1, 6), size=len(user), p=[0.06, 0.11, 0.26, 0.35, 0.22])
+    time_s = 946_684_800.0 + rng.uniform(0.0, 3 * 365 * 86400.0, size=len(user))
+    return {"user_id": user.astype(np.float64), "movie_id": movie.astype(np.float64),
+            "rating": rating.astype(np.float64), "time": time_s}
+
+
+def time_split(user: np.ndarray, time_s: np.ndarray, frac: float = 0.1) -> tuple:
+    """Row indices of each user's interactions before and in its last `frac`
+    by time (at least one of each)."""
+    order = np.lexsort((time_s, user))
+    u = user[order]
+    starts = np.r_[0, np.flatnonzero(np.diff(u)) + 1]
+    sizes = np.diff(np.r_[starts, len(u)])
+    pos = np.arange(len(u)) - np.repeat(starts, sizes)
+    n_test = np.maximum((sizes * frac).astype(np.int64), 1)
+    test = pos >= np.repeat(sizes - n_test, sizes)
+    return np.sort(order[~test]), np.sort(order[test])
+
+
+def _recs_agree(card_ids, card_r, cpu_ids, cpu_r, tol: float = RECS_TOL) -> dict:
+    """Ratings within `tol` of each row's largest; ids equal except at
+    slots whose CPU rating lies within that of another in its row."""
+    scale = np.maximum(np.abs(cpu_r).max(axis=1, keepdims=True), 1e-30)
+    gap = float((np.abs(card_r - cpu_r) / scale).max())
+    assert gap <= tol, f"ratings: card - CPU {gap} of the row's largest"
+    near = np.abs(cpu_r[:, :, None] - cpu_r[:, None, :]) + np.eye(cpu_r.shape[1])[None] * 1e30
+    clear = near.min(axis=2) > tol * scale
+    assert np.array_equal(card_ids[clear], cpu_ids[clear]), "recommended ids differ off near-ties"
+    return {"max_rating_err_over_row_max": gap, "slots": int(card_ids.size),
+            "slots_near_ties": int((~clear).sum()),
+            "ids_differing": int((card_ids != cpu_ids).sum())}
+
+
+def _sub_model(model, lo: int, hi: int):
+    """Users [lo, hi) of a fitted SARModel as a model of their own."""
+    from mmlspark_tpu_torch.recommendation import SARModel
+
+    sub = SARModel(user_col=model.get("user_col"), item_col=model.get("item_col"))
+    sub.user_affinity = model.user_affinity[lo:hi]
+    sub.item_similarity = model.item_similarity
+    sub.seen = model.seen[lo:hi]
+    return sub.to(model.device)
+
+
+def _cpu_recs(cpu_model) -> tuple:
+    """The CPU's top-k of every user if the first 1,024 users' pass says the
+    whole would take at most ~15 s, else of those 1,024 only."""
+    t0 = time.perf_counter()
+    block = _sub_model(cpu_model, 0, RECS_CPU_BLOCK).recommend_for_all_users(k=RECS_K)
+    block_s = time.perf_counter() - t0
+    n = cpu_model.user_affinity.shape[0]
+    if block_s * n / RECS_CPU_BLOCK <= 15.0:
+        t0 = time.perf_counter()
+        full = cpu_model.recommend_for_all_users(k=RECS_K)
+        return full, n, time.perf_counter() - t0
+    return block, RECS_CPU_BLOCK, block_s
+
+
+def recsys_sar() -> dict:
+    """(a) RecommendationIndexer -> SAR(jaccard, time decay) at MovieLens-1M's
+    shape on the card and the CPU; recommend_for_all_users(k=10); then the
+    ranking stages on a per-user time split."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.recommendation import (SAR, RankingAdapter, RankingEvaluator,
+                                                   RankingTrainValidationSplit,
+                                                   RecommendationIndexer, ranking_metrics)
+
+    t0 = time.perf_counter()
+    raw = Table(movielens_1m())
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    indexer = RecommendationIndexer(user_input_col="user_id", user_output_col="user",
+                                    item_input_col="movie_id", item_output_col="item").fit(raw)
+    table = indexer.transform(raw)
+    index_s = time.perf_counter() - t0
+    assert (indexer.n_users, indexer.n_items) == (ML1M_USERS, ML1M_ITEMS)
+    sar_kw = dict(similarity_function="jaccard", rating_col="rating", time_col="time")
+
+    def fit(device: str):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = SAR(device=device, **sar_kw).set_indexer_model(indexer).fit(table)
+        torch.cuda.synchronize()
+        return model, time.perf_counter() - t0
+
+    card, fit_s = fit("cuda")
+    cpu, cpu_fit_s = fit("cpu")
+    assert np.array_equal(card.item_similarity, cpu.item_similarity), \
+        "the card's jaccard similarity differs from the CPU's"
+    assert np.array_equal(card.user_affinity, cpu.user_affinity)
+    seconds = []
+    for _ in range(2):          # the first call uploads the model
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = card.recommend_for_all_users(k=RECS_K)
+        seconds.append(time.perf_counter() - t0)
+    dev = card._device_arrays()
+    resident_mb = {name: t.numel() * t.element_size() / 1e6 for name, t in dev.items()}
+    ids, ratings = np.asarray(recs["recommendations"]), np.asarray(recs["ratings"])
+    assert ids.shape == (ML1M_USERS, RECS_K) and np.isfinite(ratings).all()
+    again = card.recommend_for_all_users(k=RECS_K, user_block=1000)
+    assert np.array_equal(np.asarray(again["recommendations"]), ids) and np.array_equal(
+        np.asarray(again["ratings"]), ratings), "blocks of 1,000 differ from blocks of 4,096"
+    cpu_recs, cpu_users, cpu_s = _cpu_recs(cpu)
+    agree = _recs_agree(ids[:cpu_users], ratings[:cpu_users],
+                        np.asarray(cpu_recs["recommendations"]), np.asarray(cpu_recs["ratings"]))
+
+    # the ranking stages on each user's last 10% by time
+    train_idx, test_idx = time_split(np.asarray(table["user"]), np.asarray(table["time"]))
+    train, test = table.gather(train_idx), table.gather(test_idx)
+    t0 = time.perf_counter()
+    adapter = RankingAdapter(recommender=SAR(device="cuda", **sar_kw).set_indexer_model(indexer),
+                             k=RECS_K).fit(train)
+    scored = adapter.transform(test)
+    rank_fit_s = time.perf_counter() - t0
+    metrics = {name: RankingEvaluator(k=RECS_K, metric_name=name).evaluate(scored)
+               for name in ("ndcgAt", "map", "precisionAtk", "recallAtK")}
+    assert all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in metrics.values()), metrics
+
+    class TimeSplitTVS(RankingTrainValidationSplit):
+        def split(self, _table):
+            return train, test
+
+    tvs = TimeSplitTVS(recommender=SAR(device="cuda", **sar_kw).set_indexer_model(indexer),
+                       k=RECS_K, param_maps=[{}]).fit(table)
+    assert tvs.validation_metrics == [metrics["ndcgAt"]], (tvs.validation_metrics, metrics)
+    cpu_adapter = RankingAdapter(recommender=SAR(device="cpu", **sar_kw).set_indexer_model(
+        indexer), k=RECS_K).fit(train)
+    card_train = adapter.recommender_model
+    cpu_train = cpu_adapter.recommender_model
+    assert np.array_equal(card_train.item_similarity, cpu_train.item_similarity)
+    card_block = _sub_model(card_train, 0, RECS_CPU_BLOCK).recommend_for_all_users(k=RECS_K)
+    cpu_block = _sub_model(cpu_train, 0, RECS_CPU_BLOCK).recommend_for_all_users(k=RECS_K)
+    c_ids, p_ids = (np.asarray(r["recommendations"]) for r in (card_block, cpu_block))
+    rank_agree = _recs_agree(c_ids, np.asarray(card_block["ratings"]), p_ids,
+                             np.asarray(cpu_block["ratings"]))
+    users = np.asarray(scored["user"]).astype(np.int64)
+    mine = users < RECS_CPU_BLOCK
+    labels = [scored["label"][i] for i in np.flatnonzero(mine)]
+    card_m = ranking_metrics([list(c_ids[u]) for u in users[mine]], labels, RECS_K)
+    cpu_m = ranking_metrics([list(p_ids[u]) for u in users[mine]], labels, RECS_K)
+    same_lists = bool(np.array_equal(c_ids, p_ids))
+    if same_lists:
+        assert card_m == cpu_m, (card_m, cpu_m)
+    return {"users": ML1M_USERS, "items": ML1M_ITEMS, "ratings": ML1M_RATINGS,
+            "data_seconds": data_s, "index_seconds": index_s, "fit_seconds": fit_s,
+            "cpu_fit_seconds": cpu_fit_s, "resident_mb": resident_mb,
+            "similarity_bit_equal": True,
+            "recommend_seconds_first_call": seconds[0], "recommend_seconds": seconds[1],
+            "scored_users_per_s": ML1M_USERS / seconds[1],
+            "cpu_users_compared": cpu_users, "cpu_recommend_seconds": cpu_s,
+            "card_vs_cpu": agree, "blocked_1000_equal_4096": True,
+            "ranking": {"train_rows": len(train_idx), "test_rows": len(test_idx),
+                        "fit_and_score_seconds": rank_fit_s, "metrics": metrics,
+                        "tvs_validation_ndcg": tvs.validation_metrics[0],
+                        "card_vs_cpu_first_1024": rank_agree,
+                        "first_1024_lists_equal": same_lists,
+                        "card_metrics_first_1024": card_m, "cpu_metrics_first_1024": cpu_m},
+            "model": card, "recs": recs}
+
+
+def recsys_serving(model, recs) -> dict:
+    """(b) serve_model(SARModel) -> serve_recommender twice: forced onto
+    sar_resident, and with hot_path=False; 2,048 requests from 32 clients."""
+    from mmlspark_tpu_torch.io_http.serving import serve_model
+    from mmlspark_tpu_torch.recommendation.resident import SARHotPath
+
+    rng = np.random.default_rng(23)
+    users = rng.integers(0, ML1M_USERS, size=RECS_REQUESTS)
+    bodies = [json.dumps({"user": int(u)}).encode() for u in users]
+    ids = np.asarray(recs["recommendations"]).tolist()
+    ratings = np.asarray(recs["ratings"]).tolist()
+    oracle = [json.dumps({"recommendations": i, "ratings": r}).encode()
+              for i, r in zip(ids, ratings)]
+    servers = {}
+    out = {"requests": RECS_REQUESTS, "clients": RECS_CLIENTS}
+    try:
+        for name, hot in (("resident", True), ("handler", False)):
+            t0 = time.perf_counter()
+            servers[name] = serve_model(model, hot_path=hot, max_batch_size=256,
+                                        device="cuda")
+            _wait_ready(servers[name])
+            out[f"{name}_ready_seconds"] = time.perf_counter() - t0
+        hp = servers["resident"].hot_path
+        assert isinstance(hp, SARHotPath) and hp.disabled is None, hp and hp.snapshot()
+        assert servers["handler"].hot_path is None
+        hp.force_path = "sar_resident"
+        replies = {}
+        for name, srv in servers.items():
+            got = _drive(srv, bodies, RECS_CLIENTS)
+            replies[name] = got.pop("replies")
+            got.pop("content_types")
+            out[name] = {**got, "requests_per_s": RECS_REQUESTS / got["seconds"],
+                         "counters": _server_counters(srv)}
+        assert replies["resident"] == replies["handler"], "the two servers' replies differ"
+        assert replies["resident"] == [oracle[u] for u in users], \
+            "served replies differ from recommend_for_all_users"
+        snap = hp.snapshot()
+        assert hp.disabled is None and snap["enabled"], snap
+        assert snap["paths"]["sar_resident"] == RECS_REQUESTS, snap["paths"]
+        out["resident"]["warmup_ms_by_rung"] = {
+            rung: t["sar_resident"] for rung, t in snap["timings_ms"].items()}
+        out["resident"]["route_enabled"] = True
+        out["replies_equal"] = True
+    finally:
+        for srv in servers.values():
+            srv.stop()
+    return out
+
+
+def recsys_tune() -> dict:
+    """(c) TuneHyperparameters over GBDTClassifier on the Adult shape, then
+    FindBestModel against a default model on 8,192 held-out rows; a second
+    run from the same checkpoint directory; one fold's fit card vs CPU."""
+    from mmlspark_tpu_torch.automl import (DiscreteHyperParam, FindBestModel, GridSpace,
+                                           TuneHyperparameters)
+    from mmlspark_tpu_torch.automl.tune import _kfold_indices
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.gbdt.booster import Booster, TrainOptions
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+    from mmlspark_tpu_torch.observability.recorder import get_recorder
+
+    x_all, y_all = make_dataset(TUNE_ROWS + TUNE_HELD_OUT, 14)
+    x, y, xv, yv = x_all[:TUNE_ROWS], y_all[:TUNE_ROWS], x_all[TUNE_ROWS:], y_all[TUNE_ROWS:]
+    ck = ROOT / "build" / "chip_smoke_tune"
+    shutil.rmtree(ck, ignore_errors=True)
+
+    def tuner():
+        return TuneHyperparameters(
+            # one snapshot a fold fit, at its end: the template's own
+            # cadence wins over the tuner's every-round default
+            models=GBDTClassifier(num_iterations=TUNE_ROUNDS, checkpoint_every_n=TUNE_ROUNDS,
+                                  device="cuda"),
+            param_space=GridSpace({"learning_rate": DiscreteHyperParam([0.05, 0.1, 0.2]),
+                                   "num_leaves": DiscreteHyperParam([15, 31])}),
+            num_folds=2, parallelism=2, evaluation_metric="AUC", refit=True,
+            checkpoint_dir=str(ck))
+
+    try:
+        torch.cuda.synchronize()
+        histogram.launches = 0
+        t0 = time.perf_counter()
+        tuned = tuner().fit(_table(x, y))
+        tune_s = time.perf_counter() - t0
+        launches = histogram.launches
+        trials = [r["params"] for r in tuned.all_results]
+        want = (2 * sum(TUNE_ROUNDS * p["num_leaves"] for p in trials)
+                + TUNE_ROUNDS * tuned.best_params["num_leaves"])
+        assert launches == want, f"tuning launched K1 {launches} times, want {want}"
+        default = GBDTClassifier(num_iterations=TUNE_ROUNDS, device="cuda").fit(_table(x, y))
+        default_launches = histogram.launches - launches
+        assert default_launches == TUNE_ROUNDS * 31, default_launches
+        best = FindBestModel(models=[tuned, default], evaluation_metric="AUC").fit(
+            _table(xv, yv))
+        auc = float(best.best_model_metrics["AUC"])
+        assert auc > 0.75, f"held-out AUC {auc}"
+
+        seq0 = max((e["seq"] for e in get_recorder().events()), default=0)
+        before = histogram.launches
+        t0 = time.perf_counter()
+        again = tuner().fit(_table(x, y))
+        resume_s = time.perf_counter() - t0
+        resume_launches = histogram.launches - before
+        skipped = [e for e in get_recorder().events()
+                   if e["seq"] > seq0 and e["kind"] == "tune.trial_skipped"]
+        assert len(skipped) == len(trials), f"{len(skipped)} of {len(trials)} trials skipped"
+        assert again.best_params == tuned.best_params
+        assert again.best_model.booster.to_text() == tuned.best_model.booster.to_text()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+
+    rows = _kfold_indices(len(y), 2, 0)[0][0][:TUNE_PARITY_ROWS]
+    opts = dict(objective="binary", num_iterations=TUNE_ROUNDS, **tuned.best_params)
+    before = histogram.launches
+    fits = {d: Booster.train(x[rows], y[rows], TrainOptions(device=d, **opts))
+            for d in ("cpu", "cuda")}
+    parity_launches = histogram.launches - before
+    assert parity_launches == TUNE_ROUNDS * tuned.best_params["num_leaves"], parity_launches
+    parity = compare_fits(fits["cpu"], fits["cuda"], fits["cpu"].bin_mapper.transform(x[rows]),
+                          tol=1e-4)
+    return {"rows": len(y), "held_out_rows": len(yv), "trials": len(trials), "folds": 2,
+            "rounds": TUNE_ROUNDS, "parallelism": 2, "tune_seconds": tune_s,
+            "trials_per_min": 60.0 * len(trials) / tune_s,
+            "best_params": tuned.best_params, "best_cv_auc": tuned.best_metric,
+            "histogram_launches": histogram.launches,
+            "tune_histogram_launches": launches, "default_histogram_launches": default_launches,
+            "find_best_pick": "tuned" if best.best_model is tuned else "default",
+            "held_out_auc": auc,
+            "all_model_auc": [float(m["AUC"]) for m in best.all_model_metrics],
+            "resume_seconds": resume_s, "resume_trials_skipped": len(skipped),
+            "resume_histogram_launches": resume_launches,
+            "parity_histogram_launches": parity_launches,
+            "fold_parity": {"rows": TUNE_PARITY_ROWS, "trees_equal": parity["trees_equal"],
+                            "trees_compared": parity["trees_compared"],
+                            "near_ties": len(parity["near_ties"]),
+                            "max_value_err_over_tree_max":
+                                parity["max_value_err_over_tree_max"]}}
+
+
+def recsys_sweep() -> dict:
+    """(d) bench.py:2556-2625's sweep on the Adult shape: P=1 (one worker
+    process), P=2 (two ServingFleet workers sharing the card) and P=2 with
+    a SIGKILL before the 3rd sub-checkpoint save; equal digests."""
+    from mmlspark_tpu_torch.automl import HyperbandPruner, SweepScheduler
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+
+    x, y = make_dataset(TUNE_ROWS, 14)
+    # a sub-checkpoint every 4 rounds (a rung's budget), not every round
+    est = GBDTClassifier(features_col="features", label_col="label", num_iterations=8,
+                         num_leaves=15, seed=7, checkpoint_every_n=4, device="cuda")
+    base = ROOT / "build" / "chip_smoke_sweep"
+    shutil.rmtree(base, ignore_errors=True)
+    runs = {}
+    try:
+        for name, workers, chaos in (("p1", 1, None), ("p2", 2, None),
+                                     ("p2_chaos", 2, {"nth": 3, "mode": "before_save"})):
+            sched = SweepScheduler(
+                [est], trials=[(0, p) for p in SWEEP_SPACE], evaluation_metric="accuracy",
+                label_col="label", num_folds=2, seed=0, checkpoint_dir=str(base / name),
+                workers=workers, pruner=HyperbandPruner(min_resource=4, max_resource=8, eta=2),
+                rung_timeout_s=240.0, chaos=chaos)
+            before = histogram.launches
+            t0 = time.perf_counter()
+            res = sched.run(_table(x, y))
+            seconds = time.perf_counter() - t0
+            launches = histogram.launches - before
+            # the driver refits the survivors on the full table (8 rounds each)
+            want = sum(8 * SWEEP_SPACE[ti]["num_leaves"] for ti in res.survivors)
+            assert launches == want, (name, launches, want)
+            builds = [c["builds"] for c in res.worker_counters]
+            assert builds and all(b == 1.0 for b in builds), (name, res.worker_counters)
+            if chaos:
+                assert (base / name / "_chaos_fired").exists() and res.resumed_trials >= 1
+            runs[name] = {"workers": workers, "seconds": seconds, "fits": len(res.results),
+                          "trials_per_min": 60.0 * len(res.results) / seconds,
+                          "digest": res.digest, "best_trial": res.best_trial,
+                          "best_params": res.best_params, "best_metric": res.best_metric,
+                          "pruned": res.pruned, "survivors": res.survivors,
+                          "resumed_trials": res.resumed_trials, "worker_bin_builds": builds,
+                          "worker_bin_hits": [c["hits"] for c in res.worker_counters],
+                          "histogram_launches": launches}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    digests = {r["digest"] for r in runs.values()}
+    assert len(digests) == 1, f"sweep digests diverged: {runs}"
+    return {"rows": len(y), "trials": len(SWEEP_SPACE), "runs": runs,
+            "recovery_overhead": runs["p2_chaos"]["seconds"] / runs["p2"]["seconds"],
+            "speedup_p2": runs["p1"]["seconds"] / runs["p2"]["seconds"],
+            "histogram_launches": sum(r["histogram_launches"] for r in runs.values())}
+
+
+def recsys_lime() -> dict:
+    """(e) ImageLIME over the imported ResNet-50 at 224 (slice_featurize's
+    weights) with its class head through DeepModelTransformer: 2 seeded
+    images, 300 samples, 16-pixel cells (196 superpixels)."""
+    from mmlspark_tpu_torch.automl import ImageLIME, superpixels
+    from mmlspark_tpu_torch.automl.lime import slic_distances
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.nn import DeepModelTransformer, ModelDownloader, ModelSchema
+
+    ref = reference_import_tests()
+    repo = ROOT / "build" / "chip_smoke_lime"
+    shutil.rmtree(repo, ignore_errors=True)
+    try:
+        src = repo / "src" / "resnet50.npz"
+        src.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(src, **ref.synthetic_state_dict())
+        zoo = ModelDownloader(str(repo / "zoo"))
+        zoo.import_external(ModelSchema(name="resnet50_224", uri=str(src),
+                                        architecture="resnet50",
+                                        input_shape=(LIME_SIZE, LIME_SIZE, 3),
+                                        num_outputs=1000))
+        bundle = zoo.load_bundle("resnet50_224")
+    finally:
+        shutil.rmtree(repo, ignore_errors=True)
+    model = DeepModelTransformer(input_col="image", fetch_dict={"probability": "probability"},
+                                 mini_batch_size=64, device="cuda").set_model(bundle)
+    images = np.random.default_rng(31).integers(
+        0, 256, size=(LIME_IMAGES, LIME_SIZE, LIME_SIZE, 3)).astype(np.float32)
+    lime = ImageLIME(model=model, num_samples=LIME_SAMPLES, cell_size=LIME_CELL, seed=0,
+                     device="cuda")
+    outs, seconds = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(lime.transform(Table({"image": images})))
+        seconds.append(time.perf_counter() - t0)
+    weights = [np.asarray(w) for w in outs[0]["weights"]]
+    assert all(w.shape == (LIME_SUPERPIXELS,) and np.isfinite(w).all() for w in weights)
+    assert all(np.array_equal(a, np.asarray(b)) for a, b in zip(weights, outs[1]["weights"])), \
+        "two LIME runs differ"
+    labels = np.asarray(outs[0]["superpixels"])
+    flipped, near_total = 0, 0
+    for i, img in enumerate(images):
+        cpu, k = superpixels(img, LIME_CELL, device="cpu")
+        d = np.sort(slic_distances(img, LIME_CELL, device="cpu"), axis=-1)
+        near = (d[..., 1] - d[..., 0]) <= 1e-5 * np.maximum(d[..., 0], 1e-30)
+        differ = labels[i] != cpu
+        assert k == LIME_SUPERPIXELS and not (differ & ~near).any(), \
+            "superpixels differ off near-ties"
+        flipped += int(differ.sum())
+        near_total += int(near.sum())
+    return {"images": LIME_IMAGES, "samples": LIME_SAMPLES, "superpixels": LIME_SUPERPIXELS,
+            "seconds_first_call": seconds[0], "seconds": seconds[1],
+            "images_scored_per_s": LIME_IMAGES * LIME_SAMPLES / seconds[1],
+            "weights_bit_equal_two_runs": True, "near_tie_pixels": near_total,
+            "labels_differing_from_cpu": flipped,
+            "max_abs_weight": float(max(np.abs(w).max() for w in weights))}
+
+
+def phase_slice_recsys_automl(card: str) -> dict:
+    """Recommendation and AutoML through the entry points a user calls
+    (items a-e above)."""
+    t0 = time.perf_counter()
+    doc = {"phase": "slice_recsys_automl", "card": card}
+    marks = {}
+    sar = recsys_sar()
+    marks["sar"] = time.perf_counter() - t0
+    model, recs = sar.pop("model"), sar.pop("recs")
+    doc["sar"] = sar
+    doc["serving"] = recsys_serving(model, recs)
+    marks["serving"] = time.perf_counter() - t0
+    del model, recs
+    doc["tune"] = recsys_tune()
+    marks["tune"] = time.perf_counter() - t0
+    doc["sweep"] = recsys_sweep()
+    marks["sweep"] = time.perf_counter() - t0
+    doc["lime"] = recsys_lime()
+    marks["lime"] = time.perf_counter() - t0
+    doc["seconds_at"] = marks
+    doc["seconds"] = time.perf_counter() - t0
+    emit(doc)
+    return doc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
@@ -4887,6 +5404,7 @@ def main() -> int:
     serving = phase_slice_serving(env["nvidia_smi"], dnn["bundle"])
     fleet = phase_slice_fleet(env["nvidia_smi"], serving.pop("regressor"), dnn["bundle"])
     train = phase_slice_train()
+    recsys = phase_slice_recsys_automl(env["nvidia_smi"])
 
     main_shape = kern["histogram"][0]
     flash_main = kern["flash_attention"][0]
@@ -4914,9 +5432,13 @@ def main() -> int:
         # numeric Adult fit at max_bin 16383 (B 16,384), the five
         # checkpoint fits (uninterrupted, chunked, preempted and resumed,
         # goss and its chunked twin), slice_mesh's four 4-rank fits (every
-        # rank's launches, counted in its own process) and slice_tabular's
+        # rank's launches, counted in its own process), slice_tabular's
         # TrainClassifier fit (the one-hot Adult CSV, F 108) and text fit
-        # (F 4,096)
+        # (F 4,096), slice_serving's regressor, and slice_recsys_automl's
+        # fits in this process: TuneHyperparameters' trials, refit and
+        # resumed refit, the default model, the fold's card fit, and each
+        # sweep's refits of its survivors (the sweep workers' own fits run
+        # in their processes and are not counted here)
         "launches": (adult["histogram_launches"] + higgs["histogram_launches"]
                      + multiclass["histogram_launches"] + objectives["histogram_launches"]
                      + boosting["histogram_launches"] + early["histogram_launches"]
@@ -4926,7 +5448,9 @@ def main() -> int:
                      + sum(mesh["histogram_launches_by_fit"].values())
                      + tabular["fit"]["histogram_launches"]
                      + tabular["text"]["histogram_launches"]
-                     + serving["fit"]["histogram_launches"]),
+                     + serving["fit"]["histogram_launches"]
+                     + recsys["tune"]["histogram_launches"]
+                     + recsys["sweep"]["histogram_launches"]),
         "launches_by_fit": {"adult": adult["histogram_launches"],
                             "higgs": higgs["histogram_launches"],
                             "multiclass": multiclass["histogram_launches"],
@@ -4944,7 +5468,10 @@ def main() -> int:
                             **mesh["histogram_launches_by_fit"],
                             "tabular": tabular["fit"]["histogram_launches"],
                             "text": tabular["text"]["histogram_launches"],
-                            "serving_regressor": serving["fit"]["histogram_launches"]},
+                            "serving_regressor": serving["fit"]["histogram_launches"],
+                            "recsys_tune": recsys["tune"]["histogram_launches"],
+                            **{f"recsys_sweep_{name}": run["histogram_launches"]
+                               for name, run in recsys["sweep"]["runs"].items()}},
         "max_abs_err": max(r["max_abs_err"] for r in kern["histogram"]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],

@@ -35,9 +35,13 @@ fused segment, the batch-mode journal), the serving fleet (`io_http`:
 host, behind `ServingGateway` or `GatewayTier`, scaled by
 `FleetAutoscaler`; `observability`'s fleet metrics, SLOs and timeline),
 the HTTP client side (`http_send`, `HTTPClient`, `TargetPool`,
-`HTTPTransformer`, `SimpleHTTPTransformer`, `PartitionConsolidator`) and
-the typed REST stages (`io_http`: cognitive services, `AzureSearchWriter`,
-`PowerBIWriter`). ROADMAP.md lists what is still to come.
+`HTTPTransformer`, `SimpleHTTPTransformer`, `PartitionConsolidator`), the
+typed REST stages (`io_http`: cognitive services, `AzureSearchWriter`,
+`PowerBIWriter`), recommendation (`recommendation`: `SAR` and its resident
+top-k server, `RecommendationIndexer`, the ranking metrics and stages) and
+AutoML (`automl`: `TuneHyperparameters`, `FindBestModel`, the hyperband
+`SweepScheduler` over worker processes, `ImageLIME`; `gbdt.shared_bins`;
+`resilience`'s supervisors). ROADMAP.md lists what is still to come.
 
 The CPU tests hold each module against the JAX package's
 (`JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py`; the fleet's:
@@ -57,7 +61,8 @@ torch.backends.cudnn.allow_tf32 = False
 __version__ = "0.1.0"
 
 _SUBPACKAGES = ("core", "gbdt", "automl", "image", "io_http", "native", "nn",
-                "observability", "ops", "parallel", "resilience", "text", "utils")
+                "observability", "ops", "parallel", "recommendation", "resilience", "text",
+                "utils")
 
 
 def __getattr__(name):

@@ -8,7 +8,8 @@ metric names from `core/metrics/MetricConstants.scala:7-60`.
 Metrics are small host reductions in numpy. The confusion matrix counts in
 float32, as the JAX package's does with 64-bit mode off, so both report the
 same accuracy bits; the regression metrics reduce in float32 for the same
-reason. Ranking metrics are a later slice.
+reason. The ranking metrics (`evaluation_metric="ranking"`, or a label
+column of id lists) are recommendation/ranking.py's `ranking_metrics`.
 """
 
 from __future__ import annotations
@@ -112,14 +113,47 @@ class ComputeModelStatistics(Transformer):
 
     def _transform(self, table: Table) -> Table:
         metric = self.get("evaluation_metric")
-        if metric in MetricConstants.RANKING_METRICS + ["ranking"]:
-            raise NotImplementedError(
-                "ranking metrics are not ported yet; see ROADMAP.md Queue 1, "
-                "'recommendation and AutoML'")
+        # ranking tables carry RAGGED per-user id lists in the label
+        # column — they must branch BEFORE the dense float64 label cast
+        if (metric in MetricConstants.RANKING_METRICS + ["ranking"]
+                or self._is_ranking(table)):
+            return self._ranking(table)
         labels = np.asarray(table[self.get("label_col")], np.float64)
         if self._infer_is_classification(table, labels, metric):
             return self._classification(table, labels)
         return self._regression(table, labels)
+
+    def _is_ranking(self, table: Table) -> bool:
+        """Auto-detect a RankingAdapterModel-shaped table: the label
+        column holds per-user item-id LISTS, not scalars."""
+        if self.get("evaluation_metric") not in ("all", "ranking"):
+            return False
+        col = self.get("label_col")
+        if col not in table:
+            return False
+        vals = table[col]
+        if isinstance(vals, np.ndarray) and vals.ndim >= 2:
+            return True
+        head = next(iter(vals), None)
+        return isinstance(head, (list, tuple, np.ndarray))
+
+    def _ranking(self, table: Table) -> Table:
+        """NDCG/MAP@k/MRR (+precision/recall@k, fcp) over per-user
+        recommendation lists, via `recommendation.ranking_metrics` —
+        consumes RankingAdapterModel output (`prediction`/`label` id
+        lists) directly."""
+        from ..recommendation.ranking import ranking_metrics
+
+        pred_col = self.get("scores_col") or self.get("scored_labels_col")
+        if pred_col not in table and "prediction" in table:
+            pred_col = "prediction"
+        preds = [list(np.asarray(p).astype(np.int64))
+                 for p in table[pred_col]]
+        labels = [list(np.asarray(v).astype(np.int64))
+                  for v in table[self.get("label_col")]]
+        row = {name: float(v) for name, v in ranking_metrics(
+            preds, labels, k=int(self.get("k"))).items()}
+        return Table.from_rows([row])
 
     def _infer_is_classification(self, table: Table, labels: np.ndarray, metric: str) -> bool:
         if metric in MetricConstants.CLASSIFICATION_METRICS + ["classification"]:

@@ -39,8 +39,12 @@ the capture as the compile, so the steady state is zero captures. A
 replay copies the batch into the static inputs, replays, and copies the
 outputs into fresh tensors, all on the calling stream under the
 segment's lock: the next replay writes over the graph's own outputs, and
-`AsyncReadback` reads batch N only after batch N+1 was dispatched. The
-capture does not launch the kernels it records, so the wrapper launch
+`AsyncReadback` reads batch N only after batch N+1 was dispatched.
+Captures take turns across the process (`torch.cuda.graph`'s capture
+stream is one for all of them), and a capture that fails keeps its graph
+object alive, because destroying an unfinished CUDAGraph aborts the
+process: its exception reaches the caller. The capture does not launch
+the kernels it records, so the wrapper launch
 counters (`core.kernels.LAUNCH_COUNTERS`) are set back after it and
 advanced by the captured launches at every replay: they count launches
 that ran. A capture that fails raises from the build; a segment never
@@ -329,6 +333,16 @@ class _DeviceOuts(tuple):
     event: Any = None
 
 
+# `torch.cuda.graph` captures on one capture stream shared by the whole
+# process, so two captures at once (two servers warming their ladders on
+# their own threads) would collide: captures take turns under this lock
+_CAPTURE_LOCK = threading.Lock()
+# graphs whose capture failed: destroying a CUDAGraph that never finished
+# its capture aborts the process, so they are kept, and the capture's
+# exception reaches the caller instead
+_FAILED_CAPTURES: list = []
+
+
 class _CudaGraphExec:
     """One (rows, dtypes) shape of a fused segment on the card: the
     composition captured in a `torch.cuda.CUDAGraph` over static input
@@ -336,6 +350,10 @@ class _CudaGraphExec:
     outputs out on the calling stream, under the segment's lock."""
 
     def __init__(self, segment: "_FusedSegment", params: tuple, args: tuple):
+        with _CAPTURE_LOCK:
+            self._capture(segment, params, args)
+
+    def _capture(self, segment: "_FusedSegment", params: tuple, args: tuple) -> None:
         dev = args[0].device
         self.segment = segment
         self.static_in = tuple(torch.empty_like(a) for a in args)
@@ -358,6 +376,9 @@ class _CudaGraphExec:
             with torch.cuda.graph(self.graph, pool=segment._graph_pool,
                                   capture_error_mode="thread_local"), torch.no_grad():
                 self.static_out = segment._composed(params, self.static_in)
+        except BaseException:
+            _FAILED_CAPTURES.append(self.graph)
+            raise
         finally:
             # the capture recorded these launches; none of them ran
             self.launches = _counts_since(before)

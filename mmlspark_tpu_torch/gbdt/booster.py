@@ -8,6 +8,9 @@ Training (`Booster.train`) bins on the host and moves the bin matrix to
 the fit's device once, or with `device_binning` moves the raw values and
 bins them there (`BinMapper.transform_device`), then runs the boosting loop
 of fused.py on that device; the trees come back in one transfer at the end.
+Inside an AutoML sweep (gbdt/shared_bins.py) a fit whose rows were seeded
+takes the shared mapper and gathers its bins from the full binned matrix on
+the device instead.
 A Booster remembers the torch device it was trained on (`Booster.device`)
 and scores there; `Booster.to(device)` moves it. Scoring is the batched
 gather-walk (`_traverse_fn`) on that device, the fused bin -> traverse
@@ -226,14 +229,26 @@ class Booster:
         k = opts.num_class if opts.objective == "multiclass" else 1
         # warm start: the warm model's bins, and its scores on this device
         warm = None if opts.init_model is None else opts.init_model.to(device)
+        shared_hit = None
         if warm is not None:
             mapper = warm.bin_mapper
         else:
-            mapper = BinMapper(
-                max_bin=opts.max_bin,
-                categorical_indexes=tuple(opts.categorical_indexes),
-                bin_construct_sample_cnt=opts.bin_construct_sample_cnt,
-            ).fit(x)
+            # AutoML sweeps seed a SharedBinContext: when this fit's rows
+            # are a slice of the seeded full table under the same binning
+            # config and device, reuse its mapper + device-resident binned
+            # matrix (a gather there) instead of re-sketching and re-binning
+            from .shared_bins import lookup_shared_bins, note_bin_build
+
+            shared_hit = lookup_shared_bins(x, opts, device)
+            if shared_hit is not None:
+                mapper = shared_hit.mapper
+            else:
+                mapper = BinMapper(
+                    max_bin=opts.max_bin,
+                    categorical_indexes=tuple(opts.categorical_indexes),
+                    bin_construct_sample_cnt=opts.bin_construct_sample_cnt,
+                ).fit(x)
+                note_bin_build()
         num_bins = max(int(mapper.num_bins.max(initial=2)), 2)
         use_u8 = opts.bin_dtype == "uint8"
         if use_u8 and num_bins > 256:
@@ -268,6 +283,13 @@ class Booster:
             mapper = copy.copy(mapper)
             mapper.upper_bounds = np.float64(np.float32(mapper.upper_bounds))
             bins_dev = mapper.transform_device(x[lo:min(hi, n)], device).to(
+                torch.uint8 if use_u8 else torch.int32)
+            if hi > n:
+                bins_dev = torch.cat([bins_dev, bins_dev.new_zeros((hi - max(lo, n), f))])
+        elif shared_hit is not None:
+            # binning is row-wise, so the gathered rows of the shared
+            # full-table matrix ARE this rank's block of the fit's bins
+            bins_dev = shared_hit.device_bins(lo, min(hi, n)).to(
                 torch.uint8 if use_u8 else torch.int32)
             if hi > n:
                 bins_dev = torch.cat([bins_dev, bins_dev.new_zeros((hi - max(lo, n), f))])

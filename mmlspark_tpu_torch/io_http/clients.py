@@ -21,7 +21,12 @@ round-robin, least-loaded, and consistent hash on a caller key.
 `HTTPClient(urls=[...])` and io_http.gateway.ServingGateway both route
 through it, so replica failover has exactly one tested implementation.
 
-A copy of mmlspark_tpu/io_http/clients.py.
+A copy of mmlspark_tpu/io_http/clients.py, but for one rule:
+`TargetPool.send` also resends, once, a 503 from a target that left the
+pool while the request was out, where the JAX package returns it. A
+rolling swap under load otherwise answers a client 503 whenever a request
+reaches a retiring replica after its drain began (the fleet removes the
+replica from the pool, then signals it; it sheds the late request unrun).
 """
 
 from __future__ import annotations
@@ -510,7 +515,11 @@ class TargetPool:
         """Route one request to a picked live target. On a CONNECTION
         failure (status 0 — no HTTP answer, so resending is safe even
         mid-POST) the request is retried once against a different live
-        target: a crashed replica costs a retry, not an error.
+        target: a crashed replica costs a retry, not an error. So is a
+        503 from a target that left the pool while the request was out:
+        a retiring replica is removed before it is told to drain, and it
+        sheds what reaches it after that with a 503 before doing any
+        work, so the resend cannot run the request twice.
         `on_failover(url, resp)` observes the failed first attempt.
 
         `target` pins the request to one specific member instead of
@@ -547,6 +556,12 @@ class TargetPool:
                 resp = http_send(self._rebase(req, url), timeout=timeout,
                                  policy=policy,
                                  breaker=self.breaker_for(url))
+            if resp.status_code == 503 and retry_connect and not tried:
+                with self._lock:
+                    retired = url not in self._targets
+                if retired:
+                    tried.append(url)
+                    continue
             if resp.status_code != 0:
                 return resp
             tried.append(url)

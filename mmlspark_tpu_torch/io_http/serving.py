@@ -24,9 +24,10 @@ A copy of mmlspark_tpu/io_http/serving.py, whose fused segments
 `FleetRendezvous`, `ServingFleet`) spawns each replica as a process of its
 own (the `spawn` context: a forked child of a process that touched CUDA
 cannot use the card), which builds its handler, and so its model and its
-CUDA context, itself. Not ported yet: `SARModel` delegation to
-`serve_recommender` (with SAR, ROADMAP Queue 1 item 14), and the phase
-profiler (`observability/profiler.py`, item 15): until it comes,
+CUDA context, itself. `serve_model` delegates a fitted `SARModel` to
+recommendation/resident.py's `serve_recommender`. Not ported yet: the
+phase profiler (`observability/profiler.py`, ROADMAP item 15): until it
+comes,
 `_prof_ledger` gives the null ledger and `_profiler_info` the disarmed
 snapshot, which is what the JAX package gives while its profiler is
 disarmed, its default.
@@ -1570,10 +1571,21 @@ def serve_model(
     `device` is the torch device the fused segments run on ("cuda": CUDA
     graphs over static buffers, one per ladder rung; "cpu": the same
     composition eagerly); a model that is already a `FusedPipelineModel`
-    keeps its own `device` Param. The JAX package's delegation of a
-    `SARModel` to `serve_recommender` comes with SAR (ROADMAP item 14)."""
+    keeps its own `device` Param.
+
+    A fitted `SARModel` delegates to `recommendation.resident
+    .serve_recommender` — same warmup/byte-identity/readback contract,
+    top-k reply schema (`input_cols`/`output_col` are implied by the
+    model and ignored)."""
     from ..core.fusion import FusedPipelineModel
     from ..core.pipeline import PipelineModel
+    from ..recommendation.sar import SARModel
+
+    if isinstance(model, SARModel):
+        from ..recommendation.resident import serve_recommender
+
+        return serve_recommender(model, host=host, port=port, mesh=mesh,
+                                 hot_path=hot_path, device=device, **server_kw)
 
     if input_cols is None:
         raise TypeError("serve_model requires input_cols for this model")
