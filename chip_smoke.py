@@ -38,7 +38,10 @@ processes of a ServingFleet behind a ServingGateway, DNNLearner
 training that transformer and ResNet-50, and recommendation and AutoML
 (SAR at MovieLens-1M's shape and its resident top-k server, the ranking
 stages, TuneHyperparameters, FindBestModel, the hyperband sweep over
-worker processes, ImageLIME over ResNet-50) — and
+worker processes, ImageLIME over ResNet-50), and streaming and the phase
+profiler (that transformer and the Adult scorer in checkpointed
+StreamingQuery and ParallelStreamingQuery runs, the profiler armed on a
+server) — and
 shows through the kernels' launch counters that each path ran on its
 kernel. It prints one JSON line per phase:
 
@@ -63,7 +66,7 @@ kernel. It prints one JSON line per phase:
   slice_adult  the GBDT path: fit seconds, launches (must be 3,100),
                train accuracy > 0.7, held-out AUC > 0.75, and the card's
                scores equal to the host walk bit for bit
-  profile_adult a 10-round Adult fit under torch.profiler: device kernel
+  profile_adult a 5-round Adult fit under torch.profiler: device kernel
                time by name against wall time
   slice_parity the same data, 10 rounds, fitted on "cpu" and on "cuda":
                equal trees, or trees that part only at printed near-ties
@@ -85,7 +88,7 @@ kernel. It prints one JSON line per phase:
                huber, quantile, poisson, tweedie: 2,250 launches)
   slice_boosting  the Adult shape through GBDTClassifier under bagged
                gbdt (bagging 0.8 every round, feature fraction 0.8), goss,
-               rf and dart: each fit's seconds, 3,100 launches, train
+               rf and dart, 50 rounds: each fit's seconds, 1,550 launches, train
                accuracy > 0.7, held-out AUC > 0.75, card scores equal to
                the host walk; first, two rounds of each loop under sync
                debug mode "error" (nothing read back)
@@ -99,7 +102,7 @@ kernel. It prints one JSON line per phase:
                compare_fits at 1e-5 through the CPU's row-order histogram
                and at 1e-4 through K1; a draw's host microseconds and
                device ms at both sizes; then the same two rules for l1,
-               quantile and mape under bagged gbdt, goss and dart (10
+               quantile and mape under bagged gbdt, goss and dart (5
                rounds on airfoil_like), early stopping of a multiclass and
                a regression fit (the same best round on both devices), and
                an rf warm start
@@ -119,16 +122,16 @@ kernel. It prints one JSON line per phase:
                through GBDTClassifier(categorical_slot_indexes=...), 100
                rounds of 31 leaves (3,100 launches), held-out AUC > 0.75,
                accuracy > 0.7, card scores = the host walk, category
-               subsets of many; sync-free rounds; 10 rounds CPU against card
+               subsets of many; sync-free rounds; 5 rounds CPU against card
   slice_high_cardinality  the Amazon Employee Access schema (9
                categorical columns, up to 7,518 categories): max_bin 1023
                with uint8 asked for (the reference's warning, int32 bins),
                K1 at 1,024 bins (3,100 launches), held-out AUC above a
-               constant's, card = host walk; 10 rounds CPU against card,
+               constant's, card = host walk; 5 rounds CPU against card,
                and the numeric Adult shape at max_bin 511 likewise
   slice_max_bin_16383  the numeric Adult shape at max_bin 16383: K1 at
                16,384 bins in bin ranges (3,100 launches), held-out AUC >
-               0.75, accuracy > 0.7, card = host walk; 10 rounds CPU
+               0.75, accuracy > 0.7, card = host walk; 5 rounds CPU
                against card
   slice_checkpoint  the Adult shape through GBDTClassifier (seed 3,
                bagging 0.8 every 3 rounds): uninterrupted; with
@@ -151,12 +154,12 @@ kernel. It prints one JSON line per phase:
                1e-6, atol 1e-7; parse and export seconds
   slice_mesh   distributed GBDT: 4 spawned ranks on the one card over gloo
                (parallel.RankPool), each fitting slice_adult's data on its
-               8,192 rows through GBDTClassifier(use_mesh=True), 20 rounds,
+               8,192 rows through GBDTClassifier(use_mesh=True), 10 rounds,
                under data_parallel, deterministic, voting_parallel (top_k
-               5) and bagged gbdt: every rank's model one text, 620 K1
+               5) and bagged gbdt: every rank's model one text, 310 K1
                launches a rank, held-out AUC > 0.75 (within 0.01 of
-               slice_adult's first 20 rounds for the first two),
-               data_parallel against those 20 trees of slice_adult's
+               slice_adult's first 10 rounds for the first two),
+               data_parallel against those 10 trees of slice_adult's
                booster and every fit against 4 CPU ranks' 5-round fit by
                compare_fits at 1e-4; fit seconds, collectives, bytes merged
                and their host-timed share; then a one-rank mesh on NCCL,
@@ -210,7 +213,7 @@ kernel. It prints one JSON line per phase:
                (GBDTClassifier, 100 rounds of 31 leaves) on 32,768 rows:
                108 featurized columns, exactly 3,100 K1 launches, held-out
                AUC > 0.75 and accuracy > 0.7, card scores = the host walk,
-               the saved and loaded PipelineModel scoring alike; 10 rounds
+               the saved and loaded PipelineModel scoring alike; 5 rounds
                on "cpu" and "cuda" (the first 3,072 rows): equal matrices,
                trees by compare_fits at 1e-4 through K1 and 1e-5 through
                the row-order histogram; a fit from Cacher(device="cuda")'d
@@ -290,6 +293,28 @@ kernel. It prints one JSON line per phase:
                224 (2 images, 300 samples, 196 superpixels): superpixels
                card = CPU off near-ties, weights finite and bit-equal over
                two runs
+  slice_streaming  the phase profiler and streaming: (a) the serving
+               transformer behind a batch-mode ServingServer (a journal),
+               streamed by a checkpointed StreamingQuery that fuses it:
+               256 requests from 32 clients (half JSON, half the binary
+               wire), each answered once, each micro-batch within 1e-4 of
+               the staged transform, K2 on wgmma 8 a fused forward; 64 more
+               parked, 2 micro-batches answered, the query and server
+               stopped, the rest re-parked from the journal and answered
+               once by a query restarted on the same checkpoint; (b)
+               slice_tabular's Adult CSV in 8 files through DirectorySource
+               -> the fused Adult scorer -> ForeachBatchSink, stopped after
+               2 batches, the other 6 by a second query, byte-equal to one
+               transform; (c) that scorer, KeyedShuffle, then a
+               GroupedAggregator and a WindowedAggregator at 4 thread
+               partitions, byte-equal to P = 1; (d) the grouped query on 2
+               ServingFleet worker processes (binary wire), one SIGKILLed
+               and respawned, byte-equal to P = 1, no new CUDA context; (e)
+               the phase profiler armed on serve_model's transformer:
+               resident ledgers' coverage of their RTT in 0.85-1.15, a
+               compute phase, K2 = 8 x forwards armed and disarmed, the
+               attribution table, a torch.profiler trace of 4 fused
+               forwards. No K1 launch
 
 then the {"kernels": [...]} summary, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1063,7 +1088,7 @@ def phase_slice_adult() -> dict:
 
 
 def phase_profile_adult() -> dict:
-    """Where the Adult fit's time goes: a 10-round fit under torch.profiler,
+    """Where the Adult fit's time goes: a 5-round fit under torch.profiler,
     the device time of every kernel summed by name against the fit's wall
     time. The profiler slows the host, so the busy share it gives is a
     lower bound of the unprofiled one."""
@@ -1073,7 +1098,7 @@ def phase_profile_adult() -> dict:
     from mmlspark_tpu_torch.gbdt.booster import Booster, TrainOptions
 
     x, y = make_dataset(32768, 14)
-    opts = TrainOptions(objective="binary", num_iterations=10, num_leaves=31, device="cuda")
+    opts = TrainOptions(objective="binary", num_iterations=5, num_leaves=31, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1089,7 +1114,7 @@ def phase_profile_adult() -> dict:
     hist = {k: v for k, v in by_name.items() if "hist_" in k}
     hist_s = sum(us for us, _ in hist.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    doc = {"phase": "profile_adult", "rounds": 10, "num_leaves": 31,
+    doc = {"phase": "profile_adult", "rounds": 5, "num_leaves": 31,
            "wall_seconds_profiled": wall_s,
            "device_kernel_seconds": device_s if by_name else None,
            "device_busy_share": device_s / wall_s if by_name else None,
@@ -1680,13 +1705,19 @@ def _rounds_without_sync(x, y, categorical_indexes=(), max_bin: int = 255) -> li
     return checked
 
 
+# rounds of slice_boosting's Adult fits: 50 (100 until the smoke's time ran
+# short on slower card hosts)
+BOOSTING_ROUNDS = 50
+
+
 def phase_slice_boosting() -> dict:
     """The Adult shape through GBDTClassifier on the card under each
-    boosting type: 100 rounds of 31 leaves, so 3,100 K1 launches a fit."""
+    boosting type: BOOSTING_ROUNDS rounds of 31 leaves, so 1,550 K1
+    launches a fit."""
     from mmlspark_tpu_torch.gbdt import GBDTClassifier
     from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
 
-    n, n_valid, f, rounds, leaves = 32768, 8192, 14, 100, 31
+    n, n_valid, f, rounds, leaves = 32768, 8192, 14, BOOSTING_ROUNDS, 31
     x_all, y_all = make_dataset(n + n_valid, f)
     x, y, xv, yv = x_all[:n], y_all[:n], x_all[n:], y_all[n:]
     sync_free = _rounds_without_sync(x, y)
@@ -1755,7 +1786,14 @@ def _fit_with_draws(x, y, kw: dict, rounds: int, device: str, row_order: bool = 
     return booster, parts, seconds
 
 
-def cpu_card_parity(x, y, kw: dict, rounds: int = 10, ties: "dict | None" = None) -> dict:
+# rounds of the CPU-against-card fits of the categorical, high-cardinality,
+# max_bin 16383 and renewed-objective paths: 5 (10 until the smoke's time ran
+# short on slower card hosts; a tree of round r depends on no later round)
+PARITY_ROUNDS = 5
+
+
+def cpu_card_parity(x, y, kw: dict, rounds: int = PARITY_ROUNDS,
+                    ties: "dict | None" = None) -> dict:
     """The data fitted on "cpu" and on "cuda" (`_fit_with_draws`): the card
     fit through the CPU's row-order histogram in K1's place meets
     compare_fits at 1e-5 (the devices' other steps agree), the card fit
@@ -1850,7 +1888,7 @@ def phase_slice_boosting_parity() -> dict:
 def boosting_paths_cpu_card() -> dict:
     """Paths of the boosting loop held on the card against the CPU: the
     renewed objectives (l1, quantile, mape) under bagged gbdt, goss and dart
-    on airfoil_like, 10 rounds of 15 leaves each (cpu_card_parity); early
+    on airfoil_like, PARITY_ROUNDS rounds of 15 leaves each (cpu_card_parity); early
     stopping for multiclass (make_classification's 4 classes) and
     regression (airfoil_like), patience 5 at learning rate 0.5: the same
     best iteration on both devices, best + 1 rounds kept, launches of
@@ -2065,7 +2103,7 @@ def phase_slice_categorical() -> dict:
     at max_bin 255, so 3,100 K1 launches; held-out AUC > 0.75 and accuracy
     > 0.7 (bench.py's canaries); card scores equal to the host walk; at
     least one categorical node with a subset of more than one category;
-    two rounds of each loop under sync debug mode "error"; and 10 rounds
+    two rounds of each loop under sync debug mode "error"; and PARITY_ROUNDS rounds
     fitted on "cpu" and "cuda" (cpu_card_parity, K1 with
     CATEGORICAL_TIES)."""
     n, n_valid = 32768, 8192
@@ -2080,7 +2118,8 @@ def phase_slice_categorical() -> dict:
     parity = cpu_card_parity(x, y, dict(categorical_indexes=cats), ties=CATEGORICAL_TIES)[0]
     doc = {"phase": "slice_categorical", "rows": n, "held_out_rows": n_valid,
            "features": x.shape[1], "categorical_slots": cats, "rounds": 100, "num_leaves": 31,
-           "max_bin": 255, "sync_free_rounds": sync_free, **fit, "parity_10_rounds": parity}
+           "max_bin": 255, "sync_free_rounds": sync_free, **fit,
+           "parity": {"rounds": PARITY_ROUNDS, **parity}}
     emit(doc)
     return {**doc, "booster": booster, "x_valid": xv}
 
@@ -2094,7 +2133,7 @@ def phase_slice_high_cardinality() -> dict:
     categories, so K1 runs at B 1024 ("rows": one copy of 9 warps), 3,100
     launches; held-out AUC above a constant predictor's; card scores equal
     to the host walk; two rounds of each loop under sync debug mode
-    "error"; 10 rounds on "cpu" and "cuda" (cpu_card_parity, K1 with
+    "error"; PARITY_ROUNDS rounds on "cpu" and "cuda" (cpu_card_parity, K1 with
     CATEGORICAL_TIES), and the same for the numeric Adult shape
     (make_dataset) at max_bin 511 with compare_fits's plain rules."""
     from mmlspark_tpu_torch.gbdt.hist_kernel import device_plan
@@ -2119,8 +2158,8 @@ def phase_slice_high_cardinality() -> dict:
     doc = {"phase": "slice_high_cardinality", "rows": n, "held_out_rows": n_valid,
            "features": x.shape[1], "positive_share": float(y.mean()), "rounds": 100,
            "num_leaves": 31, "max_bin": 1023, "bin_dtype_asked": "uint8", "k1_plan": plan.branch,
-           "sync_free_rounds": sync_free, **fit, "parity_10_rounds": parity,
-           "adult_numeric_max_bin_511_parity_10_rounds": numeric}
+           "sync_free_rounds": sync_free, **fit, "parity": {"rounds": PARITY_ROUNDS, **parity},
+           "adult_numeric_max_bin_511_parity": {"rounds": PARITY_ROUNDS, **numeric}}
     emit(doc)
     return doc
 
@@ -2131,7 +2170,7 @@ def phase_slice_max_bin_16383() -> dict:
     take 16,384 bins, past the ~14,000 of one feature a block that K1 held
     before bin ranges; 100 rounds of 31 leaves, so 3,100 launches, all at
     B 16,384 int32; held-out AUC > 0.75 and accuracy > 0.7 (bench.py's
-    canaries); card scores equal to the host walk; 10 rounds on "cpu" and
+    canaries); card scores equal to the host walk; PARITY_ROUNDS rounds on "cpu" and
     "cuda" (cpu_card_parity: the row-order witness at 1e-5, K1 at 1e-4)."""
     from mmlspark_tpu_torch.gbdt.hist_kernel import device_plan
 
@@ -2150,7 +2189,7 @@ def phase_slice_max_bin_16383() -> dict:
            "k1_branch": plan.branch, **{k: v for k, v in fit.items() if "categorical" not in k
                                         and k != "largest_subset"},
            "splits_past_bin_14376": int((booster.threshold_bin[split] > 14376).sum()),
-           "splits": int(split.sum()), "parity_10_rounds": parity}
+           "splits": int(split.sum()), "parity": {"rounds": PARITY_ROUNDS, **parity}}
     emit(doc)
     return doc
 
@@ -2404,11 +2443,11 @@ def phase_slice_lightgbm_import(adult: dict, categorical: dict) -> dict:
 # The serving transformer at bench.py's accelerator width (bench.py:632-645)
 MESH_RANKS = 4
 MESH_CPU_ROUNDS = 5       # the CPU ranks' fits, against the card fits' first trees
-# the card ranks' fits: 20 of slice_adult's 100 rounds, held against its first
-# 20 trees (a tree of round r depends on no later round), so that the smoke
-# stays well inside its time limit (the four fits took 164 s at 100 rounds,
-# 63 s at 40)
-MESH_ROUNDS = 20
+# the card ranks' fits: 10 of slice_adult's 100 rounds, held against its first
+# 10 trees (a tree of round r depends on no later round), so that the smoke
+# stays well inside its time limit on slower card hosts (the four fits took
+# 164 s at 100 rounds, 63 s at 40, 29–48 s at 20)
+MESH_ROUNDS = 10
 # compare_fits' tolerance of a card fit against the CPU ranks' fit. The
 # fixed-point merge rounds each bin to 2**23 / 4 steps of its channel's
 # largest value, so where K1's block-order sums and the CPU's row-order
@@ -3415,7 +3454,7 @@ def tabular_ingest(folder: Path) -> dict:
 def tabular_fit(table, folder: Path) -> dict:
     """(b) CleanMissingData -> TrainClassifier(GBDTClassifier) on the card:
     100 rounds of 31 leaves (3,100 K1 launches), held-out metrics, card
-    scores = the host walk; 10 rounds on "cpu" and "cuda"; the fitted
+    scores = the host walk; PARITY_ROUNDS rounds on "cpu" and "cuda"; the fitted
     PipelineModel saved and loaded; a fit from Cacher'd columns."""
     from unittest import mock
 
@@ -3457,7 +3496,7 @@ def tabular_fit(table, folder: Path) -> dict:
     assert np.array_equal(again["probability"], scored["probability"]) and \
         list(again["prediction"]) == list(scored["prediction"]), "the loaded pipeline scores otherwise"
 
-    # 10 rounds on the CPU and the card (the first TABULAR_PARITY_ROWS):
+    # PARITY_ROUNDS rounds on the CPU and the card (the first TABULAR_PARITY_ROWS):
     # the same matrix, trees by compare_fits through K1 (1e-4) and through
     # the CPU's row-order histogram in K1's place (1e-5)
     sub = train.slice(0, TABULAR_PARITY_ROWS)
@@ -3467,7 +3506,7 @@ def tabular_fit(table, folder: Path) -> dict:
                               ("row_order", "cuda", _row_order_histogram)):
         with mock.patch.object(engine, "histogram", hist):
             t0 = time.perf_counter()
-            fits[key] = _tabular_pipeline(10, device).fit(sub)
+            fits[key] = _tabular_pipeline(PARITY_ROUNDS, device).fit(sub)
             seconds[key] = time.perf_counter() - t0
     mats = [_featurized(f, sub) for f in fits.values()]
     assert all(np.array_equal(m.view(np.uint32), mats[0].view(np.uint32)) for m in mats), \
@@ -3489,16 +3528,17 @@ def tabular_fit(table, folder: Path) -> dict:
         Table({"features": x.astype(np.float32), "label": y01.astype(np.float32)}))
     assert from_cache.booster.to_text() == from_host.booster.to_text(), \
         "the fit from Cacher'd columns differs from the f32 host fit"
-    return booster, {
+    return fitted, {
         "rows": TABULAR_ROWS, "held_out_rows": len(held), "features": x.shape[1],
         "feature_kinds": sorted({s["kind"] for s in trained.featurizer.stages[0].specs}),
         "rounds": 100, "num_leaves": 31, "fit_seconds": fit_s, "histogram_launches": launches,
         "transform_seconds": transform_s, "valid_auc": valid["auc"],
         "valid_accuracy": valid["accuracy"], "card_equals_host_walk": True,
         "num_bins": int(booster.bin_mapper.num_bins.max()), "loaded_scores_equal": True,
-        "parity_10_rounds": {"rows": TABULAR_PARITY_ROWS, "k1": {k: k1[k] for k in keys},
-                             "row_order": {k: witness[k] for k in keys},
-                             **{f"{k}_fit_seconds": s for k, s in seconds.items()}},
+        "parity": {"rows": TABULAR_PARITY_ROWS, "rounds": PARITY_ROUNDS,
+                   "k1": {k: k1[k] for k in keys},
+                   "row_order": {k: witness[k] for k in keys},
+                   **{f"{k}_fit_seconds": s for k, s in seconds.items()}},
         "cacher_fit_equals_f32_host_fit": True}
 
 
@@ -3584,13 +3624,14 @@ def phase_slice_tabular(card: str) -> dict:
     folder.mkdir(parents=True)
     try:
         table, ingest = tabular_ingest(folder)
-        _, fit = tabular_fit(table, folder)
+        fitted, fit = tabular_fit(table, folder)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
     doc = {"phase": "slice_tabular", "card": card, "ingest": ingest, "fit": fit,
            "text": tabular_text()}
     doc["seconds"] = time.perf_counter() - t0
     emit(doc)
+    doc["model"] = fitted             # slice_streaming scores the Adult CSV with it
     return doc
 
 
@@ -5360,6 +5401,646 @@ def phase_slice_recsys_automl(card: str) -> dict:
     return doc
 
 
+# ---- slice_streaming: the phase profiler and streaming on the card ---- #
+
+# (a) the serving transformer behind a batch-mode ServingServer streamed by
+# a checkpointed StreamingQuery: requests of SLICE_TOKENS ids from
+# STREAM_CLIENTS keep-alive clients (half JSON, half the binary wire), micro-
+# batches of up to STREAM_MAX_ROWS; then STREAM_RESTART_REQUESTS parked
+# requests, STREAM_RESTART_BATCHES micro-batches of STREAM_RESTART_ROWS
+# answered before the query and its server stop, the rest answered by a
+# restarted query from the journal
+STREAM_REQUESTS, STREAM_CLIENTS, STREAM_MAX_ROWS = 256, 32, 64
+STREAM_RESTART_REQUESTS, STREAM_RESTART_ROWS, STREAM_RESTART_BATCHES = 64, 16, 2
+# (b) slice_tabular's Adult CSV in STREAM_CHUNKS files, STREAM_FIRST_BATCHES
+# of them before the first query stops
+STREAM_CHUNKS, STREAM_FIRST_BATCHES = 8, 2
+# (c)/(d) the partition-parallel queries: P thread partitions, the fleet's
+# partitions over its worker processes, event time STREAM_ROW_SECONDS a row
+STREAM_PARTITIONS, STREAM_FLEET_WORKERS, STREAM_KILL_AFTER = 4, 2, 3
+STREAM_ROW_SECONDS, STREAM_WINDOW_S, STREAM_WATERMARK_S = 0.01, 60.0, 5.0
+# (e) the armed profiler on serve_model's transformer: requests a run,
+# clients, and fused forwards under the device trace
+PROFILE_REQUESTS, PROFILE_CLIENTS, PROFILE_TRACE_FORWARDS = 128, 16, 4
+PROFILE_COVERAGE = (0.85, 1.15)
+STREAM_TOKEN_COLS = [f"t{j}" for j in range(SLICE_TOKENS)]
+
+
+def _stream_stages():
+    """The host stages around the transformer in (a), and the one after
+    the Adult scorer in (c)/(d): requests -> a token matrix, probabilities
+    -> replies (binary to a client that accepts it, JSON otherwise), and
+    P(>50K) as a column of its own."""
+    from mmlspark_tpu_torch.core import Transformer
+    from mmlspark_tpu_torch.io_http import wire
+    from mmlspark_tpu_torch.io_http.schema import HTTPResponseData, RequestDecoder
+
+    class DecodeTokens(Transformer):
+        def _transform(self, table):
+            reqs = list(table["request"])
+            feats = RequestDecoder(STREAM_TOKEN_COLS).decode(reqs)
+            assert feats is not None, "a request fell outside the token schema"
+            return (table.with_column("features", feats)
+                    .with_column("wire", [wire.accepts_wire(r.headers) for r in reqs]))
+
+    class ReplyProbabilities(Transformer):
+        def _transform(self, table):
+            replies = []
+            for p, binary in zip(np.asarray(table["probability"]), table["wire"]):
+                if binary:
+                    replies.append(HTTPResponseData(
+                        200, "OK", {"Content-Type": wire.WIRE_CONTENT_TYPE},
+                        wire.encode_reply("probability", p)))
+                else:
+                    replies.append(HTTPResponseData(
+                        200, "OK", {"Content-Type": "application/json"},
+                        json.dumps({"probability": p.tolist()}).encode()))
+            return table.with_column("reply", replies)
+
+    class HighIncomeProbability(Transformer):
+        def _transform(self, table):
+            p = np.asarray(table["probability"])[:, 1]
+            return table.with_column("p_high", np.ascontiguousarray(p))
+
+    return DecodeTokens, ReplyProbabilities, HighIncomeProbability
+
+
+def _recording_reply_sink(srv, batches: list):
+    """ReplySink that keeps each micro-batch's ids, token rows and
+    probabilities before it answers them."""
+    from mmlspark_tpu_torch.streaming import ReplySink
+
+    class Recording(ReplySink):
+        def add_batch(self, batch_id, table):
+            batches.append((batch_id, [str(i) for i in table["id"]],
+                            np.asarray(table["features"]), np.asarray(table["probability"])))
+            super().add_batch(batch_id, table)
+
+    return Recording(srv)
+
+
+def _count_journal_replies(srv, counts) -> None:
+    """Count each id's durable replies: the journal's record_reply returns
+    False, and writes nothing, for an id it already answered."""
+    record = srv.journal.record_reply
+
+    def counted(ex_id, resp):
+        ok = record(ex_id, resp)
+        if ok:
+            counts[str(ex_id)] += 1
+        return ok
+
+    srv.journal.record_reply = counted
+
+
+def _k2_wgmma() -> int:
+    from mmlspark_tpu_torch.nn.attention import flash_attention
+
+    paths = dict(flash_attention.launches_by_path)
+    assert set(paths) <= {"wgmma"}, paths
+    return paths.get("wgmma", 0)
+
+
+def streaming_serving(bundle, tmp: Path) -> dict:
+    """(a) ServingSource -> the auto-fused serving transformer -> ReplySink
+    in a checkpointed StreamingQuery; then a stop mid-stream and a restart
+    on the same checkpoint and journal."""
+    import collections
+    import threading
+    import urllib.request
+
+    from mmlspark_tpu_torch.core import FusedPipelineModel, Table, pipeline_model
+    from mmlspark_tpu_torch.io_http import ServingServer, wire
+    from mmlspark_tpu_torch.nn import DeepModelTransformer
+    from mmlspark_tpu_torch.streaming import ServingSource, StreamingQuery
+
+    decode, reply, _ = _stream_stages()
+    runner = DeepModelTransformer(input_col="features", bfloat16=False, device="cuda",
+                                  mini_batch_size=STREAM_MAX_ROWS,
+                                  fetch_dict={"probability": "probability"}).set_model(bundle)
+    rng = np.random.default_rng(43)
+    tokens = rng.integers(0, SLICE_TRANSFORMER["vocab_size"],
+                          size=(STREAM_REQUESTS + STREAM_RESTART_REQUESTS, SLICE_TOKENS))
+    json_bodies = [json.dumps({c: int(v) for c, v in zip(STREAM_TOKEN_COLS, row)}).encode()
+                   for row in tokens]
+    half = STREAM_REQUESTS // 2
+    wire_bodies = [wire.encode_features_request(row) for row in tokens[half:STREAM_REQUESTS]]
+    replied = collections.Counter()
+    k2_before = _k2_wgmma()
+
+    srv = ServingServer(mode="batch", checkpoint_dir=str(tmp / "journal"),
+                        reply_timeout_s=120.0).start()
+    _count_journal_replies(srv, replied)
+    batches: list = []
+    q = StreamingQuery(ServingSource(srv, max_rows=STREAM_MAX_ROWS),
+                       pipeline_model(decode(), runner, reply()),
+                       _recording_reply_sink(srv, batches), checkpoint_dir=str(tmp / "ckpt"),
+                       trigger_interval_s=0.002, name="tokens", device="cuda")
+    fm = q.transform
+    assert isinstance(fm, FusedPipelineModel) and fm.plan().n_fused_stages == 1, fm.plan()
+    q.start()
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            fj = pool.submit(_drive, srv, json_bodies[:half], STREAM_CLIENTS // 2)
+            fw = pool.submit(_drive, srv, wire_bodies, STREAM_CLIENTS // 2,
+                             {"Content-Type": wire.WIRE_CONTENT_TYPE,
+                              "Accept": wire.WIRE_CONTENT_TYPE})
+            run_json, run_wire = fj.result(), fw.result()
+        seconds = time.perf_counter() - t0
+        assert q.exception is None, q.exception
+    finally:
+        q.stop()
+        srv.stop()
+    seg = next(s for s in fm._ensure_segments() if hasattr(s, "forwards"))
+    layers = SLICE_TRANSFORMER["num_layers"]
+    k2_main = _k2_wgmma() - k2_before
+    assert k2_main == layers * seg.forwards, \
+        f"K2 launched {k2_main} times on wgmma for {seg.forwards} fused forwards"
+    k2_before = _k2_wgmma()
+    # every request answered once, each reply the probabilities its
+    # micro-batch produced, each micro-batch against the staged transform
+    assert len(replied) == STREAM_REQUESTS and set(replied.values()) == {1}, replied
+    by_tokens = {}
+    worst = 0.0
+    sizes = []
+    for _bid, ids, feats, probs in batches:
+        sizes.append(len(ids))
+        staged = np.asarray(runner.transform(Table({"features": feats}))["probability"])
+        assert staged.dtype == probs.dtype == np.float32
+        worst = max(worst, float(np.abs(staged - probs).max()))
+        for row, p in zip(feats, probs):
+            by_tokens[row.astype(np.int64).tobytes()] = p
+    assert worst <= 1e-4, f"streamed vs staged micro-batch max abs {worst}"
+    assert sum(sizes) == STREAM_REQUESTS, sizes
+    # the staged transforms: one unfused forward a micro-batch (<= 64 rows)
+    k2_staged = _k2_wgmma() - k2_before
+    assert k2_staged == layers * len(batches), (k2_staged, len(batches))
+    for i, entity in enumerate(run_json["replies"]):
+        got = np.asarray(json.loads(entity)["probability"], np.float32)
+        assert np.array_equal(got, by_tokens[tokens[i].tobytes()]), i
+    for i, (entity, ct) in enumerate(zip(run_wire["replies"], run_wire["content_types"])):
+        assert wire.is_wire_content_type(ct), ct
+        col, vals = wire.decode_reply(entity)
+        assert col == "probability"
+        want = by_tokens[tokens[half + i].tobytes()].astype(np.float64)
+        assert np.array_equal(np.asarray(vals).ravel(), want), half + i
+    main = {"requests": STREAM_REQUESTS, "clients": STREAM_CLIENTS, "seconds": seconds,
+            "requests_per_s": STREAM_REQUESTS / seconds,
+            "tokens_per_s": STREAM_REQUESTS * SLICE_TOKENS / seconds,
+            "micro_batches": len(batches), "micro_batch_rows": sizes,
+            "json_client_p50_ms": run_json["client_p50_ms"],
+            "json_client_p99_ms": run_json["client_p99_ms"],
+            "wire_client_p50_ms": run_wire["client_p50_ms"],
+            "wire_client_p99_ms": run_wire["client_p99_ms"],
+            "streamed_vs_staged_max_abs": worst, "fused_forwards": seg.forwards,
+            "graph_captures": seg.captures, "graph_replays": seg.replays,
+            "flash_launches": k2_main, "staged_flash_launches": k2_staged}
+
+    # restart: park STREAM_RESTART_REQUESTS, answer STREAM_RESTART_BATCHES
+    # micro-batches, stop the query and its server mid-stream; a new server
+    # re-parks the rest from the journal and a new query on the same
+    # checkpoint answers each once
+    forwards0 = seg.forwards
+    k2_before = _k2_wgmma()
+    journal, ckpt = str(tmp / "journal_restart"), str(tmp / "ckpt_restart")
+    restart_ids = collections.Counter()
+    srv1 = ServingServer(mode="batch", checkpoint_dir=journal, reply_timeout_s=120.0).start()
+    _count_journal_replies(srv1, restart_ids)
+    live = []
+
+    def post(body: bytes) -> None:
+        req = urllib.request.Request(srv1.url, data=body,
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                live.append((r.status, r.read()))
+        except Exception:  # noqa: BLE001 — the unanswered ones outlive their server
+            pass
+
+    posters = [threading.Thread(target=post, args=(b,), daemon=True)
+               for b in json_bodies[STREAM_REQUESTS:]]
+    for th in posters:
+        th.start()
+    deadline = time.monotonic() + 60
+    while len(srv1.get_batch()) < STREAM_RESTART_REQUESTS:
+        assert time.monotonic() < deadline, "the restart requests were never all parked"
+        time.sleep(0.01)
+    first: list = []
+    q1 = StreamingQuery(ServingSource(srv1, max_rows=STREAM_RESTART_ROWS), fm,
+                        _recording_reply_sink(srv1, first), checkpoint_dir=ckpt,
+                        name="tokens-restart", device="cuda")
+    for _ in range(STREAM_RESTART_BATCHES):
+        assert q1.process_next()
+    q1.stop()
+    answered_first = STREAM_RESTART_BATCHES * STREAM_RESTART_ROWS
+    deadline = time.monotonic() + 30
+    while len(live) < answered_first and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert len(live) == answered_first and all(s == 200 for s, _ in live), live[:3]
+    srv1.stop()
+    srv2 = ServingServer(mode="batch", checkpoint_dir=journal).start()
+    _count_journal_replies(srv2, restart_ids)
+    reparked = len(srv2.get_batch())
+    second: list = []
+    q2 = StreamingQuery(ServingSource(srv2, max_rows=STREAM_RESTART_ROWS), fm,
+                        _recording_reply_sink(srv2, second), checkpoint_dir=ckpt,
+                        name="tokens-restart", device="cuda")
+    try:
+        resumed = q2.process_all_available()
+    finally:
+        q2.stop()
+        srv2.stop()
+    assert reparked == STREAM_RESTART_REQUESTS - answered_first, reparked
+    assert len(restart_ids) == STREAM_RESTART_REQUESTS and set(restart_ids.values()) == {1}, \
+        restart_ids
+    assert [b[0] for b in first] == list(range(STREAM_RESTART_BATCHES))
+    assert [b[0] for b in second] == list(range(STREAM_RESTART_BATCHES,
+                                                STREAM_RESTART_BATCHES + resumed))
+    k2_restart = _k2_wgmma() - k2_before
+    assert k2_restart == layers * (seg.forwards - forwards0), (k2_restart, seg.forwards)
+    k2_before = _k2_wgmma()
+    worst_restart = 0.0
+    for _bid, _ids, feats, probs in first + second:
+        staged = np.asarray(runner.transform(Table({"features": feats}))["probability"])
+        worst_restart = max(worst_restart, float(np.abs(staged - probs).max()))
+    assert worst_restart <= 1e-4, worst_restart
+    k2_staged_restart = _k2_wgmma() - k2_before
+    assert k2_staged_restart == layers * len(first + second), k2_staged_restart
+    main["restart"] = {"requests": STREAM_RESTART_REQUESTS, "answered_before_stop": answered_first,
+                       "reparked": reparked, "batches_after_restart": resumed,
+                       "each_answered_once": True, "streamed_vs_staged_max_abs": worst_restart,
+                       "flash_launches": k2_restart,
+                       "staged_flash_launches": k2_staged_restart}
+    main["flash_launches_total"] = k2_main + k2_staged + k2_restart + k2_staged_restart
+    return main
+
+
+def _stream_same(a, b) -> None:
+    """Byte equality of two tables, column order aside (as the reference's
+    partition tests compare)."""
+    assert sorted(a.columns) == sorted(b.columns), (a.columns, b.columns)
+    assert a.num_rows == b.num_rows, (a.num_rows, b.num_rows)
+    for c in a.columns:
+        x, y = a[c], b[c]
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            x, y = np.asarray(x), np.asarray(y)
+            assert x.dtype == y.dtype and x.shape == y.shape, (c, x.dtype, y.dtype)
+            assert x.tobytes() == y.tobytes(), f"column {c!r} differs"
+        else:
+            assert list(x) == list(y), f"column {c!r} differs"
+
+
+def streaming_adult(model, tmp: Path) -> tuple:
+    """(b) DirectorySource over slice_tabular's Adult CSV in STREAM_CHUNKS
+    files -> the fused Adult scorer -> ForeachBatchSink: a first query
+    stopped after STREAM_FIRST_BATCHES, a second on the same checkpoint the
+    rest; the concatenated output = one transform of the whole table, byte
+    for byte. Returns the chunks as read, for (c)/(d)."""
+    from mmlspark_tpu_torch.core import FusedPipelineModel, read_csv
+    from mmlspark_tpu_torch.streaming import DirectorySource, ForeachBatchSink, StreamingQuery
+
+    data = adult_csv_bytes(TABULAR_ROWS + TABULAR_HELD_OUT)
+    (tmp / "adult.csv").write_bytes(data)
+    lines = data.decode().splitlines(keepends=True)
+    header, body = lines[0], lines[1:]
+    per = len(body) // STREAM_CHUNKS
+    folder = tmp / "adult_in"
+    folder.mkdir()
+    for i in range(STREAM_CHUNKS):
+        part = body[i * per:] if i == STREAM_CHUNKS - 1 else body[i * per:(i + 1) * per]
+        (folder / f"part-{i:03d}.csv").write_text(header + "".join(part))
+    whole = read_csv(str(tmp / "adult.csv"))
+    t0 = time.perf_counter()
+    expected = model.transform(whole)
+    whole_s = time.perf_counter() - t0
+
+    collected = {}
+    ck = str(tmp / "adult_ckpt")
+
+    def query():
+        return StreamingQuery(DirectorySource(str(folder), "*.csv", max_files_per_trigger=1),
+                              model, ForeachBatchSink(lambda t, bid: collected.setdefault(bid, t)),
+                              checkpoint_dir=ck, name="adult", device="cuda")
+
+    t0 = time.perf_counter()
+    q1 = query()
+    assert isinstance(q1.transform, FusedPipelineModel)
+    for _ in range(STREAM_FIRST_BATCHES):
+        assert q1.process_next()
+    q1.stop()
+    q2 = query()
+    rest = q2.process_all_available()
+    q2.stop()
+    stream_s = time.perf_counter() - t0
+    assert rest == STREAM_CHUNKS - STREAM_FIRST_BATCHES, rest
+    assert sorted(collected) == list(range(STREAM_CHUNKS)), sorted(collected)
+    got = collected[0]
+    for bid in range(1, STREAM_CHUNKS):
+        got = got.concat(collected[bid])
+    _assert_identical(expected, got)
+    chunks = [read_csv(str(folder / f"part-{i:03d}.csv")) for i in range(STREAM_CHUNKS)]
+    return chunks, {"rows": whole.num_rows, "files": STREAM_CHUNKS,
+                    "batches_first_query": STREAM_FIRST_BATCHES,
+                    "batches_second_query": rest, "stream_seconds": stream_s,
+                    "rows_per_s": whole.num_rows / stream_s,
+                    "whole_transform_seconds": whole_s, "bytes_equal_one_transform": True,
+                    "segments": [s["kind"] for s in q2.transform.last_stats["segments"]]}
+
+
+def _timed_chunks(chunks: list) -> list:
+    """The Adult chunks with an event time `t`, STREAM_ROW_SECONDS a row
+    in file order."""
+    out, start = [], 0
+    for c in chunks:
+        out.append(c.with_column("t", (np.arange(c.num_rows) + start) * STREAM_ROW_SECONDS))
+        start += c.num_rows
+    return out
+
+
+def _run_stream(source_batches, transform, parallel: bool, **kw):
+    from mmlspark_tpu_torch.streaming import (MemorySink, MemorySource,
+                                              ParallelStreamingQuery, StreamingQuery)
+
+    src, sink = MemorySource(), MemorySink()
+    cls = ParallelStreamingQuery if parallel else StreamingQuery
+    q = cls(src, transform, sink, device="cuda", **kw)
+    t0 = time.perf_counter()
+    try:
+        for b in source_batches:
+            src.add_rows(b)
+            q.process_all_available()
+        seconds = time.perf_counter() - t0
+    finally:
+        q.stop()
+    return q, sink.table(), seconds
+
+
+def streaming_parallel(model, chunks: list) -> dict:
+    """(c) The fused Adult scorer, then KeyedShuffle on occupation, then a
+    GroupedAggregator and (apart) a WindowedAggregator keyed by it, at P =
+    STREAM_PARTITIONS thread partitions against the P = 1 query."""
+    from mmlspark_tpu_torch.core import pipeline_model
+    from mmlspark_tpu_torch.streaming import (GroupedAggregator, KeyedShuffle,
+                                              WindowedAggregator)
+
+    _, _, high = _stream_stages()
+    prefix = list(model.get("stages")) + [high()]
+    batches = _timed_chunks(chunks)
+    ops = {"grouped": lambda: GroupedAggregator(group_col="occupation", value_col="p_high",
+                                                agg="mean"),
+           "windowed": lambda: WindowedAggregator(time_col="t", window_s=STREAM_WINDOW_S,
+                                                  group_col="occupation", value_col="p_high",
+                                                  agg="mean",
+                                                  watermark_delay_s=STREAM_WATERMARK_S)}
+    out = {}
+    for name, op in ops.items():
+        _, p1, s1 = _run_stream(batches, pipeline_model(*prefix, op()), parallel=False)
+        q, pn, sn = _run_stream(
+            batches, pipeline_model(*prefix, KeyedShuffle(key_col="occupation",
+                                                          num_partitions=STREAM_PARTITIONS), op()),
+            parallel=True, workers="thread")
+        _stream_same(pn, p1)
+        assert p1.num_rows > 0
+        out[name] = {"rows_out": p1.num_rows, "p1_seconds": s1, "p_seconds": sn,
+                     "p1_rows_per_s": sum(b.num_rows for b in batches) / s1,
+                     "p_rows_per_s": sum(b.num_rows for b in batches) / sn,
+                     "shuffle_seconds": q.shuffle_seconds,
+                     "partition_seconds": q.partition_seconds, "bytes_equal_p1": True,
+                     "result": p1 if name == "grouped" else None}
+    out["partitions"] = STREAM_PARTITIONS
+    return out
+
+
+def streaming_fleet(model, chunks: list, expected, tmp: Path) -> dict:
+    """(d) (c)'s grouped query on workers="fleet": STREAM_FLEET_WORKERS
+    ServingFleet worker processes on the binary wire, one SIGKILLed after
+    STREAM_KILL_AFTER batches and respawned by a PartitionSupervisor; the
+    result = the P = 1 query's, byte for byte. The workers run only the
+    host chain: nvidia-smi's context count never grows."""
+    from mmlspark_tpu_torch.core import pipeline_model
+    from mmlspark_tpu_torch.resilience import PartitionSupervisor, RestartPolicy
+    from mmlspark_tpu_torch.streaming import (GroupedAggregator, KeyedShuffle, MemorySink,
+                                              MemorySource, ParallelStreamingQuery)
+
+    _, _, high = _stream_stages()
+    batches = _timed_chunks(chunks)
+    pm = pipeline_model(*model.get("stages"), high(),
+                        KeyedShuffle(key_col="occupation", num_partitions=STREAM_PARTITIONS),
+                        GroupedAggregator(group_col="occupation", value_col="p_high", agg="mean"))
+    contexts = len(_compute_apps())
+    src, sink = MemorySource(), MemorySink()
+    q = ParallelStreamingQuery(src, pm, sink, workers="fleet", num_workers=STREAM_FLEET_WORKERS,
+                               binary_wire=True, checkpoint_dir=str(tmp / "fleet_ckpt"),
+                               name="adult-fleet", device="cuda")
+    sup = None
+    t0 = time.perf_counter()
+    try:
+        src.add_rows(batches[0])
+        q.process_all_available()
+        spawn_s = time.perf_counter() - t0
+        assert q._fleet.n_live == STREAM_FLEET_WORKERS
+        with_workers = len(_compute_apps())
+        procs = list(q._fleet._procs)
+        sup = PartitionSupervisor(q._fleet, RestartPolicy(max_restarts=3, window_s=300.0),
+                                  poll_interval_s=0.05).start()
+        for b in batches[1:STREAM_KILL_AFTER]:
+            src.add_rows(b)
+            q.process_all_available()
+        q._fleet.kill(0)
+        t_kill = time.perf_counter()
+        deadline = time.monotonic() + 60
+        while q._fleet.dead_slots() or q._fleet.n_live < STREAM_FLEET_WORKERS:
+            assert time.monotonic() < deadline, "the killed worker was never respawned"
+            time.sleep(0.05)
+        respawn_s = time.perf_counter() - t_kill
+        for b in batches[STREAM_KILL_AFTER:]:
+            src.add_rows(b)
+            q.process_all_available()
+        seconds = time.perf_counter() - t0
+        respawned = [i for i, (a, b) in enumerate(zip(procs, q._fleet._procs)) if a is not b]
+        respawns = sup.respawns
+    finally:
+        if sup is not None:
+            sup.stop()
+        q.stop()
+    assert respawned == [0] and respawns == 1, (respawned, respawns)
+    assert with_workers == contexts, f"fleet workers made CUDA contexts: {with_workers} vs {contexts}"
+    _stream_same(sink.table(), expected)
+    return {"workers": STREAM_FLEET_WORKERS, "partitions": STREAM_PARTITIONS,
+            "binary_wire": True, "seconds": seconds, "spawn_and_first_batch_s": spawn_s,
+            "respawn_s": respawn_s, "respawns": respawns, "cuda_contexts": with_workers,
+            "bytes_equal_p1": True}
+
+
+def _wgmma_in_trace(path: str) -> dict:
+    """Whether the exported Chrome trace names K2's wgmma kernel, and inside
+    the record_function range (the range's GPU-side annotation where the
+    trace has one, else its CPU span widened to the kernels it launched)."""
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    kernels = [e for e in events if "flash_fwd_wgmma_kernel" in str(e.get("name", ""))
+               and e.get("ph") == "X"]
+    ranges = [e for e in events if e.get("name") == "slice_streaming.fused_forwards"
+              and e.get("ph") == "X"]
+    inside = 0
+    for k in kernels:
+        for r in ranges:
+            if r["ts"] <= k["ts"] <= r["ts"] + r.get("dur", 0):
+                inside += 1
+                break
+    return {"wgmma_kernels": len(kernels), "ranges": len(ranges),
+            "range_kinds": sorted({r.get("cat", "") for r in ranges}),
+            "wgmma_inside_range": inside}
+
+
+def streaming_profiler(bundle, tmp: Path) -> dict:
+    """(e) The phase profiler armed on one serve_model server of the
+    transformer: PROFILE_REQUESTS forced onto the resident route disarmed,
+    then armed; resident request ledgers' coverage of their RTT, the compute
+    phase, K2 = 8 x fused forwards in both runs; the attribution table, and
+    a device trace of PROFILE_TRACE_FORWARDS fused forwards."""
+    from mmlspark_tpu_torch.core import Table, fuse, pipeline_model
+    from mmlspark_tpu_torch.io_http.schema import HTTPRequestData
+    from mmlspark_tpu_torch.io_http.serving import serve_model
+    from mmlspark_tpu_torch.nn import DeepModelTransformer
+    from mmlspark_tpu_torch.observability import (Profiler, render_attribution,
+                                                  set_default_profiler)
+    from mmlspark_tpu_torch.utils.profiling import annotate, device_trace
+
+    runner = DeepModelTransformer(input_col="features", bfloat16=False, device="cuda",
+                                  fetch_dict={"probability": "probability"}).set_model(bundle)
+    fm = fuse(pipeline_model(runner), device="cuda")
+    rng = np.random.default_rng(47)
+    tokens = rng.integers(0, SLICE_TRANSFORMER["vocab_size"], size=(PROFILE_REQUESTS, SLICE_TOKENS))
+    bodies = [json.dumps({c: int(v) for c, v in zip(STREAM_TOKEN_COLS, row)}).encode()
+              for row in tokens]
+    warm = HTTPRequestData.from_json("/", {c: int(v) for c, v in zip(STREAM_TOKEN_COLS, tokens[0])})
+    layers = SLICE_TRANSFORMER["num_layers"]
+    k2_start = _k2_wgmma()
+    srv = serve_model(fm, STREAM_TOKEN_COLS, output_col="probability",
+                      max_batch_size=PROFILE_CLIENTS, warmup_request=warm, device="cuda")
+    prof = Profiler(enabled=True)
+    prev, armed_here = None, False
+    runs = {}
+    try:
+        _wait_ready(srv)
+        hp = srv.hot_path
+        assert hp is not None and hp.disabled is None, hp and hp.disabled
+        seg = hp.executor.segment
+        hp.force_path = "resident"
+        _drive(srv, bodies[:PROFILE_CLIENTS], PROFILE_CLIENTS)       # warm the sockets
+        for armed in (False, True):
+            if armed:
+                prev, armed_here = set_default_profiler(prof), True
+            forwards0, k2_0 = seg.forwards, _k2_wgmma()
+            run = _drive(srv, bodies, PROFILE_CLIENTS)
+            torch.cuda.current_stream().synchronize()
+            k2 = _k2_wgmma() - k2_0
+            assert k2 == layers * (seg.forwards - forwards0), (armed, k2, seg.forwards - forwards0)
+            runs["armed" if armed else "disarmed"] = {
+                "client_p50_ms": run["client_p50_ms"], "client_p99_ms": run["client_p99_ms"],
+                "seconds": run["seconds"], "flash_launches": k2,
+                "fused_forwards": seg.forwards - forwards0}
+        hp.force_path = None
+        assert hp.disabled is None, hp.disabled
+        # PROFILE_TRACE_FORWARDS fused forwards, still armed, under a device
+        # trace: one `fused` ledger each, K2 named in the exported trace
+        sample = Table({"features": tokens[:PROFILE_CLIENTS].astype(np.float64)})
+        fm.transform(sample)                                # the rung's graph, before the trace
+        forwards0, k2_0 = seg.forwards, _k2_wgmma()
+        with device_trace(str(tmp / "trace")):
+            with annotate("slice_streaming.fused_forwards"):
+                for _ in range(PROFILE_TRACE_FORWARDS):
+                    fm.transform(sample)
+                torch.cuda.current_stream().synchronize()
+        k2_trace = _k2_wgmma() - k2_0
+        assert seg.forwards - forwards0 == PROFILE_TRACE_FORWARDS, seg.forwards - forwards0
+        assert k2_trace == layers * PROFILE_TRACE_FORWARDS, k2_trace
+        trace = _wgmma_in_trace(device_trace.last_path)
+        trace["bytes"] = os.path.getsize(device_trace.last_path)
+        # every launch of the server's life, warm-up captures included
+        k2_all = _k2_wgmma() - k2_start
+        assert k2_all == layers * seg.forwards, (k2_all, seg.forwards)
+    finally:
+        if armed_here:
+            set_default_profiler(prev)
+        srv.stop()
+    rows = prof.attribution()
+    resident = [r for r in rows if r["kind"] == "request" and r["segment"] == hp.resident_label]
+    assert len(resident) == 1, [(r["kind"], r["segment"]) for r in rows]
+    res = resident[0]
+    lo, hi = PROFILE_COVERAGE
+    assert res["coverage"] is not None and lo <= res["coverage"] <= hi, res["coverage"]
+    assert res["phase_us"].get("compute", 0.0) > 0.0, res["phase_us"]
+    fused = [r for r in rows if r["kind"] == "fused"]
+    assert fused and all(r["phase_us"].get("compute", 0.0) > 0.0 for r in fused), fused
+    table = render_attribution([r for r in rows if r["kind"] in ("request", "fused")],
+                               title="slice_streaming phase attribution")
+    return {"requests_a_run": PROFILE_REQUESTS, "clients": PROFILE_CLIENTS, "runs": runs,
+            "armed_over_disarmed_p50": runs["armed"]["client_p50_ms"]
+            / runs["disarmed"]["client_p50_ms"],
+            "resident": {k: res[k] for k in ("count", "phase_us", "phase_sum_us", "rtt_us",
+                                             "coverage", "pad_waste", "gflops")},
+            "fused": [{k: r[k] for k in ("segment", "count", "phase_us", "phase_sum_us",
+                                         "rtt_us", "coverage")} for r in fused],
+            "cost_analysis": [r["gflops"] for r in rows],
+            "attribution_table": table, "trace": trace, "fused_forwards": seg.forwards,
+            "flash_launches": k2_all}
+
+
+def phase_slice_streaming(card: str, bundle, adult_model) -> dict:
+    """The phase profiler and streaming on the card ((a)-(e) above);
+    `card` (phase_env's nvidia-smi name and power limit) stands beside
+    every time and rate. Fits nothing: K1 is not launched."""
+    import tempfile
+
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+    from mmlspark_tpu_torch.nn.attention import flash_attention
+
+    t0 = time.perf_counter()
+    histogram.launches = 0
+    flash_attention.launches = 0
+    flash_attention.launches_by_path = {}
+    marks = {}
+    doc = {"phase": "slice_streaming", "card": card}
+    with tempfile.TemporaryDirectory(prefix="slice_streaming_") as tmp:
+        tmp = Path(tmp)
+        doc["serving"] = streaming_serving(bundle, tmp)
+        marks["serving"] = time.perf_counter() - t0
+        chunks, doc["adult"] = streaming_adult(adult_model, tmp)
+        marks["adult"] = time.perf_counter() - t0
+        doc["parallel"] = streaming_parallel(adult_model, chunks)
+        marks["parallel"] = time.perf_counter() - t0
+        expected = doc["parallel"]["grouped"].pop("result")
+        doc["parallel"]["windowed"].pop("result")
+        doc["fleet"] = streaming_fleet(adult_model, chunks, expected, tmp)
+        marks["fleet"] = time.perf_counter() - t0
+        doc["profiler"] = streaming_profiler(bundle, tmp)
+        marks["profiler"] = time.perf_counter() - t0
+    launches = dict(flash_attention.launches_by_path)
+    k2 = doc["serving"]["flash_launches_total"] + doc["profiler"]["flash_launches"]
+    assert launches == {"wgmma": k2} and flash_attention.launches == k2, (launches, k2)
+    assert histogram.launches == 0, f"slice_streaming launched K1 {histogram.launches} times"
+    doc["flash_launches"] = k2
+    doc["seconds_at"] = marks
+    doc["seconds"] = time.perf_counter() - t0
+    table = doc["profiler"].pop("attribution_table")
+    emit(doc)
+    s, a, f, p = doc["serving"], doc["adult"], doc["fleet"], doc["profiler"]
+    print(f"slice_streaming on {card}: tokens {s['requests_per_s']:.1f} requests/s in "
+          f"{s['micro_batches']} micro-batches, restart re-parked {s['restart']['reparked']}; "
+          f"Adult {a['rows_per_s']:.0f} rows/s over {a['files']} files; P={STREAM_PARTITIONS} "
+          f"threads {doc['parallel']['grouped']['p_rows_per_s']:.0f} rows/s vs P=1 "
+          f"{doc['parallel']['grouped']['p1_rows_per_s']:.0f}; fleet respawn "
+          f"{f['respawn_s']:.2f} s; resident coverage {p['resident']['coverage']:.3f}, armed/"
+          f"disarmed p50 {p['armed_over_disarmed_p50']:.3f}; trace wgmma kernels "
+          f"{p['trace']['wgmma_kernels']} ({p['trace']['wgmma_inside_range']} inside the range)",
+          flush=True)
+    print(table, flush=True)
+    return doc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
@@ -5405,6 +6086,7 @@ def main() -> int:
     fleet = phase_slice_fleet(env["nvidia_smi"], serving.pop("regressor"), dnn["bundle"])
     train = phase_slice_train()
     recsys = phase_slice_recsys_automl(env["nvidia_smi"])
+    streaming = phase_slice_streaming(env["nvidia_smi"], dnn["bundle"], tabular.pop("model"))
 
     main_shape = kern["histogram"][0]
     flash_main = kern["flash_attention"][0]
@@ -5492,17 +6174,20 @@ def main() -> int:
         # wide transformer (D 192), the imported BERT-base-wide encoder
         # (D 64), slice_serving's transformer over HTTP (D 64, replayed
         # from the fused segment's CUDA graphs) and slice_fleet's two
-        # replicas of it behind the gateway (each replica's own count)
+        # replicas of it behind the gateway (each replica's own count), and
+        # slice_streaming's streamed and profiled transformer (D 64)
         "launches": (dnn["flash_launches"] + wide["bfloat16"]["flash_launches"]
                      + featurize["encoder"]["flash_launches"]
                      + serving["transformer_http"]["flash_launches"]
-                     + fleet["transformer"]["flash_launches"]),
+                     + fleet["transformer"]["flash_launches"]
+                     + streaming["flash_launches"]),
         "launches_by_phase": {"slice_transformer": dnn["flash_launches"],
                               "serve_wide_bf16": wide["bfloat16"]["flash_launches"],
                               "slice_featurize": featurize["encoder"]["flash_launches"],
                               "slice_serving": serving["transformer_http"]["flash_launches"],
                               # counted in each replica process, read back from it
-                              "slice_fleet": fleet["transformer"]["flash_launches"]},
+                              "slice_fleet": fleet["transformer"]["flash_launches"],
+                              "slice_streaming": streaming["flash_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern["flash_attention"]),
         "ms": flash_main["ms"],
         "plain_ms": flash_main["plain_ms"],

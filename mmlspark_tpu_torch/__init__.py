@@ -41,14 +41,22 @@ typed REST stages (`io_http`: cognitive services, `AzureSearchWriter`,
 top-k server, `RecommendationIndexer`, the ranking metrics and stages) and
 AutoML (`automl`: `TuneHyperparameters`, `FindBestModel`, the hyperband
 `SweepScheduler` over worker processes, `ImageLIME`; `gbdt.shared_bins`;
-`resilience`'s supervisors). ROADMAP.md lists what is still to come.
+`resilience`'s supervisors), the phase profiler (`observability.profiler`:
+attribution of every fused dispatch and served request, disarmed by
+default; `observability.stage`'s instrumented stages; `utils.profiling`'s
+torch.profiler traces), plots (`plot`) and structured streaming
+(`streaming`: checkpointed queries whose PipelineModel transforms fuse
+onto the card, partition-parallel queries on threads or fleet workers).
+ROADMAP.md lists what is still to come.
 
 The CPU tests hold each module against the JAX package's
 (`JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py`; the fleet's:
 `tests/test_torch_serving_fleet.py`, `test_torch_gateway.py`,
 `test_torch_observability_fleet.py`, `test_torch_timeline.py`,
-`test_torch_io_http_clients.py`). On the card, `python3 chip_smoke.py`
-drives every slice, the fleet in its `slice_fleet` phase.
+`test_torch_io_http_clients.py`; streaming's: `tests/test_torch_streaming.py`,
+`test_torch_partition.py`, `test_torch_profiler.py`). On the card,
+`python3 chip_smoke.py` drives every slice, the fleet in its `slice_fleet`
+phase, streaming and the profiler in `slice_streaming`.
 """
 
 import torch
@@ -61,8 +69,8 @@ torch.backends.cudnn.allow_tf32 = False
 __version__ = "0.1.0"
 
 _SUBPACKAGES = ("core", "gbdt", "automl", "image", "io_http", "native", "nn",
-                "observability", "ops", "parallel", "recommendation", "resilience", "text",
-                "utils")
+                "observability", "ops", "parallel", "plot", "recommendation", "resilience",
+                "streaming", "text", "utils")
 
 
 def __getattr__(name):

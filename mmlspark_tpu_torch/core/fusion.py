@@ -1103,9 +1103,8 @@ def _get_tracer():
 
 
 class _NullLedgerFallback:
-    """The disarmed phase ledger: every hook a no-op (the JAX package's
-    observability.profiler, whose armed ledger this stands in for, is
-    ROADMAP item 15)."""
+    """The disarmed phase ledger for when observability cannot load: every
+    hook a no-op."""
 
     armed = False
 
@@ -1135,9 +1134,15 @@ _LEDGER_FALLBACK = _NullLedgerFallback()
 
 
 def _ledger(kind: str, segment: str, span: Any = None, **meta: Any):
-    """The phase ledger of one segment run: the shared no-op until the
-    profiler is ported."""
-    return _LEDGER_FALLBACK
+    """A phase ledger from the process-default profiler (the shared
+    no-op when it is disarmed), or the local fallback when the
+    observability package cannot load."""
+    try:
+        from ..observability.profiler import get_profiler
+
+        return get_profiler().ledger(kind, segment, span=span, **meta)
+    except Exception:
+        return _LEDGER_FALLBACK
 
 
 def _block_ready(outs: Any) -> None:

@@ -25,12 +25,10 @@ A copy of mmlspark_tpu/io_http/serving.py, whose fused segments
 own (the `spawn` context: a forked child of a process that touched CUDA
 cannot use the card), which builds its handler, and so its model and its
 CUDA context, itself. `serve_model` delegates a fitted `SARModel` to
-recommendation/resident.py's `serve_recommender`. Not ported yet: the
-phase profiler (`observability/profiler.py`, ROADMAP item 15): until it
-comes,
-`_prof_ledger` gives the null ledger and `_profiler_info` the disarmed
-snapshot, which is what the JAX package gives while its profiler is
-disarmed, its default.
+recommendation/resident.py's `serve_recommender`. Every scoring path
+(resident, native, host) records a phase ledger into the process-default
+profiler (`observability/profiler.py`) when it is armed; `info()` carries
+its attribution under `profiler`.
 """
 
 from __future__ import annotations
@@ -65,12 +63,13 @@ _SERVER_SEQ = itertools.count()
 
 
 def _prof_ledger(kind: str, segment: str, span: Any = None, **meta: Any):
-    """The phase ledger for one scored batch: the shared no-op ledger, as
-    the JAX package's disarmed profiler gives (the profiler is ROADMAP
-    item 15)."""
-    from ..core.fusion import _LEDGER_FALLBACK
+    """The process profiler's phase ledger for one scored batch — the
+    shared no-op when disarmed (one attribute check on the hot path).
+    Import is deferred so serving never pays observability's package
+    init unless a batch is actually scored."""
+    from ..observability.profiler import get_profiler
 
-    return _LEDGER_FALLBACK
+    return get_profiler().ledger(kind, segment, span=span, **meta)
 
 
 def _negotiate_reply(resp: "HTTPResponseData",
@@ -1054,9 +1053,15 @@ class ServingServer:
         }
 
     def _profiler_info(self) -> dict:
-        """The info() `profiler` block: the disarmed profiler's snapshot
-        (the phase profiler is ROADMAP item 15)."""
-        return {"enabled": False, "ledgers": 0, "attribution": []}
+        """The info() `profiler` block: the process profiler's phase
+        attribution. Fail-soft so a broken profiler can never break
+        GET /."""
+        try:
+            from ..observability.profiler import get_profiler
+
+            return get_profiler().snapshot()
+        except Exception:  # noqa: BLE001 — info must always answer
+            return {"enabled": False, "ledgers": 0, "attribution": []}
 
     def reset_latency_stats(self) -> None:
         """Clear the rolling latency window (e.g. after warm-up requests)."""

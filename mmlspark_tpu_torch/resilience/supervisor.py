@@ -19,10 +19,11 @@ batches_processed` from the query, so it supervises StreamingQuery or
 anything shaped like it.
 
 A copy of mmlspark_tpu/resilience/supervisor.py (host only). The port
-supervises anything shaped like a query or a fleet: `ServingFleet`
-(io_http/serving.py) for `PartitionSupervisor`, and `TuneHyperparameters`
-(automl/tune.py) takes `RestartPolicy` for its trial retries; the port's
-streaming queries are ROADMAP item 15.
+supervises anything shaped like a query or a fleet: the port's
+`StreamingQuery` and `ParallelStreamingQuery` (streaming/) for
+`QuerySupervisor`, `ServingFleet` (io_http/serving.py) for
+`PartitionSupervisor`, and `TuneHyperparameters` (automl/tune.py) takes
+`RestartPolicy` for its trial retries.
 """
 
 from __future__ import annotations

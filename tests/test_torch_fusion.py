@@ -6,7 +6,8 @@ package's for the same stages, the port's fused output equal to the JAX
 package's STAGED output (bit for bit for the GBDT and ops kernels, at
 tests/test_torch_nn_runner.py's tolerance for DeepModelTransformer), and
 saved FusedPipelineModels loading in either package. TestStreamingIntegration
-waits for the streaming engine (ROADMAP Queue 1 item 15)."""
+holds the port's StreamingQuery, which fuses its PipelineModel transform,
+against the staged transform and the JAX package's streamed bytes."""
 
 from __future__ import annotations
 
@@ -701,6 +702,69 @@ class TestServingIntegration:
 # --------------------------------------------------------------------- #
 # the image chain
 # --------------------------------------------------------------------- #
+
+
+class TestStreamingIntegration:
+    """tests/test_fusion.py's TestStreamingIntegration: a StreamingQuery
+    fuses a PipelineModel transform (on `device`, the CPU here), and its
+    sunk bytes equal the staged transform's and the JAX package's streamed
+    ones."""
+
+    def test_query_auto_fuses_and_matches_staged(self):
+        from mmlspark_tpu.core.fusion import DeviceKernel as RefKernel
+        from mmlspark_tpu.core.pipeline import Transformer as RefTransformer
+        from mmlspark_tpu.streaming import MemorySink as RefSink
+        from mmlspark_tpu.streaming import MemorySource as RefSource
+        from mmlspark_tpu.streaming.query import StreamingQuery as RefQuery
+        from mmlspark_tpu_torch.streaming import MemorySink, MemorySource
+        from mmlspark_tpu_torch.streaming.query import StreamingQuery
+
+        class _RefAddOne(RefTransformer):
+            """tests/test_fusion.py's _AddOneOnDevice, in the JAX package."""
+
+            def _transform(self, table):
+                return table.with_column("x", np.asarray(table["x"], np.float32) + np.float32(1))
+
+            def device_kernel(self):
+                return RefKernel(fn=lambda p, cols: {"x": cols["x"].astype("float32") + 1},
+                                 input_cols=("x",), output_cols=("x",),
+                                 out_dtypes={"x": np.float32})
+
+        model = pipeline_model(_AddOneOnDevice(), _AddOneOnDevice())
+        src, sink = MemorySource(), MemorySink()
+        q = StreamingQuery(src, model, sink, device="cpu")
+        assert isinstance(q.transform, FusedPipelineModel)
+        assert q.transform.get("device") == "cpu"
+        x = np.arange(6, dtype=np.float32)
+        t = Table({"x": x})
+        src.add_rows(t)
+        assert q.process_all_available() == 1
+        staged = model.transform(t)
+        assert sink.table()["x"].tobytes() == staged["x"].tobytes()
+        assert q.transform.last_stats["n_fused_stages"] == 2
+
+        ref_src, ref_sink = RefSource(), RefSink()
+        rq = RefQuery(ref_src, ref_pipeline_model(_RefAddOne(), _RefAddOne()), ref_sink)
+        ref_src.add_rows(RefTable({"x": x}))
+        assert rq.process_all_available() == 1
+        assert sink.table()["x"].tobytes() == np.asarray(ref_sink.table()["x"]).tobytes()
+
+    def test_query_fuse_opt_out_keeps_model(self):
+        from mmlspark_tpu_torch.streaming import MemorySink, MemorySource
+        from mmlspark_tpu_torch.streaming.query import StreamingQuery
+
+        model = pipeline_model(_AddOneOnDevice())
+        q = StreamingQuery(MemorySource(), model, MemorySink(), fuse_pipeline=False)
+        assert q.transform is model
+
+    def test_query_on_cuda_without_a_card_raises(self):
+        from mmlspark_tpu_torch.streaming import MemorySink, MemorySource
+        from mmlspark_tpu_torch.streaming.query import StreamingQuery
+
+        if torch.cuda.is_available():
+            pytest.skip("a card is present: cuda is not refused here")
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            StreamingQuery(MemorySource(), pipeline_model(_AddOneOnDevice()), MemorySink())
 
 
 class TestImageChainCache:

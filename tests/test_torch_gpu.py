@@ -1016,3 +1016,93 @@ def test_fleet_on_the_card_replies_through_a_gateway_as_the_cpu_server(cuda, tmp
     while len(_compute_contexts()) != before and time.monotonic() < deadline:
         time.sleep(0.1)
     assert len(_compute_contexts()) == before, "a replica still holds the card"
+
+
+def _small_flash_bundle():
+    kw = dict(num_layers=2, d_model=64, num_heads=4, d_ff=128, vocab_size=100,
+              num_outputs=3, max_len=64, attention_impl="flash")
+    return ModelBundle.init("transformer", (40,), seed=1, **kw)
+
+
+def test_armed_fused_transformer_records_compute_and_cost_runs_nothing(cuda, monkeypatch):
+    """An armed profiler on a fused flash-attention segment on the card: the
+    `fused` ledger carries a compute phase; `cost` on the segment's CUDA
+    graph replays nothing (K2's counter and the replay count stay put); and
+    while another thread captures a graph, the only device-wide synchronizes
+    are the captures' own warm-ups, never the profiler's compute wait."""
+    import threading
+    import traceback
+
+    from mmlspark_tpu_torch.core import fuse, pipeline_model
+    from mmlspark_tpu_torch.observability.metrics import MetricsRegistry
+    from mmlspark_tpu_torch.observability.profiler import Profiler, set_default_profiler
+
+    bundle = _small_flash_bundle()
+    x = np.random.default_rng(9).integers(0, 100, size=(40, 40)).astype(np.float64)
+
+    def fused():
+        stage = DeepModelTransformer(input_col="x", device="cuda",
+                                     fetch_dict={"l": "logits"}).set_model(bundle)
+        return fuse(pipeline_model(stage), mini_batch_size=16, device="cuda")
+
+    fm, other = fused(), fused()
+    syncs = []
+    real_sync = torch.cuda.synchronize
+
+    def spy(*args, **kwargs):
+        syncs.append([f.name for f in traceback.extract_stack()])
+        return real_sync(*args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", spy)
+    prof = Profiler(registry=MetricsRegistry(), enabled=True)
+    prev = set_default_profiler(prof)
+    try:
+        capture = threading.Thread(target=lambda: other.transform(Table({"x": x[:24]})))
+        capture.start()
+        out = fm.transform(Table({"x": x}))
+        capture.join(timeout=120)
+        seg = fm._ensure_segments()[0]
+        launches, replays = att.flash_attention.launches, seg.replays
+        graph = next(iter(seg._graphs.values()))
+        params, args = seg._build(), tuple(graph.static_in)
+        led = prof.ledger("fused", "probe")
+        assert led.cost(("probe",), graph, params, args) is None
+        led.done()
+        torch.cuda.current_stream().synchronize()
+        assert att.flash_attention.launches == launches and seg.replays == replays
+    finally:
+        set_default_profiler(prev)
+    assert all(any(name == "_capture" for name in stack) for stack in syncs), \
+        "a device-wide synchronize outside a graph capture's warm-up"
+    rows = {r["segment"]: r for r in prof.attribution()}
+    assert rows["seg0"]["kind"] == "fused" and rows["seg0"]["phase_us"]["compute"] > 0
+    assert seg.captures >= 1 and seg.replays == 3            # 40 rows in 16-row chunks
+    staged = DeepModelTransformer(input_col="x", device="cuda", mini_batch_size=16,
+                                  fetch_dict={"l": "logits"}).set_model(bundle)
+    np.testing.assert_allclose(np.asarray(out["l"]),
+                               np.asarray(staged.transform(Table({"x": x}))["l"]),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_streaming_query_fuses_its_segments_onto_the_card(cuda):
+    from mmlspark_tpu_torch.core import FusedPipelineModel, pipeline_model
+    from mmlspark_tpu_torch.streaming import MemorySink, MemorySource, StreamingQuery
+
+    bundle = _small_flash_bundle()
+    stage = DeepModelTransformer(input_col="x", device="cuda",
+                                 fetch_dict={"l": "logits"}).set_model(bundle)
+    src, sink = MemorySource(), MemorySink()
+    q = StreamingQuery(src, pipeline_model(stage), sink)
+    assert isinstance(q.transform, FusedPipelineModel) and q.transform.get("device") == "cuda"
+    x = np.random.default_rng(3).integers(0, 100, size=(24, 40)).astype(np.float64)
+    before = att.flash_attention.launches
+    for lo, hi in ((0, 8), (8, 24)):
+        src.add_rows(Table({"x": x[lo:hi]}))
+        assert q.process_all_available() == 1
+    q.stop()
+    seg = q.transform._ensure_segments()[0]
+    assert seg.device.type == "cuda" and seg.captures >= 1
+    assert att.flash_attention.launches - before == 2 * seg.forwards
+    want = stage.transform(Table({"x": x}))["l"]
+    np.testing.assert_allclose(np.asarray(sink.table()["l"]), np.asarray(want),
+                               atol=1e-4, rtol=1e-4)

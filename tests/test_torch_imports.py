@@ -75,6 +75,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "mmlspark_tpu_torch.io_http.consolidator",
                    "mmlspark_tpu_torch.io_http.transformer",
                    "mmlspark_tpu_torch.io_http.cognitive", "mmlspark_tpu_torch.io_http.search",
-                   "mmlspark_tpu_torch.io_http.powerbi"):
+                   "mmlspark_tpu_torch.io_http.powerbi",
+                   "mmlspark_tpu_torch.utils.profiling",
+                   "mmlspark_tpu_torch.observability.profiler",
+                   "mmlspark_tpu_torch.observability.stage", "mmlspark_tpu_torch.plot",
+                   "mmlspark_tpu_torch.streaming", "mmlspark_tpu_torch.streaming.checkpoint",
+                   "mmlspark_tpu_torch.streaming.sources", "mmlspark_tpu_torch.streaming.sinks",
+                   "mmlspark_tpu_torch.streaming.state", "mmlspark_tpu_torch.streaming.query",
+                   "mmlspark_tpu_torch.streaming.shuffle", "mmlspark_tpu_torch.streaming.joins",
+                   "mmlspark_tpu_torch.streaming.partition"):
         assert module in out["modules"]
     assert out["leaked"] == [], f"the port pulled in: {out['leaked']}"
