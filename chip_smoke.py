@@ -66,7 +66,7 @@ kernel. It prints one JSON line per phase:
   slice_adult  the GBDT path: fit seconds, launches (must be 3,100),
                train accuracy > 0.7, held-out AUC > 0.75, and the card's
                scores equal to the host walk bit for bit
-  profile_adult a 5-round Adult fit under torch.profiler: device kernel
+  profile_adult a 3-round Adult fit under torch.profiler: device kernel
                time by name against wall time
   slice_parity the same data, 10 rounds, fitted on "cpu" and on "cuda":
                equal trees, or trees that part only at printed near-ties
@@ -88,7 +88,7 @@ kernel. It prints one JSON line per phase:
                huber, quantile, poisson, tweedie: 2,250 launches)
   slice_boosting  the Adult shape through GBDTClassifier under bagged
                gbdt (bagging 0.8 every round, feature fraction 0.8), goss,
-               rf and dart, 50 rounds: each fit's seconds, 1,550 launches, train
+               rf and dart, 25 rounds: each fit's seconds, 775 launches, train
                accuracy > 0.7, held-out AUC > 0.75, card scores equal to
                the host walk; first, two rounds of each loop under sync
                debug mode "error" (nothing read back)
@@ -115,22 +115,23 @@ kernel. It prints one JSON line per phase:
   slice_gates  tests/benchmarks/test_gbdt_benchmarks.py:41-84 on the card:
                16 classifier and 12 regressor fits (gbdt, rf, dart, goss;
                bagging 0.85, seed 42), each within its precision of the
-               committed CSVs (21,600 launches); the same fits on the CPU,
-               their trees and the card's by compare_fits at 1e-4
+               committed CSVs (21,600 launches); the same fits on the CPU
+               (gbdt and goss at 10 rounds), their trees and the card's by
+               compare_fits at 1e-4
   slice_categorical  UCI Adult's schema (6 numeric columns, 8 categorical
                at adult.names's cardinalities, "?" as NaN): 32,768 rows
-               through GBDTClassifier(categorical_slot_indexes=...), 100
-               rounds of 31 leaves (3,100 launches), held-out AUC > 0.75,
+               through GBDTClassifier(categorical_slot_indexes=...), 50
+               rounds of 31 leaves (1,550 launches), held-out AUC > 0.75,
                accuracy > 0.7, card scores = the host walk, category
                subsets of many; sync-free rounds; 5 rounds CPU against card
   slice_high_cardinality  the Amazon Employee Access schema (9
                categorical columns, up to 7,518 categories): max_bin 1023
                with uint8 asked for (the reference's warning, int32 bins),
-               K1 at 1,024 bins (3,100 launches), held-out AUC above a
+               K1 at 1,024 bins (1,550 launches), held-out AUC above a
                constant's, card = host walk; 5 rounds CPU against card,
                and the numeric Adult shape at max_bin 511 likewise
   slice_max_bin_16383  the numeric Adult shape at max_bin 16383: K1 at
-               16,384 bins in bin ranges (3,100 launches), held-out AUC >
+               16,384 bins in bin ranges (1,550 launches), held-out AUC >
                0.75, accuracy > 0.7, card = host walk; 5 rounds CPU
                against card
   slice_checkpoint  the Adult shape through GBDTClassifier (seed 3,
@@ -140,8 +141,8 @@ kernel. It prints one JSON line per phase:
                and resumed by a fresh estimator; goss with
                checkpoint_every_n 7 and its uninterrupted twin: to_text()
                equal byte for byte to the uninterrupted fit's, the resumed
-               fit's card scores equal bit for bit, 3,100 K1 launches a fit
-               (15,500); fit seconds, each snapshot's write seconds and
+               fit's card scores equal bit for bit, 1,550 K1 launches a fit
+               (50 rounds; 7,750); fit seconds, each snapshot's write seconds and
                bytes, the resume's restore seconds
   slice_lightgbm_import  model_zoo/gbdt_*.model (LightGBM model.txt)
                loaded on the card by load_native_model: the adult-census
@@ -164,6 +165,18 @@ kernel. It prints one JSON line per phase:
                compare_fits at 1e-4; fit seconds, collectives, bytes merged
                and their host-timed share; then a one-rank mesh on NCCL,
                its fit equal to slice_adult's byte for byte
+  slice_parallel  the P4 layers on slice_mesh's 4 card ranks (handed on,
+               not spawned again): ring and Ulysses attention on a seq axis
+               of 4 (T 8,192, H 8, D 64, f32, causal and not, local_chunk
+               512) against chunked_attention, the tensor-parallel MLP on a
+               model axis of 4 (4,096 x 1,024, hidden 4,096), the GPipe
+               pipeline (4 stages of d 1,024, batch 256, 8 microbatches)
+               and MoE (8 experts on 4 ranks, 4,096 tokens, d 512, h 2,048,
+               capacity 1.25) against their one-rank counterparts on the
+               card, and DeepModelTransformer(use_mesh=True) serving the
+               slice transformer on a data axis of 4 (256 x 512 tokens)
+               within 1e-4 of one process, 32 K2 launches on wgmma in every
+               rank; each layer's ms and the bytes its collectives moved
   slice_transformer  the DNN path: tokens/s, K2 launches (must be 128,
                on "wgmma"), finite logits, probabilities summing to 1; the
                same 1,024 x 512 tokens served in f32 (128 launches on
@@ -173,12 +186,12 @@ kernel. It prints one JSON line per phase:
   small_transformer  1,024 rows x 512 tokens in bf16 through
                TransformerEncoder's default width (d_model 64, 4 heads of
                16) and the reference tests' width (d_model 32, 4 heads of
-               8), 2 layers each: 32 K2 launches on "mma" in each of 200
+               8), 2 layers each: 32 K2 launches on "mma" in each of 100
                passes, tokens/s of all of them with their spread, and one
                pass profiled (device busy share, K2's share)
   serve_wide   1,024 rows x 512 tokens at minibatch 4 through a 2-layer
                TransformerEncoder of d_model 768 over 4 heads (D = 192) in
-               bf16 and in f32, 5 timed passes each: 512 K2 launches a
+               bf16 and in f32, 3 timed passes each: 512 K2 launches a
                pass, all on "wgmma" in bf16 and on "wide" in f32; f32 card
                against CPU and flash against dense
   profile_transformer  4 minibatches under torch.profiler: K2's and the
@@ -243,7 +256,7 @@ kernel. It prints one JSON line per phase:
   slice_fleet  the serving fleet (after slice_serving, whose regressor and
                transformer it serves again): (a) the regressor on two
                ServingFleet replicas (spawned processes, a CUDA context
-               each) behind a ServingGateway, 2,048 requests through the
+               each) behind a ServingGateway, 1,024 requests through the
                gateway at concurrency 32 and 256 straight at a replica,
                every reply equal to make_reply of the parent's transform,
                the rendezvous totals equal to the replicas' own counters,
@@ -253,13 +266,13 @@ kernel. It prints one JSON line per phase:
                context count follows every spawn, kill and stop; (c) an
                SLOEngine, a TimelineRecorder and a FleetAutoscaler over
                that fleet; (b) the transformer on two replicas behind a
-               gateway, 512 requests at concurrency 16, probabilities
+               gateway, 256 requests at concurrency 16, probabilities
                within 1e-4 of the staged transform, K2's wgmma launches = 8
                x each replica's fused forwards, read back from the replica
   slice_train  DNN training through DNNLearner: bench.py's transformer at
                its training width (8 layers, d_model 512, flash core in
-               bf16, adamw, 32 x 512 tokens a step), 3 epochs of 32 steps
-               (768 K2 launches, all on "wgmma", falling loss) and one under
+               bf16, adamw, 32 x 512 tokens a step), 2 epochs of 32 steps
+               (512 K2 launches, all on "wgmma", falling loss) and one under
                remat (512 launches); bench_trainer's ResNet-50 fine-tune
                (512 uint8 images of 224 x 224, batch 64, 2 epochs; its
                BatchNorm statistics move); a small f32 flash transformer
@@ -282,7 +295,7 @@ kernel. It prints one JSON line per phase:
                keep-alive clients: the two servers' replies byte-equal and
                equal to (a)'s recommendations, the route never disabled;
                (c) TuneHyperparameters over GBDTClassifier on the Adult
-               shape (learning rate x num_leaves, 20 rounds, 2 folds, 2
+               shape (learning rate x num_leaves, 5 rounds, 2 folds, 2
                threads, a trial ledger), K1 launches exact, FindBestModel
                against a default model (held-out AUC > 0.75), a resumed run
                skipping every trial, one fold's fit card vs CPU; (d) the
@@ -315,6 +328,18 @@ kernel. It prints one JSON line per phase:
                compute phase, K2 = 8 x forwards armed and disarmed, the
                attribution table, a torch.profiler trace of 4 fused
                forwards. No K1 launch
+  slice_elastic  elastic training on ServingFleet worker processes: (a)
+               ElasticGBDTFit of the Adult shape (32,768 x 14, 7 rounds
+               of 31 leaves, 8 virtual shards, 2 workers building host
+               histograms: 0 K1 launches in the driver, no context on the
+               card), (b) ElasticDNNFit of an MLP ([256, 256], input width
+               108, 6,144 rows, batch 256, 24 steps, 2 workers on the
+               card); each with worker 0 SIGKILLed mid-fit and respawned
+               later, its model digest equal to an undisturbed P=1 fit's
+               through in-process handlers; the GBDT's card scores = its
+               host walk and held-out AUC > 0.75, the DNN's first merged
+               gradient card = CPU at the trainer gate (rtol 2e-4, atol
+               2e-5); fit, spawn and respawn seconds, re-shards, steps/s
 
 then the {"kernels": [...]} summary, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1087,8 +1112,13 @@ def phase_slice_adult() -> dict:
     return {**doc, "booster": model.booster, "x_valid": xv}
 
 
+# profile_adult's rounds: 3 (10, then 5, until the smoke's time ran short on
+# slower card hosts)
+PROFILE_ROUNDS = 3
+
+
 def phase_profile_adult() -> dict:
-    """Where the Adult fit's time goes: a 5-round fit under torch.profiler,
+    """Where the Adult fit's time goes: a PROFILE_ROUNDS-round fit under torch.profiler,
     the device time of every kernel summed by name against the fit's wall
     time. The profiler slows the host, so the busy share it gives is a
     lower bound of the unprofiled one."""
@@ -1098,7 +1128,8 @@ def phase_profile_adult() -> dict:
     from mmlspark_tpu_torch.gbdt.booster import Booster, TrainOptions
 
     x, y = make_dataset(32768, 14)
-    opts = TrainOptions(objective="binary", num_iterations=5, num_leaves=31, device="cuda")
+    opts = TrainOptions(objective="binary", num_iterations=PROFILE_ROUNDS, num_leaves=31,
+                        device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1114,7 +1145,7 @@ def phase_profile_adult() -> dict:
     hist = {k: v for k, v in by_name.items() if "hist_" in k}
     hist_s = sum(us for us, _ in hist.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    doc = {"phase": "profile_adult", "rounds": 5, "num_leaves": 31,
+    doc = {"phase": "profile_adult", "rounds": PROFILE_ROUNDS, "num_leaves": 31,
            "wall_seconds_profiled": wall_s,
            "device_kernel_seconds": device_s if by_name else None,
            "device_busy_share": device_s / wall_s if by_name else None,
@@ -1421,10 +1452,11 @@ def phase_slice_multiclass() -> dict:
     parity = compare_fits(fits["cpu"], fits["cuda"],
                           fits["cpu"].bin_mapper.transform(x[:cut]))
     # so the per-class gradients and hessians are held on continuous
-    # features too: tests/test_gbdt.py's 4-class data, 20 rounds of 4 trees
+    # features too: tests/test_gbdt.py's 4-class data, 10 rounds of 4 trees
+    # (20 until the smoke's time ran short on slower card hosts)
     xc, yc = make_classification(classes=4)
     fits4 = {dev: Booster.train(xc, yc, TrainOptions(
-        objective="multiclass", num_class=4, num_iterations=20, num_leaves=leaves, device=dev))
+        objective="multiclass", num_class=4, num_iterations=10, num_leaves=leaves, device=dev))
         for dev in ("cpu", "cuda")}
     parity4 = compare_fits(fits4["cpu"], fits4["cuda"], fits4["cpu"].bin_mapper.transform(xc))
     assert parity4["trees_compared"] > 0, f"no 4-class tree compared: {parity4['near_ties']}"
@@ -1432,7 +1464,7 @@ def phase_slice_multiclass() -> dict:
            "features": x.shape[1], "classes": k, "rounds": rounds, "num_leaves": leaves,
            "fit_seconds": fit_s, "histogram_launches": launches, "held_out_accuracy": acc,
            "jax_held_out_accuracy": DIGITS_JAX_ACCURACY, "card_equals_host_walk": True,
-           "parity_3_rounds": parity, "parity_4_class_20_rounds": parity4}
+           "parity_3_rounds": parity, "parity_4_class_10_rounds": parity4}
     emit(doc)
     return doc
 
@@ -1551,7 +1583,8 @@ def _baselines(suite: str) -> dict:
                 for r in csv.DictReader(fh)}
 
 
-def boosting_gate(suite: str, device: str, datasets=None, models=None) -> list:
+def boosting_gate(suite: str, device: str, datasets=None, models=None,
+                  rounds: "dict | None" = None) -> list:
     """tests/benchmarks/test_gbdt_benchmarks.py:41-84 through the port on
     `device`: for each data set of the suite (all, or the names in
     `datasets`) and each boosting type, GBDTClassifier (held-out accuracy)
@@ -1560,7 +1593,8 @@ def boosting_gate(suite: str, device: str, datasets=None, models=None) -> list:
     of the rows. Each row holds its value beside
     tests/benchmarks/benchmarks_<suite>.csv's baseline and precision; the
     committed files are read, nothing is written. `models`, a dict, gets
-    each row's (booster, fitted rows) under its name."""
+    each row's (booster, fitted rows) under its name. `rounds` sets other
+    rounds by boosting type (a gate row then holds no gate)."""
     from mmlspark_tpu_torch.core import Table
     from mmlspark_tpu_torch.gbdt import GBDTClassifier, GBDTRegressor
 
@@ -1573,7 +1607,8 @@ def boosting_gate(suite: str, device: str, datasets=None, models=None) -> list:
         x, y = gen()
         cut = int(len(x) * 0.75)
         for boosting in GATE_BOOSTING_TYPES:
-            model = est(boosting_type=boosting, num_iterations=30, num_leaves=15,
+            model = est(boosting_type=boosting, num_iterations=(rounds or {}).get(boosting, 30),
+                        num_leaves=15,
                         bagging_fraction=0.85, bagging_freq=1, seed=42,
                         device=device).fit(_table(x[:cut], y[:cut]))
             pred = np.asarray(model.transform(Table({"features": x[cut:]}))["prediction"],
@@ -1705,14 +1740,14 @@ def _rounds_without_sync(x, y, categorical_indexes=(), max_bin: int = 255) -> li
     return checked
 
 
-# rounds of slice_boosting's Adult fits: 50 (100 until the smoke's time ran
-# short on slower card hosts)
-BOOSTING_ROUNDS = 50
+# rounds of slice_boosting's Adult fits: 25 (100, then 50, until the smoke's
+# time ran short on slower card hosts)
+BOOSTING_ROUNDS = 25
 
 
 def phase_slice_boosting() -> dict:
     """The Adult shape through GBDTClassifier on the card under each
-    boosting type: BOOSTING_ROUNDS rounds of 31 leaves, so 1,550 K1
+    boosting type: BOOSTING_ROUNDS rounds of 31 leaves, so 775 K1
     launches a fit."""
     from mmlspark_tpu_torch.gbdt import GBDTClassifier
     from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
@@ -1787,9 +1822,10 @@ def _fit_with_draws(x, y, kw: dict, rounds: int, device: str, row_order: bool = 
 
 
 # rounds of the CPU-against-card fits of the categorical, high-cardinality,
-# max_bin 16383 and renewed-objective paths: 5 (10 until the smoke's time ran
-# short on slower card hosts; a tree of round r depends on no later round)
-PARITY_ROUNDS = 5
+# max_bin 16383, renewed-objective and tabular paths: 3 (10, then 5, until
+# the smoke's time ran short on slower card hosts; a tree of round r
+# depends on no later round)
+PARITY_ROUNDS = 3
 
 
 def cpu_card_parity(x, y, kw: dict, rounds: int = PARITY_ROUNDS,
@@ -1812,10 +1848,10 @@ def cpu_card_parity(x, y, kw: dict, rounds: int = PARITY_ROUNDS,
              "cuda_row_order_fit_seconds": rows_s}, (cpu_parts, card_parts))
 
 
-# rounds of the Adult CPU-against-card fits under each boosting type: 5 (10
-# until the smoke's time ran short; a tree of round r depends on no later
-# round, so 5 rounds check the first 5 of those 10 trees)
-BOOSTING_PARITY_ROUNDS = 5
+# rounds of the Adult CPU-against-card fits under each boosting type: 3 (10,
+# then 5, until the smoke's time ran short; a tree of round r depends on no
+# later round, so 3 rounds check the first 3 of those trees)
+BOOSTING_PARITY_ROUNDS = 3
 
 
 def phase_slice_boosting_parity() -> dict:
@@ -1998,11 +2034,16 @@ def phase_slice_early_stopping() -> dict:
     return doc
 
 
+# the CPU comparison fits of slice_gates under gbdt and goss (30 until the
+# smoke's time ran short on slower card hosts)
+GATE_CPU_ROUNDS = 10
+
+
 def phase_slice_gates() -> dict:
     """tests/benchmarks/test_gbdt_benchmarks.py:41-84 on the card: 16
     classifier and 12 regressor fits, each row within its precision; then
-    the same fits on the CPU, whose trees the card's meet by compare_fits
-    at 1e-4."""
+    the same fits on the CPU (gbdt and goss at GATE_CPU_ROUNDS rounds),
+    whose trees the card's meet by compare_fits at 1e-4."""
     from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
 
     card = {}
@@ -2020,11 +2061,15 @@ def phase_slice_gates() -> dict:
     assert len(rows) == 28 and not bad, f"gate rows outside their precision: {bad}"
     # the same 28 fits on the CPU: the card's trees by compare_fits at 1e-4
     # (K1's block-order sums); a node of one class's rows has splits whose
-    # gains are f32 noise (gain_floor)
+    # gains are f32 noise (gain_floor). gbdt and goss fit GATE_CPU_ROUNDS
+    # rounds there, against the card fits' first trees (a tree of their
+    # round r depends on no later round; rf and dart rescale earlier trees,
+    # so they fit all 30)
     cpu = {}
     t0 = time.perf_counter()
-    boosting_gate("classifier", "cpu", models=cpu)
-    boosting_gate("regressor", "cpu", models=cpu)
+    cpu_rounds = {"gbdt": GATE_CPU_ROUNDS, "goss": GATE_CPU_ROUNDS}
+    boosting_gate("classifier", "cpu", models=cpu, rounds=cpu_rounds)
+    boosting_gate("regressor", "cpu", models=cpu, rounds=cpu_rounds)
     cpu_seconds = time.perf_counter() - t0
     trees = {}
     for name, (booster, x) in cpu.items():
@@ -2047,7 +2092,13 @@ def phase_slice_gates() -> dict:
 CATEGORICAL_TIES = dict(gain_floor=1e-4, order_ties=True)
 
 
-def _card_fit(x, y, xv, yv, params: dict, rounds: int = 100, leaves: int = 31):
+# the counted card fits of slice_categorical, slice_high_cardinality and
+# slice_max_bin_16383 (100 rounds until the smoke's time ran short on
+# slower card hosts)
+CARD_FIT_ROUNDS = 50
+
+
+def _card_fit(x, y, xv, yv, params: dict, rounds: int = CARD_FIT_ROUNDS, leaves: int = 31):
     """GBDTClassifier on the card with `params`: a 2-round warm-up, then the
     counted fit of `rounds` rounds (exactly rounds x leaves K1 launches),
     held-out metrics, the card's scores against the host walk, and the
@@ -2099,8 +2150,8 @@ def phase_slice_categorical() -> dict:
     """UCI Adult's schema (make_adult_categorical: 6 numeric columns and
     the 8 categorical ones at adult.names's cardinalities, "?" as NaN), on
     32,768 rows fitted and 8,192 held out, through
-    GBDTClassifier(categorical_slot_indexes=...): 100 rounds of 31 leaves
-    at max_bin 255, so 3,100 K1 launches; held-out AUC > 0.75 and accuracy
+    GBDTClassifier(categorical_slot_indexes=...): CARD_FIT_ROUNDS (50)
+    rounds of 31 leaves at max_bin 255, so 1,550 K1 launches; held-out AUC > 0.75 and accuracy
     > 0.7 (bench.py's canaries); card scores equal to the host walk; at
     least one categorical node with a subset of more than one category;
     two rounds of each loop under sync debug mode "error"; and PARITY_ROUNDS rounds
@@ -2117,7 +2168,7 @@ def phase_slice_categorical() -> dict:
     assert fit["k1_bins_seen"] == [("int32", 256)], fit["k1_bins_seen"]
     parity = cpu_card_parity(x, y, dict(categorical_indexes=cats), ties=CATEGORICAL_TIES)[0]
     doc = {"phase": "slice_categorical", "rows": n, "held_out_rows": n_valid,
-           "features": x.shape[1], "categorical_slots": cats, "rounds": 100, "num_leaves": 31,
+           "features": x.shape[1], "categorical_slots": cats, "rounds": CARD_FIT_ROUNDS, "num_leaves": 31,
            "max_bin": 255, "sync_free_rounds": sync_free, **fit,
            "parity": {"rounds": PARITY_ROUNDS, **parity}}
     emit(doc)
@@ -2130,7 +2181,7 @@ def phase_slice_high_cardinality() -> dict:
     its 32,769 rows, 8,192 more held out, through GBDTClassifier with
     max_bin 1023 and bin_dtype "uint8" asked for: the reference's warning
     and int32 bins; the three widest columns keep their 1,023 most frequent
-    categories, so K1 runs at B 1024 ("rows": one copy of 9 warps), 3,100
+    categories, so K1 runs at B 1024 ("rows": one copy of 9 warps), 1,550
     launches; held-out AUC above a constant predictor's; card scores equal
     to the host walk; two rounds of each loop under sync debug mode
     "error"; PARITY_ROUNDS rounds on "cpu" and "cuda" (cpu_card_parity, K1 with
@@ -2156,7 +2207,7 @@ def phase_slice_high_cardinality() -> dict:
     xn, yn = make_dataset(32768, 14)
     numeric = cpu_card_parity(xn, yn, dict(max_bin=511))[0]
     doc = {"phase": "slice_high_cardinality", "rows": n, "held_out_rows": n_valid,
-           "features": x.shape[1], "positive_share": float(y.mean()), "rounds": 100,
+           "features": x.shape[1], "positive_share": float(y.mean()), "rounds": CARD_FIT_ROUNDS,
            "num_leaves": 31, "max_bin": 1023, "bin_dtype_asked": "uint8", "k1_plan": plan.branch,
            "sync_free_rounds": sync_free, **fit, "parity": {"rounds": PARITY_ROUNDS, **parity},
            "adult_numeric_max_bin_511_parity": {"rounds": PARITY_ROUNDS, **numeric}}
@@ -2168,7 +2219,7 @@ def phase_slice_max_bin_16383() -> dict:
     """The numeric Adult shape (make_dataset: 32,768 rows fitted, 8,192 held
     out) through GBDTClassifier(max_bin=16383): its 12 continuous columns
     take 16,384 bins, past the ~14,000 of one feature a block that K1 held
-    before bin ranges; 100 rounds of 31 leaves, so 3,100 launches, all at
+    before bin ranges; CARD_FIT_ROUNDS (50) rounds of 31 leaves, so 1,550 launches, all at
     B 16,384 int32; held-out AUC > 0.75 and accuracy > 0.7 (bench.py's
     canaries); card scores equal to the host walk; PARITY_ROUNDS rounds on "cpu" and
     "cuda" (cpu_card_parity: the row-order witness at 1e-5, K1 at 1e-4)."""
@@ -2185,7 +2236,7 @@ def phase_slice_max_bin_16383() -> dict:
     split = booster.feature >= 0
     parity = cpu_card_parity(x, y, dict(max_bin=16383))[0]
     doc = {"phase": "slice_max_bin_16383", "rows": n, "held_out_rows": n_valid, "features": f,
-           "rounds": 100, "num_leaves": 31, "max_bin": 16383, "k1_plan": plan._asdict(),
+           "rounds": CARD_FIT_ROUNDS, "num_leaves": 31, "max_bin": 16383, "k1_plan": plan._asdict(),
            "k1_branch": plan.branch, **{k: v for k, v in fit.items() if "categorical" not in k
                                         and k != "largest_subset"},
            "splits_past_bin_14376": int((booster.threshold_bin[split] > 14376).sum()),
@@ -2194,18 +2245,24 @@ def phase_slice_max_bin_16383() -> dict:
     return doc
 
 
+# slice_checkpoint's fits: 50 rounds (100 until the smoke's time ran short
+# on slower card hosts); the 5th snapshot of a chunked fit still lands at
+# round 45
+CHECKPOINT_ROUNDS = 50
+
+
 def phase_slice_checkpoint() -> dict:
     """Checkpointed, preemptible fits on the card, at the Adult shape
-    (32,768 x 14, 100 rounds of 31 leaves, seed 3, bagging 0.8 every 3
-    rounds) through GBDTClassifier: (a) uninterrupted; (b) with
+    (32,768 x 14, CHECKPOINT_ROUNDS (50) rounds of 31 leaves, seed 3,
+    bagging 0.8 every 3 rounds) through GBDTClassifier: (a) uninterrupted; (b) with
     checkpoint_every_n 10, which runs chunks of 9 rounds (aligned to the
     bag) with a snapshot after each; (c) the same under a guard that drains
     after the 5th snapshot (Preempted, exit code 75), then resumed to the
     end by a fresh estimator; (d) goss with checkpoint_every_n 7 against its
     own uninterrupted fit. (b), (c) and (d) give their uninterrupted fit's
     to_text() byte for byte, (c)'s card scores are (a)'s bit for bit, and
-    every fit launches K1 exactly 3,100 times ((c): the preempted part plus
-    the resumed part). Prints each fit's seconds, each snapshot write's
+    every fit launches K1 exactly rounds x 31 times ((c): the preempted part
+    plus the resumed part). Prints each fit's seconds, each snapshot write's
     seconds and bytes, and the resume's restore seconds."""
     from unittest import mock
 
@@ -2226,7 +2283,7 @@ def phase_slice_checkpoint() -> dict:
                 self.request_drain("chip_smoke")
             return super().should_checkpoint()
 
-    n, n_valid, f, rounds, leaves = 32768, 8192, 14, 100, 31
+    n, n_valid, f, rounds, leaves = 32768, 8192, 14, CHECKPOINT_ROUNDS, 31
     x_all, y_all = make_dataset(n + n_valid, f)
     x, y, xv = x_all[:n], y_all[:n], x_all[n:]
     root = ROOT / "build" / "chip_smoke_checkpoints"
@@ -2298,7 +2355,9 @@ def phase_slice_checkpoint() -> dict:
         "ckpt-00000004-round-000045.bin", preempted.checkpoint_path
     assert snaps["c_preempted"][-1]["file"] == Path(preempted.checkpoint_path).name
     counts = {k: len(v) for k, v in snaps.items()}
-    assert counts == {"b": 12, "c_preempted": 5, "c_resumed": 7, "d": 15}, counts
+    chunks_9, chunks_7 = -(-rounds // 9), -(-rounds // 7)     # a snapshot a chunk
+    assert counts == {"b": chunks_9, "c_preempted": 5, "c_resumed": chunks_9 - 5,
+                      "d": chunks_7}, counts
     assert [r["rounds_done"] for r in restores] == [None, None, 45, None], restores
     fits["c_resumed"].update(preempted_seconds=c_pre["seconds"],
                              preempted_launches=c_pre["histogram_launches"],
@@ -2442,7 +2501,7 @@ def phase_slice_lightgbm_import(adult: dict, categorical: dict) -> dict:
 
 # The serving transformer at bench.py's accelerator width (bench.py:632-645)
 MESH_RANKS = 4
-MESH_CPU_ROUNDS = 5       # the CPU ranks' fits, against the card fits' first trees
+MESH_CPU_ROUNDS = 3       # the CPU ranks' fits, against the card fits' first trees (once 5)
 # the card ranks' fits: 10 of slice_adult's 100 rounds, held against its first
 # 10 trees (a tree of round r depends on no later round), so that the smoke
 # stays well inside its time limit on slower card hosts (the four fits took
@@ -2545,7 +2604,8 @@ def phase_slice_mesh(adult: dict) -> dict:
     card fits run MESH_ROUNDS of the 100 rounds, against slice_adult's
     booster truncated to as many: data_parallel meets that one-device
     card fit by compare_fits at 1e-4 (the merge and K1 add in other
-    orders); deterministic is held to it by quality. The same four fits on 4 CPU ranks meet the card's by
+    orders); deterministic is held to it by quality. The same four fits on
+    the same 4 ranks with device="cpu" (CPU ranks) meet the card's by
     compare_fits at MESH_CPU_TOL (below); the deterministic fit again on
     the card with the CPU's row-order histogram in K1's place meets the CPU
     ranks' at 1e-5, so only K1's order parts them. Held-out AUC > 0.75, and within 0.01 of the
@@ -2556,7 +2616,8 @@ def phase_slice_mesh(adult: dict) -> dict:
     mesh on NCCL: the data-parallel fit equal to the fit without a mesh
     byte for byte, and an all_reduce through NCCL on the card. Per fit:
     seconds, collectives and bytes merged, and the host-timed share of the
-    fit spent in collectives (gloo copies each merge to the host and back)."""
+    fit spent in collectives (gloo copies each merge to the host and back).
+    The card ranks' pool is returned open ("pool") for slice_parallel."""
     from mmlspark_tpu_torch.automl.metrics import auc
     from mmlspark_tpu_torch.gbdt import Booster
     from mmlspark_tpu_torch.parallel import RankPool
@@ -2571,17 +2632,21 @@ def phase_slice_mesh(adult: dict) -> dict:
     workdir = ROOT / "build" / "chip_smoke_mesh"
     workdir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    with RankPool(MESH_RANKS, backend="gloo", workdir=str(workdir), timeout_s=300) as pool:
+    # the card ranks stay up for slice_parallel, which closes them
+    card_pool = RankPool(MESH_RANKS, backend="gloo", workdir=str(workdir), timeout_s=300)
+    try:
         spawn_s = time.perf_counter() - t0
-        pool.run(mesh_fit_job, x, y, {}, "cuda", 2, deadline_s=300)    # context, K1 load
-        card = _mesh_pool_fits(pool, x, y, "cuda", rounds)
-        witness = pool.run(mesh_fit_job, x, y, MESH_CONFIGS["deterministic"], "cuda",
-                           MESH_CPU_ROUNDS, True, deadline_s=600)[0]["text"]
-    with RankPool(MESH_RANKS, backend="gloo", workdir=str(workdir), timeout_s=300) as pool:
-        cpu = _mesh_pool_fits(pool, x, y, "cpu", MESH_CPU_ROUNDS)
-    with RankPool(1, backend="nccl", workdir=str(workdir), timeout_s=300) as pool:
-        nccl = pool.run(nccl_one_rank_job, x, y, deadline_s=600)[0]
-    shutil.rmtree(workdir, ignore_errors=True)
+        card_pool.run(mesh_fit_job, x, y, {}, "cuda", 2, deadline_s=300)   # context, K1 load
+        card = _mesh_pool_fits(card_pool, x, y, "cuda", rounds)
+        witness = card_pool.run(mesh_fit_job, x, y, MESH_CONFIGS["deterministic"], "cuda",
+                                MESH_CPU_ROUNDS, True, deadline_s=600)[0]["text"]
+        # the CPU fits on the same ranks (device="cpu"): no second spawn
+        cpu = _mesh_pool_fits(card_pool, x, y, "cpu", MESH_CPU_ROUNDS)
+        with RankPool(1, backend="nccl", workdir=str(workdir), timeout_s=300) as pool:
+            nccl = pool.run(nccl_one_rank_job, x, y, deadline_s=600)[0]
+    except BaseException:
+        card_pool.close(kill=True)
+        raise
 
     doc = {"phase": "slice_mesh", "ranks": MESH_RANKS, "backend": "gloo", "rows": n,
            "rows_a_rank": n // MESH_RANKS, "features": f, "rounds": rounds, "num_leaves": leaves,
@@ -2625,7 +2690,7 @@ def phase_slice_mesh(adult: dict) -> dict:
                             "mesh_device": nccl["mesh_device"],
                             "booster_device": nccl["booster_device"], "all_reduce_ok": True}
     emit(doc)
-    return {**doc, "histogram_launches_by_fit": {
+    return {**doc, "pool": card_pool, "histogram_launches_by_fit": {
         **{f"mesh_{name}": sum(fit["launches"]) for name, fit in card.items()},
         "mesh_nccl_one_rank": nccl["launches"]}}
 
@@ -2652,19 +2717,21 @@ def _variant(bundle, **config):
                        variables=bundle.variables, input_shape=bundle.input_shape)
 
 
-def phase_slice_transformer() -> dict:
+def phase_slice_transformer(bundle=None) -> dict:
     """The DNN slice's main path: 1,024 rows x 512 token ids through
     DeepModelTransformer on the card, attention_impl="flash" in bf16, one
     K2 launch per layer and minibatch; the same tokens served in f32 (K2's
     3xTF32 path); then the outputs checked three ways, and a 4 x 4096
-    long-sequence run."""
+    long-sequence run. `bundle`: slice_parallel's (the same seed and
+    config), or None to make it here."""
     from mmlspark_tpu_torch.core import Table
     from mmlspark_tpu_torch.nn import ModelBundle
     from mmlspark_tpu_torch.nn.attention import flash_attention
 
     t0 = time.perf_counter()
-    bundle = ModelBundle.init("transformer", (SLICE_TOKENS,), seed=0, attention_impl="flash",
-                              dtype="bfloat16", **SLICE_TRANSFORMER)
+    if bundle is None:
+        bundle = ModelBundle.init("transformer", (SLICE_TOKENS,), seed=0,
+                                  attention_impl="flash", dtype="bfloat16", **SLICE_TRANSFORMER)
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(11)
     x = rng.integers(0, SLICE_TRANSFORMER["vocab_size"], size=(SLICE_ROWS, SLICE_TOKENS))
@@ -2768,10 +2835,10 @@ SMALL_TRANSFORMERS = {
 
 
 # Timed passes of a small transformer. The host sets a pass's time, which
-# spreads by ~20% between passes, while K2 is ~3% of it: 200 passes (~10 s)
-# bring the rate's standard error to ~1.5% (400 took ~20 s a width, more
-# than the smoke's time limit leaves it).
-SMALL_PASSES = 200
+# spreads by ~20% between passes, while K2 is ~3% of it: 100 passes (~5 s)
+# bring the rate's standard error to ~2% (400 took ~20 s a width and 200
+# ~10 s, more than the smoke's time limit leaves it now).
+SMALL_PASSES = 100
 
 
 def pass_rate(seconds: list, tokens_per_pass: int) -> dict:
@@ -2842,8 +2909,8 @@ WIDE_TRANSFORMER = dict(num_layers=2, d_model=768, num_heads=4, d_ff=3072, vocab
 # Serving runs at FLASH_SHAPES' d192 rows' shape (minibatches of 4 rows x
 # 512 tokens), so the kernel rows time and check the launches it makes;
 # WIDE_PASSES passes over slice_transformer's 1,024 rows give the rate and
-# its spread
-WIDE_BATCH, WIDE_PASSES = 4, 5
+# its spread (5 until the smoke's time ran short on slower card hosts)
+WIDE_BATCH, WIDE_PASSES = 4, 3
 
 
 def phase_serve_wide() -> dict:
@@ -4028,10 +4095,10 @@ def phase_slice_serving(card: str, bundle=None) -> dict:
 # (a) the Adult regressor: requests through the gateway and straight at one
 # replica (bench.py's bench_fleet_gateway, bench.py:1878-1957, at the
 # serving slice's concurrency), the kill window's sequential requests
-FLEET_REQUESTS, FLEET_DIRECT, FLEET_CONCURRENCY = 2048, 256, 32
+FLEET_REQUESTS, FLEET_DIRECT, FLEET_CONCURRENCY = 1024, 256, 32
 FLEET_KILL_BEFORE, FLEET_KILL_AFTER = 100, 200
 # (b) the 8-layer transformer: requests of SLICE_TOKENS ids
-FLEET_TOKEN_REQUESTS, FLEET_TOKEN_CONCURRENCY, FLEET_TOKEN_BATCH = 512, 16, 64
+FLEET_TOKEN_REQUESTS, FLEET_TOKEN_CONCURRENCY, FLEET_TOKEN_BATCH = 256, 16, 64
 FLEET_STOP_TIMEOUT_S = 15.0
 _SEEN = "mmlspark_tpu_serving_requests_seen_total"
 _ANSWERED = "mmlspark_tpu_serving_requests_answered_total"
@@ -4473,7 +4540,7 @@ def phase_slice_fleet(card: str, model, bundle) -> dict:
 # adamw at 1e-4, 32 rows x 512 tokens a step, the flash core in bf16
 TRAIN_TRANSFORMER = dict(num_layers=8, d_model=512, num_heads=8, d_ff=2048, vocab_size=16384,
                          max_len=512, num_outputs=8, attention_impl="flash")
-TRAIN_ROWS, TRAIN_TOKENS, TRAIN_BATCH, TRAIN_EPOCHS = 1024, 512, 32, 3
+TRAIN_ROWS, TRAIN_TOKENS, TRAIN_BATCH, TRAIN_EPOCHS = 1024, 512, 32, 2   # once 3
 # bench_trainer's ResNet-50 fine-tune (bench.py:770-800): 512 uint8 images
 # of 224 x 224 x 3, 10 classes, batch 64, bf16 compute, f32 parameters
 RESNET_ROWS, RESNET_SIDE, RESNET_BATCH, RESNET_EPOCHS = 512, 224, 64, 2
@@ -4544,8 +4611,8 @@ def _leaf_gaps(a: dict, b: dict, prefix=()) -> dict:
 
 
 def train_transformer() -> dict:
-    """Item a: the transformer at bench.py's training width, 3 epochs of 32
-    steps; then one epoch under remat."""
+    """Item a: the transformer at bench.py's training width, TRAIN_EPOCHS (2)
+    epochs of 32 steps; then one epoch under remat."""
     from mmlspark_tpu_torch.nn import ModelBundle
     from mmlspark_tpu_torch.nn.attention import flash_attention
 
@@ -4931,7 +4998,10 @@ RECS_K = 10
 RECS_CPU_BLOCK = 1024           # the CPU's users when its full pass would take over ~15 s
 RECS_TOL = 1e-5                 # of each row's largest rating
 RECS_REQUESTS, RECS_CLIENTS = 2048, 32      # bench.py:2313-2400's driver
-TUNE_ROWS, TUNE_HELD_OUT, TUNE_ROUNDS, TUNE_PARITY_ROWS = 32768, 8192, 20, 3072
+# TUNE_ROUNDS (once 20) and the sweep's SWEEP_ROUNDS (once 8, rungs of 4 and
+# 8): cut to keep the smoke inside its limit on slower card hosts
+TUNE_ROWS, TUNE_HELD_OUT, TUNE_ROUNDS, TUNE_PARITY_ROWS = 32768, 8192, 5, 3072
+SWEEP_ROUNDS = 4
 SWEEP_SPACE = [{"learning_rate": lr, "num_leaves": nl} for lr in (0.05, 0.1, 0.2)
                for nl in (4, 8)]                  # bench.py:2556-2625
 LIME_IMAGES, LIME_SAMPLES, LIME_CELL, LIME_SIZE = 2, 300, 16, 224
@@ -5273,9 +5343,10 @@ def recsys_sweep() -> dict:
     from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
 
     x, y = make_dataset(TUNE_ROWS, 14)
-    # a sub-checkpoint every 4 rounds (a rung's budget), not every round
-    est = GBDTClassifier(features_col="features", label_col="label", num_iterations=8,
-                         num_leaves=15, seed=7, checkpoint_every_n=4, device="cuda")
+    # a sub-checkpoint every SWEEP_ROUNDS // 2 rounds (a rung's budget), not every round
+    est = GBDTClassifier(features_col="features", label_col="label",
+                         num_iterations=SWEEP_ROUNDS, num_leaves=15, seed=7,
+                         checkpoint_every_n=SWEEP_ROUNDS // 2, device="cuda")
     base = ROOT / "build" / "chip_smoke_sweep"
     shutil.rmtree(base, ignore_errors=True)
     runs = {}
@@ -5285,15 +5356,16 @@ def recsys_sweep() -> dict:
             sched = SweepScheduler(
                 [est], trials=[(0, p) for p in SWEEP_SPACE], evaluation_metric="accuracy",
                 label_col="label", num_folds=2, seed=0, checkpoint_dir=str(base / name),
-                workers=workers, pruner=HyperbandPruner(min_resource=4, max_resource=8, eta=2),
+                workers=workers, pruner=HyperbandPruner(
+                    min_resource=SWEEP_ROUNDS // 2, max_resource=SWEEP_ROUNDS, eta=2),
                 rung_timeout_s=240.0, chaos=chaos)
             before = histogram.launches
             t0 = time.perf_counter()
             res = sched.run(_table(x, y))
             seconds = time.perf_counter() - t0
             launches = histogram.launches - before
-            # the driver refits the survivors on the full table (8 rounds each)
-            want = sum(8 * SWEEP_SPACE[ti]["num_leaves"] for ti in res.survivors)
+            # the driver refits the survivors on the full table (SWEEP_ROUNDS each)
+            want = sum(SWEEP_ROUNDS * SWEEP_SPACE[ti]["num_leaves"] for ti in res.survivors)
             assert launches == want, (name, launches, want)
             builds = [c["builds"] for c in res.worker_counters]
             assert builds and all(b == 1.0 for b in builds), (name, res.worker_counters)
@@ -6041,6 +6113,618 @@ def phase_slice_streaming(card: str, bundle, adult_model) -> dict:
     return doc
 
 
+# slice_parallel: the P4 layers on slice_mesh's 4 gloo ranks sharing the card
+P4_ATTN = dict(b=1, t=8192, h=8, d=64, chunk=512)
+P4_TP = dict(rows=4096, d=1024, hidden=4096)
+P4_PIPE = dict(stages=4, d=1024, batch=256, n_micro=8)
+P4_MOE = dict(experts=8, tokens=4096, d=512, h=2048, cf=1.25)
+P4_SERVE_ROWS, P4_SERVE_BATCH = 256, 64
+P4_ATTN_TOL, P4_TP_TOL, P4_PIPE_TOL, P4_MOE_TOL = (2e-4, 2e-5), (2e-4, 2e-4), (2e-5, 1e-6), \
+    (1e-4, 1e-5)
+
+
+def p4_inputs(name: str) -> dict:
+    """A layer's inputs, seeded numpy: the same arrays in every process."""
+    if name == "attention":
+        rng = np.random.default_rng(31)
+        shape = (P4_ATTN["b"], P4_ATTN["t"], P4_ATTN["h"], P4_ATTN["d"])
+        return {k: rng.normal(size=shape).astype(np.float32) for k in ("q", "k", "v")}
+    if name == "tp":
+        rng = np.random.default_rng(32)
+        n, d, h = P4_TP["rows"], P4_TP["d"], P4_TP["hidden"]
+        return {"x": rng.normal(size=(n, d)).astype(np.float32),
+                "w1": (rng.normal(size=(d, h)) / np.sqrt(d)).astype(np.float32),
+                "b1": (0.1 * rng.normal(size=h)).astype(np.float32),
+                "w2": (rng.normal(size=(h, d)) / np.sqrt(h)).astype(np.float32),
+                "b2": (0.1 * rng.normal(size=d)).astype(np.float32)}
+    if name == "pipe":
+        rng = np.random.default_rng(33)
+        s, d = P4_PIPE["stages"], P4_PIPE["d"]
+        return {"ws": (rng.normal(size=(s, d, d)) / np.sqrt(d)).astype(np.float32),
+                "bs": (0.1 * rng.normal(size=(s, d))).astype(np.float32),
+                "x": rng.normal(size=(P4_PIPE["batch"], d)).astype(np.float32)}
+    if name == "moe":
+        rng = np.random.default_rng(34)
+        e, d, h = P4_MOE["experts"], P4_MOE["d"], P4_MOE["h"]
+        return {"w_gate": (rng.normal(size=(d, e)) * np.sqrt(2.0 / d)).astype(np.float32),
+                "w1": (rng.normal(size=(e, d, h)) * np.sqrt(2.0 / d)).astype(np.float32),
+                "b1": np.zeros((e, h), np.float32),
+                "w2": (rng.normal(size=(e, h, d)) * np.sqrt(2.0 / h)).astype(np.float32),
+                "b2": np.zeros((e, d), np.float32),
+                "x": rng.normal(size=(P4_MOE["tokens"], d)).astype(np.float32)}
+    rng = np.random.default_rng(35)
+    return {"tokens": rng.integers(0, SLICE_TRANSFORMER["vocab_size"],
+                                   size=(P4_SERVE_ROWS, SLICE_TOKENS)).astype(np.int32)}
+
+
+def _p4_stage(params, x):
+    w, b = params
+    return x + torch.tanh(x @ w + b)
+
+
+def _p4_digest(a: np.ndarray) -> str:
+    return hashlib.blake2b(np.ascontiguousarray(a).tobytes(), digest_size=16).hexdigest()
+
+
+def p4_rank_job(bundle_path: str) -> dict:
+    """Run on every rank of slice_mesh's pool (4 gloo ranks on the card):
+    each P4 layer on this rank's block, once to warm up and once timed
+    (CUDA-synchronized host seconds, and the bytes its collectives moved).
+    Returns this rank's output blocks (the replicated outputs as shard 0's
+    array and every rank's digest) and its K2 launches serving."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.nn import DeepModelTransformer, ModelBundle
+    from mmlspark_tpu_torch.nn.attention import flash_attention
+    from mmlspark_tpu_torch.parallel import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, collectives,
+                                             make_mesh, make_pipe_mesh, make_ring_attention,
+                                             make_tp_mlp, make_ulysses_attention,
+                                             pipeline_forward, use_mesh)
+    from mmlspark_tpu_torch.parallel.moe import MoEParams, moe_ffn_sharded
+
+    dev = torch.device("cuda")
+    rank, n = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank, "layers": {}, "blocks": {}, "digests": {}}
+
+    def timed(name, fn):
+        fn()
+        torch.cuda.synchronize()
+        collectives.reset_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        st = collectives.stats()
+        out["layers"][name] = {"ms": (time.perf_counter() - t0) * 1e3, "bytes": st["bytes"],
+                               "collective_calls": st["calls"],
+                               "collective_ms": st["seconds"] * 1e3}
+        return res
+
+    def on(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    # ring and Ulysses attention: this rank's block of the sequence
+    seq_mesh = make_mesh(n_data=1, n_seq=n, device="cuda")
+    i = seq_mesh.axis(SEQ_AXIS).shard_index
+    att = p4_inputs("attention")
+    tl = P4_ATTN["t"] // n
+    q, k, v = (on(att[key][:, i * tl:(i + 1) * tl]) for key in ("q", "k", "v"))
+    for impl, make in (("ring", make_ring_attention), ("ulysses", make_ulysses_attention)):
+        for causal in (False, True):
+            name = f"{impl}{'_causal' if causal else ''}"
+            fn = make(seq_mesh, SEQ_AXIS, causal=causal, local_chunk=P4_ATTN["chunk"])
+            out["blocks"][name] = (i, timed(name, lambda: fn(q, k, v)).cpu().numpy())
+    del q, k, v
+
+    # the tensor-parallel MLP over the model axis
+    tp_mesh = make_mesh(n_data=1, n_model=n, device="cuda")
+    tp = {key: on(a) for key, a in p4_inputs("tp").items()}
+    mlp = make_tp_mlp(tp_mesh, MODEL_AXIS)
+    y = timed("tp_mlp", lambda: mlp(tp["x"], tp["w1"], tp["b1"], tp["w2"], tp["b2"])).cpu().numpy()
+    out["digests"]["tp_mlp"] = _p4_digest(y)
+    if rank == 0:
+        out["blocks"]["tp_mlp"] = (0, y)
+    del tp
+
+    # the GPipe pipeline: stage `rank`
+    pipe_mesh = make_pipe_mesh(n, device="cuda")
+    pipe = p4_inputs("pipe")
+    params = (on(pipe["ws"]), on(pipe["bs"]))
+    y = timed("pipeline", lambda: pipeline_forward(_p4_stage, params, on(pipe["x"]),
+                                                   P4_PIPE["n_micro"], pipe_mesh)).cpu().numpy()
+    out["digests"]["pipeline"] = _p4_digest(y)
+    if rank == 0:
+        out["blocks"]["pipeline"] = (0, y)
+
+    # MoE: this rank's tokens and its E / n experts
+    ep_mesh = make_mesh(n_data=n, device="cuda")
+    s = ep_mesh.shard_index
+    moe = p4_inputs("moe")
+    el, tl = P4_MOE["experts"] // n, P4_MOE["tokens"] // n
+    local = MoEParams(w_gate=on(moe["w_gate"]),
+                      **{key: on(moe[key][s * el:(s + 1) * el]) for key in ("w1", "b1", "w2", "b2")})
+    xb = on(moe["x"][s * tl:(s + 1) * tl])
+    out["blocks"]["moe"] = (s, timed("moe", lambda: moe_ffn_sharded(
+        local, xb, ep_mesh, capacity_factor=P4_MOE["cf"])).cpu().numpy())
+    del local, xb
+
+    # DeepModelTransformer(use_mesh=True) on the data axis: K2 in every rank
+    bundle = ModelBundle.load(bundle_path)
+    tokens = p4_inputs("serve")["tokens"]
+    data_mesh = make_mesh(n_data=n, device="cuda")
+    stage = DeepModelTransformer(input_col="tokens", mini_batch_size=P4_SERVE_BATCH,
+                                 use_mesh=True, device="cuda",
+                                 fetch_dict={"logits": "logits"}).set_model(bundle)
+    with use_mesh(data_mesh):
+        stage.transform(Table({"tokens": tokens[:P4_SERVE_BATCH]}))     # weights to the card
+        torch.cuda.synchronize()
+        flash_attention.launches, flash_attention.launches_by_path = 0, {}
+        collectives.reset_stats()
+        t0 = time.perf_counter()
+        logits = np.asarray(stage.transform(Table({"tokens": tokens}))["logits"])
+        torch.cuda.synchronize()
+    st = collectives.stats()
+    out["layers"]["use_mesh_serving"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                                         "bytes": st["bytes"], "collective_calls": st["calls"],
+                                         "collective_ms": st["seconds"] * 1e3}
+    out["k2_launches"] = flash_attention.launches
+    out["k2_by_path"] = dict(flash_attention.launches_by_path)
+    out["axis"] = {"seq": seq_mesh.axis(SEQ_AXIS).size, "model": tp_mesh.axis(MODEL_AXIS).size,
+                   "data": data_mesh.axis(DATA_AXIS).size}
+    out["digests"]["serving"] = _p4_digest(logits)
+    if rank == 0:
+        out["blocks"]["serving"] = (0, logits)
+    return out
+
+
+def _p4_check(name: str, got: np.ndarray, want: np.ndarray, tol: tuple) -> float:
+    rtol, atol = tol
+    err = float(np.max(np.abs(got - want))) if got.size else 0.0
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    assert np.allclose(got, want, rtol=rtol, atol=atol), \
+        f"slice_parallel {name}: max |err| {err} outside rtol {rtol}, atol {atol}"
+    return err
+
+
+def _cuda_ms(fn) -> tuple:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def phase_slice_parallel(pool, card: str) -> dict:
+    """The P4 layers on slice_mesh's pool of 4 gloo ranks sharing the card
+    (no rank spawned again), each held against its one-rank counterpart
+    on the card in this process: ring and Ulysses attention on a seq
+    axis of 4 (B 1, T 8,192, H 8, D 64, f32, causal and not, local_chunk
+    512) against `chunked_attention`; the tensor-parallel MLP on a model
+    axis of 4 (x 4,096 x 1,024, hidden 4,096) against the local MLP; the
+    GPipe pipeline (4 stages of d 1,024, batch 256, 8 microbatches)
+    against the stages applied in turn; MoE (8 experts on an expert axis
+    of 4, 4,096 tokens, d 512, h 2,048, capacity factor 1.25) against
+    `moe_ffn_local` of each rank's tokens (the same capacity a shard);
+    and DeepModelTransformer(use_mesh=True) serving the slice transformer
+    (bf16, flash) on a data axis of 4, 256 rows of 512 tokens, against
+    the single-process transform at the ranks' minibatch, within 1e-4;
+    every rank launches K2 (on wgmma) for its block of every minibatch.
+    Each layer's ms and the bytes its collectives moved; the pool is
+    closed at the end."""
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.nn import DeepModelTransformer, ModelBundle
+    from mmlspark_tpu_torch.nn.attention import chunked_attention, flash_attention
+    from mmlspark_tpu_torch.parallel.moe import MoEParams, moe_ffn_local
+
+    t_start = time.perf_counter()
+    workdir = ROOT / "build" / "chip_smoke_mesh"
+    try:
+        bundle = ModelBundle.init("transformer", (SLICE_TOKENS,), seed=0, attention_impl="flash",
+                                  dtype="bfloat16", **SLICE_TRANSFORMER)
+        path = workdir / "slice_transformer.bundle"
+        bundle.save(str(path))
+        ranks = pool.run(p4_rank_job, str(path), deadline_s=300)
+    finally:
+        pool.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    n = len(ranks)
+    doc = {"phase": "slice_parallel", "card": card, "ranks": n, "backend": "gloo",
+           "layers": {}, "one_rank_ms": {}}
+
+    def blocks(name):
+        got = sorted((r["blocks"][name] for r in ranks if name in r["blocks"]),
+                     key=lambda ib: ib[0])
+        return [b for _, b in got]
+
+    def on(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+
+    errs = {}
+    att = {key: on(a) for key, a in p4_inputs("attention").items()}
+    for causal in (False, True):
+        want, ms = _cuda_ms(lambda: chunked_attention(
+            att["q"], att["k"], att["v"], causal=causal, q_chunk=P4_ATTN["chunk"],
+            k_chunk=P4_ATTN["chunk"]))
+        want = want.cpu().numpy()
+        doc["one_rank_ms"][f"chunked{'_causal' if causal else ''}"] = ms
+        for impl in ("ring", "ulysses"):
+            name = f"{impl}{'_causal' if causal else ''}"
+            errs[name] = _p4_check(name, np.concatenate(blocks(name), axis=1), want,
+                                   P4_ATTN_TOL)
+    del att
+
+    tp = {key: on(a) for key, a in p4_inputs("tp").items()}
+    want, doc["one_rank_ms"]["tp_mlp"] = _cuda_ms(lambda: torch.nn.functional.gelu(
+        tp["x"] @ tp["w1"] + tp["b1"], approximate="tanh") @ tp["w2"] + tp["b2"])
+    errs["tp_mlp"] = _p4_check("tp_mlp", blocks("tp_mlp")[0], want.cpu().numpy(), P4_TP_TOL)
+    del tp, want
+
+    pipe = p4_inputs("pipe")
+    ws, bs_, x = on(pipe["ws"]), on(pipe["bs"]), on(pipe["x"])
+    mb = P4_PIPE["batch"] // P4_PIPE["n_micro"]
+
+    def sequential():
+        outs = []
+        for m in range(P4_PIPE["n_micro"]):
+            h = x[m * mb:(m + 1) * mb]
+            for st in range(P4_PIPE["stages"]):
+                h = _p4_stage((ws[st], bs_[st]), h)
+            outs.append(h)
+        return torch.cat(outs)
+
+    want, doc["one_rank_ms"]["pipeline"] = _cuda_ms(sequential)
+    errs["pipeline"] = _p4_check("pipeline", blocks("pipeline")[0], want.cpu().numpy(),
+                                 P4_PIPE_TOL)
+
+    moe = p4_inputs("moe")
+    params = MoEParams(**{key: on(moe[key]) for key in MoEParams._fields})
+    xs = on(moe["x"]).chunk(n)
+    want, doc["one_rank_ms"]["moe"] = _cuda_ms(lambda: torch.cat(
+        [moe_ffn_local(params, xb, capacity_factor=P4_MOE["cf"]) for xb in xs]))
+    want = want.cpu().numpy()
+    errs["moe"] = _p4_check("moe", np.concatenate(blocks("moe")), want, P4_MOE_TOL)
+    cap = int(P4_MOE["cf"] * (P4_MOE["tokens"] // n) / P4_MOE["experts"])
+    dropped = int(np.all(want == 0.0, axis=1).sum())
+    del params, xs
+
+    tokens = p4_inputs("serve")["tokens"]
+    per_rank = P4_SERVE_BATCH // n
+    single = DeepModelTransformer(input_col="tokens", mini_batch_size=per_rank, device="cuda",
+                                  fetch_dict={"logits": "logits"}).set_model(bundle)
+    single.transform(Table({"tokens": tokens[:per_rank]}))
+    torch.cuda.synchronize()
+    flash_attention.launches, flash_attention.launches_by_path = 0, {}
+    t0 = time.perf_counter()
+    want = np.asarray(single.transform(Table({"tokens": tokens}))["logits"])
+    doc["one_rank_ms"]["serving"] = (time.perf_counter() - t0) * 1e3
+    errs["serving"] = _p4_check("serving", blocks("serving")[0], want, (0.0, 1e-4))
+    assert np.isfinite(want).all()
+
+    for name in ("tp_mlp", "pipeline", "serving"):
+        digests = {r["digests"][name] for r in ranks}
+        assert len(digests) == 1, f"slice_parallel {name}: the ranks hold different outputs"
+    want_k2 = SLICE_TRANSFORMER["num_layers"] * (P4_SERVE_ROWS // P4_SERVE_BATCH)
+    for r in ranks:
+        assert r["k2_launches"] == want_k2 and r["k2_by_path"] == {"wgmma": want_k2}, \
+            f"rank {r['rank']}: K2 {r['k2_by_path']} serving, want {want_k2} on wgmma"
+        assert r["axis"] == {"seq": n, "model": n, "data": n}, r["axis"]
+    for name in ranks[0]["layers"]:
+        doc["layers"][name] = {
+            "ms_slowest_rank": max(r["layers"][name]["ms"] for r in ranks),
+            "bytes_a_rank": [r["layers"][name]["bytes"] for r in ranks],
+            "collective_calls": ranks[0]["layers"][name]["collective_calls"],
+            "collective_ms_rank0": ranks[0]["layers"][name]["collective_ms"],
+            "max_abs_err": errs[name if name != "use_mesh_serving" else "serving"]}
+    doc["tolerances"] = {"attention": P4_ATTN_TOL, "tp_mlp": P4_TP_TOL,
+                         "pipeline": P4_PIPE_TOL, "moe": P4_MOE_TOL, "serving": (0.0, 1e-4)}
+    doc["moe"] = {"capacity_a_shard": cap, "dropped_tokens": dropped}
+    doc["k2_launches_by_rank"] = [r["k2_launches"] for r in ranks]
+    doc["seconds"] = time.perf_counter() - t_start
+    emit(doc)
+    print(f"slice_parallel on {card}: " + ", ".join(
+        f"{name} {d['ms_slowest_rank']:.1f} ms / {sum(d['bytes_a_rank']) / 2**20:.1f} MiB"
+        for name, d in doc["layers"].items()), flush=True)
+    return {**doc, "bundle": bundle,
+            "flash_launches_by_rank": {f"mesh_serving_rank{r['rank']}": r["k2_launches"]
+                                       for r in ranks}}
+
+
+# slice_elastic: elastic GBDT and DNN fits on real worker processes
+# once 10 rounds and 8,192 rows (32 steps): 68.5 s for the phase on an H100;
+# cut to keep the phase near its budget, both spawns and the respawn kept
+ELASTIC_GBDT = dict(rows=32768, held_out=8192, features=14, rounds=7, leaves=31, max_bin=255,
+                    virtual=8, workers=2, kill_at=3, respawn_at=6)
+ELASTIC_DNN = dict(rows=6144, features=TABULAR_F, hidden=[256, 256], classes=2, batch=256,
+                   epochs=1, virtual=8, workers=2, kill_at=8, respawn_at=16, lr=1e-3)
+ELASTIC_DEADLINE_S = 180.0       # each fit: past it the fleet is killed and the phase fails
+ELASTIC_GRAD_TOL = (2e-4, 2e-5)  # the trainer gate (tests/test_torch_trainer_common.py:13)
+
+
+class _LocalFleet:
+    """In-process stand-in for ServingFleet: one elastic worker handler a
+    URL, driven through the same protocol with no process (the reference
+    tests' `_LocalFleet`, tests/test_elastic_fleet.py:44-79)."""
+
+    def __init__(self, checkpoint_dir: str, n: int):
+        from mmlspark_tpu_torch.resilience import ElasticWorkerFactory
+
+        self.handlers = {f"http://local/{i:03d}": ElasticWorkerFactory(checkpoint_dir,
+                                                                       guard=False)()
+                         for i in range(n)}
+
+    urls = property(lambda self: list(self.handlers))
+
+    def watch(self, cb):
+        pass
+
+    def dump_all(self, trigger=""):
+        return 0
+
+    def stop(self):
+        pass
+
+    def post(self, url: str, body: dict) -> dict:
+        from mmlspark_tpu_torch.core import Table
+        from mmlspark_tpu_torch.io_http.schema import HTTPRequestData
+
+        rep = self.handlers[url](Table({"request": [HTTPRequestData.from_json("/", body)]}))
+        rep = rep["reply"][0]
+        doc = json.loads(bytes(rep.entity).decode("utf-8"))
+        if rep.status_code != 200:
+            raise RuntimeError(doc.get("error", "handler error"))
+        return doc
+
+
+def _chaos(kill_at: int, respawn_at: int, times: dict):
+    """The reference's chaos hook (tests/test_elastic_fleet.py:629-641) at
+    two steps: SIGKILL worker 0 at `kill_at`, respawn it at `respawn_at`
+    (timed). Before the kill it counts the card's contexts."""
+    def hook(fit):
+        if fit.step == kill_at and "killed_at" not in times:
+            times["killed_at"] = fit.step
+            times["contexts"] = len(_compute_apps())
+            fit.fleet.kill(0)
+        elif fit.step == respawn_at and "respawn_s" not in times:
+            t0 = time.perf_counter()
+            fit.fleet.respawn(fit.fleet.dead_slots()[0])
+            times["respawn_s"] = time.perf_counter() - t0
+    return hook
+
+
+def _bounded_fit(fit, *args, deadline_s: float = ELASTIC_DEADLINE_S):
+    """fit.fit(*args) under a deadline: past it a timer kills every worker
+    of the fleet (the fit then fails), and this raises."""
+    import threading
+
+    fired = threading.Event()
+
+    def kill_fleet():
+        fired.set()
+        fleet = fit.fleet
+        for slot in list(getattr(fleet, "live_slots", lambda: [])()):
+            try:
+                fleet.kill(slot)
+            except Exception:  # noqa: BLE001 — the fit fails either way
+                pass
+
+    timer = threading.Timer(deadline_s, kill_fleet)
+    timer.daemon = True
+    timer.start()
+    try:
+        return fit.fit(*args)
+    except BaseException as exc:
+        if fired.is_set():
+            raise RuntimeError(f"elastic {fit.kind} fit missed its {deadline_s} s "
+                               "deadline; its fleet was killed") from exc
+        raise
+    finally:
+        timer.cancel()
+
+
+def _elastic_fleet(checkpoint_dir: str, workers: int):
+    """A ServingFleet of elastic workers starting on a thread (its workers
+    load the spec at their first configure, so they can spawn while this
+    process fits the in-process reference). Returns a function that waits
+    for it: (fleet, spawn seconds)."""
+    from mmlspark_tpu_torch.io_http.serving import ServingFleet
+    from mmlspark_tpu_torch.resilience import ElasticWorkerFactory
+
+    fleet = ServingFleet(ElasticWorkerFactory(checkpoint_dir), n_hosts=workers,
+                         rendezvous=False, start_timeout_s=120.0,
+                         flight_recorder_dir=os.path.join(checkpoint_dir, "flight"))
+    pool = ThreadPoolExecutor(1)
+    t0 = time.perf_counter()
+    started = pool.submit(lambda: (fleet.start(), time.perf_counter() - t0)[1])
+
+    def wait() -> tuple:
+        try:
+            return fleet, started.result(timeout=180.0)
+        except BaseException:
+            fleet.stop()
+            raise
+        finally:
+            pool.shutdown(wait=False)
+    return wait
+
+
+def elastic_gbdt(tmp: Path) -> dict:
+    """(a) ElasticGBDTFit on the Adult shape over 2 ServingFleet workers
+    (spawned while the reference fits), worker 0 SIGKILLed at step 3 and
+    respawned at step 6; against an undisturbed P=1 fit through
+    in-process handlers."""
+    from mmlspark_tpu_torch.automl.metrics import auc
+    from mmlspark_tpu_torch.gbdt.hist_kernel import histogram
+    from mmlspark_tpu_torch.resilience import ElasticGBDTFit
+
+    c = ELASTIC_GBDT
+    x_all, y_all = make_dataset(c["rows"] + c["held_out"], c["features"])
+    real_dir = str(tmp / "gbdt_fleet")
+    contexts = len(_compute_apps())
+    started = _elastic_fleet(real_dir, c["workers"])
+    x, y, xv, yv = x_all[:c["rows"]], y_all[:c["rows"]], x_all[c["rows"]:], y_all[c["rows"]:]
+    kw = dict(objective="binary", num_iterations=c["rounds"], num_leaves=c["leaves"],
+              max_bin=c["max_bin"], num_virtual=c["virtual"], seed=0, device="cuda",
+              request_timeout_s=120.0)
+
+    local_dir = str(tmp / "gbdt_local")
+    os.makedirs(local_dir)
+    local = _LocalFleet(local_dir, 1)
+    calm = ElasticGBDTFit(local_dir, n_workers=1, fleet=local, post=local.post, **kw)
+    t0 = time.perf_counter()
+    try:
+        _bounded_fit(calm, x, y)
+    except BaseException:
+        started()[0].stop()
+        raise
+    local_s = time.perf_counter() - t0
+    fleet, spawn_s = started()
+    times: dict = {}
+    fit = ElasticGBDTFit(real_dir, n_workers=c["workers"], fleet=fleet,
+                         step_hook=_chaos(c["kill_at"], c["respawn_at"], times), **kw)
+    torch.cuda.synchronize()
+    histogram.launches = 0
+    t0 = time.perf_counter()
+    booster = _bounded_fit(fit, x, y)
+    fit_s = time.perf_counter() - t0
+    launches = histogram.launches
+    assert launches == 0, f"the elastic GBDT driver launched K1 {launches} times"
+    # host histograms: the workers open no context on the card
+    assert times["contexts"] == contexts, (times["contexts"], contexts)
+    assert fit.model_digest() == calm.model_digest(), \
+        "the elastic GBDT fit through a kill and a respawn differs from the calm P=1 fit"
+    causes = [r["cause"] for r in fit.reshards]
+    assert "death" in causes and "join" in causes, causes
+    assert booster.num_trees == c["rounds"] and booster.device.startswith("cuda")
+    raw_card = booster.predict_raw(xv, device="device")
+    raw_host = booster.predict_raw(xv, device="host")
+    assert np.array_equal(raw_card, raw_host), "card traversal differs from the host walk"
+    valid_auc = auc(yv, booster.predict(xv))
+    assert valid_auc > 0.75, f"elastic GBDT held-out AUC {valid_auc}"
+    return {"rows": c["rows"], "features": c["features"], "rounds": c["rounds"],
+            "num_leaves": c["leaves"], "max_bin": c["max_bin"], "num_virtual": c["virtual"],
+            "workers": c["workers"], "spawn_seconds": spawn_s,
+            "respawn_seconds": times.get("respawn_s"), "fit_seconds": fit_s,
+            "in_process_p1_seconds": local_s, "reshards": len(fit.reshards),
+            "reshard_causes": causes, "model_digest": fit.model_digest(),
+            "digest_equals_p1": True, "valid_auc": valid_auc, "driver_k1_launches": launches,
+            "card_equals_host_walk": True, "card_contexts_during_fit": times["contexts"],
+            "straggler_wait_s": fit.signals()["straggler_wait_s"]}
+
+
+def _stop_after_first_step(store: dict):
+    class _Stop(Exception):
+        pass
+
+    def hook(fit):
+        if fit.step == 1:
+            store["merged"] = np.array(fit.last_merged, copy=True)
+            raise _Stop
+    return hook, _Stop
+
+
+def elastic_dnn(tmp: Path) -> dict:
+    """(b) ElasticDNNFit of an MLP ([256, 256], 2 classes, input width 108)
+    over 2 ServingFleet workers on the card (spawned while the references
+    fit), worker 0 SIGKILLed at step 8 and respawned at step 16; against
+    an undisturbed P=1 in-process fit on the card, and its first merged
+    gradient against the CPU's."""
+    from mmlspark_tpu_torch.resilience import ElasticDNNFit
+
+    c = ELASTIC_DNN
+    rng = np.random.default_rng(41)
+    x = rng.normal(size=(c["rows"], c["features"])).astype(np.float32)
+    w = rng.normal(size=c["features"])
+    y = (x @ w + 0.5 * rng.normal(size=c["rows"]) > 0).astype(np.int64)
+    kw = dict(architecture="mlp", model_config={"features": c["hidden"]}, loss="softmax_ce",
+              optimizer="adam", learning_rate=c["lr"], epochs=c["epochs"],
+              batch_size=c["batch"], seed=0, num_virtual=c["virtual"], request_timeout_s=120.0)
+
+    def local_fit(name: str, device: str, hook=None):
+        d = str(tmp / name)
+        os.makedirs(d)
+        local = _LocalFleet(d, 1)
+        return ElasticDNNFit(d, n_workers=1, fleet=local, post=local.post, device=device,
+                             step_hook=hook, **kw)
+
+    real_dir = str(tmp / "dnn_fleet")
+    started = _elastic_fleet(real_dir, c["workers"])
+    try:
+        calm = local_fit("dnn_local", "cuda")
+        t0 = time.perf_counter()
+        _bounded_fit(calm, x, y)
+        local_s = time.perf_counter() - t0
+        first: dict = {}
+        hook, stop = _stop_after_first_step(first)
+        for name, device in (("card", "cuda"), ("host", "cpu")):
+            try:
+                _bounded_fit(local_fit(f"dnn_first_{name}", device, hook), x, y)
+            except stop:
+                first[name] = first.pop("merged")
+        rtol, atol = ELASTIC_GRAD_TOL
+        grad_err = float(np.max(np.abs(first["card"] - first["host"])))
+        assert np.allclose(first["card"], first["host"], rtol=rtol, atol=atol), \
+            f"first merged gradient card vs CPU: max |err| {grad_err}"
+    except BaseException:
+        started()[0].stop()
+        raise
+
+    fleet, spawn_s = started()
+    times: dict = {}
+    fit = ElasticDNNFit(real_dir, n_workers=c["workers"], fleet=fleet, device="cuda",
+                        step_hook=_chaos(c["kill_at"], c["respawn_at"], times), **kw)
+    t0 = time.perf_counter()
+    bundle = _bounded_fit(fit, x, y)
+    fit_s = time.perf_counter() - t0
+    steps = c["rows"] // c["batch"] * c["epochs"]
+    assert fit.step == calm.step == steps, (fit.step, calm.step, steps)
+    assert fit.params_digest() == calm.params_digest(), \
+        "the elastic DNN fit through a kill and a respawn differs from the calm P=1 fit"
+    causes = [r["cause"] for r in fit.reshards]
+    assert "death" in causes and "join" in causes, causes
+    flat = fit.params_flat()
+    assert np.isfinite(flat).all()
+    model = bundle.module.to("cuda")
+    with torch.no_grad():
+        logits = model(torch.as_tensor(x, device="cuda")).float()
+        loss = float(torch.nn.functional.cross_entropy(logits, torch.as_tensor(y, device="cuda")))
+        accuracy = float((logits.argmax(-1).cpu().numpy() == y).mean())
+    assert np.isfinite(loss), loss
+    return {"rows": c["rows"], "input_width": c["features"], "hidden": c["hidden"],
+            "batch": c["batch"], "steps": steps, "num_virtual": c["virtual"],
+            "workers": c["workers"], "spawn_seconds": spawn_s,
+            "respawn_seconds": times.get("respawn_s"), "fit_seconds": fit_s,
+            "steps_per_s": steps / fit_s, "in_process_p1_seconds": local_s,
+            "reshards": len(fit.reshards), "reshard_causes": causes,
+            "params_digest": fit.params_digest(), "digest_equals_p1": True,
+            "first_grad_card_vs_cpu_max_abs_err": grad_err, "final_loss": loss,
+            "train_accuracy": accuracy}
+
+
+def phase_slice_elastic(card: str) -> dict:
+    """Elastic training on the card: (a) an elastic GBDT fit whose workers
+    build host histograms (0 K1 launches in the driver), (b) an elastic
+    DNN fit whose workers compute on the card; each through a real SIGKILL
+    and a respawn, its model's digest equal to an undisturbed P=1 fit's.
+    Each fit runs under a deadline that kills its fleet."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    doc = {"phase": "slice_elastic", "card": card}
+    with tempfile.TemporaryDirectory(prefix="slice_elastic_", dir=ROOT / "build") as tmp:
+        doc["gbdt"] = elastic_gbdt(Path(tmp))
+        doc["dnn"] = elastic_dnn(Path(tmp))
+    doc["seconds"] = time.perf_counter() - t0
+    emit(doc)
+    g, d = doc["gbdt"], doc["dnn"]
+    print(f"slice_elastic on {card}: GBDT fit {g['fit_seconds']:.2f} s (spawn "
+          f"{g['spawn_seconds']:.2f} s, respawn {g['respawn_seconds']:.2f} s, "
+          f"{g['reshards']} re-shards), AUC {g['valid_auc']:.4f}; DNN {d['steps_per_s']:.1f} "
+          f"steps/s (spawn {d['spawn_seconds']:.2f} s, respawn {d['respawn_seconds']:.2f} s, "
+          f"{d['reshards']} re-shards), final loss {d['final_loss']:.4f}", flush=True)
+    return doc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
@@ -6074,7 +6758,8 @@ def main() -> int:
     checkpoint = phase_slice_checkpoint()
     phase_slice_lightgbm_import(adult, categorical)
     mesh = phase_slice_mesh(adult)
-    dnn = phase_slice_transformer()
+    parallel = phase_slice_parallel(mesh.pop("pool"), env["nvidia_smi"])
+    dnn = phase_slice_transformer(parallel.pop("bundle"))
     small = phase_small_transformer()
     wide = phase_serve_wide()
     phase_profile_transformer(dnn["stage"], dnn["tokens"])
@@ -6087,6 +6772,7 @@ def main() -> int:
     train = phase_slice_train()
     recsys = phase_slice_recsys_automl(env["nvidia_smi"])
     streaming = phase_slice_streaming(env["nvidia_smi"], dnn["bundle"], tabular.pop("model"))
+    elastic = phase_slice_elastic(env["nvidia_smi"])
 
     main_shape = kern["histogram"][0]
     flash_main = kern["flash_attention"][0]
@@ -6153,7 +6839,9 @@ def main() -> int:
                             "serving_regressor": serving["fit"]["histogram_launches"],
                             "recsys_tune": recsys["tune"]["histogram_launches"],
                             **{f"recsys_sweep_{name}": run["histogram_launches"]
-                               for name, run in recsys["sweep"]["runs"].items()}},
+                               for name, run in recsys["sweep"]["runs"].items()},
+                            # the elastic GBDT workers build host histograms
+                            "elastic_gbdt_driver": elastic["gbdt"]["driver_k1_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern["histogram"]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -6174,14 +6862,18 @@ def main() -> int:
         # wide transformer (D 192), the imported BERT-base-wide encoder
         # (D 64), slice_serving's transformer over HTTP (D 64, replayed
         # from the fused segment's CUDA graphs) and slice_fleet's two
-        # replicas of it behind the gateway (each replica's own count), and
-        # slice_streaming's streamed and profiled transformer (D 64)
+        # replicas of it behind the gateway (each replica's own count),
+        # slice_streaming's streamed and profiled transformer (D 64), and
+        # slice_parallel's use_mesh serving in each of the 4 ranks
+        # (`mesh_serving_rank*`, counted in each rank's process)
         "launches": (dnn["flash_launches"] + wide["bfloat16"]["flash_launches"]
                      + featurize["encoder"]["flash_launches"]
                      + serving["transformer_http"]["flash_launches"]
                      + fleet["transformer"]["flash_launches"]
-                     + streaming["flash_launches"]),
-        "launches_by_phase": {"slice_transformer": dnn["flash_launches"],
+                     + streaming["flash_launches"]
+                     + sum(parallel["flash_launches_by_rank"].values())),
+        "launches_by_phase": {**parallel["flash_launches_by_rank"],
+                              "slice_transformer": dnn["flash_launches"],
                               "serve_wide_bf16": wide["bfloat16"]["flash_launches"],
                               "slice_featurize": featurize["encoder"]["flash_launches"],
                               "slice_serving": serving["transformer_http"]["flash_launches"],

@@ -67,11 +67,6 @@ _TREE_FIELDS = ("feature", "threshold_bin", "is_categorical", "left", "right",
                 "value", "gain", "cat_bitset")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md Queue 1, {item!r}")
-
-
 @dataclass
 class TrainOptions:
     """Training hyperparameters (reference: the 19 params of
@@ -530,6 +525,23 @@ class Booster:
 
     def _tree_dict(self, t: int) -> dict[str, np.ndarray]:
         return {name: getattr(self, name)[t] for name in _TREE_FIELDS}
+
+    @staticmethod
+    def from_tree_dicts(
+        trees: "list[dict[str, np.ndarray]]",
+        tree_classes: "list[int]",
+        mapper: BinMapper,
+        opts: TrainOptions,
+        init: float,
+        feature_names: "list[str]",
+        device: str = "cuda",
+    ) -> "Booster":
+        """Assemble a Booster from per-tree dicts grown outside
+        `Booster.train` (the `parallel.dp.TreeBuilder.to_dict` layout), as
+        the elastic fit does (resilience/elastic_fleet.py): it scores and
+        serializes like a trained one, on `device`."""
+        return Booster._from_tree_dicts(
+            trees, tree_classes, mapper, opts, init, feature_names, device=device)
 
     @staticmethod
     def _from_tree_dicts(

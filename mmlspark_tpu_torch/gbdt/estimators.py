@@ -14,9 +14,10 @@ preempted one. `use_mesh` fits over the current mesh
 (parallel.mesh.get_mesh(): one process a shard, every rank calling `fit`
 on the whole table) and returns the same model on every rank;
 `tree_learner`, `top_k` and `deterministic` choose the learner and the
-histogram merge there. `elastic_workers` raises NotImplementedError
-naming the ROADMAP item that ports it. `load_native_model` reads the JSON
-format and LightGBM's model.txt.
+histogram merge there. `elastic_workers` fits over that many elastic
+fleet worker processes (resilience/elastic_fleet.py: host histograms, the
+driver's splits, a Booster scoring on `device`). `load_native_model`
+reads the JSON format and LightGBM's model.txt.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from ..core.pipeline import Estimator, Model
 from ..core.schema import SCORE_KIND, Table, host_array
 from ..core.serialize import register_stage
 from ..parallel.mesh import get_mesh
-from .booster import Booster, TrainOptions, _not_ported
+from .booster import Booster, TrainOptions
 from .sparse import as_features
 
 __all__ = [
@@ -102,14 +103,42 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCol):
     seed = Param(0, "master rng seed", ptype=int)
     checkpoint_dir = Param(None, "snapshot directory for preemption-tolerant training", ptype=str)
     checkpoint_every_n = Param(0, "boosting rounds between snapshots (0 = off)", ptype=int)
-    elastic_workers = Param(0, "fit over N elastic fleet workers (not ported yet: ROADMAP item 15)",
-                            ptype=int)
-    elastic_num_virtual = Param(32, "virtual shards for the elastic fit", ptype=int)
+    # Elastic data-parallel fit over ServingFleet worker processes
+    # (resilience/elastic_fleet.py): workers hold binned shards and ship
+    # per-virtual-shard histograms, the driver decides every split, and
+    # the fleet may grow or shrink mid-fit without changing the model.
+    elastic_workers = Param(
+        0, "fit data-parallel over N elastic fleet workers (0 = in-process)", ptype=int)
+    elastic_num_virtual = Param(
+        32, "virtual shards for the elastic fit (fixes the histogram merge order "
+        "independently of the live worker count)", ptype=int)
     device = Param("cuda", "torch device of the fit: cuda | cpu", ptype=str)
 
+    def _check_elastic_supported(self) -> None:
+        """The elastic grower covers the deterministic depth-wise core;
+        reject options it would silently ignore (reference
+        estimators.py:124-146)."""
+        if self.get("boosting_type") != "gbdt":
+            raise ValueError("elastic_workers supports boosting_type='gbdt'")
+        if self.get("bagging_freq") or self.get("bagging_fraction") != 1.0:
+            raise ValueError("elastic_workers does not support bagging")
+        if self.get("feature_fraction") != 1.0:
+            raise ValueError("elastic_workers does not support feature_fraction")
+        if self.get("early_stopping_round"):
+            raise ValueError("elastic_workers does not support early stopping")
+        if self.get("categorical_slot_indexes"):
+            raise ValueError("elastic_workers does not support categorical features")
+        if self.get("lambda_l1"):
+            raise ValueError("elastic_workers does not support lambda_l1")
+        if self.get("model_string"):
+            raise ValueError("elastic_workers does not support warm starts (model_string)")
+        if self.get("weight_col"):
+            raise ValueError("elastic_workers does not support weight_col")
+
+    def _elastic(self) -> bool:
+        return int(self.get("elastic_workers") or 0) > 0
+
     def _train_options(self, objective: str, num_class: int = 1) -> TrainOptions:
-        if int(self.get("elastic_workers") or 0) > 0:
-            raise _not_ported("elastic_workers", "item 15, elastic training")
         init_model = None
         if self.get("model_string"):
             init_model = Booster.from_text(self.get("model_string"), device=self.get("device"))
@@ -233,8 +262,18 @@ class GBDTClassifier(_GBDTParams, Estimator):
             objective = "binary" if num_class <= 2 else "multiclass"
         opts = self._train_options(objective, num_class=num_class)
         opts.is_unbalance = self.get("is_unbalance")
-        booster = Booster.train(x, y_idx, opts, weights=w, valid=valid, mesh=mesh,
-                                log=self._log())
+        if self._elastic():
+            self._check_elastic_supported()
+            if objective != "binary":
+                raise ValueError("elastic_workers supports the binary objective only")
+            if self.get("is_unbalance"):
+                raise ValueError("elastic_workers does not support is_unbalance")
+            from ..resilience.elastic_fleet import elastic_fit_gbdt
+
+            booster = elastic_fit_gbdt(self, x, y_idx, objective)
+        else:
+            booster = Booster.train(x, y_idx, opts, weights=w, valid=valid, mesh=mesh,
+                                    log=self._log())
         booster.class_labels = [float(c) for c in classes]
         model = GBDTClassificationModel(
             features_col=self.get("features_col"),
@@ -342,7 +381,14 @@ class GBDTRegressor(_GBDTParams, Estimator):
         opts.alpha = self.get("alpha")
         opts.tweedie_variance_power = self.get("tweedie_variance_power")
         opts.fair_c = self.get("fair_c")
-        booster = Booster.train(x, y, opts, weights=w, valid=valid, mesh=mesh, log=self._log())
+        if self._elastic():
+            self._check_elastic_supported()
+            from ..resilience.elastic_fleet import elastic_fit_gbdt
+
+            booster = elastic_fit_gbdt(self, x, y, self.get("objective"))
+        else:
+            booster = Booster.train(x, y, opts, weights=w, valid=valid, mesh=mesh,
+                                    log=self._log())
         model = GBDTRegressionModel(
             features_col=self.get("features_col"),
             prediction_col=self.get("prediction_col"),

@@ -22,8 +22,16 @@ per-(family, bucket) counters.
 
 `device_kernel` hands core/fusion.py the same `_forward` with the device
 model as its params, so a fused segment (a CUDA graph a shape on the
-card) runs it. Not ported: `use_mesh` (ROADMAP Queue 1 item 12c; item 10
-brought the mesh itself, parallel/mesh.py).
+card) runs it.
+
+`use_mesh` serves data-parallel on the current mesh's data axis
+(`get_mesh().axis("data")`, one process a shard): every rank calls the
+same transform on the whole table, the minibatch is rounded up to a
+multiple of the axis size, each rank scores its block of every minibatch
+on its device, and one all-gather a fetched output gives every rank all
+the rows. The fused tensor-parallel forward over a model axis (the
+reference's `_tp_forward_fn`, reached through fusion's `mesh_fn`) is not
+ported: fusion under a mesh of several ranks is ROADMAP item 11c.
 """
 
 from __future__ import annotations
@@ -67,7 +75,7 @@ class DeepModelTransformer(Model):
     fetch_dict = Param(
         {"output": "logits"}, "output column -> logits|probability|<layer path>")
     mini_batch_size = Param(64, "rows per device batch", ptype=int)
-    use_mesh = Param(False, "shard batches over the data mesh axis (not ported yet)",
+    use_mesh = Param(False, "shard batches over the data mesh axis",
                      ptype=bool)
     fused_dispatch = Param(
         True, "one host->device copy of the table, then a loop over minibatch views",
@@ -138,9 +146,11 @@ class DeepModelTransformer(Model):
         if self.bundle is None:
             raise ValueError("DeepModelTransformer has no model; call set_model()")
         if self.get("use_mesh"):
-            raise NotImplementedError(
-                "use_mesh is not ported yet for DNN serving (ROADMAP Queue 1, item 12c; "
-                "item 10 brought the mesh, mmlspark_tpu_torch.parallel)")
+            from ..parallel.mesh import DATA_AXIS, get_mesh
+
+            mesh = get_mesh().axis(DATA_AXIS)
+            if mesh.size > 1:
+                return self._transform_mesh(table, mesh)
         col = table[self.get("input_col")]
         x = np.stack(col) if isinstance(col, list) else np.asarray(col)
         n = x.shape[0]
@@ -185,6 +195,62 @@ class DeepModelTransformer(Model):
             kind = "probability" if fetch_name == "probability" else "raw_prediction"
             out = out.with_column(col_name, arr, meta={SCORE_KIND: kind})
         return out
+
+    def _transform_mesh(self, table: Table, mesh) -> Table:
+        """Data-parallel scoring over the 1-D data mesh `mesh` (reference
+        runner.py:146-190): the minibatch rounded up to a multiple of the
+        shards, shard i scoring rows [i bs/d, (i+1) bs/d) of every
+        minibatch, the outputs all-gathered so every rank returns the
+        whole table's."""
+        from ..parallel import collectives as C
+
+        col = table[self.get("input_col")]
+        x = np.stack(col) if isinstance(col, list) else np.asarray(col)
+        n = x.shape[0]
+        fetch = dict(self.get("fetch_dict"))
+        fetches = tuple(fetch.values())
+        d = mesh.size
+        bs = int(self.get("mini_batch_size"))
+        bs = ((bs + d - 1) // d) * d
+        per = bs // d
+        params = self._device_params(mesh.device)
+        model, mean, std = params["model"], params["mean"], params["std"]
+        device = mean.device
+        pad = (-n) % bs
+        if pad and n:
+            x = np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+        nb = x.shape[0] // bs
+        i = mesh.shard_index
+        mine = x.reshape((nb, bs) + x.shape[1:])[:, i * per:(i + 1) * per]
+        with torch.inference_mode():
+            xd = _to_device(np.ascontiguousarray(mine.reshape((nb * per,) + x.shape[1:])),
+                            device)
+            outs: list[list[torch.Tensor]] = [[] for _ in fetches]
+            for k in range(nb):
+                for acc, o in zip(outs, self._forward(model, fetches, xd[k * per:(k + 1) * per],
+                                                      mean, std)):
+                    acc.append(o)
+            cols = []
+            for acc in outs:
+                local = torch.cat(acc) if acc else torch.zeros(0)
+                every = C.all_gather(local.contiguous(), mesh, axis=0, tiled=False)
+                # (shards, nb * per, ...) -> minibatch order, shard blocks in turn
+                every = every.reshape((d, nb, per) + tuple(local.shape[1:]))
+                every = every.transpose(0, 1).reshape((nb * bs,) + tuple(local.shape[1:]))
+                cols.append(every[:n].cpu().numpy())
+        out = table
+        for (col_name, fetch_name), arr in zip(fetch.items(), cols):
+            kind = "probability" if fetch_name == "probability" else "raw_prediction"
+            out = out.with_column(col_name, arr, meta={SCORE_KIND: kind})
+        return out
+
+    def _tp_forward_fn(self, fetches: tuple[str, ...], mesh):
+        """The reference's column-parallel fused forward over a model axis
+        (runner.py:324-418), which core/fusion's `mesh_fn` reaches. Not
+        ported: fusion under a mesh of several ranks is ROADMAP item 11c."""
+        raise NotImplementedError(
+            "the fused tensor-parallel forward is not ported yet: fusion under a mesh of "
+            "several ranks is ROADMAP Queue 1 item 11c; use_mesh serves on the data axis")
 
     def _transform_fused(self, x: np.ndarray, bs: int, pad: int, model: nn.Module,
                          fetches: tuple[str, ...], mean, std) -> list[np.ndarray]:
@@ -244,10 +310,10 @@ class DeepModelTransformer(Model):
         }
         return [np.concatenate([c[j] for c in chunks]) for j in range(len(fetches))]
 
-    def _device_params(self) -> dict:
-        """The forward's params on the stage's device: the (bf16-cast)
-        model and the preprocessing mean and std."""
-        device = resolve_device(self.get("device"))
+    def _device_params(self, device=None) -> dict:
+        """The forward's params on `device` (default: the stage's): the
+        (bf16-cast) model and the preprocessing mean and std."""
+        device = resolve_device(device if device is not None else self.get("device"))
         pre = self.bundle.preprocess
         return {"model": self._device_model(device),
                 "mean": torch.as_tensor(np.asarray(pre.get("mean", 0.0), np.float32),
@@ -287,6 +353,8 @@ class DeepModelTransformer(Model):
             params=self._device_params(), name="DeepModelTransformer",
             out_dtypes={c: np.float32 for c in out_cols},
             out_meta=meta, ready=ready,
+            # the plan text is the JAX package's; _tp_forward_fn refuses
+            mesh_fn=lambda mesh: self._tp_forward_fn(fetches, mesh),
             mesh_desc=("rows P(data); dense kernels column-parallel "
                        "P(None,model) + tiled all_gather when the mesh has "
                        "a >1 model axis, else variables replicated"))

@@ -31,7 +31,9 @@ Checkpoints go through `TrainingCheckpointer` with the JAX trainer's cursor
 (epoch, batch) and payload: `nn/flax_blob.to_bytes` of {"epoch", "batch",
 "params", "batch_stats", "opt_state"} in flax's state-dict layout (optax's
 for the optimizer), so a snapshot of either package resumes in the other.
-On a mesh, shard 0's rank writes them. `elastic_workers` is not ported.
+On a mesh, shard 0's rank writes them. `elastic_workers` fits over that
+many elastic fleet worker processes (resilience/elastic_fleet.py) on
+`device`, without warm starts or frozen prefixes, as the JAX trainer.
 """
 
 from __future__ import annotations
@@ -194,18 +196,29 @@ class DNNLearner(HasFeaturesCol, HasLabelCol, Estimator):
         2, "minibatches prepared ahead in the streamed epoch loop (0 = sync)",
         ptype=int,
     )
+    # Elastic data-parallel fit over ServingFleet worker processes
+    # (resilience/elastic_fleet.py): the fleet may grow or shrink mid-fit
+    # without changing the resulting model's bytes.
     elastic_workers = Param(
-        0, "fit over N elastic fleet workers (not ported yet: ROADMAP item 15)", ptype=int)
-    elastic_num_virtual = Param(32, "virtual shards for the elastic fit", ptype=int)
+        0, "fit data-parallel over N elastic fleet workers (0 = in-process)", ptype=int)
+    elastic_num_virtual = Param(
+        32, "virtual shards for the elastic fit (fixes the gradient merge order "
+        "independently of the live worker count)", ptype=int)
     device = Param("cuda", "torch device of the fit: cuda | cpu", ptype=str)
 
     init_bundle: ModelBundle | None = None  # programmatic warm start
 
     def _fit(self, table: Table) -> "DNNModel":
         if int(self.get("elastic_workers") or 0) > 0:
-            raise NotImplementedError(
-                "elastic_workers is not ported yet; see ROADMAP.md Queue 1, "
-                "'item 15, elastic training'")
+            if self.init_bundle is not None or self.get("init_bundle_path"):
+                raise ValueError(
+                    "elastic_workers does not support warm starts "
+                    "(init_bundle / init_bundle_path)")
+            if self.get("trainable_prefixes"):
+                raise ValueError("elastic_workers does not support trainable_prefixes")
+            from ..resilience.elastic_fleet import elastic_fit_dnn
+
+            return elastic_fit_dnn(self, table)
         x_col = table[self.get("features_col")]
         x = np.stack(x_col) if isinstance(x_col, list) else np.asarray(x_col)
         y = np.asarray(table[self.get("label_col")])

@@ -1,7 +1,8 @@
-"""Distribution layer: the mesh as a torch.distributed process group and
-its collectives (counterpart of mmlspark_tpu/parallel's mesh and
-collectives). Ring and Ulysses attention, tensor and pipeline parallelism
-and MoE are not ported yet (ROADMAP.md Queue 1, item 12c)."""
+"""Distribution layer: the mesh as torch.distributed process groups, its
+collectives, and the parallel layers on it (counterpart of
+mmlspark_tpu/parallel): the data, model and sequence axes, the elastic
+fit's shard math (`dp`), ring and Ulysses attention, tensor and pipeline
+parallelism, and mixture-of-experts dispatch."""
 
 from .mesh import (
     DATA_AXIS,
@@ -21,7 +22,26 @@ from .mesh import (
     mesh_shape_label,
 )
 from . import collectives
+from . import dp
 from .launch import RankPool
+from .ring_attention import (
+    dense_attention,
+    ring_attention,
+    ulysses_attention,
+    make_ring_attention,
+    make_ulysses_attention,
+)
+from .tensor_parallel import (
+    column_parallel,
+    row_parallel,
+    ring_all_gather,
+    gathered_column_parallel,
+    column_block,
+    dense_column_blocks,
+    make_tp_mlp,
+)
+from .pipeline_parallel import PIPE_AXIS, make_pipe_mesh, pipeline_apply, pipeline_forward
+from .moe import EXPERT_AXIS, MoEParams, init_moe, moe_ffn_local, moe_ffn_sharded
 
 __all__ = [
     "DATA_AXIS",
@@ -40,5 +60,27 @@ __all__ = [
     "mesh_device_count",
     "mesh_shape_label",
     "collectives",
+    "dp",
     "RankPool",
+    "dense_attention",
+    "ring_attention",
+    "ulysses_attention",
+    "make_ring_attention",
+    "make_ulysses_attention",
+    "column_parallel",
+    "row_parallel",
+    "ring_all_gather",
+    "gathered_column_parallel",
+    "column_block",
+    "dense_column_blocks",
+    "make_tp_mlp",
+    "PIPE_AXIS",
+    "make_pipe_mesh",
+    "pipeline_apply",
+    "pipeline_forward",
+    "EXPERT_AXIS",
+    "MoEParams",
+    "init_moe",
+    "moe_ffn_local",
+    "moe_ffn_sharded",
 ]

@@ -35,8 +35,15 @@ fixed-point reduction (gbdt/engine.py).
 seconds spent in them since `reset_stats()`; under NCCL the seconds are
 the host's enqueue time, not the card's transfer time. `pcast` has no
 counterpart (it types JAX's shard_map carries; torch tensors carry no
-such type). `ppermute_ring` and `all_to_all` wait for ROADMAP.md Queue 1,
-item 12c.
+such type).
+
+`ppermute_ring` (one hop around the ring of shards, a send to the next and
+a receive from the previous) and `all_to_all` (tiled: split one axis over
+the shards, concatenate what arrives along another, in shard order) are
+autograd functions, because ring attention, Ulysses and MoE differentiate
+through them: a hop's gradient is the reverse hop, an all-to-all's the
+all-to-all with the two axes swapped. Every rank of the mesh must run the
+backward, in the same order.
 """
 
 from __future__ import annotations
@@ -56,6 +63,8 @@ __all__ = [
     "pmin",
     "all_gather",
     "reduce_scatter",
+    "ppermute_ring",
+    "all_to_all",
     "axis_index",
     "axis_size",
     "psum_ordered",
@@ -173,6 +182,93 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, scatter_dimension: int = 0) -> t
     shard table, so it is the sum's block on every backend."""
     total = psum(x, mesh)
     return total.chunk(mesh.size, dim=scatter_dimension)[axis_index(mesh)].contiguous()
+
+
+def _ppermute_ring(x: torch.Tensor, mesh: Mesh, reverse: bool) -> torch.Tensor:
+    """Shard i's x lands on shard i+1 (i-1 when `reverse`), mod the size."""
+    n = mesh.size
+    if n == 1:
+        return x
+    me = mesh.shard_index
+    step = -1 if reverse else 1
+    dst, src = mesh.ranks[(me + step) % n], mesh.ranks[(me - step) % n]
+    buf, t0 = _begin(x.contiguous(), mesh)
+    out = torch.empty_like(buf)
+    ops = [dist.P2POp(dist.isend, buf, dst, mesh.group),
+           dist.P2POp(dist.irecv, out, src, mesh.group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    _count(buf, t0)
+    return out.to(x.device)
+
+
+class _RingGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, reverse):
+        ctx.mesh, ctx.reverse = mesh, reverse
+        return _ppermute_ring(x, mesh, reverse)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute_ring(g.contiguous(), ctx.mesh, not ctx.reverse), None, None
+
+
+def ppermute_ring(x: torch.Tensor, mesh: Mesh, reverse: bool = False) -> torch.Tensor:
+    """Rotate shards one step around the ring (shard i's x to shard i+1),
+    the building block of ring attention; `reverse` rotates the other way.
+    Differentiable: the gradient hops back."""
+    if mesh.size == 1:
+        return x
+    return _RingGrad.apply(x, mesh, bool(reverse))
+
+
+def _all_to_all(x: torch.Tensor, mesh: Mesh, split_axis: int, concat_axis: int) -> torch.Tensor:
+    n = mesh.size
+    if n == 1:
+        return x
+    if x.shape[split_axis] % n:
+        raise ValueError(f"axis {split_axis} of {tuple(x.shape)} does not split over {n} shards")
+    buf, t0 = _begin(x, mesh)
+    chunks = [c.contiguous() for c in buf.chunk(n, dim=split_axis)]   # chunk j to shard j
+    me = mesh.shard_index
+    recv = [torch.empty_like(c) for c in chunks]
+    recv[me] = chunks[me]
+    # pairwise sends and receives: every backend has them (gloo has no
+    # all_to_all in some builds)
+    ops = []
+    for s in range(n):
+        if s != me:
+            ops.append(dist.P2POp(dist.isend, chunks[s], mesh.ranks[s], mesh.group))
+            ops.append(dist.P2POp(dist.irecv, recv[s], mesh.ranks[s], mesh.group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    out = torch.cat(recv, dim=concat_axis)
+    _count(buf, t0)
+    return out.to(x.device)
+
+
+class _AllToAllGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, split_axis, concat_axis):
+        ctx.mesh, ctx.axes = mesh, (split_axis, concat_axis)
+        return _all_to_all(x, mesh, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return _all_to_all(g.contiguous(), ctx.mesh, concat_axis, split_axis), None, None, None
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, split_axis: int, concat_axis: int) -> torch.Tensor:
+    """Tiled all-to-all (the Ulysses sequence <-> head reshard): `x` cut
+    into `mesh.size` blocks along `split_axis`, block j sent to shard j,
+    the blocks received concatenated along `concat_axis` in shard order.
+    Differentiable: the gradient is the all-to-all with the axes swapped."""
+    if mesh.size == 1:
+        return x
+    split_axis %= x.dim()
+    concat_axis %= x.dim()
+    return _AllToAllGrad.apply(x, mesh, split_axis, concat_axis)
 
 
 def axis_index(mesh: Mesh) -> int:

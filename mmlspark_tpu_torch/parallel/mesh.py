@@ -21,14 +21,20 @@ With no process group initialized, `get_mesh()` is a one-shard mesh, and a
 fit on it equals the fit without a mesh byte for byte (the reference's
 `mesh.shape[DATA] == 1` branch). `initialize_runtime` joins the processes.
 
-Only the data axis exists here. The model and sequence axes, and the
-sharding objects of the JAX package (`data_sharding`,
-`replicated_sharding`, `shard_row_counts`), have no counterpart: a rank
-holds its rows as plain tensors.
+`make_mesh(n_data, n_model, n_seq)` with a model or sequence axis lays the
+ranks out as the JAX package lays out devices: a row-major grid over
+(data, model), or (data, seq, model) when n_seq > 1. `mesh.axis(name)` is
+the 1-D mesh of the ranks that vary along that axis with this rank, with
+its own process group, and the collectives take it as they take a data
+mesh (ring and Ulysses attention on the seq axis, tensor parallelism on
+the model axis). The sharding objects of the JAX package
+(`data_sharding`, `replicated_sharding`, `shard_row_counts`) have no
+counterpart: a rank holds its rows as plain tensors.
 
 `make_mesh` and `split_mesh` call `dist.new_group` for a mesh that is not
-the whole world in rank order, and `new_group` is collective: every rank of
-the world calls them with the same arguments, in the same order.
+the whole world in rank order (a grid: for every line of every axis too),
+and `new_group` is collective: every rank of the world calls them with the
+same arguments, in the same order.
 """
 
 from __future__ import annotations
@@ -71,21 +77,32 @@ _tls = threading.local()
 
 
 class Mesh:
-    """A data-parallel mesh of processes.
+    """A mesh of processes.
 
-    `ranks[i]` is the global rank that holds shard i; `group` is the
-    process group the collectives run on (None: the default group, or no
-    group for a one-shard mesh outside torch.distributed); `device` is the
-    torch device this rank computes on, or None to leave it to the fit's
-    own `device` option."""
+    `ranks[i]` is the global rank that holds shard i (on a grid: the ranks
+    in row-major grid order); `group` is the process group the collectives
+    run on (None: the default group, or no group for a one-shard mesh
+    outside torch.distributed); `device` is the torch device this rank
+    computes on, or None to leave it to the fit's own `device` option.
+    `axis_names` and `axis_sizes` name the grid's axes ("data" alone for a
+    data mesh); `lines[name][rank]` is the 1-D mesh along `name` through
+    `rank`, which `axis(name)` returns."""
 
     def __init__(self, ranks: Sequence[int], group=None,
-                 device: "torch.device | None" = None):
+                 device: "torch.device | None" = None,
+                 axis_names: Sequence[str] = (DATA_AXIS,),
+                 axis_sizes: "Sequence[int] | None" = None,
+                 lines: "dict | None" = None):
         self.ranks = tuple(int(r) for r in ranks)
         if len(set(self.ranks)) != len(self.ranks) or not self.ranks:
             raise ValueError(f"a mesh needs distinct ranks, got {self.ranks}")
         self.group = group
         self.device = None if device is None else torch.device(device)
+        self.axis_names = tuple(axis_names)
+        self.axis_sizes = tuple(int(n) for n in axis_sizes) if axis_sizes else (len(self.ranks),)
+        if int(np.prod(self.axis_sizes)) != len(self.ranks):
+            raise ValueError(f"axes {self.axis_sizes} do not hold {len(self.ranks)} ranks")
+        self.lines = lines or {}
 
     @property
     def size(self) -> int:
@@ -93,8 +110,26 @@ class Mesh:
 
     @property
     def shape(self) -> dict:
-        """{"data": shards, "model": 1}, as the JAX package's mesh.shape."""
-        return {DATA_AXIS: self.size, MODEL_AXIS: 1}
+        """{"data": shards, "model": 1} for a data mesh, as the JAX
+        package's mesh.shape; {axis: size} of a grid or of a 1-D mesh
+        along another axis."""
+        if self.axis_names == (DATA_AXIS,):
+            return {DATA_AXIS: self.size, MODEL_AXIS: 1}
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    def axis(self, name: str) -> "Mesh":
+        """The 1-D mesh of the ranks that vary along axis `name` with this
+        rank (its shard index is this rank's position on the axis). An
+        axis of size 1, or one the mesh lacks, is this rank alone."""
+        if self.axis_names == (name,):
+            return self
+        if name in self.lines:
+            me = dist.get_rank() if dist.is_initialized() else self.ranks[0]
+            if me not in self.lines[name]:
+                raise ValueError(f"rank {me} is not on this mesh's {name!r} axis")
+            return self.lines[name][me]
+        me = dist.get_rank() if dist.is_initialized() else self.ranks[0]
+        return Mesh((me,), None, self.device, (name,))
 
     @property
     def shard_index(self) -> int:
@@ -112,7 +147,9 @@ class Mesh:
             dist.barrier(group=self.group)
 
     def __repr__(self) -> str:
-        return f"Mesh(ranks={self.ranks}, device={self.device})"
+        axes = "" if self.axis_names == (DATA_AXIS,) else \
+            f", axes={dict(zip(self.axis_names, self.axis_sizes))}"
+        return f"Mesh(ranks={self.ranks}{axes}, device={self.device})"
 
 
 def _world() -> int:
@@ -195,26 +232,57 @@ def make_mesh(
     ranks: "Sequence[int] | None" = None,
     device: "str | torch.device | None" = None,
 ) -> Mesh:
-    """A data mesh over `ranks` (default: the first n_data ranks of the
-    world, in rank order). `ranks` in another order permutes which rank
-    holds which shard. Outside torch.distributed only a one-shard mesh
-    exists."""
-    if n_model != 1 or n_seq != 1:
-        raise NotImplementedError(
-            "model and sequence axes are not ported yet; see ROADMAP.md Queue 1, item 12c")
+    """A mesh over `ranks` (default: the first ranks of the world, in rank
+    order). `ranks` in another order permutes which rank holds which shard.
+    With n_model or n_seq above 1 the ranks form a row-major grid over
+    (data, model), or (data, seq, model) when n_seq > 1, the JAX package's
+    axis order, and n_data defaults to the world over the other axes.
+    Outside torch.distributed only a one-shard mesh exists. `device`
+    (None: the fit's own option, or the card an NCCL rank owns) is checked:
+    "cuda" without a card raises RuntimeError."""
     world = _world()
+    n_model, n_seq = int(n_model), int(n_seq)
+    if n_model < 1 or n_seq < 1:
+        raise ValueError(f"axis sizes must be >= 1, got model={n_model} seq={n_seq}")
+    inner = n_model * n_seq
     if ranks is None:
-        n = world if n_data is None else int(n_data)
-        if n > world:
-            raise ValueError(f"mesh {n}x{n_seq}x{n_model} needs {n} processes, have {world}")
-        ranks = range(n)
+        n = world // inner if n_data is None else int(n_data)
+        need = n * inner
+        if need > world or n < 1:
+            raise ValueError(
+                f"mesh {n}x{n_seq}x{n_model} needs {max(need, inner)} processes, have {world}")
+        ranks = range(need)
     ranks = tuple(int(r) for r in ranks)
-    if n_data is not None and len(ranks) != n_data:
-        raise ValueError(f"n_data={n_data} but {len(ranks)} ranks given")
+    if n_data is not None and len(ranks) != n_data * inner:
+        raise ValueError(f"n_data={n_data} x {inner} but {len(ranks)} ranks given")
+    if len(ranks) % inner:
+        raise ValueError(f"{len(ranks)} ranks do not fill a grid of {n_seq}x{n_model}")
     if any(not 0 <= r < world for r in ranks):
         raise ValueError(f"ranks {ranks} outside the world of {world} processes")
-    return Mesh(ranks, _group_for(ranks),
-                device if device is not None else _default_device())
+    if device is not None:
+        from ..core.kernels import resolve_device
+
+        device = resolve_device(device)
+    else:
+        device = _default_device()
+    if inner == 1:
+        return Mesh(ranks, _group_for(ranks), device)
+    if n_seq > 1:
+        names, sizes = (DATA_AXIS, SEQ_AXIS, MODEL_AXIS), (len(ranks) // inner, n_seq, n_model)
+    else:
+        names, sizes = (DATA_AXIS, MODEL_AXIS), (len(ranks) // inner, n_model)
+    grid = np.asarray(ranks).reshape(sizes)
+    lines: dict = {}
+    for ax, name in enumerate(names):
+        # every rank walks every line in the same order: new_group is collective
+        by_rank = {}
+        for line in np.moveaxis(grid, ax, -1).reshape(-1, sizes[ax]):
+            line = tuple(int(r) for r in line)
+            sub = Mesh(line, _group_for(line), device, (name,))
+            for r in line:
+                by_rank[r] = sub
+        lines[name] = by_rank
+    return Mesh(ranks, _group_for(ranks), device, names, sizes, lines)
 
 
 def get_mesh() -> Mesh:

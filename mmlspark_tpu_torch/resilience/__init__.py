@@ -6,14 +6,17 @@ ChaosTransformer, which the fleet's chaos tests inject faults through) and
 `elastic` (TrainingCheckpointer, PreemptionGuard), which the checkpointed
 GBDT fit uses, and `supervisor` (RestartPolicy, QuerySupervisor,
 PartitionSupervisor), whose RestartPolicy TuneHyperparameters retries
-trials under. The JAX package's elastic_fleet module is not ported yet
-(ROADMAP.md Queue 1, item 15)."""
+trials under, and `elastic_fleet` (ElasticWorkerFactory, ElasticGBDTFit,
+ElasticDNNFit): data-parallel fits over ServingFleet worker processes that
+may die and join mid-fit without changing the model's bytes."""
 
 from .breaker import (BreakerRegistry, CircuitBreaker, CircuitBreakerTransformer,
                       CircuitOpenError)
 from .chaos import ChaosError, ChaosTransformer, FaultInjector
 from .elastic import (RESUMABLE_EXIT_CODE, Preempted, PreemptionGuard, TrainingCheckpointer,
                       get_active_guard, preempt_now, set_active_guard)
+from .elastic_fleet import (WORLD_SIZE_GAUGE, ElasticDNNFit, ElasticGBDTFit,
+                            ElasticWorkerFactory, elastic_fit_dnn, elastic_fit_gbdt)
 from .policy import (SYSTEM_CLOCK, Clock, FakeClock, RetryBudgetExceeded, RetryPolicy,
                      RetrySession, SystemClock, is_fatal_exception, is_retryable_exception,
                      is_retryable_status)
@@ -28,4 +31,6 @@ __all__ = [
     "TrainingCheckpointer", "PreemptionGuard", "Preempted", "RESUMABLE_EXIT_CODE",
     "get_active_guard", "set_active_guard", "preempt_now",
     "QuerySupervisor", "PartitionSupervisor", "RestartPolicy",
+    "ElasticWorkerFactory", "ElasticDNNFit", "ElasticGBDTFit", "elastic_fit_dnn",
+    "elastic_fit_gbdt", "WORLD_SIZE_GAUGE",
 ]

@@ -111,7 +111,8 @@ def test_categorical_and_mesh_options_raise():
     # the mesh learners run on several ranks (tests/test_torch_gbdt_mesh*.py);
     # without a mesh of several shards, voting has no effect and a one-shard
     # mesh is no mesh, as in the reference: the same tree bit for bit. A
-    # model or sequence axis still raises.
+    # model axis of 2 needs 2 processes, which a one-process world lacks,
+    # as the JAX package's make_mesh needs its devices.
     from mmlspark_tpu_torch.parallel.mesh import make_mesh
 
     bins, grad, hess, mask = _inputs(500, seed=8)
@@ -126,5 +127,5 @@ def test_categorical_and_mesh_options_raise():
         for a, b in zip(got[0], plain[0]):
             assert torch.equal(a, b)
         assert torch.equal(got[1], plain[1]) and torch.equal(got[2], plain[2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs 2 processes"):
         make_mesh(n_data=1, n_model=2)

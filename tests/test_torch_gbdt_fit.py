@@ -138,7 +138,9 @@ def test_options_outside_the_slice_raise(data, opts):
 def test_estimator_options_outside_the_slice_raise(data, params):
     # use_mesh fits over get_mesh(): one shard outside torch.distributed,
     # which equals the fit without a mesh byte for byte (several ranks:
-    # tests/test_torch_gbdt_mesh.py); elastic_workers still raises
+    # tests/test_torch_gbdt_mesh.py); elastic_workers needs a
+    # checkpoint_dir for its spec, as the reference's (the fits themselves:
+    # tests/test_torch_elastic_fleet.py)
     x, y = data
     table = Table({"features": x, "label": y})
     if "use_mesh" in params:
@@ -146,5 +148,5 @@ def test_estimator_options_outside_the_slice_raise(data, params):
         want = GBDTClassifier(device="cpu", num_iterations=2).fit(table)
         assert got.booster.to_text() == want.booster.to_text()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 15"):
+    with pytest.raises(ValueError, match="checkpoint_dir"):
         GBDTClassifier(device="cpu", num_iterations=2, **params).fit(table)

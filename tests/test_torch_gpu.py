@@ -1106,3 +1106,19 @@ def test_streaming_query_fuses_its_segments_onto_the_card(cuda):
     want = stage.transform(Table({"x": x}))["l"]
     np.testing.assert_allclose(np.asarray(sink.table()["l"]), np.asarray(want),
                                atol=1e-4, rtol=1e-4)
+
+
+def test_elastic_dnn_digest_on_the_card_is_the_same_at_one_and_two_workers(cuda, tmp_path):
+    # in-process workers on the card (the real-process kill and respawn is
+    # chip_smoke.py's slice_elastic): every shard's padded batch is the same
+    # cuBLAS problem in any worker, so the fit's bytes do not depend on P
+    from test_torch_elastic_common import cls_data, dnn_fit, kill_add_hook
+
+    x, y = cls_data(n=256, f=12)
+    kw = dict(device="cuda", model_config={"features": [32, 32]}, batch_size=32)
+    one, bundle = dnn_fit(str(tmp_path / "p1"), x, y, 1, **kw)
+    two, _ = dnn_fit(str(tmp_path / "p2"), x, y, 2, hook=kill_add_hook(3, 6), **kw)
+    assert one.step == two.step == 16
+    assert one.params_digest() == two.params_digest()
+    assert np.isfinite(one.params_flat()).all()
+    assert bundle.variables["params"]["head"]["kernel"].shape == (32, 2)

@@ -83,6 +83,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "mmlspark_tpu_torch.streaming.sources", "mmlspark_tpu_torch.streaming.sinks",
                    "mmlspark_tpu_torch.streaming.state", "mmlspark_tpu_torch.streaming.query",
                    "mmlspark_tpu_torch.streaming.shuffle", "mmlspark_tpu_torch.streaming.joins",
-                   "mmlspark_tpu_torch.streaming.partition"):
+                   "mmlspark_tpu_torch.streaming.partition",
+                   "mmlspark_tpu_torch.parallel.dp",
+                   "mmlspark_tpu_torch.resilience.elastic_fleet",
+                   "mmlspark_tpu_torch.parallel.ring_attention",
+                   "mmlspark_tpu_torch.parallel.tensor_parallel",
+                   "mmlspark_tpu_torch.parallel.pipeline_parallel",
+                   "mmlspark_tpu_torch.parallel.moe"):
         assert module in out["modules"]
     assert out["leaked"] == [], f"the port pulled in: {out['leaked']}"

@@ -180,8 +180,16 @@ def test_zoo_resnet20_digits_gives_jax_logits():
 
 def test_stage_refusals(bundles):
     _, port = bundles
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _port_runner(port, use_mesh=True).transform(Table({"x": _tokens(2)}))
+    # use_mesh serves over get_mesh()'s data axis: one shard outside
+    # torch.distributed, the transform without a mesh (several ranks:
+    # tests/test_torch_parallel_p4.py); the fused tensor-parallel forward
+    # stays refused, ROADMAP item 11c
+    on_mesh = _port_runner(port, use_mesh=True).transform(Table({"x": _tokens(2)}))
+    plain = _port_runner(port).transform(Table({"x": _tokens(2)}))
+    for col in plain.columns:
+        np.testing.assert_array_equal(np.asarray(on_mesh[col]), np.asarray(plain[col]))
+    with pytest.raises(NotImplementedError, match="11c"):
+        _port_runner(port, use_mesh=True).device_kernel().mesh_fn(None)
     with pytest.raises(ValueError, match="no model"):
         DeepModelTransformer(input_col="x", device="cpu").transform(Table({"x": _tokens(2)}))
     if not torch.cuda.is_available():

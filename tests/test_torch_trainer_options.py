@@ -92,7 +92,9 @@ class TestDNNLearnerOptions:
 
     def test_elastic_workers_and_missing_card_raise(self):
         x, y = vector_table(n=32)
-        with pytest.raises(NotImplementedError, match="item 15"):
+        # the elastic fit writes its spec under checkpoint_dir, which it needs
+        # (the fits themselves: tests/test_torch_elastic_fleet.py)
+        with pytest.raises(ValueError, match="checkpoint_dir"):
             DNNLearner(elastic_workers=2, device="cpu").fit(Table({"features": x, "label": y}))
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="cuda"):
