@@ -165,6 +165,27 @@ kernel. It prints one JSON line per phase:
                compare_fits at 1e-4; fit seconds, collectives, bytes merged
                and their host-timed share; then a one-rank mesh on NCCL,
                its fit equal to slice_adult's byte for byte
+  slice_fusion_mesh  fused pipelines under a mesh of several ranks on
+               slice_mesh's 4 card ranks (handed on, not spawned again),
+               each part held against the same model's one-process fused
+               transform on the card: (a) the Adult regressor (fitted here
+               for slice_serving too) fused on a data mesh of 4 over
+               1,048,576 f32 rows in chunks of 65,536: every rank's
+               predictions byte-equal to one process's, mesh "4x1", no
+               capture, miss or recompile on a second transform; (b) the
+               serving transformer (bf16, flash) fused on the data mesh,
+               256 x 512 tokens at minibatch 64: within 1e-4, K2 exactly 8
+               x each rank's fused forwards, all on "wgmma"; (c) an f32
+               MLP (1,024 -> 4,096 -> 4,096 -> 8) fused on a 2 x 2 data x
+               model mesh, 4,096 rows: within 2e-4, placements ["custom"],
+               eager; (d) serve_model of (b)'s model with the mesh: shard
+               0 serves 128 requests of 512 ids from 16 keep-alive
+               clients, every reply within 1e-4, every rung divisible by
+               4, the followers stop; (e) a StreamingQuery of (a)'s model
+               over 8 micro-batches of 8,192 rows on the mesh: the sink
+               byte-equal to the one-rank query's; each part's ms at the
+               slowest rank, the bytes its collectives moved, and the
+               shard-skew ratio
   slice_parallel  the P4 layers on slice_mesh's 4 card ranks (handed on,
                not spawned again): ring and Ulysses attention on a seq axis
                of 4 (T 8,192, H 8, D 64, f32, causal and not, local_chunk
@@ -4066,12 +4087,13 @@ def serving_transformer(bundle=None) -> dict:
             "fused_vs_staged_max_abs": float(np.abs(fused - staged).max())}
 
 
-def phase_slice_serving(card: str, bundle=None) -> dict:
+def phase_slice_serving(card: str, bundle=None, regressor=None) -> dict:
     """Pipeline fusion and the serving server on the card (items a-c
     above); `card` (phase_env's nvidia-smi name and power limit) stands
-    beside every time and rate."""
+    beside every time and rate. `regressor`: serving_regressor()'s result
+    when it was fitted earlier (slice_fusion_mesh scores it first)."""
     t0 = time.perf_counter()
-    model, x, fit = serving_regressor()
+    model, x, fit = regressor if regressor is not None else serving_regressor()
     doc = {"phase": "slice_serving", "card": card, "fit": fit,
            "batch": serving_batch(model), "gbdt_http": serving_gbdt(model, x),
            "transformer_http": serving_transformer(bundle)}
@@ -6295,7 +6317,7 @@ def _cuda_ms(fn) -> tuple:
     return res, (time.perf_counter() - t0) * 1e3
 
 
-def phase_slice_parallel(pool, card: str) -> dict:
+def phase_slice_parallel(pool, card: str, bundle=None) -> dict:
     """The P4 layers on slice_mesh's pool of 4 gloo ranks sharing the card
     (no rank spawned again), each held against its one-rank counterpart
     on the card in this process: ring and Ulysses attention on a seq
@@ -6320,8 +6342,11 @@ def phase_slice_parallel(pool, card: str) -> dict:
     t_start = time.perf_counter()
     workdir = ROOT / "build" / "chip_smoke_mesh"
     try:
-        bundle = ModelBundle.init("transformer", (SLICE_TOKENS,), seed=0, attention_impl="flash",
-                                  dtype="bfloat16", **SLICE_TRANSFORMER)
+        if bundle is None:
+            bundle = ModelBundle.init("transformer", (SLICE_TOKENS,), seed=0,
+                                      attention_impl="flash", dtype="bfloat16",
+                                      **SLICE_TRANSFORMER)
+        workdir.mkdir(parents=True, exist_ok=True)
         path = workdir / "slice_transformer.bundle"
         bundle.save(str(path))
         ranks = pool.run(p4_rank_job, str(path), deadline_s=300)
@@ -6428,6 +6453,346 @@ def phase_slice_parallel(pool, card: str) -> dict:
     return {**doc, "bundle": bundle,
             "flash_launches_by_rank": {f"mesh_serving_rank{r['rank']}": r["k2_launches"]
                                        for r in ranks}}
+
+
+# slice_fusion_mesh: fused pipelines under a mesh of several ranks, on
+# slice_mesh's pool of 4 gloo ranks sharing the card
+FMESH_ROWS, FMESH_CHUNK = 1 << 20, 65536                  # (a) slice_serving's scoring rows
+FMESH_TOKEN_ROWS, FMESH_TOKEN_BATCH = 256, 64             # (b) bench.py's serving transformer
+FMESH_TP = dict(inputs=1024, features=(4096, 4096), outputs=8, rows=4096, batch=1024)   # (c)
+FMESH_REQUESTS, FMESH_CLIENTS, FMESH_MAX_BATCH = 128, 16, 16                            # (d)
+FMESH_STREAM_BATCHES, FMESH_STREAM_ROWS = 8, 8192                                       # (e)
+FMESH_TP_TOL, FMESH_DP_TOL = 2e-4, 1e-4
+
+
+def _fmesh_inputs(part: str):
+    """A part's inputs, seeded numpy: the same arrays in every process."""
+    if part == "gbdt":
+        return make_dataset(FMESH_ROWS, SERVE_FEATURES, seed=29)[0].astype(np.float32)
+    if part == "tokens":
+        return p4_inputs("serve")["tokens"].astype(np.float64)
+    if part == "requests":
+        rng = np.random.default_rng(41)
+        return rng.integers(0, SLICE_TRANSFORMER["vocab_size"],
+                            size=(FMESH_REQUESTS, SLICE_TOKENS)).astype(np.float64)
+    rng = np.random.default_rng(43)
+    return rng.normal(size=(FMESH_TP["rows"], FMESH_TP["inputs"])).astype(np.float32)
+
+
+def _fmesh_token_bodies() -> list:
+    return [json.dumps({c: int(v) for c, v in zip(STREAM_TOKEN_COLS, row)}).encode()
+            for row in _fmesh_inputs("requests")]
+
+
+def fusion_mesh_rank_job(regressor_path: str, bundle_path: str, mlp_path: str) -> dict:
+    """Run on every rank of slice_mesh's pool: parts (a)-(e) of
+    slice_fusion_mesh, each on this rank. Returns per part this rank's
+    digest of its output (shard 0 also the arrays this process compares), its
+    ms and the bytes its collectives moved, the segment's stats, and the
+    K2 launches (by path) and fused forwards of the transformer parts."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.core import Table, fuse, pipeline_model
+    from mmlspark_tpu_torch.gbdt.estimators import GBDTRegressionModel
+    from mmlspark_tpu_torch.io_http.schema import HTTPRequestData
+    from mmlspark_tpu_torch.io_http.serving import serve_model
+    from mmlspark_tpu_torch.nn import DeepModelTransformer, ModelBundle
+    from mmlspark_tpu_torch.nn.attention import flash_attention
+    from mmlspark_tpu_torch.parallel import collectives, make_mesh
+    from mmlspark_tpu_torch.streaming.query import StreamingQuery
+    from mmlspark_tpu_torch.streaming.sources import MemorySource
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    data = make_mesh(n_data=n, device="cuda")
+    grid = make_mesh(n_data=2, n_model=2, device="cuda")
+    out = {"rank": rank, "shard": data.shard_index, "parts": {}}
+
+    def timed(part, fn):
+        torch.cuda.synchronize()
+        collectives.reset_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        st = collectives.stats()
+        out["parts"].setdefault(part, {}).update(
+            ms=(time.perf_counter() - t0) * 1e3, bytes=st["bytes"], collective_calls=st["calls"])
+        return res
+
+    def seg_doc(fm) -> dict:
+        st = fm.last_stats["segments"][0]
+        return {k: st.get(k) for k in ("mesh_shape", "param_placements", "shard_skew_ratio",
+                                        "eager", "graph_captures", "graph_replays", "misses",
+                                        "recompiles", "rows_real", "rows_padded")}
+
+    # (a) the Adult regressor's fused traversal, 1,048,576 rows, data mesh of 4
+    model = GBDTRegressionModel.load_native_model(regressor_path, device="cuda")
+    x = _fmesh_inputs("gbdt")
+    fm = fuse(pipeline_model(model), mesh=data, mini_batch_size=FMESH_CHUNK, device="cuda")
+    fm.transform(Table({"features": x}))
+    seg = fm._ensure_segments()[0]
+    warm, captures = seg._exec_cache.stats(), seg.captures
+    pred = np.asarray(timed("a_gbdt", lambda: fm.transform(Table({"features": x})))["prediction"])
+    again = seg._exec_cache.stats()
+    out["parts"]["a_gbdt"].update(
+        digest=_p4_digest(pred), rows=len(pred), segment=seg_doc(fm),
+        second_run={"captures": seg.captures - captures,
+                    "misses": again["misses"] - warm["misses"],
+                    "recompiles": again["recompiles"] - warm["recompiles"]})
+
+    # (b) the serving transformer fused on the data mesh, 256 x 512 tokens
+    bundle = ModelBundle.load(bundle_path)
+    runner = DeepModelTransformer(input_col="features", bfloat16=False, device="cuda",
+                                  fetch_dict={"probability": "probability"}).set_model(bundle)
+    fm_t = fuse(pipeline_model(runner), mesh=data, mini_batch_size=FMESH_TOKEN_BATCH,
+                device="cuda")
+    tokens = _fmesh_inputs("tokens")
+    seg_t = fm_t._ensure_segments()[0]
+    k2 = {}
+    forwards0 = seg_t.forwards
+    flash_attention.launches, flash_attention.launches_by_path = 0, {}
+    fm_t.transform(Table({"features": tokens}))
+    prob = np.asarray(timed("b_transformer",
+                            lambda: fm_t.transform(Table({"features": tokens})))["probability"])
+    k2["b_transformer"] = (dict(flash_attention.launches_by_path), seg_t.forwards - forwards0)
+    out["parts"]["b_transformer"].update(digest=_p4_digest(prob), segment=seg_doc(fm_t))
+    if data.shard_index == 0:
+        out["parts"]["b_transformer"]["probability"] = prob
+
+    # (c) the tensor-parallel MLP on a 2 x 2 data x model mesh
+    mlp = DeepModelTransformer(input_col="x", device="cuda", mini_batch_size=FMESH_TP["batch"],
+                               fetch_dict={"logits": "logits"}).set_model(
+        ModelBundle.load(mlp_path))
+    fm_c = fuse(pipeline_model(mlp), mesh=grid, mini_batch_size=FMESH_TP["batch"], device="cuda")
+    xc = _fmesh_inputs("tp")
+    fm_c.transform(Table({"x": xc}))
+    logits = np.asarray(timed("c_tensor_parallel",
+                              lambda: fm_c.transform(Table({"x": xc})))["logits"])
+    out["parts"]["c_tensor_parallel"].update(digest=_p4_digest(logits), segment=seg_doc(fm_c),
+                                             describe=fm_c.describe())
+    if data.shard_index == 0:
+        out["parts"]["c_tensor_parallel"]["logits"] = logits
+
+    # (d) serve_model of (b)'s fused transformer: shard 0 serves, the others follow
+    warm_req = HTTPRequestData.from_json("/", json.loads(_fmesh_token_bodies()[0]))
+    forwards0 = seg_t.forwards
+    flash_attention.launches, flash_attention.launches_by_path = 0, {}
+
+    def serve():
+        srv = serve_model(fm_t, STREAM_TOKEN_COLS, output_col="probability", mesh=data,
+                          device="cuda", max_batch_size=FMESH_MAX_BATCH,
+                          warmup_request=warm_req)
+        if isinstance(srv, dict):
+            return {"followed": srv}
+        try:
+            _wait_ready(srv)
+            hp = srv.hot_path
+            assert hp is not None and hp.disabled is None, hp and hp.disabled
+            run = _drive(srv, _fmesh_token_bodies(), FMESH_CLIENTS)
+            return {"replies": np.stack([np.asarray(json.loads(e)["probability"], np.float64)
+                                         for e in run["replies"]]),
+                    "ladder": list(srv.bucketer.ladder), "resident_batches": hp.resident_batches,
+                    "paths": dict(hp.path_requests), "client_p50_ms": run["client_p50_ms"],
+                    "client_p99_ms": run["client_p99_ms"], "seconds": run["seconds"]}
+        finally:
+            srv.stop()
+
+    out["parts"]["d_serving"] = {}
+    out["parts"]["d_serving"].update(timed("d_serving", serve))
+    torch.cuda.synchronize()
+    # serve_model re-attached the mesh: the segment may be a fresh one
+    seg_d = fm_t._ensure_segments()[0]
+    k2["d_serving"] = (dict(flash_attention.launches_by_path),
+                       seg_d.forwards - (forwards0 if seg_d is seg_t else 0))
+
+    # (e) a StreamingQuery of (a)'s model over 8 micro-batches of 8,192 rows
+    def stream():
+        source = MemorySource()
+        q = StreamingQuery(source=source, transform=pipeline_model(model), mesh=data,
+                           device="cuda", source_lookahead=0)
+        if q.following:
+            runs = q.process_all_available()
+            q.stop()
+            return {"followed_runs": runs}
+        for b in range(FMESH_STREAM_BATCHES):
+            source.add_rows(Table({"features": x[b * FMESH_STREAM_ROWS:
+                                                 (b + 1) * FMESH_STREAM_ROWS]}))
+            q.process_all_available()
+        sink = np.asarray(q.sink.table()["prediction"])
+        batches = q.batches_processed
+        q.stop()
+        return {"digest": _p4_digest(sink), "rows": len(sink), "batches": batches}
+
+    out["parts"]["e_streaming"] = {}
+    out["parts"]["e_streaming"].update(timed("e_streaming", stream))
+    out["k2"] = k2
+    return out
+
+
+def phase_slice_fusion_mesh(pool, card: str, regressor) -> dict:
+    """Fused pipelines under a mesh of several ranks, on slice_mesh's pool
+    of 4 gloo ranks sharing the card (no rank spawned again), each part
+    held against the same model's one-process fused transform on the card
+    in this process: (a) the Adult regressor (slice_serving's, fitted on
+    the Adult shape; a classification model is not fusable in either
+    package: its probabilities are float64 on the host) as a fused
+    pipeline on a data mesh of 4 over slice_serving's 1,048,576 f32
+    scoring rows in chunks of 65,536 (16,384 a rank): every rank's output
+    byte-equal to the one-process transform, mesh shape "4x1", no capture,
+    miss or recompile on the second transform; (b) the serving transformer
+    (8 layers, d_model 512, bf16 bundle, flash) fused on the data mesh,
+    256 rows x 512 tokens at minibatch 64: within 1e-4 of the one-process
+    transform at the ranks' block size, K2 exactly 8 x each rank's fused
+    forwards, all on "wgmma"; (c) an f32 "mlp" bundle at slice_parallel's
+    TP width (input 1,024, features 4,096 and 4,096, 8 outputs) fused on a
+    2 x 2 data x model mesh, 4,096 rows at minibatch 1,024: within 2e-4,
+    placements ["custom"], eager; (d) serve_model of (b)'s fused
+    transformer with the mesh: shard 0 serves 128 requests of 512 seeded
+    ids from 16 keep-alive clients, every reply within 1e-4 of the
+    one-process transform, every rung divisible by 4, the followers stop;
+    (e) a StreamingQuery of (a)'s model over 8 micro-batches of 8,192 of
+    (a)'s rows on the mesh: the sink byte-equal to the one-rank query's.
+    Per part: ms at the slowest rank, the bytes the ranks' collectives
+    moved, shard_skew_ratio. Returns the transformer bundle for
+    slice_parallel, which closes the pool."""
+    from mmlspark_tpu_torch.core import Table, fuse, pipeline_model
+    from mmlspark_tpu_torch.nn import DeepModelTransformer, ModelBundle
+    from mmlspark_tpu_torch.streaming.query import StreamingQuery
+    from mmlspark_tpu_torch.streaming.sources import MemorySource
+
+    t_start = time.perf_counter()
+    workdir = ROOT / "build" / "chip_smoke_fusion_mesh"
+    workdir.mkdir(parents=True, exist_ok=True)
+    try:
+        bundle = ModelBundle.init("transformer", (SLICE_TOKENS,), seed=0, attention_impl="flash",
+                                  dtype="bfloat16", **SLICE_TRANSFORMER)
+        mlp = ModelBundle.init("mlp", (FMESH_TP["inputs"],), seed=0,
+                               num_outputs=FMESH_TP["outputs"], features=FMESH_TP["features"])
+        paths = {"regressor": workdir / "regressor.model", "bundle": workdir / "transformer.bundle",
+                 "mlp": workdir / "mlp.bundle"}
+        regressor.save_native_model(str(paths["regressor"]))
+        bundle.save(str(paths["bundle"]))
+        mlp.save(str(paths["mlp"]))
+        ranks = pool.run(fusion_mesh_rank_job, str(paths["regressor"]), str(paths["bundle"]),
+                         str(paths["mlp"]), deadline_s=300)
+    except BaseException:
+        pool.close(kill=True)
+        raise
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    ranks = sorted(ranks, key=lambda r: r["shard"])
+    n = len(ranks)
+    lead = ranks[0]["parts"]
+    doc = {"phase": "slice_fusion_mesh", "card": card, "ranks": n, "backend": "gloo",
+           "parts": {}}
+    layers = SLICE_TRANSFORMER["num_layers"]
+
+    # the one-process references, fused on the card in this process
+    x = _fmesh_inputs("gbdt")
+    one = fuse(pipeline_model(regressor), mini_batch_size=FMESH_CHUNK, device="cuda")
+    one.transform(Table({"features": x}))
+    t0 = time.perf_counter()
+    want_a = np.asarray(one.transform(Table({"features": x}))["prediction"])
+    one_ms = {"a_gbdt": (time.perf_counter() - t0) * 1e3}
+    runner = DeepModelTransformer(input_col="features", bfloat16=False, device="cuda",
+                                  fetch_dict={"probability": "probability"}).set_model(bundle)
+    one_t = fuse(pipeline_model(runner), mini_batch_size=FMESH_TOKEN_BATCH // n, device="cuda")
+    tokens = _fmesh_inputs("tokens")
+    one_t.transform(Table({"features": tokens}))
+    t0 = time.perf_counter()
+    want_b = np.asarray(one_t.transform(Table({"features": tokens}))["probability"])
+    one_ms["b_transformer"] = (time.perf_counter() - t0) * 1e3
+    want_d = np.asarray(one_t.transform(Table({"features": _fmesh_inputs("requests")}))
+                        ["probability"])
+    mlp_stage = DeepModelTransformer(input_col="x", device="cuda", fetch_dict={"logits": "logits"},
+                                     mini_batch_size=FMESH_TP["batch"]).set_model(mlp)
+    one_c = fuse(pipeline_model(mlp_stage), mini_batch_size=FMESH_TP["batch"], device="cuda")
+    xc = _fmesh_inputs("tp")
+    one_c.transform(Table({"x": xc}))
+    t0 = time.perf_counter()
+    want_c = np.asarray(one_c.transform(Table({"x": xc}))["logits"])
+    one_ms["c_tensor_parallel"] = (time.perf_counter() - t0) * 1e3
+    source = MemorySource()
+    q = StreamingQuery(source=source, transform=pipeline_model(regressor), device="cuda",
+                       source_lookahead=0)
+    for b in range(FMESH_STREAM_BATCHES):
+        source.add_rows(Table({"features": x[b * FMESH_STREAM_ROWS:(b + 1) * FMESH_STREAM_ROWS]}))
+        q.process_all_available()
+    want_e = _p4_digest(np.asarray(q.sink.table()["prediction"]))
+    q.stop()
+
+    def same_digest(part):
+        digests = {r["parts"][part]["digest"] for r in ranks}
+        assert len(digests) == 1, f"slice_fusion_mesh {part}: the ranks hold different outputs"
+        return digests.pop()
+
+    assert same_digest("a_gbdt") == _p4_digest(want_a), \
+        "slice_fusion_mesh (a): the mesh's predictions differ from the one-process transform"
+    for r in ranks:
+        a = r["parts"]["a_gbdt"]
+        assert a["rows"] == FMESH_ROWS and a["segment"]["mesh_shape"] == f"{n}x1", a
+        assert a["second_run"] == {"captures": 0, "misses": 0, "recompiles": 0}, a["second_run"]
+    same_digest("b_transformer")
+    err_b = float(np.abs(lead["b_transformer"]["probability"] - want_b).max())
+    assert err_b <= FMESH_DP_TOL, f"slice_fusion_mesh (b): max |err| {err_b}"
+    same_digest("c_tensor_parallel")
+    err_c = _p4_check("fusion_mesh_tp", lead["c_tensor_parallel"]["logits"], want_c,
+                      (FMESH_TP_TOL, FMESH_TP_TOL))
+    for r in ranks:
+        c = r["parts"]["c_tensor_parallel"]["segment"]
+        assert c["mesh_shape"] == "2x2" and c["param_placements"] == ["custom"] and c["eager"], c
+    d = lead["d_serving"]
+    err_d = float(np.abs(d["replies"] - want_d).max())
+    assert d["replies"].shape == want_d.shape and err_d <= FMESH_DP_TOL, \
+        f"slice_fusion_mesh (d): max |err| {err_d}"
+    assert all(rung % n == 0 for rung in d["ladder"]), d["ladder"]
+    for r in ranks[1:]:
+        followed = r["parts"]["d_serving"]["followed"]
+        assert followed["dispatches"] == followed["fetches"], followed
+    e = lead["e_streaming"]
+    assert e["batches"] == FMESH_STREAM_BATCHES and e["digest"] == want_e, \
+        "slice_fusion_mesh (e): the mesh query's sink differs from the one-rank query's"
+    for r in ranks[1:]:
+        assert r["parts"]["e_streaming"]["followed_runs"] == FMESH_STREAM_BATCHES, r["parts"]
+    for r in ranks:
+        for part, (by_path, forwards) in r["k2"].items():
+            assert forwards > 0 and by_path == {"wgmma": layers * forwards}, \
+                f"rank {r['rank']} {part}: K2 {by_path} for {forwards} fused forwards"
+
+    for part in ("a_gbdt", "b_transformer", "c_tensor_parallel", "d_serving", "e_streaming"):
+        entry = {"ms_slowest_rank": max(r["parts"][part]["ms"] for r in ranks),
+                 "bytes_a_rank": [r["parts"][part]["bytes"] for r in ranks],
+                 "collective_calls_rank0": lead[part]["collective_calls"]}
+        seg = lead[part].get("segment")
+        if seg is not None:
+            entry["segment"] = seg
+            entry["shard_skew_ratio"] = seg["shard_skew_ratio"]
+        if part in one_ms:
+            entry["one_process_ms"] = one_ms[part]
+        doc["parts"][part] = entry
+    doc["parts"]["b_transformer"]["max_abs_err"] = err_b
+    doc["parts"]["c_tensor_parallel"]["max_abs_err"] = err_c
+    doc["parts"]["c_tensor_parallel"]["describe"] = lead["c_tensor_parallel"]["describe"]
+    doc["parts"]["d_serving"].update(
+        max_abs_err=err_d, requests=FMESH_REQUESTS, clients=FMESH_CLIENTS, ladder=d["ladder"],
+        resident_batches=d["resident_batches"], paths=d["paths"],
+        client_p50_ms=d["client_p50_ms"], client_p99_ms=d["client_p99_ms"],
+        followed=[r["parts"]["d_serving"]["followed"] for r in ranks[1:]])
+    doc["parts"]["e_streaming"].update(batches=e["batches"], rows=e["rows"],
+                                       sink_equals_one_rank_query=True)
+    k2_by_rank = {f"fusion_mesh_rank{r['rank']}": sum(by_path["wgmma"]
+                                                        for by_path, _ in r["k2"].values())
+                  for r in ranks}
+    doc["k2_launches_by_rank"] = k2_by_rank
+    doc["tolerances"] = {"a_gbdt": "bytes", "b_transformer": FMESH_DP_TOL,
+                         "c_tensor_parallel": FMESH_TP_TOL, "d_serving": FMESH_DP_TOL,
+                         "e_streaming": "bytes"}
+    doc["seconds"] = time.perf_counter() - t_start
+    emit(doc)
+    print(f"slice_fusion_mesh on {card}: " + ", ".join(
+        f"{part} {p['ms_slowest_rank']:.1f} ms / {sum(p['bytes_a_rank']) / 2**20:.1f} MiB"
+        + (f" skew {p['shard_skew_ratio']:.3f}" if p.get("shard_skew_ratio") else "")
+        for part, p in doc["parts"].items()), flush=True)
+    return {**doc, "bundle": bundle, "flash_launches_by_rank": k2_by_rank}
 
 
 # slice_elastic: elastic GBDT and DNN fits on real worker processes
@@ -6758,7 +7123,10 @@ def main() -> int:
     checkpoint = phase_slice_checkpoint()
     phase_slice_lightgbm_import(adult, categorical)
     mesh = phase_slice_mesh(adult)
-    parallel = phase_slice_parallel(mesh.pop("pool"), env["nvidia_smi"])
+    regressor = serving_regressor()          # slice_fusion_mesh's and slice_serving's
+    fusion_mesh = phase_slice_fusion_mesh(mesh["pool"], env["nvidia_smi"], regressor[0])
+    parallel = phase_slice_parallel(mesh.pop("pool"), env["nvidia_smi"],
+                                    fusion_mesh.pop("bundle"))
     dnn = phase_slice_transformer(parallel.pop("bundle"))
     small = phase_small_transformer()
     wide = phase_serve_wide()
@@ -6767,7 +7135,7 @@ def main() -> int:
     phase_slice_zoo()
     featurize = phase_slice_featurize()
     tabular = phase_slice_tabular(env["nvidia_smi"])
-    serving = phase_slice_serving(env["nvidia_smi"], dnn["bundle"])
+    serving = phase_slice_serving(env["nvidia_smi"], dnn["bundle"], regressor)
     fleet = phase_slice_fleet(env["nvidia_smi"], serving.pop("regressor"), dnn["bundle"])
     train = phase_slice_train()
     recsys = phase_slice_recsys_automl(env["nvidia_smi"])
@@ -6863,16 +7231,21 @@ def main() -> int:
         # (D 64), slice_serving's transformer over HTTP (D 64, replayed
         # from the fused segment's CUDA graphs) and slice_fleet's two
         # replicas of it behind the gateway (each replica's own count),
-        # slice_streaming's streamed and profiled transformer (D 64), and
+        # slice_streaming's streamed and profiled transformer (D 64),
         # slice_parallel's use_mesh serving in each of the 4 ranks
-        # (`mesh_serving_rank*`, counted in each rank's process)
+        # (`mesh_serving_rank*`, counted in each rank's process), and
+        # slice_fusion_mesh's fused transformer and its server in each of
+        # the 4 ranks (`fusion_mesh_rank*`, replayed from each rank's
+        # CUDA graphs, counted in each rank's process)
         "launches": (dnn["flash_launches"] + wide["bfloat16"]["flash_launches"]
                      + featurize["encoder"]["flash_launches"]
                      + serving["transformer_http"]["flash_launches"]
                      + fleet["transformer"]["flash_launches"]
                      + streaming["flash_launches"]
-                     + sum(parallel["flash_launches_by_rank"].values())),
+                     + sum(parallel["flash_launches_by_rank"].values())
+                     + sum(fusion_mesh["flash_launches_by_rank"].values())),
         "launches_by_phase": {**parallel["flash_launches_by_rank"],
+                              **fusion_mesh["flash_launches_by_rank"],
                               "slice_transformer": dnn["flash_launches"],
                               "serve_wide_bf16": wide["bfloat16"]["flash_launches"],
                               "slice_featurize": featurize["encoder"]["flash_launches"],

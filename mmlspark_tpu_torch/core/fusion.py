@@ -53,14 +53,43 @@ composition runs eagerly under the same cache accounting. The
 `donate_buffers` Param stays (and in the family key): a graph reuses its
 static input buffers, which is what donation is here.
 
+Fusion under a mesh of several ranks
+------------------------------------
+The reference row-shards one program over the chips of one process with
+GSPMD; the port's mesh is one process a rank (parallel/mesh.py), so a
+fused segment under a mesh of several ranks runs SPMD over processes:
+
+* Every rank calls `transform` with the same host table. The chunk size
+  rounds up to a multiple of the data-axis size d, the ladder is
+  `ShapeBucketer(bs, shards=d)`, and rank i uploads only its block of each
+  padded chunk (`DeviceTable.from_host(shardings=...)`), runs that block
+  through its own CUDA graph (rung / d rows), and at fetch time the
+  outputs are all-gathered over the data axis
+  (`collectives.all_gather_rows`): every rank returns the whole table,
+  the same bytes on every rank.
+* Collectives never run inside a graph capture: the gather follows the
+  replay. A segment whose body runs collectives itself (a kernel's
+  `mesh_fn` marks such a body `collectives = True`, as the
+  tensor-parallel MLP's) runs eagerly on the card; `stats` and
+  `describe` say so.
+* Params are "replicated" (whole on every rank), "none", or "custom" (the
+  body and this rank's params from the kernel's `mesh_fn`), as the
+  reference records them. The family key carries (mesh shape,
+  placements) only under a sharded mesh; a mesh of one rank, or none, is
+  the single-device path, byte for byte.
+* Where only shard 0 holds the input (a server's request batch, a
+  stream's micro-batch), shard 0 leads (`_MeshLead`): before each fused
+  run, and each resident dispatch and fetch, it broadcasts a control word
+  (and the padded batch), and the other ranks, in
+  `FusedPipelineModel._follow`, receive it and run their block, until a
+  stop word. A lead idle for 5 s sends an idle word, so a
+  follower's wait never reaches the process group's timeout while shard 0
+  lives; a follower that is gone fails the lead's next collective, and a
+  stop that never comes fails the follower's wait at that timeout.
+  Neither hangs.
+
 Not ported: `ResidentExecutor.aot_args`, which serves the JAX package's
-tools/aot_gate.py (it lowers JAX programs), and fusion under a mesh of
-more than one rank (ROADMAP item 11c): the reference row-shards one
-program over the chips of one process with GSPMD, while the port's mesh
-is one process a rank. `fuse`, `set_mesh` and `use_mesh` raise
-NotImplementedError for such a mesh; a mesh of one rank, or none, is the
-single-device path, as in the reference. `DeviceKernel.mesh_fn` stays,
-unused.
+tools/aot_gate.py (it lowers JAX programs).
 
 Integration
 -----------
@@ -80,7 +109,9 @@ wraps (a saved one loads in either package).
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import itertools
 import threading
 import time
 from dataclasses import dataclass, field
@@ -132,11 +163,15 @@ class DeviceKernel:
     value-dependent `ready` but no `ready_values` keeps paying the full
     check — no precondition is ever silently skipped).
 
-    `mesh_fn` and `mesh_desc` are the reference's mesh hooks; the port
-    keeps them for the plan text (fusion under a mesh of more than one
-    rank is ROADMAP item 11c). `kernel_label` names the device program
-    variant (e.g. the GBDT models' `fused_traverse`) so the plan output
-    pins WHICH program a segment runs."""
+    `mesh_fn(mesh)` is the reference's mesh hook: under a mesh of several
+    ranks it returns None (the default: this body, params whole on every
+    rank) or `(body, rank_params)`, another body and the params THIS rank
+    holds (placement "custom"). A body that runs collectives itself
+    carries the attribute `collectives = True`; its segment then runs
+    eagerly, never in a CUDA graph. `mesh_desc` is the plan text's
+    sharding line. `kernel_label` names the device program variant (e.g.
+    the GBDT models' `fused_traverse`) so the plan output pins WHICH
+    program a segment runs."""
 
     fn: Callable[[Any, dict], dict]
     input_cols: tuple[str, ...]
@@ -195,11 +230,13 @@ class FusionPlan:
         return fused, staged
 
     def describe(self, mesh: Any = None, donate: "bool | None" = None,
-                 pipeline_depth: "int | None" = None) -> str:
+                 pipeline_depth: "int | None" = None,
+                 eager: "Sequence[int]" = ()) -> str:
         """Human-readable segment plan, the same text as the JAX
         package's. With a mesh, each fused segment also shows the mesh
         shape; `donate` / `pipeline_depth` (the model's runtime knobs)
-        print next to it."""
+        print next to it. The segments listed in `eager` (their bodies run
+        collectives) say that they run eagerly."""
         lines = []
         fused_t, staged_t = self.transfers_per_batch()
         mesh_label = ("x".join(str(s) for s in mesh.shape.values())
@@ -211,6 +248,8 @@ class FusionPlan:
                 suffix += f" donate={'on' if donate else 'OFF'}"
             if seg.fused and pipeline_depth is not None:
                 suffix += f" in_flight={int(pipeline_depth) + 1}"
+            if seg.fused and i in eager:
+                suffix += " eager (collectives in its body)"
             lines.append(f"segment {i} [{kind}]{suffix}")
             for sp in seg.stages:
                 name = type(sp.stage).__name__
@@ -327,10 +366,11 @@ def _add_counts(delta: list, sign: int = 1) -> None:
 
 class _DeviceOuts(tuple):
     """A dispatch's output tensors plus the CUDA event recorded after
-    them (None on the CPU): `_is_ready` queries it, `_block_ready` waits
-    on it."""
+    them (None on the CPU and for an eager run): `_is_ready` queries it,
+    `_block_ready` waits on it. `seq` numbers a led resident dispatch."""
 
     event: Any = None
+    seq: int = -1
 
 
 # `torch.cuda.graph` captures on one capture stream shared by the whole
@@ -410,12 +450,15 @@ class _CudaGraphExec:
 class _FusedSegment:
     """One maximal run of device-capable stages run as a single
     composition over device-resident columns on `device`: a CUDA graph a
-    shape on the card, the eager composition on the CPU."""
+    shape on the card, the eager composition on the CPU. Under a `mesh`
+    of several ranks each rank runs its block of every chunk (module
+    docstring)."""
 
-    def __init__(self, index: int, plans: list[StagePlan], donate: bool = False,
-                 device: str = "cuda"):
+    def __init__(self, index: int, plans: list[StagePlan], mesh: Any = None,
+                 donate: bool = False, device: str = "cuda"):
         self.index = index
         self.plans = plans
+        self.mesh = mesh
         self.donate = bool(donate)
         # resolved at the first build: planning needs no card
         self.device = torch.device(device)
@@ -437,6 +480,10 @@ class _FusedSegment:
         self._exec_cache = ExecutableCache()
         self._device_params = None
         self._bodies = None
+        self._param_placements: "tuple[str, ...] | None" = None
+        # a body that runs collectives (mesh_fn's `collectives = True`)
+        # keeps the segment out of CUDA graphs
+        self.eager_collectives = False
         # CUDA graphs by (rows, dtypes, trailing shapes): the run path and
         # the resident path share a shape's graph (their cache keys differ,
         # as the reference's do, while jax's own cache holds one program)
@@ -456,13 +503,37 @@ class _FusedSegment:
     # -- build ---------------------------------------------------------- #
 
     def _build(self) -> tuple:
-        """The kernels' params, moved to the segment's device once."""
+        """The kernels' params, moved to the segment's device once, and
+        their placements: "single" without a mesh; under one, "none"
+        (no params), "replicated" (whole on every rank) or "custom" (the
+        body and this rank's params from the kernel's `mesh_fn`)."""
         if self._device_params is None:
             self.device = resolve_device(self.device)
+            bodies, params, placements = [], [], []
+            for k in self.kernels:
+                body, mine = k.fn, None
+                if self.mesh is not None and k.mesh_fn is not None:
+                    spec = k.mesh_fn(self.mesh)
+                    if spec is not None:
+                        body, mine = spec
+                bodies.append(body)
+                if self.mesh is None:
+                    params.append(k.params)
+                    placements.append("single")
+                elif k.params is None:
+                    params.append(None)
+                    placements.append("none")
+                elif mine is None:
+                    params.append(k.params)
+                    placements.append("replicated")
+                else:
+                    params.append(mine)
+                    placements.append("custom")
             self._device_params = tuple(
-                _to_device(k.params, self.device) if k.params is not None else None
-                for k in self.kernels)
-            self._bodies = [k.fn for k in self.kernels]
+                _to_device(p, self.device) if p is not None else None for p in params)
+            self._bodies = bodies
+            self._param_placements = tuple(placements)
+            self.eager_collectives = any(getattr(b, "collectives", False) for b in bodies)
         return self._device_params
 
     def _composed(self, params_tuple, in_arrays) -> tuple:
@@ -493,16 +564,47 @@ class _FusedSegment:
     def _executable(self, args: tuple):
         """The builder `ExecutableCache.get_or_build` times: on the card
         the capture of this shape's graph (once, shared between run and
-        resident paths), on the CPU the eager composition."""
-        if self.device.type == "cuda":
+        resident paths), on the CPU, and for a body that runs collectives,
+        the eager composition."""
+        if self.device.type == "cuda" and not self.eager_collectives:
             return self._graph_for(args)
         return self._eager_call
 
     def _family_key(self, ins: dict) -> Any:
         """Executable-cache family: program lineage = this segment's column
-        contract and whether its batch buffers are donated (reused)."""
-        return (id(self), ("donate", self.donate), tuple(
+        contract and whether its batch buffers are donated (reused), plus,
+        under a mesh, (mesh_shape, sharding_spec): a mesh change is a NEW
+        family, never a recompile of the old one."""
+        base = (id(self), ("donate", self.donate), tuple(
             (c, str(ins[c].dtype), ins[c].shape[1:]) for c in self.upload_cols))
+        if self.mesh is None:
+            return base
+        self._build()  # placements are part of the lineage
+        spec = tuple(zip((k.name for k in self.kernels), self._param_placements)) + tuple(
+            (c, "P(data)") for c in self.upload_cols)
+        return ExecutableCache.family_key(
+            base, mesh_shape=tuple(self.mesh.shape.items()), sharding_spec=spec)
+
+    def _data_axis(self):
+        """The ranks that hold this rank's model-axis block and split the
+        rows between them (the whole mesh on a data mesh)."""
+        from ..parallel.mesh import DATA_AXIS
+
+        return self.mesh.axis(DATA_AXIS)
+
+    def _gather(self, outs: tuple, readback: "list | None" = None) -> tuple:
+        """This rank's block of every output read back to the host, then
+        every shard's blocks all-gathered over the data axis, in shard
+        order. `readback` accumulates [seconds, rows] of this rank's own
+        copies (the shard-skew gauge)."""
+        from ..parallel import collectives as C
+
+        t0 = time.perf_counter()
+        mine = [o.cpu().numpy() for o in outs]
+        if readback is not None:
+            readback[0] += time.perf_counter() - t0
+            readback[1] += int(mine[0].shape[0]) if mine else 0
+        return tuple(C.all_gather_rows(mine, self._data_axis()))
 
     # -- execution ------------------------------------------------------ #
 
@@ -565,11 +667,24 @@ class _FusedSegment:
         n = table.num_rows
         params = self._build()
         bs = max(int(mini_batch_size), 1)
-        mesh_label = "1"
+        mesh = self.mesh
+        if mesh is None:
+            mesh_label, d, shardings = "1", 1, None
+        else:
+            from ..parallel.mesh import DATA_AXIS, mesh_shape_label
+
+            mesh_label = mesh_shape_label(mesh)
+            d = int(mesh.shape.get(DATA_AXIS, 1))
+            # every shard gets equal rows: chunk size (and therefore every
+            # full chunk) must divide evenly over the data axis
+            bs = -(-bs // d) * d
+            shardings = {c: mesh for c in self.upload_cols}
         # The ladder must depend only on mini_batch_size, never on the row
         # count of THIS table: an n-derived max would mint n-specific bucket
-        # shapes for small tables and recapture in steady state.
-        bucketer = ShapeBucketer(bs) if shape_buckets else None
+        # shapes for small tables and recapture in steady state. Under a
+        # mesh the ladder is skew-aware (`shards=d`): every rung splits
+        # into d equal blocks.
+        bucketer = ShapeBucketer(bs, shards=d) if shape_buckets else None
         ins = {c: np.asarray(table[c]) for c in self.upload_cols}
         family = self._family_key(ins)
         stats = {
@@ -583,6 +698,12 @@ class _FusedSegment:
             "rows_real": 0, "rows_padded": 0,
             "ready_on_fetch": 0, "fetched": 0,
         }
+        if mesh is not None:
+            stats["param_placements"] = list(self._param_placements)
+            if self.eager_collectives:
+                stats["eager"] = "collectives in its body"
+        # [seconds, rows] of this rank's own readback copies
+        readback_acc = [0.0, 0]
 
         def prepare(start: int):
             stop = min(start + bs, n)
@@ -603,9 +724,10 @@ class _FusedSegment:
             stats["rows_padded"] += target - m
             if bucketer is not None and target > m:
                 bucketer.note_pad(m, target)
-            # one upload per input column
+            # one upload per input column; under a mesh only this rank's
+            # block of the chunk's rows
             t0 = time.perf_counter()
-            dt = DeviceTable.from_host(cols, device=self.device)
+            dt = DeviceTable.from_host(cols, shardings=shardings, device=self.device)
             stats["h2d_seconds"] += time.perf_counter() - t0
             stats["uploads"] += len(self.upload_cols)
             return dt, m, target
@@ -624,7 +746,10 @@ class _FusedSegment:
             _block_ready(outs)
             stats["wait_seconds"] += time.perf_counter() - t0
             t0 = time.perf_counter()
-            host = tuple(o[:m].cpu().numpy() for o in outs)
+            if mesh is None:
+                host = tuple(o[:m].cpu().numpy() for o in outs)
+            else:
+                host = tuple(a[:m] for a in self._gather(outs, readback_acc))
             stats["fetch_seconds"] += time.perf_counter() - t0
             stats["downloads"] += len(host)
             return host
@@ -673,6 +798,23 @@ class _FusedSegment:
         stats.update(self._exec_cache.stats())
         stats.update(device=str(self.device), graph_captures=self.captures,
                      graph_replays=self.replays)
+        per_shard = None
+        if mesh is not None:
+            from ..parallel import collectives as C
+
+            data = self._data_axis()
+            per_shard = C.all_gather_floats(readback_acc, data)
+            secs, rows = per_shard[:, 0], per_shard[:, 1]
+            if secs.min() >= 1e-3:
+                skew = float(secs.max() / secs.min())
+            else:
+                # copy totals under ~1 ms a shard are timer noise, not
+                # imbalance: below that floor the gauge is the per-shard
+                # ROW skew the skew-aware ladder controls (the reference's
+                # rule)
+                skew = float(rows.max() / max(rows.min(), 1.0))
+            stats["shard_skew_ratio"] = skew
+            _set_shard_skew_gauge(fused_label, mesh_label, skew)
         if ledger.armed:
             host_prep = max(stats["prepare_seconds"] - stats["h2d_seconds"]
                             - stats["pad_seconds"], 0.0)
@@ -686,6 +828,9 @@ class _FusedSegment:
                 stats["dispatch_overlap_fraction"], 4))
             ledger.note_pad(stats["rows_real"],
                             stats["rows_real"] + stats["rows_padded"])
+            if per_shard is not None:
+                for rank, (sec, rows_) in zip(data.ranks, per_shard):
+                    ledger.note_shard(f"rank{rank}", float(sec), rows=int(rows_))
             ledger.done(rtt_s=time.perf_counter() - t_run0)
 
         out = table
@@ -724,13 +869,21 @@ class ResidentExecutor:
     the same pinned params, the same `out_dtypes` cast on read-back. Each
     dispatch returns fresh output tensors (the graph's own are copied out
     before the next replay can write over them). `round_trips` counts
-    upload+readback pairs — one per dispatched batch."""
+    upload+readback pairs — one per dispatched batch.
 
-    def __init__(self, segment: "_FusedSegment"):
+    Under a mesh of several ranks `dispatch` uploads this rank's block of
+    the batch and `fetch` gathers every block; with a `lead` (shard 0 of
+    a served model) each dispatch and fetch is first announced to the
+    following ranks, which do their part of it."""
+
+    def __init__(self, segment: "_FusedSegment", lead: "_MeshLead | None" = None):
         self.segment = segment
+        self._lead = lead
         self.upload_cols = segment.upload_cols
         self.download_cols = segment.download_cols
         self._params = segment._build()
+        self._shardings = (None if segment.mesh is None
+                           else {c: segment.mesh for c in segment.upload_cols})
         self._family_cache: dict[tuple, Any] = {}
         self.dispatches = 0
         self.round_trips = 0
@@ -741,9 +894,14 @@ class ResidentExecutor:
 
     @property
     def data_axis_size(self) -> int:
-        """Every dispatched batch's row count must divide by this: 1, the
-        single-device path."""
-        return 1
+        """Every dispatched batch's row count must divide by this (the
+        mesh data-axis size; 1 single-device). Serving builds its bucket
+        ladder with `multiple_of=` this so padded rungs stay shardable."""
+        if self.segment.mesh is None:
+            return 1
+        from ..parallel.mesh import DATA_AXIS
+
+        return int(self.segment.mesh.shape.get(DATA_AXIS, 1))
 
     # -- host-side preconditions ---------------------------------------- #
 
@@ -778,6 +936,17 @@ class ResidentExecutor:
         assemble the next batch before `fetch`ing."""
         if ledger is None:
             ledger = _LEDGER_FALLBACK
+        lead = self._lead
+        if lead is None:
+            return self._dispatch(cols, ledger)
+        seq = lead.next_seq()
+        with lead.op(_OP_DISPATCH, seq,
+                     cols={c: np.asarray(cols[c]) for c in self.upload_cols}):
+            outs = self._dispatch(cols, ledger)
+        outs.seq = seq
+        return outs
+
+    def _dispatch(self, cols: dict, ledger: Any) -> tuple:
         seg = self.segment
         with ledger.phase("prepare"):
             ins = {c: np.asarray(cols[c]) for c in self.upload_cols}
@@ -785,7 +954,7 @@ class ResidentExecutor:
             family = self._family_for(ins)
             shape_key = (rows, self._signature(ins))
         with ledger.phase("h2d"):
-            dt = DeviceTable.from_host(ins, device=seg.device)
+            dt = DeviceTable.from_host(ins, shardings=self._shardings, device=seg.device)
         args = tuple(dt[c] for c in self.upload_cols)
         fn = seg._exec_cache.get_or_build(
             family, shape_key, lambda: seg._executable(args))
@@ -802,6 +971,13 @@ class ResidentExecutor:
         same batch would have produced, bit for bit."""
         if ledger is None:
             ledger = _LEDGER_FALLBACK
+        lead = self._lead
+        if lead is None:
+            return self._fetch(outs, n_valid, ledger)
+        with lead.op(_OP_FETCH, outs.seq, n_valid):
+            return self._fetch(outs, n_valid, ledger)
+
+    def _fetch(self, outs: tuple, n_valid: int, ledger: Any) -> dict:
         self.fetches += 1
         if _is_ready(outs):
             self.ready_on_fetch += 1
@@ -810,8 +986,12 @@ class ResidentExecutor:
                 _block_ready(outs)
         result: dict[str, np.ndarray] = {}
         with ledger.phase("d2h"):
+            if self.segment.mesh is None:
+                host = tuple(o[:n_valid].cpu().numpy() for o in outs)
+            else:
+                host = tuple(a[:n_valid] for a in self.segment._gather(outs))
             for j, c in enumerate(self.download_cols):
-                arr = outs[j][:n_valid].cpu().numpy()
+                arr = host[j]
                 kern = self.segment._last_producer[c]
                 want = kern.out_dtypes.get(c)
                 if want is not None and arr.dtype != np.dtype(want):
@@ -874,14 +1054,95 @@ class ResidentExecutor:
 # --------------------------------------------------------------------- #
 
 
-def _refuse_multi_rank(mesh: Any) -> None:
-    from ..parallel.mesh import mesh_device_count
+# the control words shard 0 sends its followers: [op, a, b, 0]
+_OP_IDLE, _OP_RUN, _OP_DISPATCH, _OP_FETCH, _OP_STOP = range(5)
+# a lead idle this long sends an idle word: well inside any process
+# group's timeout (RankPool's 120 s, initialize_runtime's 600 s)
+_HEARTBEAT_S = 5.0
 
-    if mesh is not None and mesh_device_count(mesh) > 1:
-        raise NotImplementedError(
-            f"fusion under a mesh of {mesh_device_count(mesh)} ranks is not ported "
-            "yet (ROADMAP Queue 1 item 11c): the port's mesh is one process a "
-            "rank; fuse on each rank without a mesh")
+
+class _MeshLead:
+    """Shard 0's side of a mesh where only shard 0 holds the input (a
+    server's request batches, a stream's micro-batches): each fused run
+    (`_OP_RUN`, segment index, the upload columns) and each resident
+    dispatch (`_OP_DISPATCH`, its number, the padded batch) and fetch
+    (`_OP_FETCH`, its number, the valid rows) is announced by a control
+    word, then done by every rank together. One lock orders the words, so
+    the followers do the ops in the order shard 0 sends them. Idle for
+    `_HEARTBEAT_S`, the lead sends an idle word. A failed op marks the lead
+    broken: every later op raises. `close` sends the stop word."""
+
+    def __init__(self, mesh: Any):
+        self.mesh = mesh
+        self.ops = 0
+        self._lock = threading.Lock()
+        self._closed = False
+        self._error: "BaseException | None" = None
+        self._seq = itertools.count()
+        self._last = time.monotonic()
+        self._stop = threading.Event()
+        self._beat = threading.Thread(target=self._heartbeat, name="mesh-lead-heartbeat",
+                                      daemon=True)
+        self._beat.start()
+
+    def next_seq(self) -> int:
+        return next(self._seq)
+
+    def _check(self) -> None:
+        if self._error is not None:
+            raise RuntimeError(f"the mesh lead failed earlier: {self._error!r}") from self._error
+        if self._closed:
+            raise RuntimeError("the mesh lead is closed: its followers have stopped")
+
+    @contextlib.contextmanager
+    def op(self, code: int, a: int = 0, b: int = 0, cols: "dict | None" = None):
+        """Announce one op (and broadcast `cols`), then run the caller's
+        part of it, all under the lead's lock."""
+        from ..parallel import collectives as C
+
+        with self._lock:
+            self._check()
+            try:
+                C.broadcast_word([code, int(a), int(b), 0], self.mesh)
+                if cols is not None:
+                    C.broadcast_arrays(cols, self.mesh)
+                yield
+            except BaseException as e:
+                self._error = e
+                raise
+            finally:
+                self.ops += 1
+                self._last = time.monotonic()
+
+    def _heartbeat(self) -> None:
+        from ..parallel import collectives as C
+
+        while not self._stop.wait(_HEARTBEAT_S / 2):
+            if time.monotonic() - self._last < _HEARTBEAT_S:
+                continue
+            with self._lock:
+                if self._closed or self._error is not None:
+                    return
+                try:
+                    C.broadcast_word([_OP_IDLE, 0, 0, 0], self.mesh)
+                except BaseException as e:  # noqa: BLE001 - the next op raises it
+                    self._error = e
+                    return
+                self._last = time.monotonic()
+
+    def close(self) -> None:
+        """Stop the followers (once) and the heartbeat. A broken lead
+        sends nothing: its followers fail at the group's timeout."""
+        from ..parallel import collectives as C
+
+        self._stop.set()
+        with self._lock:
+            if not self._closed:
+                self._closed = True
+                if self._error is None:
+                    C.broadcast_word([_OP_STOP, 0, 0, 0], self.mesh)
+        if self._beat is not threading.current_thread():
+            self._beat.join(timeout=_HEARTBEAT_S)
 
 
 @register_stage
@@ -930,11 +1191,14 @@ class FusedPipelineModel(PipelineModel):
     #: stats from the most recent transform: per-segment timings, transfer
     #: counts, executable-cache counters, fusion ratio
     last_stats: "dict | None" = None
-    #: explicit mesh (runtime handle, not serialized state)
+    #: explicit mesh (runtime handle, not serialized state — like a model
+    #: bundle, it is re-attached after load via set_mesh)
     mesh: Any = None
     _segments: "list | None" = None
     _segments_key: "tuple | None" = None
     _plan: "FusionPlan | None" = None
+    _mesh: Any = None  # the normalized mesh the current segments run on
+    _lead: "_MeshLead | None" = None  # set on shard 0 of a served or streamed model
 
     def plan(self) -> FusionPlan:
         self._ensure_segments()
@@ -951,47 +1215,136 @@ class FusedPipelineModel(PipelineModel):
             fused = sum(1 for s in segments if isinstance(s, _FusedSegment))
             return (f"plan is {len(segments)} segments ({fused} fused) — a "
                     "resident session needs exactly one fused segment")
-        return ResidentExecutor(segments[0])
+        return ResidentExecutor(segments[0], lead=self._lead)
 
     def set_mesh(self, mesh: Any) -> "FusedPipelineModel":
         """Attach (or with None, detach) the mesh fused segments run
-        under; a mesh of more than one rank raises (ROADMAP item 11c).
-        Returns self."""
-        _refuse_multi_rank(mesh)
+        under; segments rebuild on next use. Returns self."""
         self.mesh = mesh
         self._segments = None
         return self
 
-    def _check_mesh(self) -> None:
-        """The mesh segments would run under (the explicit one, else
-        `get_mesh()` when `use_mesh` is set): one rank is the single-device
-        path, more raise."""
+    def _effective_mesh(self) -> Any:
+        """The mesh segments actually run on: the explicit one, else
+        `get_mesh()` when `use_mesh` is set — normalized to None whenever
+        it spans a single rank, so a trivial mesh IS the single-device
+        path (same programs, same cache keys)."""
         mesh = self.mesh
         if mesh is None and self.get("use_mesh"):
             from ..parallel.mesh import get_mesh
 
             mesh = get_mesh()
-        _refuse_multi_rank(mesh)
+        if mesh is None:
+            return None
+        from ..parallel.mesh import mesh_device_count
+
+        return mesh if mesh_device_count(mesh) > 1 else None
 
     def _ensure_segments(self):
-        self._check_mesh()
         stages = list(self.get("stages") or [])
+        mesh = self._effective_mesh()
         donate = bool(self.get("donate_buffers"))
         device = str(self.get("device"))
-        key = (tuple(id(s) for s in stages), donate, device)
+        key = (tuple(id(s) for s in stages), mesh, donate, device)
         if self._segments is None or self._segments_key != key:
             self._plan = plan_fusion(stages)
             self._segments = [
-                _FusedSegment(i, sp.stages, donate=donate, device=device)
+                _FusedSegment(i, sp.stages, mesh=mesh, donate=donate, device=device)
                 if sp.fused else sp
                 for i, sp in enumerate(self._plan.segments)]
             self._segments_key = key
+            self._mesh = mesh
         return self._segments
+
+    def describe(self) -> str:
+        """The plan text (`FusionPlan.describe`) under this model's mesh,
+        donation and pipeline window, with the segments that run eagerly
+        (their bodies run collectives) named."""
+        eager = []
+        for seg in self._ensure_segments():
+            if isinstance(seg, _FusedSegment) and seg.mesh is not None:
+                seg._build()
+                if seg.eager_collectives:
+                    eager.append(seg.index)
+        depth = self.get("pipeline_depth")
+        return self._plan.describe(
+            mesh=self._mesh, donate=bool(self.get("donate_buffers")),
+            pipeline_depth=self.get("readback_lag") if depth is None else depth,
+            eager=eager)
+
+    def _run_options(self) -> dict:
+        return {"mini_batch_size": self.get("mini_batch_size"),
+                "prefetch_depth": self.get("prefetch_depth"),
+                "shape_buckets": self.get("shape_buckets"),
+                "fused_label": self.get("fused_label"),
+                "readback_lag": self.get("readback_lag"),
+                "pipeline_depth": self.get("pipeline_depth")}
+
+    # -- one leading rank, the others following -------------------------- #
+
+    def _open_lead(self) -> "_MeshLead":
+        """On shard 0 of this model's mesh of several ranks: lead the
+        other ranks, which run `_follow`, through every fused run and
+        resident dispatch from now until `_close_lead`."""
+        mesh = self._effective_mesh()
+        if mesh is None or mesh.shard_index != 0:
+            raise ValueError("only shard 0 of a mesh of several ranks leads")
+        if self._lead is None:
+            self._lead = _MeshLead(mesh)
+        return self._lead
+
+    def _close_lead(self) -> None:
+        lead, self._lead = self._lead, None
+        if lead is not None:
+            lead.close()
+
+    def _follow(self) -> dict:
+        """On a rank other than shard 0: receive shard 0's control words
+        and run this rank's part of each fused run, resident dispatch and
+        fetch, until the stop word. Returns the ops done by kind. A word
+        that never comes fails at the process group's timeout."""
+        from ..parallel import collectives as C
+
+        mesh = self._effective_mesh()
+        if mesh is None or mesh.shard_index == 0:
+            raise ValueError("only a rank other than shard 0 of a mesh of several ranks follows")
+        segments = self._ensure_segments()
+        tracer = _get_tracer()
+        executor = None
+        in_flight: dict[int, tuple] = {}
+        done = {"runs": 0, "dispatches": 0, "fetches": 0, "idle": 0}
+        while True:
+            code, a, b, _ = C.broadcast_word(None, mesh)
+            if code == _OP_STOP:
+                return done
+            if code == _OP_IDLE:
+                done["idle"] += 1
+            elif code == _OP_RUN:
+                cols = C.broadcast_arrays(None, mesh)
+                segments[a].run(Table(cols), tracer=tracer, **self._run_options())
+                done["runs"] += 1
+            elif code == _OP_DISPATCH:
+                cols = C.broadcast_arrays(None, mesh)
+                if executor is None:
+                    executor = self.resident_executor()
+                    if isinstance(executor, str):
+                        raise RuntimeError(f"shard 0 dispatched, but {executor}")
+                in_flight[a] = executor.dispatch(cols)
+                done["dispatches"] += 1
+            elif code == _OP_FETCH:
+                executor.fetch(in_flight.pop(a), b)
+                done["fetches"] += 1
+            else:
+                raise RuntimeError(f"unknown control word {code} from shard 0")
 
     def _transform(self, table: Table) -> Table:
         segments = self._ensure_segments()
         tracer = _get_tracer()
         mesh_label = "1"
+        if self._mesh is not None:
+            from ..parallel.mesh import mesh_shape_label
+
+            mesh_label = mesh_shape_label(self._mesh)
         stats: dict[str, Any] = {
             "segments": [], "uploads": 0, "downloads": 0,
             "fusion_ratio": self._plan.fusion_ratio,
@@ -1012,15 +1365,12 @@ class FusedPipelineModel(PipelineModel):
                         "mesh_shape": "1",  # ran staged on the host path
                     }
                 else:
-                    current, seg_stats = seg.run(
-                        current,
-                        mini_batch_size=self.get("mini_batch_size"),
-                        prefetch_depth=self.get("prefetch_depth"),
-                        shape_buckets=self.get("shape_buckets"),
-                        tracer=tracer,
-                        fused_label=self.get("fused_label"),
-                        readback_lag=self.get("readback_lag"),
-                        pipeline_depth=self.get("pipeline_depth"))
+                    lead = self._lead
+                    with (lead.op(_OP_RUN, seg.index,
+                                  cols={c: np.asarray(current[c]) for c in seg.upload_cols})
+                          if lead is not None else contextlib.nullcontext()):
+                        current, seg_stats = seg.run(current, tracer=tracer,
+                                                     **self._run_options())
                     stats["uploads"] += seg_stats["uploads"]
                     stats["downloads"] += seg_stats["downloads"]
             else:
@@ -1054,9 +1404,10 @@ def fuse(model: Any, mesh: Any = None, **params: Any) -> FusedPipelineModel:
     """Wrap a PipelineModel (or any Transformer) for whole-pipeline
     fusion.  Idempotent; non-fusable stages keep their staged path, so
     `fuse` never changes results — only where the work runs. `device`
-    ("cuda" by default) is where fused segments run. A mesh of one rank is
-    the plain single-device path; one of more ranks raises (ROADMAP item
-    11c)."""
+    ("cuda" by default) is where fused segments run. With `mesh` (several
+    ranks, every rank calling), fused segments run each rank's block of
+    the rows (a 1-rank mesh is the plain single-device path); given a
+    FusedPipelineModel, `mesh` is attached to it."""
     if isinstance(model, FusedPipelineModel):
         return model.set_mesh(mesh) if mesh is not None else model
     if isinstance(model, PipelineModel):
@@ -1065,11 +1416,21 @@ def fuse(model: Any, mesh: Any = None, **params: Any) -> FusedPipelineModel:
         stages = [model]
     else:
         raise TypeError(f"fuse() needs a Transformer, got {type(model).__name__}")
-    _refuse_multi_rank(mesh)
     fm = FusedPipelineModel(stages, **params)
     if mesh is not None:
         fm.set_mesh(mesh)
     return fm
+
+
+def _on_mesh(*models: Any) -> "FusedPipelineModel | None":
+    """The fused model among `models` that runs under a mesh of several
+    ranks (its shard 0 leads a server or a stream, the other ranks follow
+    it), or None. serve_model, serve_recommender and StreamingQuery split
+    their ranks by it."""
+    for m in models:
+        if isinstance(m, FusedPipelineModel) and m._effective_mesh() is not None:
+            return m
+    return None
 
 
 # --------------------------------------------------------------------- #
@@ -1159,6 +1520,20 @@ def _is_ready(outs: Any) -> bool:
     dispatch-overlap gauge. CPU outputs count as ready."""
     event = getattr(outs, "event", None)
     return True if event is None else bool(event.query())
+
+
+def _set_shard_skew_gauge(label: str, mesh_shape: str, ratio: float) -> None:
+    try:
+        from ..observability.metrics import get_registry
+
+        get_registry().gauge(
+            "mmlspark_tpu_shard_skew_ratio",
+            "slowest/fastest per-shard wall time within a fused sharded "
+            "segment (1.0 = perfectly balanced chips)",
+            labels=("pipeline", "mesh_shape")).labels(
+                pipeline=label, mesh_shape=mesh_shape).set(ratio)
+    except Exception:
+        pass
 
 
 def _set_fusion_gauge(label: str, ratio: float, mesh_shape: str = "1") -> None:

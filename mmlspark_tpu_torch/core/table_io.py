@@ -80,16 +80,29 @@ class DeviceTable:
         x64-off dtypes (`device_column`): float64 uploads as float32, int64
         as int32. Asking for "cuda" without a card raises RuntimeError.
 
-        `shardings` (the reference's per-column mesh placements) has no
-        counterpart in the port: fusion over a mesh of several ranks is
-        ROADMAP item 11c, so anything but None raises."""
+        `shardings` maps columns to a mesh (parallel/mesh.py), the port's
+        form of the reference's per-column `P(data)` placements: a listed
+        column uploads only this rank's block of rows on the mesh's data
+        axis (`shard_bounds`; the rows must divide by the axis, as a
+        fused chunk's rung does), an unlisted one uploads whole."""
         from .kernels import resolve_device
 
-        if shardings:
-            raise NotImplementedError(
-                "DeviceTable.from_host(shardings=...) is not ported yet: sharded "
-                "uploads come with fusion over a mesh (ROADMAP item 11c)")
         dev = resolve_device(device)
+        if shardings:
+            from ..parallel.mesh import DATA_AXIS, shard_bounds
+
+            blocks = {}
+            for name, arr in cols.items():
+                mesh = shardings.get(name)
+                if mesh is not None:
+                    data = mesh.axis(DATA_AXIS)
+                    n_pad, lo, hi = shard_bounds(len(arr), data)
+                    if n_pad != len(arr):
+                        raise ValueError(f"column {name!r}: {len(arr)} rows do not split "
+                                         f"over a data axis of {data.size}")
+                    arr = arr[lo:hi]
+                blocks[name] = arr
+            cols = blocks
         return cls({name: device_column(arr, dev) for name, arr in cols.items()})
 
     @property

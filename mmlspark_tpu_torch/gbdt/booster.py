@@ -736,6 +736,18 @@ class Booster:
 
         return params, fn
 
+    def device_predict_shardings(self, mesh, params=None):
+        """The `device_predict_fn` params each rank of `mesh` holds (the
+        reference's placement of them, booster.py:1100): everything whole
+        on every rank, since every row's traversal reads the whole binning
+        table (keys, nb) and every tree array, while the rows themselves
+        split over the data axis (the fusion engine's block of rows).
+        Stating the placement keeps the scoring path's params pinned even
+        if the engine's default ever changes."""
+        if params is None:
+            params, _ = self.device_predict_fn()
+        return params
+
     # Below this row count one walk on the host costs less than the device
     # dispatches (the latency-path analogue of LightGBM's per-row CPU
     # predict, LightGBMBooster.scala:21-113); both paths agree bit for bit.

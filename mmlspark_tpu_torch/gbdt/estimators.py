@@ -468,12 +468,17 @@ class GBDTRegressionModel(_BoosterModelMixin, HasFeaturesCol, HasPredictionCol, 
                 return f"features column {in_col!r} is not a dense ndarray"
             return ready_values({in_col: col})
 
+        def mesh_fn(mesh):
+            # the same traversal body; rows split over the data axis while
+            # the binning table and tree arrays stay whole on every rank
+            return fn, b.device_predict_shardings(mesh, params)
+
         return DeviceKernel(
             fn=fn, input_cols=(in_col,), output_cols=(out_col,),
             params=params, name="GBDTRegressionModel",
             out_dtypes={out_col: np.float64},
             out_meta={out_col: {SCORE_KIND: "prediction"}}, ready=ready,
-            ready_values=ready_values,
+            ready_values=ready_values, mesh_fn=mesh_fn,
             mesh_desc="rows P(data); binning table + tree SoAs replicated",
             kernel_label="fused_traverse")
 

@@ -439,6 +439,8 @@ class ServingServer:
             )
         self.handler = handler
         self.host, self.port = host, port
+        # run once by stop(), after the loops stop (a mesh lead's stop word)
+        self._stop_hooks: list = []
         self.max_batch_size = max_batch_size
         self.max_latency_ms = max_latency_ms
         self.reply_timeout_s = reply_timeout_s
@@ -1005,6 +1007,8 @@ class ServingServer:
         if self._server:
             self._server.shutdown()
             self._server.server_close()
+        while self._stop_hooks:
+            self._stop_hooks.pop(0)()
         if self.journal is not None:
             self.journal.close()
         if self.recorder is not None:
@@ -1554,17 +1558,21 @@ def serve_model(
     hot_path: bool = True,
     device: str = "cuda",
     **server_kw,
-) -> ServingServer:
+) -> "ServingServer | dict":
     """Deploy a fitted Transformer: JSON body {col: value, ...} in,
     {output_col: value} out (the `SparkServing - Deploying a Classifier`
     notebook flow).
 
     PipelineModel handlers score through the whole-pipeline fusion path
-    (core/fusion.py) automatically: adjacent device-capable stages compile
-    into one XLA program per request batch. `fuse_pipeline=False` keeps
-    the stage-by-stage path. With `mesh` (a parallel.mesh mesh) the fused
-    segments compile sharded over it — request batches score data-parallel
-    across chips, byte-identical to the single-chip path.
+    (core/fusion.py) automatically: adjacent device-capable stages run as
+    one composition per request batch. `fuse_pipeline=False` keeps the
+    stage-by-stage path. With `mesh` (a parallel.mesh mesh of several
+    ranks, one process a rank) every rank of the mesh calls serve_model:
+    shard 0 runs the server and returns it, and each request batch scores
+    data-parallel, every rank its block of the rows (every bucket rung a
+    multiple of the data axis); every other rank follows shard 0's fused
+    runs and returns only when shard 0's server stops, with the counts of
+    what it did (`FusedPipelineModel._follow`).
 
     `hot_path=True` (default) additionally pins a fully-fused model's
     params on device ONCE and routes live batches between the resident
@@ -1603,10 +1611,7 @@ def serve_model(
     elif mesh is not None and isinstance(model, FusedPipelineModel):
         model.set_mesh(mesh)
 
-    # one decoder serves the handler fast path AND the hot-path routes,
-    # so the cached schema and its hit/fallback counts stay unified
-    decoder = RequestDecoder(input_cols)
-    hp = None
+    hp_model = None
     if hot_path and fuse_pipeline:
         hp_model = model
         if (not isinstance(model, PipelineModel)
@@ -1621,8 +1626,21 @@ def serve_model(
                 hp_model = fuse(PipelineModel([model]), mesh=mesh, device=device)
             except Exception:  # noqa: BLE001 — fast lane is optional
                 hp_model = None
-        if isinstance(hp_model, FusedPipelineModel):
-            hp = _build_hot_path(hp_model, decoder, output_col)
+    from ..core.fusion import _on_mesh
+
+    led = _on_mesh(model, hp_model)
+    if led is not None and led._effective_mesh().shard_index != 0:
+        return led._follow()
+
+    # one decoder serves the handler fast path AND the hot-path routes,
+    # so the cached schema and its hit/fallback counts stay unified
+    decoder = RequestDecoder(input_cols)
+    hp = None
+    if led is not None:
+        # before the hot path: its resident executor leads through it
+        led._open_lead()
+    if isinstance(hp_model, FusedPipelineModel):
+        hp = _build_hot_path(hp_model, decoder, output_col)
 
     def handler(table: Table) -> Table:
         reqs = list(table["request"])
@@ -1656,8 +1674,23 @@ def serve_model(
         # sharded resident dispatch needs every ladder rung divisible by
         # the mesh data axis; single-device this is 1 (no-op)
         server_kw.setdefault("bucket_multiple_of", hp.executor.data_axis_size)
-    return ServingServer(handler, host=host, port=port, hot_path=hp,
-                         **server_kw).start()
+    return _start_leading(led, lambda: ServingServer(handler, host=host, port=port,
+                                                     hot_path=hp, **server_kw))
+
+
+def _start_leading(led, make_server) -> "ServingServer":
+    """Build and start a server; with `led` (a fused model on shard 0 of
+    a mesh of several ranks, its lead open) the followers stop when the
+    server does, or at once when the server fails to start."""
+    if led is None:
+        return make_server().start()
+    try:
+        srv = make_server()
+        srv._stop_hooks.append(led._close_lead)
+        return srv.start()
+    except BaseException:
+        led._close_lead()
+        raise
 
 
 @dataclass

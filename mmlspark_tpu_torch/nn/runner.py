@@ -29,9 +29,20 @@ card) runs it.
 same transform on the whole table, the minibatch is rounded up to a
 multiple of the axis size, each rank scores its block of every minibatch
 on its device, and one all-gather a fetched output gives every rank all
-the rows. The fused tensor-parallel forward over a model axis (the
-reference's `_tp_forward_fn`, reached through fusion's `mesh_fn`) is not
-ported: fusion under a mesh of several ranks is ROADMAP item 11c.
+the rows.
+
+Fused under a mesh with a model axis of several ranks (core/fusion.py),
+`device_kernel`'s `mesh_fn` swaps in the column-parallel forward
+(`_tp_forward_fn`, the reference's runner.py:324-418) where the
+reference's does: an "mlp" bundle in f32 fetching only logits or
+probability, every dense layer's output features divisible by the model
+axis. Rank (i, j) of a data x model grid holds column block j of every
+dense layer (`tensor_parallel.column_block`), scores its data block i and
+runs `gathered_column_parallel` over `mesh.axis("model")`: every output
+element is one full-contraction dot, the gather only concatenates. The
+reference's `MMLSPARK_TPU_RING_GATHER` environment switch is not carried
+over (the port reads no environment overrides); the ring schedule stays
+reachable as `gathered_column_parallel(ring=True)`.
 """
 
 from __future__ import annotations
@@ -245,12 +256,62 @@ class DeepModelTransformer(Model):
         return out
 
     def _tp_forward_fn(self, fetches: tuple[str, ...], mesh):
-        """The reference's column-parallel fused forward over a model axis
-        (runner.py:324-418), which core/fusion's `mesh_fn` reaches. Not
-        ported: fusion under a mesh of several ranks is ROADMAP item 11c."""
-        raise NotImplementedError(
-            "the fused tensor-parallel forward is not ported yet: fusion under a mesh of "
-            "several ranks is ROADMAP Queue 1 item 11c; use_mesh serves on the data axis")
+        """The column-parallel forward for the fused tensor-parallel path,
+        or None when this model cannot take it (the fused engine's default
+        then applies: rows sharded, weights whole on every rank).
+
+        Only the plain MLP qualifies: its forward is a chain of Dense +
+        relu, which maps exactly onto `gathered_column_parallel`. Returns
+        (forward(params, x) -> outputs, this rank's params): its column
+        block of every dense layer as an (in, out / n) kernel and bias,
+        and the preprocessing mean and std."""
+        from ..parallel.mesh import MODEL_AXIS
+        from ..parallel.tensor_parallel import column_block, gathered_column_parallel
+
+        bundle = self.bundle
+        n_model = 1 if mesh is None else int(mesh.shape.get(MODEL_AXIS, 1))
+        if n_model <= 1:
+            return None  # pure data parallelism: nothing to specialize
+        if bundle.architecture != "mlp":
+            return None
+        if any(f not in ("logits", "probability") for f in fetches):
+            return None  # intermediate captures need the module's hooks
+        if self.get("bfloat16"):
+            return None  # bf16 accumulation order voids the column layout's exactness
+        module = bundle.module
+        names = [f"dense_{i}" for i in range(getattr(module, "num_layers", -1))] + ["head"]
+        want = {f"{nm}.{leaf}" for nm in names for leaf in ("weight", "bias")}
+        got = dict(module.named_parameters())
+        if set(got) != want or list(module.buffers()) or module.dtype != torch.float32:
+            return None
+        for nm in names:
+            w = got[f"{nm}.weight"]
+            if w.dtype != torch.float32 or w.dim() != 2 or w.shape[0] % n_model:
+                return None  # output features must split evenly
+        axis = mesh.axis(MODEL_AXIS)
+        layers = [(column_block(got[f"{nm}.weight"].detach().t(), axis.shard_index,
+                                axis.size).contiguous(),
+                   column_block(got[f"{nm}.bias"].detach(), axis.shard_index,
+                                axis.size).contiguous())
+                  for nm in names]
+        pre = bundle.preprocess
+        params = {"layers": layers,
+                  "mean": torch.as_tensor(np.asarray(pre.get("mean", 0.0), np.float32)),
+                  "std": torch.as_tensor(np.asarray(pre.get("std", 1.0), np.float32))}
+
+        def forward(p, x):
+            h = (x.float() - p["mean"]) / p["std"]
+            h = h.reshape(h.shape[0], -1)
+            last = len(p["layers"]) - 1
+            for i, (w, b) in enumerate(p["layers"]):
+                h = gathered_column_parallel(h, w, b, axis)
+                if i != last:
+                    h = torch.relu(h)
+            logits = h.float()
+            return tuple(torch.softmax(logits, dim=-1) if f == "probability" else logits
+                         for f in fetches)
+
+        return forward, params
 
     def _transform_fused(self, x: np.ndarray, bs: int, pad: int, model: nn.Module,
                          fetches: tuple[str, ...], mean, std) -> list[np.ndarray]:
@@ -326,7 +387,9 @@ class DeepModelTransformer(Model):
         path runs, with the device model, mean and std as params (moved to
         the segment's device once). The forward is row-independent (eval
         mode — no batch statistics), so the engine's chunking/padding
-        cannot change any row's value."""
+        cannot change any row's value. Under a mesh with a model axis of
+        several ranks `mesh_fn` swaps in the column-parallel forward
+        (`_tp_forward_fn`), whose gathers keep the segment eager."""
         from ..core.fusion import DeviceKernel
 
         if self.bundle is None:
@@ -346,15 +409,25 @@ class DeepModelTransformer(Model):
                 return f"column {in_col!r} is a ragged list (host stacks it)"
             return True
 
+        def mesh_fn(mesh):
+            tp = self._tp_forward_fn(fetches, mesh)
+            if tp is None:
+                return None
+            tp_forward, rank_params = tp
+
+            def tp_fn(params, cols):
+                return dict(zip(out_cols, tp_forward(params, cols[in_col])))
+
+            tp_fn.collectives = True   # the gathers run eagerly, never in a graph
+            return tp_fn, rank_params
+
         meta = {c: {SCORE_KIND: "probability" if f == "probability"
                     else "raw_prediction"} for c, f in fetch.items()}
         return DeviceKernel(
             fn=fn, input_cols=(in_col,), output_cols=out_cols,
             params=self._device_params(), name="DeepModelTransformer",
             out_dtypes={c: np.float32 for c in out_cols},
-            out_meta=meta, ready=ready,
-            # the plan text is the JAX package's; _tp_forward_fn refuses
-            mesh_fn=lambda mesh: self._tp_forward_fn(fetches, mesh),
+            out_meta=meta, ready=ready, mesh_fn=mesh_fn,
             mesh_desc=("rows P(data); dense kernels column-parallel "
                        "P(None,model) + tiled all_gather when the mesh has "
                        "a >1 model axis, else variables replicated"))

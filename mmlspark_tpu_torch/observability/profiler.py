@@ -52,7 +52,7 @@ Cost analysis never runs the dispatched work: see `cost_analysis_of`.
 from __future__ import annotations
 
 import threading
-from .sanitizer import make_lock
+from .sanitizer import make_lock, make_rlock
 from collections import deque
 from typing import Any
 
@@ -352,6 +352,12 @@ class Profiler:
         self.recorder = recorder
         self._clock = clock if clock is not None else _MonotonicClock()
         self._lock = make_lock("Profiler._lock")
+        # held from a ledger's pop off `_pending` to the end of its commit:
+        # a read that flushes takes it too, so it never returns while
+        # another thread holds a popped, uncommitted ledger (reentrant: a
+        # sink that reads the profiler from inside a commit must not
+        # deadlock its own thread)
+        self._commit_lock = make_rlock("Profiler._commit_lock", blocking_ok=True)
         self._records: deque[dict] = deque(maxlen=int(max_records))
         # (kind, segment) -> aggregate dict
         self._agg: dict[tuple[str, str], dict] = {}
@@ -465,15 +471,20 @@ class Profiler:
                 self._drain_idle = True
 
     def flush(self) -> None:
-        """Drain pending ledgers synchronously. Safe from any thread —
-        the deque hands each ledger to exactly one committer."""
+        """Drain pending ledgers synchronously. Safe from any thread: the
+        deque hands each ledger to exactly one committer, and the commit
+        lock spans pop and commit, so a flush that finds the deque empty
+        has also waited out a ledger another thread popped but had not
+        committed yet (the JAX package's flush returns at once there: a
+        deliberate difference, ROADMAP Queue 3)."""
         pending = self._pending
-        while True:
-            try:
-                led = pending.popleft()
-            except IndexError:
-                return
-            self._commit(led)
+        with self._commit_lock:
+            while True:
+                try:
+                    led = pending.popleft()
+                except IndexError:
+                    return
+                self._commit(led)
 
     def _commit(self, led: PhaseLedger) -> None:
         with self._lock:

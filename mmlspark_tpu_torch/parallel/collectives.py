@@ -33,7 +33,18 @@ fixed-point reduction (gbdt/engine.py).
 
 `stats()` counts the calls, the bytes each rank contributed and the host
 seconds spent in them since `reset_stats()`; under NCCL the seconds are
-the host's enqueue time, not the card's transfer time. `pcast` has no
+the host's enqueue time, not the card's transfer time.
+
+Fusion under a mesh of several ranks (core/fusion.py) moves host data:
+`broadcast_word` and `broadcast_arrays` send a control word and a dict of
+host arrays from shard 0 to every rank (where only shard 0 holds a
+server's request batch or a stream's micro-batch), `all_gather_rows`
+gives every rank all shards' rows of host arrays (a fused segment's
+outputs), and `all_gather_floats` every shard's few numbers (its
+readback seconds and rows, for the shard-skew gauge). They carry bytes,
+so every dtype travels exact; their tensors are CPU tensors under gloo and
+card tensors under NCCL, and they are counted in `stats()` as the others
+are. `pcast` has no
 counterpart (it types JAX's shard_map carries; torch tensors carry no
 such type).
 
@@ -48,8 +59,10 @@ backward, in the same order.
 
 from __future__ import annotations
 
+import json
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -70,6 +83,10 @@ __all__ = [
     "psum_ordered",
     "psum_kahan",
     "psum_exact_fixedpoint",
+    "broadcast_word",
+    "broadcast_arrays",
+    "all_gather_rows",
+    "all_gather_floats",
     "stats",
     "reset_stats",
 ]
@@ -330,3 +347,96 @@ def psum_exact_fixedpoint(x: torch.Tensor, mesh: Mesh, *,
     scale = torch.where(max_abs > 0, scale, torch.ones_like(scale))
     q = torch.round(x * scale)            # integer-valued float32
     return psum(q, mesh) / scale
+
+
+# --------------------------------------------------------------------- #
+# host data over the mesh (fusion under a mesh of several ranks)        #
+# --------------------------------------------------------------------- #
+
+
+def _wire_device(mesh: Mesh) -> torch.device:
+    """Where a host collective's buffers live: the card under NCCL, else the CPU."""
+    if dist.get_backend(mesh.group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _broadcast(buf: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    t0 = time.perf_counter()
+    dist.broadcast(buf, src=mesh.ranks[0], group=mesh.group)
+    _count(buf, t0)
+    return buf
+
+
+def broadcast_word(word, mesh: Mesh, size: int = 4) -> list:
+    """Shard 0's `size` int64 control word on every rank (shard 0 passes
+    it, the others None)."""
+    if mesh.size == 1:
+        return [int(v) for v in word]
+    buf = torch.zeros(size, dtype=torch.int64, device=_wire_device(mesh))
+    if mesh.shard_index == 0:
+        if len(word) != size:
+            raise ValueError(f"a control word has {size} ints, got {len(word)}")
+        buf.copy_(torch.as_tensor([int(v) for v in word], dtype=torch.int64))
+    return [int(v) for v in _broadcast(buf, mesh).cpu()]
+
+
+def broadcast_arrays(arrays, mesh: Mesh) -> dict:
+    """Shard 0's {name: host ndarray} on every rank, dtypes and shapes
+    exact (shard 0 passes the dict, the others None): a header of names,
+    dtypes and shapes, then every array's bytes in one buffer."""
+    if mesh.size == 1:
+        return {k: np.asarray(v) for k, v in arrays.items()}
+    dev = _wire_device(mesh)
+    if mesh.shard_index == 0:
+        arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
+        header = json.dumps([[k, a.dtype.str, list(a.shape)] for k, a in arrays.items()]).encode()
+        payload = b"".join(a.tobytes() for a in arrays.values())
+        sizes = broadcast_word([len(header), len(payload), 0, 0], mesh)
+    else:
+        sizes = broadcast_word(None, mesh)
+    head = torch.empty(sizes[0], dtype=torch.uint8, device=dev)
+    body = torch.empty(sizes[1], dtype=torch.uint8, device=dev)
+    if mesh.shard_index == 0:
+        head.copy_(torch.frombuffer(bytearray(header), dtype=torch.uint8))
+        if sizes[1]:
+            body.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
+    header = bytes(_broadcast(head, mesh).cpu().numpy())
+    raw = _broadcast(body, mesh).cpu().numpy() if sizes[1] else np.zeros(0, np.uint8)
+    out, at = {}, 0
+    for name, dtype, shape in json.loads(header):
+        dt = np.dtype(dtype)
+        n = dt.itemsize * int(np.prod(shape, dtype=np.int64))
+        out[name] = raw[at:at + n].view(dt).reshape(shape).copy()
+        at += n
+    return out
+
+
+def all_gather_rows(arrays, mesh: Mesh) -> list:
+    """Every shard's rows of each host array, concatenated in shard order
+    along axis 0. Each shard passes arrays of one row count (a shard's
+    block); the arrays travel as their rows' bytes side by side in one
+    all-gather, so every dtype comes back bit for bit."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    if mesh.size == 1:
+        return arrays
+    rows = arrays[0].shape[0] if arrays else 0
+    widths = [a.dtype.itemsize * int(np.prod(a.shape[1:], dtype=np.int64)) for a in arrays]
+    packed = np.concatenate([a.view(np.uint8).reshape(rows, w)
+                             for a, w in zip(arrays, widths)], axis=1)
+    buf = torch.from_numpy(packed).to(_wire_device(mesh))
+    every = torch.cat(_gather_shards(buf, mesh), dim=0).cpu().numpy()
+    out, at = [], 0
+    for a, w in zip(arrays, widths):
+        part = np.ascontiguousarray(every[:, at:at + w])
+        out.append(part.view(a.dtype).reshape((every.shape[0],) + a.shape[1:]))
+        at += w
+    return out
+
+
+def all_gather_floats(values, mesh: Mesh):
+    """(shards, k) float64 ndarray: each shard's k numbers, in shard order."""
+    x = torch.as_tensor(np.asarray(values, np.float64)).reshape(1, -1)
+    if mesh.size == 1:
+        return x.numpy()
+    return torch.cat(_gather_shards(x.to(_wire_device(mesh)), mesh), dim=0).cpu().numpy()

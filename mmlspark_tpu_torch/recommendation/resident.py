@@ -38,14 +38,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..core.fusion import DeviceKernel, fuse
+from ..core.fusion import DeviceKernel, fuse, _on_mesh
 from ..core.kernels import resolve_device
 from ..core.params import Param
 from ..core.pipeline import Model, PipelineModel
 from ..core.schema import Table
 from ..core.serialize import register_stage
 from ..io_http.schema import HTTPRequestData, HTTPResponseData, RequestDecoder, parse_request
-from ..io_http.serving import ServingServer, _HotPath
+from ..io_http.serving import ServingServer, _HotPath, _start_leading
 from .sar import SARModel, score_rows, topk_desc
 
 __all__ = ["SARTopKScorer", "SARHotPath", "serve_recommender", "topk_reply"]
@@ -229,7 +229,7 @@ def serve_recommender(
     hot_path: bool = True,
     device: str = "cuda",
     **server_kw,
-) -> ServingServer:
+) -> "ServingServer | dict":
     """Deploy a fitted `SARModel`: JSON `{user: id}` in,
     `{recommendations: [...], ratings: [...]}` out.
 
@@ -239,11 +239,18 @@ def serve_recommender(
     (`_FusedSegment` shares them), so warmup's per-rung byte comparison
     holds by construction and any divergence disables the fast lane
     rather than changing answers. `serve_model(sar_model, ...)` delegates
-    here."""
+    here. With `mesh` (several ranks) every rank calls it, as it calls
+    `serve_model`: shard 0 serves, the others follow until it stops."""
     if model.user_affinity is None or model.item_similarity is None:
         raise ValueError("serve_recommender needs a fitted SARModel")
     scorer = SARTopKScorer.from_model(model, k=k, remove_seen=remove_seen)
     fused = fuse(PipelineModel([scorer]), mesh=mesh, device=device)
+    led = _on_mesh(fused)
+    if led is not None:
+        # a mesh of several ranks: serve_model's split, shard 0 serving
+        if led._effective_mesh().shard_index != 0:
+            return led._follow()
+        led._open_lead()
     user_col = model.get("user_col")
     # one decoder serves the handler fast path AND the resident route,
     # so the cached schema and its hit/fallback counts stay unified
@@ -281,5 +288,5 @@ def serve_recommender(
                          HTTPRequestData.from_json("/", {user_col: 0}))
     if hp is not None:
         server_kw.setdefault("bucket_multiple_of", hp.executor.data_axis_size)
-    return ServingServer(handler, host=host, port=port, hot_path=hp,
-                         **server_kw).start()
+    return _start_leading(led, lambda: ServingServer(handler, host=host, port=port,
+                                                     hot_path=hp, **server_kw))

@@ -17,8 +17,16 @@ batch of that shape replays it — streaming throughput equals
 batch-transform throughput once warm.
 
 A copy of mmlspark_tpu/streaming/query.py with that `device`; asking for
-"cuda" without a card raises when the query is built. A mesh of more
-than one rank is refused by fusion (ROADMAP item 11c).
+"cuda" without a card raises when the query is built.
+
+Under a `mesh` of several ranks (one process a rank) every rank builds
+the query. Shard 0 alone plans each batch into the WAL, reads the source,
+runs the transform, writes the sink and commits; each fused run of its
+transform is led (core/fusion.py `_MeshLead`): the micro-batch's upload
+columns go to every rank, and every rank scores its block of the rows.
+The other ranks only follow those runs — `process_all_available()` or
+`start()` there run the follow loop until shard 0's `stop()` — and open
+no commit log, read no source and write no sink.
 
 Exactly-once recovery (see checkpoint.py for the WAL format): on
 restart, state snapshots restore stateful operators to the last
@@ -114,6 +122,15 @@ class StreamingQuery:
                                                  FusedPipelineModel):
                 transform.set_mesh(mesh)
         self.transform = transform
+        # a fused transform under a mesh of several ranks: shard 0 leads
+        # its runs, every other rank only follows them
+        from ..core.fusion import _on_mesh
+
+        self._led = _on_mesh(transform)
+        self.following = (self._led is not None
+                          and self._led._effective_mesh().shard_index != 0)
+        if self.following:
+            checkpoint_dir = None
         self.sink = sink if sink is not None else MemorySink()
         self.name = name
         self.trigger_interval_s = trigger_interval_s
@@ -183,6 +200,8 @@ class StreamingQuery:
             labels=("query",)).labels(**lbl)
         if self._log is not None:
             self._recover()
+        if self._led is not None and not self.following:
+            self._led._open_lead()
 
     # -- recovery --------------------------------------------------------- #
 
@@ -259,6 +278,9 @@ class StreamingQuery:
         available. Raises on batch failure (the background loop catches,
         records, and retries — state is rolled back either way, and the
         WAL plan makes the retry deterministic)."""
+        if self.following:
+            raise RuntimeError("a following rank runs process_all_available() or start(): "
+                               "shard 0 plans, reads and commits the batches")
         with self._lock:
             bid = self._next_id
             ahead = None
@@ -348,7 +370,10 @@ class StreamingQuery:
 
     def process_all_available(self) -> int:
         """Drain everything currently available (Spark's availableNow
-        trigger); returns batches processed."""
+        trigger); returns batches processed. On a following rank: follow
+        shard 0's fused runs until its stop(); returns the runs."""
+        if self.following:
+            return self._led._follow()["runs"]
         n = 0
         while self.process_next():
             n += 1
@@ -367,10 +392,18 @@ class StreamingQuery:
         with self._lock:
             self._failed = False
         self._thread = threading.Thread(
-            target=self._run, name=f"streaming-query-{self.name}",
-            daemon=True)
+            target=self._follow if self.following else self._run,
+            name=f"streaming-query-{self.name}", daemon=True)
         self._thread.start()
         return self
+
+    def _follow(self) -> None:
+        try:
+            self._led._follow()
+        except Exception as e:  # noqa: BLE001 — recorded like a failed batch
+            with self._lock:
+                self._exception = e
+                self._failed = True
 
     def _run(self) -> None:
         sess = None
@@ -443,6 +476,9 @@ class StreamingQuery:
         if self._closed:
             return
         self._closed = True
+        if self._led is not None and not self.following:
+            # after the loop: the followers stop when shard 0 does
+            self._led._close_lead()
         if self._lookahead is not None:
             # join any in-flight background read before closing the source
             self._lookahead.discard()

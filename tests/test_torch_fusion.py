@@ -250,17 +250,33 @@ class TestPlanFusion:
         assert "kernel=fused_traverse" in plan.describe()
         assert [s.fused for s in plan.segments] == [True, False, True, False, True]
 
-    def test_multi_rank_mesh_raises_naming_the_item(self):
+    def test_multi_rank_mesh_raises_naming_the_item(self, tmp_path):
+        """Fusion under a mesh of several ranks (once refused) runs: the
+        GBDT regressor fused on 2 spawned gloo ranks (every rank its block
+        of each chunk, jobs of tests/test_torch_fusion_mesh_jobs.py) equals
+        the one-process fused and staged transforms byte for byte on every
+        rank, and a one-rank mesh is the single-device path."""
+        import test_torch_fusion_mesh_jobs as jobs
+
+        from mmlspark_tpu_torch.parallel import RankPool
         from mmlspark_tpu_torch.parallel.mesh import Mesh
 
+        rng = np.random.default_rng(7)
+        ref, port = _ref_gbdt_regressor(rng.normal(size=(64, 3)), rng.normal(size=64),
+                                        num_iterations=3, num_leaves=5)
+        x = rng.normal(size=(45, 3)).astype(np.float32).astype(np.float64)
+        with RankPool(2, backend="gloo", workdir=str(tmp_path), timeout_s=120) as pool:
+            res = pool.run(jobs.fused_gbdt, port.booster.to_text(), x, 16, 2)
+        staged = np.asarray(port.transform(Table({"features": x}))["prediction"])
+        for r in res:
+            assert r["stats"]["mesh_shape"] == "2x1"
+            assert r["cols"]["prediction"].tobytes() == staged.tobytes()
         fm = _fuse(pipeline_model(_AddOneOnDevice()))
-        with pytest.raises(NotImplementedError, match="11c"):
-            fm.set_mesh(Mesh([0, 1]))
-        with pytest.raises(NotImplementedError, match="11c"):
-            fuse(pipeline_model(_AddOneOnDevice()), mesh=Mesh([0, 1]))
+        assert fm.set_mesh(Mesh([0, 1])) is fm and fm._effective_mesh().size == 2
         one = _fuse(pipeline_model(_AddOneOnDevice()), mesh=Mesh([0]))
         t = Table({"x": np.arange(4, dtype=np.float32)})
         assert one.transform(t)["x"].tolist() == [1.0, 2.0, 3.0, 4.0]
+        assert one._effective_mesh() is None and one.last_stats["mesh_shape"] == "1"
 
 
 # --------------------------------------------------------------------- #

@@ -647,6 +647,39 @@ def test_two_rank_gloo_mesh_fit_on_the_card_agrees_with_the_one_device_fit(cuda,
         np.testing.assert_allclose(mesh.predict(x), single.predict(x), rtol=1e-3, atol=1e-3)
 
 
+def test_two_rank_fused_transformer_on_the_card_replays_its_graphs(cuda, tmp_path):
+    """A bf16 flash transformer fused under a data mesh of 2 gloo ranks
+    sharing the card: each rank captures one CUDA graph a rung of its
+    block (rung / 2 rows) and replays it on the second transform, launches
+    K2 on "wgmma" once a layer a fused forward, and both ranks return the
+    same bytes, within 1e-4 of the one-process fused transform at the
+    ranks' block size."""
+    import test_torch_fusion_mesh_jobs as jobs
+    from mmlspark_tpu_torch.core import fuse, pipeline_model
+    from mmlspark_tpu_torch.parallel import RankPool
+
+    cfg = dict(num_layers=2, d_model=128, num_heads=2, d_ff=256, vocab_size=64, max_len=64,
+               num_outputs=4, attention_impl="flash")
+    bundle = ModelBundle.init("transformer", (64,), seed=4, dtype="bfloat16", **cfg)
+    tokens = np.random.default_rng(5).integers(0, 64, size=(40, 64)).astype(np.float64)
+    with RankPool(2, backend="gloo", workdir=str(tmp_path), timeout_s=300) as pool:
+        out = sorted(pool.run(jobs.fused_transformer, bundle.to_bytes(), tokens, 16, 2),
+                     key=lambda r: r["shard"])
+    assert out[0]["cols"]["probability"].tobytes() == out[1]["cols"]["probability"].tobytes()
+    for r in out:
+        first, second = r["runs"]
+        assert second["captures"] == first["captures"] > 0
+        assert second["replays"] - first["replays"] == second["forwards"] == 3
+        for run in (first, second):
+            assert run["k2"] == {"wgmma": cfg["num_layers"] * run["forwards"]}, run
+        assert r["stats"]["mesh_shape"] == "2x1"
+    runner = DeepModelTransformer(input_col="x", bfloat16=False, device="cuda",
+                                  fetch_dict={"probability": "probability"}).set_model(bundle)
+    one = fuse(pipeline_model(runner), mini_batch_size=8, device="cuda")
+    want = np.asarray(one.transform(Table({"x": tokens}))["probability"])
+    np.testing.assert_allclose(out[0]["cols"]["probability"], want, atol=1e-4, rtol=0)
+
+
 def test_dnn_fit_on_the_card_launches_k2_once_a_layer_a_step_and_tracks_the_cpu(cuda):
     """A bf16 flash transformer at head dim 64 trains on the card: K2 runs
     every layer's forward of every step on "wgmma" (twice under remat), the

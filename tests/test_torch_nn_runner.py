@@ -182,14 +182,36 @@ def test_stage_refusals(bundles):
     _, port = bundles
     # use_mesh serves over get_mesh()'s data axis: one shard outside
     # torch.distributed, the transform without a mesh (several ranks:
-    # tests/test_torch_parallel_p4.py); the fused tensor-parallel forward
-    # stays refused, ROADMAP item 11c
+    # tests/test_torch_parallel_p4.py). The fused tensor-parallel forward
+    # (mesh_fn) takes only an f32 MLP on a model axis of several ranks:
+    # None without a mesh, off a model axis, and for this transformer
     on_mesh = _port_runner(port, use_mesh=True).transform(Table({"x": _tokens(2)}))
     plain = _port_runner(port).transform(Table({"x": _tokens(2)}))
     for col in plain.columns:
         np.testing.assert_array_equal(np.asarray(on_mesh[col]), np.asarray(plain[col]))
-    with pytest.raises(NotImplementedError, match="11c"):
-        _port_runner(port, use_mesh=True).device_kernel().mesh_fn(None)
+    from mmlspark_tpu_torch.parallel.mesh import Mesh
+
+    grid = Mesh((0, 1, 2, 3), axis_names=("data", "model"), axis_sizes=(2, 2))
+    mesh_fn = _port_runner(port, use_mesh=True).device_kernel().mesh_fn
+    assert mesh_fn(None) is None and mesh_fn(Mesh((0, 1))) is None and mesh_fn(grid) is None
+    # an MLP on that model axis gets the column-parallel body (outside a
+    # process group the axis through this rank is the rank alone, so its
+    # block is every column), marked to run eagerly, equal to the forward
+    mlp = ModelBundle.init("mlp", (6,), seed=0, num_outputs=4, features=(8, 4))
+    stage = DeepModelTransformer(input_col="x", device="cpu",
+                                 fetch_dict={"l": "logits", "p": "probability"}).set_model(mlp)
+    kernel = stage.device_kernel()
+    assert kernel.mesh_fn(Mesh((0, 1))) is None
+    body, params = kernel.mesh_fn(grid)
+    assert body.collectives and [w.shape for w, _ in params["layers"]] == [(6, 8), (8, 4), (4, 4)]
+    x = torch.as_tensor(np.random.default_rng(1).normal(size=(5, 6)).astype(np.float32))
+    with torch.no_grad():                   # as a fused segment runs them
+        want = kernel.fn(kernel.params, {"x": x})
+        got = body(params, {"x": x})
+    for col in ("l", "p"):
+        np.testing.assert_allclose(got[col].numpy(), want[col].numpy(), atol=2e-4, rtol=2e-4)
+    bf16 = DeepModelTransformer(input_col="x", device="cpu", bfloat16=True).set_model(mlp)
+    assert bf16.device_kernel().mesh_fn(grid) is None
     with pytest.raises(ValueError, match="no model"):
         DeepModelTransformer(input_col="x", device="cpu").transform(Table({"x": _tokens(2)}))
     if not torch.cuda.is_available():

@@ -411,6 +411,53 @@ class TestFleetAttribution:
 # --------------------------------------------------------------------- #
 
 
+class TestFlushWaitsForACommitInFlight:
+    def test_attribution_waits_for_a_ledger_another_thread_popped(self):
+        """A read flushes before it copies the aggregate. The committer
+        (here a thread calling `flush`, as the background drainer does) is
+        parked between its pop of the only ledger and that ledger's
+        commit: `attribution()` on another thread must wait for the commit
+        and then see the row, not return an empty table."""
+        import threading
+
+        port = ns(PORT)
+        prof = port.profiler.Profiler(registry=port.metrics.MetricsRegistry(), enabled=True)
+        prof._ensure_drainer = lambda: None      # this test's thread is the committer
+        popped, release, read_done = threading.Event(), threading.Event(), threading.Event()
+        commit = prof._commit
+
+        def parked(led):
+            popped.set()
+            assert release.wait(30)
+            commit(led)
+
+        prof._commit = parked
+        led = prof.ledger("fused", "seg0")
+        led.add("compute", 0.002)
+        led.done(rtt_s=0.003)
+        committer = threading.Thread(target=prof.flush)
+        committer.start()
+        assert popped.wait(30)
+        rows = []
+
+        def read():
+            rows.extend(prof.attribution())
+            read_done.set()
+
+        reader = threading.Thread(target=read)
+        reader.start()
+        try:
+            assert not read_done.wait(0.5), \
+                "attribution() returned while a popped ledger was uncommitted"
+        finally:
+            release.set()
+            committer.join(30)
+            reader.join(30)
+        (row,) = rows
+        assert (row["kind"], row["segment"]) == ("fused", "seg0")
+        assert "compute" in row["phase_us"]
+
+
 class TestCostRunsNothing:
     def test_cost_is_none_and_calls_nothing(self):
         """The JAX package's answer for a callable it cannot lower, here for

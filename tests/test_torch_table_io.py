@@ -229,8 +229,20 @@ def test_device_table_uploads_with_jax_dtypes_and_reads_back():
 
 
 def test_device_table_refuses_shardings_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        DeviceTable.from_host(HOST, shardings={"f64": object()}, device="cpu")
+    """`shardings` uploads this rank's block of a listed column's rows (on
+    a mesh object outside a process group this rank is shard 0) and the
+    others whole; rows that do not split over the data axis, and "cuda"
+    without a card, raise. Several ranks: tests/test_torch_fusion_mesh.py."""
+    from mmlspark_tpu_torch.parallel.mesh import Mesh
+
+    dt = DeviceTable.from_host(HOST, shardings={"f64": Mesh((0, 1, 2, 3, 4))}, device="cpu")
+    whole = DeviceTable.from_host(HOST, device="cpu")
+    assert torch.equal(dt["f64"], whole["f64"][:1])
+    for name in HOST:
+        if name != "f64":
+            assert torch.equal(dt[name], whole[name]), name
+    with pytest.raises(ValueError, match="do not split"):
+        DeviceTable.from_host(HOST, shardings={"f64": Mesh((0, 1))}, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             DeviceTable.from_host(HOST)
