@@ -1,0 +1,5 @@
+"""Tokens scored over the window, all calls (host clock)."""
+
+
+def read(run):
+    return sum(c.work["tokens"] for c in run.done) / run.window_s
